@@ -1,0 +1,12 @@
+from crazyflie_nmpc_tpu_torch.models.quadrotor import (  # noqa: F401
+    NU,
+    NX,
+    NY,
+    NYN,
+    W_MAX_KRPM,
+    W_MIN_KRPM,
+    QuadrotorParams,
+    dynamics,
+    hover_control,
+    hover_state,
+)

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each wrapper counts its kernel launches in a plain integer attribute
+(`wrapper.launches`), incremented only where it launches the kernel; a CPU
+tensor takes the plain version and counts nothing.
+"""
+
+from __future__ import annotations
+
+from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
+    corrector_sweep_c2,
+    expand2,
+    kkt_sweep_c2,
+)
+from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import prep_condense2
+
+KERNELS = {
+    "prep_condense2": prep_condense2,
+    "kkt_sweep_c2": kkt_sweep_c2,
+    "corrector_sweep_c2": corrector_sweep_c2,
+    "expand2": expand2,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

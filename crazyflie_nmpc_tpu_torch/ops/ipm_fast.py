@@ -1,0 +1,275 @@
+"""Batch-last interior-point solver on the condensed sweeps (PyTorch).
+
+Counterpart of `crazyflie_nmpc_tpu/ops/ipm_fast.py` for the path the
+batched RTI step runs: block-2 partial condensing with the QP data
+precondensed by `prep_condense2` (the "c2*" keys).  Mehrotra
+predictor-corrector with exact (1 - alpha) affine-residual tracking; per
+iteration one `kkt_sweep_c2` and one `corrector_sweep_c2` launch, with the
+elementwise barrier algebra between them in plain PyTorch on the card.
+The expansion `expand2` recovers the eliminated states once per solve.
+
+All (B,) problems run in lockstep with per-lane step lengths; infinite
+bounds are masked.  Per-lane escalation re-solves the worst unconverged
+lanes as a sub-batch (see `solve_batched`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+
+_C2_KEYS = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar")
+
+
+class BatchSolution(NamedTuple):
+    dx: Any      # (N+1, nx, B)
+    du: Any      # (N, nu, B)
+    lam_l: Any   # (N, nu, B)
+    lam_u: Any   # (N, nu, B)
+    stats: Any   # dict with (B,) entries
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, item 7: the rest of "
+        f"solve_batched)")
+
+
+def check_supported(config: IPMConfig, condense: int, windowed,
+                    fused_iter) -> None:
+    """Raise NotImplementedError for the options not ported yet."""
+    if condense != 2:
+        raise _not_ported("condense=1 / odd N (the uncondensed sweeps)")
+    if windowed:
+        raise _not_ported("windowed=True (the HBM-windowed c2 sweeps)")
+    if fused_iter:
+        raise _not_ported("fused_iter=True (the one-launch iteration)")
+    if config.gondzio_correctors > 0:
+        raise _not_ported("gondzio_correctors > 0")
+    if config.compress_gains or config.compress_ab:
+        raise _not_ported("compress_gains/compress_ab (bf16 streams)")
+
+
+def _max_step_lane(v, dv, tau):
+    """Per-lane fraction-to-boundary over the (N, nu) axes -> (B,)."""
+    ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
+                        torch.inf)
+    return torch.clamp(tau * torch.amin(ratio, dim=(0, 1)), max=1.0)
+
+
+def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
+                  condense: int = 2, windowed: bool | None = None,
+                  fused_iter: bool = False) -> BatchSolution:
+    """Solve a batch of precondensed box-constrained QPs (batch-last).
+
+    `qp` holds the `prep_condense2` outputs under "c2Abar" ... "c2rbar",
+    "c2Ae", "c2Be", plus c (N,13,B), lb/ub (N,4,B), ruu (N,4,B),
+    pT/p/dx0 (13,B).
+
+    Per-lane escalation (config.escalate_iters > 0 and
+    escalate_capacity > 0): the worst `escalate_capacity` lanes by final
+    mu above `escalate_mu_tol` are gathered (`torch.topk`, distinct
+    indices), re-solved from scratch with `escalate_iters` plain Mehrotra
+    iterations, and scattered back on the lanes that were unconverged.
+    Whether any lane is unconverged is one host sync per call
+    (`bool(bad.any())`); converged batches then skip the re-solve.
+    stats gains `escalated` (number of re-solved lanes) and
+    `escalated_lanes` ((B,) bool, the lanes that were re-solved).
+    """
+    check_supported(config, condense, windowed, fused_iter)
+    return solve_checked(qp, config)
+
+
+def solve_checked(qp: dict, config: IPMConfig) -> BatchSolution:
+    """`solve_batched` for a caller that has run `check_supported`."""
+    sol = _solve_core(qp, config)
+    cap = config.escalate_capacity
+    if config.escalate_iters <= 0 or cap <= 0:
+        return sol
+    B = qp["c"].shape[-1]
+    cap = min(cap, B)
+    esc_cfg = IPMConfig(iters=config.escalate_iters, tau=config.tau,
+                        reg=config.reg, s_min_init=config.s_min_init,
+                        mu0_init=config.mu0_init)
+
+    score = sol.stats["mu"]
+    bad = score > config.escalate_mu_tol
+    stats = dict(sol.stats)
+    if not bool(bad.any()):                       # host sync
+        stats["escalated"] = torch.zeros((), dtype=torch.int32,
+                                         device=score.device)
+        stats["escalated_lanes"] = torch.zeros_like(bad)
+        return sol._replace(stats=stats)
+
+    masked = torch.where(bad, score, -torch.inf)
+    idx = torch.topk(masked, cap).indices          # distinct lane indices
+    valid = bad[idx]                               # (cap,)
+    sub = _solve_core({k: v.index_select(-1, idx) for k, v in qp.items()},
+                      esc_cfg)
+
+    def scat(full, part):
+        # in place on this call's own outputs: lanes `idx` take the
+        # re-solved values where valid, keep their own elsewhere
+        full[..., idx] = torch.where(valid, part, full[..., idx])
+        return full
+
+    for k in ("mu", "res_stat", "res_eq"):
+        stats[k] = scat(stats[k], sub.stats[k])
+    stats["escalated"] = valid.sum(dtype=torch.int32)
+    stats["escalated_lanes"] = scat(torch.zeros_like(bad), valid)
+    return BatchSolution(dx=scat(sol.dx, sub.dx), du=scat(sol.du, sub.du),
+                         lam_l=scat(sol.lam_l, sub.lam_l),
+                         lam_u=scat(sol.lam_u, sub.lam_u), stats=stats)
+
+
+def _solve_core(qp: dict, config: IPMConfig) -> BatchSolution:
+    c = qp["c"]
+    ruu = qp["ruu"]
+    pT_diag, p_T = qp["pT"], qp["p"]
+    N_orig, nu_orig, B = ruu.shape
+    nx = c.shape[1]
+    dtype = c.dtype
+    M = N_orig // 2
+    N, nu = M, 2 * nu_orig
+
+    cnd = {k: qp["c2" + k] for k in _C2_KEYS}
+    exp_A, exp_B = qp["c2Ae"], qp["c2Be"]
+    # bounds / slacks / duals are per original input; the stage-major
+    # layout makes the condensed stacking a pure reshape
+    lb0 = qp["lb"].reshape(M, nu, B)
+    ub0 = qp["ub"].reshape(M, nu, B)
+    ruu = ruu.reshape(M, nu, B)
+    ru, qx, cb = cnd["rbar"], cnd["qbar"], cnd["cbar"]
+    Abar, Bbar = cnd["Abar"], cnd["Bbar"]
+    Qbar, S1T, R00 = cnd["Qbar"], cnd["S1T"], cnd["R00"]
+
+    finite_l = torch.isfinite(lb0)
+    finite_u = torch.isfinite(ub0)
+    lb = torch.where(finite_l, lb0, 0.0)
+    ub = torch.where(finite_u, ub0, 0.0)
+    n_fin = finite_l.sum(dim=(0, 1)) + finite_u.sum(dim=(0, 1))
+    n_ineq = torch.clamp(n_fin, min=1)
+    has_ineq = n_fin > 0
+
+    # initial point (cf. ipm.init_state)
+    z_du = torch.zeros((N, nu, B), dtype=dtype, device=c.device)
+    z_dx = torch.zeros((N + 1, nx, B), dtype=dtype, device=c.device)
+    s_l = torch.where(finite_l, torch.clamp(-lb, min=config.s_min_init), 1.0)
+    s_u = torch.where(finite_u, torch.clamp(ub, min=config.s_min_init), 1.0)
+    # scalars are filled on the device: a host-to-device copy of a fresh
+    # tensor would block the host until the card's queue drains
+    mu0 = torch.full((), config.mu0_init, dtype=dtype, device=c.device)
+    lam_l = torch.where(finite_l, mu0 / s_l, 0.0)
+    lam_u = torch.where(finite_u, mu0 / s_u, 0.0)
+
+    r1x = torch.cat([qx, p_T[None]], dim=0)               # (N+1, nx, B)
+    r1u = ru - lam_l + lam_u
+    r2 = torch.cat([-qp["dx0"][None], -cb], dim=0)        # (N+1, nx, B)
+    r3 = torch.where(finite_l, -lb - s_l, 0.0)
+    r4 = torch.where(finite_u, ub - s_u, 0.0)
+
+    # mu_floor = 100 eps^2 and tiny, both rounded to the working dtype
+    finfo = torch.finfo(dtype)
+    mu_floor = float(100.0 * torch.tensor(finfo.eps, dtype=dtype) ** 2)
+    tiny = torch.full((), finfo.tiny, dtype=dtype, device=c.device)
+
+    def compl(a, b):
+        return ((a[0] * b[0] * finite_l).sum(dim=(0, 1))
+                + (a[1] * b[1] * finite_u).sum(dim=(0, 1))) / n_ineq
+
+    for _ in range(config.iters):
+        mu = compl((lam_l, lam_u), (s_l, s_u))
+        sig_l = torch.where(finite_l, lam_l / s_l, 0.0)
+        sig_u = torch.where(finite_u, lam_u / s_u, 0.0)
+        ruu_shift = ruu + sig_l + sig_u                    # (N, nu, B)
+
+        r5l = lam_l * s_l
+        r5u = lam_u * s_u
+        rt1u = (r1u + torch.where(finite_l, (r5l + lam_l * r3) / s_l, 0.0)
+                - torch.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
+
+        # predictor: factorization + affine backward + forward rollout
+        c_res = -r2[1:]
+        dx0_res = -r2[0]
+        K, _, L, Pc, ddx_a, ddu_a = ck.kkt_sweep_c2(
+            Abar, Bbar, c_res, Qbar, S1T, R00, r1x[:-1], ruu_shift, rt1u,
+            pT_diag, r1x[-1], dx0_res)
+
+        ds_l_a = torch.where(finite_l, ddu_a + r3, 0.0)
+        ds_u_a = torch.where(finite_u, r4 - ddu_a, 0.0)
+        dlam_l_a = torch.where(finite_l, -(r5l + lam_l * ds_l_a) / s_l, 0.0)
+        dlam_u_a = torch.where(finite_u, -(r5u + lam_u * ds_u_a) / s_u, 0.0)
+
+        one_l = torch.where(finite_l, s_l, 1.0)
+        one_u = torch.where(finite_u, s_u, 1.0)
+        lam1_l = torch.where(finite_l, lam_l, 1.0)
+        lam1_u = torch.where(finite_u, lam_u, 1.0)
+        alpha_aff = torch.minimum(
+            torch.minimum(_max_step_lane(one_l, ds_l_a, 1.0),
+                          _max_step_lane(one_u, ds_u_a, 1.0)),
+            torch.minimum(_max_step_lane(lam1_l, dlam_l_a, 1.0),
+                          _max_step_lane(lam1_u, dlam_u_a, 1.0)))
+        mu_aff = compl((lam_l + alpha_aff * dlam_l_a,
+                        lam_u + alpha_aff * dlam_u_a),
+                       (s_l + alpha_aff * ds_l_a, s_u + alpha_aff * ds_u_a))
+        sigma = torch.clamp((mu_aff / torch.maximum(mu, tiny)) ** 3,
+                            0.0, 1.0)
+
+        # corrector: reuse the factorization, new right-hand side
+        r5l_c = r5l - sigma * mu + ds_l_a * dlam_l_a
+        r5u_c = r5u - sigma * mu + ds_u_a * dlam_u_a
+        rt1u_c = (r1u
+                  + torch.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
+                  - torch.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
+        ddx, ddu = ck.corrector_sweep_c2(
+            Abar, Bbar, c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
+            dx0_res)
+
+        ds_l = torch.where(finite_l, ddu + r3, 0.0)
+        ds_u = torch.where(finite_u, r4 - ddu, 0.0)
+        dlam_l = torch.where(finite_l, -(r5l_c + lam_l * ds_l) / s_l, 0.0)
+        dlam_u = torch.where(finite_u, -(r5u_c + lam_u * ds_u) / s_u, 0.0)
+
+        alpha = torch.minimum(
+            torch.minimum(_max_step_lane(one_l, ds_l, config.tau),
+                          _max_step_lane(one_u, ds_u, config.tau)),
+            torch.minimum(_max_step_lane(lam1_l, dlam_l, config.tau),
+                          _max_step_lane(lam1_u, dlam_u, config.tau)))
+        alpha = torch.where(has_ineq & (mu <= mu_floor), 0.0, alpha)
+
+        z_dx = z_dx + alpha * ddx
+        z_du = z_du + alpha * ddu
+        s_l = torch.where(finite_l, s_l + alpha * ds_l, 1.0)
+        s_u = torch.where(finite_u, s_u + alpha * ds_u, 1.0)
+        lam_l = torch.where(finite_l, lam_l + alpha * dlam_l, 0.0)
+        lam_u = torch.where(finite_u, lam_u + alpha * dlam_u, 0.0)
+
+        shrink = 1.0 - alpha
+        r1x, r1u, r2 = shrink * r1x, shrink * r1u, shrink * r2
+        r3, r4 = shrink * r3, shrink * r4
+
+    stats = dict(
+        mu=compl((lam_l, lam_u), (s_l, s_u)),
+        res_stat=torch.maximum(torch.amax(r1x.abs(), dim=(0, 1)),
+                               torch.amax(r1u.abs(), dim=(0, 1))),
+        res_eq=torch.amax(r2.abs(), dim=(0, 1)),
+    )
+
+    # expand: interior states were eliminated exactly through their
+    # dynamics row; recover them once (not per iteration)
+    dx_even = z_dx[:-1]                                 # (M, 13, B)
+    dx_odd = ck.expand2(exp_A, exp_B, c, dx_even,
+                        z_du[:, :nu_orig].contiguous())
+    dx_full = torch.cat([
+        torch.stack([dx_even, dx_odd], dim=1).reshape(N_orig, nx, B),
+        z_dx[-1:]], dim=0)                              # (N_orig+1, nx, B)
+    return BatchSolution(
+        dx=dx_full,
+        du=z_du.reshape(N_orig, nu_orig, B),
+        lam_l=lam_l.reshape(N_orig, nu_orig, B),
+        lam_u=lam_u.reshape(N_orig, nu_orig, B),
+        stats=stats)

@@ -1,0 +1,169 @@
+"""Throughput-oriented batched RTI step (counterpart of
+`solver/rti_batched.py`).
+
+Many independent NMPC instances advanced one SQP-RTI iteration per call:
+the preparation is ONE `prep_condense2` launch (ERK4 + exact VDE + QP
+assembly + block-2 condensing), the feedback is `ops.ipm_fast`'s
+Mehrotra solve on the condensed sweeps, the expansion recovers the
+eliminated states.  On CUDA tensors each of the four runs its hand-written
+kernel; on CPU tensors their plain PyTorch versions.
+
+Layouts: batch-first by default (x_traj (B, N+1, nx)); a serving loop that
+chains steps on the card passes `layout="batch_last"` and carries
+batch-last states ((N+1, nx, B)), the kernels' own layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import prep_condense2
+from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+from crazyflie_nmpc_tpu_torch.solver.ocp import OCPSpec
+from crazyflie_nmpc_tpu_torch.solver.rti import RTIOutput, RTIState
+
+
+def to_batch_last(states: RTIState) -> RTIState:
+    """Batch-first RTIState -> the kernels' (batch-last, contiguous)."""
+    return RTIState(x_traj=states.x_traj.movedim(0, -1).contiguous(),
+                    u_traj=states.u_traj.movedim(0, -1).contiguous())
+
+
+def to_batch_first(states: RTIState) -> RTIState:
+    return RTIState(x_traj=states.x_traj.movedim(-1, 0).contiguous(),
+                    u_traj=states.u_traj.movedim(-1, 0).contiguous())
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
+
+
+def prep_tiles(spec: OCPSpec, B: int, dtype, device):
+    """The (n, B) tiles `prep_condense2` takes besides x, u and yref:
+    q_diag (13,B), r_diag, lbu, ubu (4,B) and params (9,B) with dt last
+    (the diagonal LLS cost: selector Vx/Vu, diagonal W,
+    generate_c_code.py:86-107).  Materialised contiguous for the kernel.
+    The parameter rows are filled on the device from Python floats: a
+    host-to-device copy of a fresh tensor would block the host until the
+    card's queue drains."""
+    cost = spec.cost
+    nx = cost.W_e.shape[0]
+    nu = spec.lbu.shape[0]
+
+    def tile(v):
+        v = v.to(device=device, dtype=dtype).reshape(-1, 1)
+        return v.expand(v.shape[0], B).contiguous()
+
+    par = spec.params
+    ptile = torch.empty((9, B), dtype=dtype, device=device)
+    for row, v in enumerate((par.g0, par.mq, par.Ixx, par.Iyy, par.Izz,
+                             par.Cd, par.Ct, par.l)):
+        ptile[row].fill_(v)
+    ptile[8].copy_(spec.dt.to(device=device, dtype=dtype).expand(B))
+    W = torch.diagonal(cost.W)
+    return (tile(W[:nx]), tile(W[nx:]), tile(spec.lbu.expand(nu)),
+            tile(spec.ubu.expand(nu)), ptile)
+
+
+def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
+               batch_last: bool):
+    """Preparation phase: one `prep_condense2` launch from the iterate to
+    the precondensed QP dict `ops.ipm_fast.solve_batched` takes.
+
+    Returns (x_bl, u_bl, qp) with the iterate in the kernels' layout.
+    """
+    B = x0s.shape[0]
+    bl = lambda z: z.movedim(0, -1)  # noqa: E731  batch-first -> last
+    x_bl = (states.x_traj if batch_last else bl(states.x_traj)).contiguous()
+    u_bl = (states.u_traj if batch_last else bl(states.u_traj)).contiguous()
+    N, nu = u_bl.shape[0], u_bl.shape[1]
+    nx = x_bl.shape[1]
+    dtype, dev = x_bl.dtype, x_bl.device
+
+    if yref.ndim == 2:  # shared across the batch
+        yref_bl = yref[:, :, None].expand(N, nx + nu, B)
+        yref_e_bl = yref_e[:, None].expand(nx, B)
+    else:
+        yref_bl = bl(yref)
+        yref_e_bl = bl(yref_e)
+    q_t, r_t, lbu_t, ubu_t, p_t = prep_tiles(spec, B, dtype, dev)
+    pT_diag = torch.diagonal(spec.cost.W_e).to(dtype)
+
+    cnd, Ae, Be, c_k, lb_k, ub_k = prep_condense2(
+        x_bl, u_bl, yref_bl.to(dtype).contiguous(), q_t, r_t, lbu_t, ubu_t,
+        p_t)
+    qp = dict(c=c_k, lb=lb_k, ub=ub_k, c2Ae=Ae, c2Be=Be,
+              ruu=r_t[None].expand(N, nu, B).contiguous(),
+              pT=pT_diag[:, None].expand(nx, B).contiguous(),
+              p=(pT_diag[:, None] * (x_bl[-1] - yref_e_bl)).contiguous(),
+              dx0=(bl(x0s) - x_bl[0]).contiguous(),
+              **{"c2" + k: v for k, v in cnd.items()})
+    return x_bl, u_bl, qp
+
+
+def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
+                     yref: torch.Tensor, yref_e: torch.Tensor,
+                     config: IPMConfig = IPMConfig(),
+                     fused_prep: bool = True,
+                     fused_prep_condense: bool | None = None,
+                     condense: int | None = None,
+                     layout: str = "batch_first",
+                     windowed: bool | None = None,
+                     fused_iter: bool = False,
+                     prep_vde_order: int = 4):
+    """One RTI iteration for a batch of problems.
+
+    Args:
+      states: RTIState with leading batch axis (x_traj (B,N+1,nx),
+        u_traj (B,N,nu)), or trailing with layout="batch_last"
+        (x_traj (N+1,nx,B), u_traj (N,nu,B)).
+      x0s: (B, nx).  yref: (N, ny) shared or (B, N, ny) per-problem;
+        yref_e (nx,) or (B, nx).
+      condense: None selects block-2 condensing (the only form ported).
+    Returns (RTIState', RTIOutput) in the input's layout (batch_last:
+    u0/u1 are (nu,B), plans are stage-major batch-last).
+    """
+    if condense is None:
+        condense = 2 if spec.N % 2 == 0 else 1
+    ipm_fast.check_supported(config, condense, windowed, fused_iter)
+    if spec.f is not None:
+        raise _not_ported("a custom model ODE (spec.f)", 12)
+    if not fused_prep or spec.sim_steps != 1:
+        raise _not_ported("the XLA-style preparation (fused_prep=False, "
+                          "sim_steps>1)", 7)
+    if fused_prep_condense is False:
+        raise _not_ported("the unfused prep + condense2 launches "
+                          "(fused_prep_condense=False)", 7)
+    if prep_vde_order != 4:
+        raise _not_ported("prep_vde_order=2", 7)
+    if layout not in ("batch_first", "batch_last"):
+        raise ValueError(f"layout {layout!r}")
+
+    batch_last = layout == "batch_last"
+    x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last)
+
+    # feedback: batch-last IPM on the condensed sweeps
+    sol = ipm_fast.solve_checked(qp, config)
+
+    x_traj_bl = x_bl + sol.dx
+    u_traj_bl = u_bl + sol.du
+
+    res_nl = torch.maximum(torch.amax(qp["c"].abs(), dim=(0, 1)),
+                           torch.amax(qp["dx0"].abs(), dim=0))
+    step_norm = torch.maximum(torch.amax(sol.du.abs(), dim=(0, 1)),
+                              torch.amax(sol.dx.abs(), dim=(0, 1)))
+    kkt_res = torch.maximum(res_nl, step_norm)
+
+    if batch_last:
+        out = RTIOutput(u0=u_traj_bl[0], u1=u_traj_bl[1], x_plan=x_traj_bl,
+                        u_plan=u_traj_bl, kkt_res=kkt_res,
+                        qp_mu=sol.stats["mu"])
+        return RTIState(x_traj=x_traj_bl, u_traj=u_traj_bl), out
+
+    x_traj = x_traj_bl.movedim(-1, 0)
+    u_traj = u_traj_bl.movedim(-1, 0)
+    out = RTIOutput(u0=u_traj[:, 0], u1=u_traj[:, 1], x_plan=x_traj,
+                    u_plan=u_traj, kkt_res=kkt_res, qp_mu=sol.stats["mu"])
+    return RTIState(x_traj=x_traj, u_traj=u_traj), out

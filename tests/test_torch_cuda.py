@@ -1,0 +1,78 @@
+"""The port's CUDA kernels on the card (`cuda` marker; skip without one).
+
+This file imports torch and the port only, so on a GPU machine without
+JAX it runs as
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Each kernel is held against its plain version on the card with a ragged
+lane count (37) that exercises the masked edge, and the batched step on
+the card against the same lanes through the plain versions on the CPU.
+"""
+
+import pytest
+import torch
+
+from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
+from crazyflie_nmpc_tpu_torch.solver import default_ocp, hover_yref, init_rti
+from crazyflie_nmpc_tpu_torch.solver.rti_batched import (rti_step_batched,
+                                                         to_batch_last)
+
+B = 37
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_kernels_match_plain_on_card(cuda_device, dtype, tol):
+    import chip_smoke
+
+    kc.reset_launch_counts()
+    for name, (kern, ref, args) in chip_smoke.kernel_inputs(
+            B, dtype, cuda_device).items():
+        got = chip_smoke.flat(kern(*args))
+        want = chip_smoke.flat(ref(*args))
+        _, rel = chip_smoke.compare(got, want)
+        assert rel <= tol, (name, rel)
+        assert kc.launch_counts()[name] >= 1
+
+
+def _step(device, x0s, config, N=10):
+    spec = default_ocp(N=N, dtype=torch.float64, device=device)
+    yref, yref_e = hover_yref(spec, device=device)
+    x0s = x0s.to(device)
+    st = to_batch_last(init_rti(spec, x0s, device=device))
+    return rti_step_batched(spec, st, x0s, yref, yref_e, config,
+                            layout="batch_last")[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [IPMConfig(iters=8),
+                                    certified_config(capacity=8)],
+                         ids=["iters8", "certified"])
+def test_rti_step_on_card_matches_cpu(cuda_device, config):
+    gen = torch.Generator().manual_seed(4)
+    x0s = torch.zeros(B, 13, dtype=torch.float64)
+    x0s[:, 3] = 1.0
+    x0s += 0.05 * torch.randn(B, 13, generator=gen, dtype=torch.float64)
+    x0s[:5, 0] += 1.5                 # saturating lanes that escalate
+    kc.reset_launch_counts()
+    card = _step(cuda_device, x0s, config)
+    counts = kc.launch_counts()
+    cpu = _step("cpu", x0s, config)
+    iters = config.iters + (config.escalate_iters
+                            if config.escalate_capacity else 0)
+    assert counts["prep_condense2"] == 1
+    assert counts["kkt_sweep_c2"] == counts["corrector_sweep_c2"] == iters
+    for field in ("u0", "x_plan", "u_plan", "kkt_res"):
+        got, want = getattr(card, field).cpu(), getattr(cpu, field)
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-8 * scale, field

@@ -1,0 +1,142 @@
+"""Rules the port keeps: no JAX, the card by default, no hidden fallback,
+unported options refused by name."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from crazyflie_nmpc_tpu_torch import convert
+from crazyflie_nmpc_tpu_torch import solver as ts
+from crazyflie_nmpc_tpu_torch.models import hover_state
+from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+from crazyflie_nmpc_tpu_torch.ops.cuda import _build
+from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "crazyflie_nmpc_tpu_torch").rglob("*.py")) + [
+        "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "crazyflie_nmpc_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: ts.default_ocp(),
+    lambda: hover_state(ts.default_ocp(device="cpu").params),
+    lambda: ts.init_rti(ts.default_ocp(device="cpu"), torch.zeros(13)),
+    lambda: ts.hover_yref(ts.default_ocp(device="cpu")),
+    lambda: convert.state_from_numpy(torch.zeros(3, 13).numpy(),
+                                     torch.zeros(2, 4).numpy()),
+], ids=["default_ocp", "hover_state", "init_rti", "hover_yref",
+        "state_from_numpy"])
+def test_constructors_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
+                                                           make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+@pytest.fixture(scope="module")
+def small():
+    spec = ts.default_ocp(N=6, dtype=torch.float64, device="cpu")
+    yref, yref_e = ts.hover_yref(spec, device="cpu")
+    x0s = (hover_state(spec.params, dtype=torch.float64, device="cpu")[None]
+           + 0.02 * torch.randn(3, 13, dtype=torch.float64,
+                                generator=torch.Generator().manual_seed(0)))
+    return spec, ts.init_rti(spec, x0s, device="cpu"), x0s, yref, yref_e
+
+
+def test_cpu_tensors_take_the_plain_versions(small):
+    spec, st, x0s, yref, yref_e = small
+    kc.reset_launch_counts()
+    _, out = rti_step_batched(spec, st, x0s, yref, yref_e,
+                              IPMConfig(iters=3, escalate_iters=2,
+                                        escalate_capacity=2))
+    assert bool(torch.isfinite(out.u_plan).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(condense=1),
+    dict(windowed=True),
+    dict(fused_iter=True),
+    dict(config=IPMConfig(gondzio_correctors=1)),
+    dict(config=IPMConfig(compress_gains=True)),
+    dict(config=IPMConfig(compress_ab=True)),
+    dict(prep_vde_order=2),
+    dict(fused_prep=False),
+    dict(fused_prep_condense=False),
+], ids=lambda kw: next(iter(kw)) if "config" not in kw else
+    next(k for k, v in vars(kw["config"]).items()
+         if v != getattr(IPMConfig(), k)))
+def test_unported_options_raise(small, kwargs):
+    spec, st, x0s, yref, yref_e = small
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rti_step_batched(spec, st, x0s, yref, yref_e, **kwargs)
+
+
+@pytest.mark.parametrize("change", [
+    dict(N=7), dict(sim_steps=2), dict(f=lambda p, x, u: x)],
+    ids=["odd_N", "sim_steps", "custom_ode"])
+def test_unported_specs_raise(small, change):
+    import dataclasses
+
+    spec, st, x0s, yref, yref_e = small
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rti_step_batched(dataclasses.replace(spec, **change), st, x0s, yref,
+                         yref_e)
+
+
+def test_solve_batched_refuses_condense_1():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ipm_fast.solve_batched({}, IPMConfig(), condense=1)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("dtype", "float32 or float64"),
+    ("shape", "expected"),
+    ("layout", "contiguous"),
+    ("device", "expected"),
+])
+def test_kernel_input_checks_raise(bad, match):
+    """What the wrappers check before any launch."""
+    good = torch.zeros(4, 3, dtype=torch.float32)
+    t, dtype, device = good, torch.float32, good.device
+    if bad == "dtype":
+        t, dtype = good.half(), torch.float16
+    elif bad == "shape":
+        t = torch.zeros(4, 2)
+    elif bad == "layout":
+        t = torch.zeros(3, 4).t()
+    elif bad == "device":
+        device = torch.device("meta")
+    with pytest.raises((TypeError, ValueError), match=match):
+        _build.check("k", dict(a=t), dict(a=(4, 3)), dtype, device)
+
+
+def test_build_hash_covers_sources_and_flags():
+    libs = {src: _build._lib_path(src) for src in _build.SOURCES}
+    assert len(set(libs.values())) == len(libs)
+    for src, lib in libs.items():
+        assert lib.parent == _build.BUILD_DIR
+        assert lib.name.startswith(Path(src).stem + "-")
