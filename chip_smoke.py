@@ -3,15 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `crazyflie_nmpc_tpu_torch/csrc`,
-holds each against its plain PyTorch version at the main path's shapes
-(N=50, M=25) in float64 and float32, drives the batched RTI step
-(`rti_step_batched`, N=50, IPMConfig(iters=8), batch-last, float32) for 20
-chained steps at B = 1024, 4096 and 8192 with launch counters proving the
-kernels ran, holds step 1 against the port's float64 CPU run, checks the
-certified path's per-lane escalation on a 1.5 m step transient, and times
-the step and each kernel with CUDA events.  Exits non-zero if any phase
-fails, or when no CUDA device is present.
+Builds the port's CUDA kernels from `crazyflie_nmpc_tpu_torch/csrc` (one
+nvcc per source, all started together), holds each against its plain
+PyTorch version at the main path's shapes (N=50, M=25) in float64 and
+float32, and drives three paths of the batched RTI step
+(`rti_step_batched`, IPMConfig(iters=8), batch-last, float32), 20 chained
+steps each, with launch counters proving which kernels ran:
+
+  [main]       the default path at N=50, B = 1024, 4096 and 8192;
+  [fused_iter] fused_iter=True (one iter_sweep_c2 launch per iteration),
+               N=50, the same batches;
+  [long]       N=400 (tf=6.0), B=4096, windowed=True (the split sweeps)
+               and windowed=None (the fused sweeps).
+
+Each path's step 1 is held against the port's float64 CPU run, and the
+sweeps of [long] against their plain versions at N=400 too.  It also
+checks the certified path's per-lane escalation on a 1.5 m step transient,
+times each kernel with CUDA events at the shapes of the path that runs it,
+and traces a few steps of [main] and [fused_iter] with torch.profiler.
+Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -20,6 +30,7 @@ The second-to-last line is the per-kernel JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -29,12 +40,20 @@ import time
 # main path: the reference OCP at full width
 N = 50
 M = N // 2
+TF = 0.75             # horizon [s] at N: 15 ms stages
 ITERS = 8
 STEPS = 20
 B_MAIN = (1024, 4096, 8192)
 B_CHECK = 1024        # kernel-vs-plain checks
 B_TIME = 4096         # per-kernel timing
 N_REF_LANES = 64      # lanes held against the CPU float64 run
+# long horizon (bench.py's N=400, tf=6.0 parity cell)
+N_LONG = 400
+B_LONG = 4096
+N_LONG_REF_LANES = 8
+
+PHASES = ("build", "kernels", "main", "fused_iter", "long", "certified",
+          "timing")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s, fp32
 # outside the tensor cores 67 TFLOP/s.
@@ -44,26 +63,43 @@ PEAK_FP32_FLOPS = 67e12
 # Tolerances of kernel vs plain version, as max |kernel - plain| over
 # max(1, max |plain|), per output.  float64: both evaluate the same
 # formulas in another order (FMA contraction, the tangent form of A1 A0 in
-# K1), so they agree to a few hundred ulp even through the 25-stage
-# Riccati recursion.  float32: the same reorderings at eps = 1.2e-7, grown
-# by the sequential recursion (P reaches ~1e4 with W_e = 50 Q) and the 8x8
-# Cholesky.
+# K1, the one-launch iteration's stage-sequential sums), so they agree to
+# a few hundred ulp even through the 25-stage Riccati recursion.  float32:
+# the same reorderings at eps = 1.2e-7, grown by the sequential recursion
+# (P reaches ~1e4 with W_e = 50 Q) and the 8x8 Cholesky.
 TOL = {"float64": 1e-10, "float32": 1e-4}
 
+_PALLAS = "crazyflie_nmpc_tpu/ops/pallas/"
 KERNEL_INFO = {
     "prep_condense2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/prep_condense2.cu",
-        replaces="crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:384"),
+        replaces=_PALLAS + "prep_kernel.py:384"),
     "kkt_sweep_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
-        replaces="crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:446"),
+        replaces=_PALLAS + "condensed_kernels.py:446"),
     "corrector_sweep_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
-        replaces="crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:1206"),
+        replaces=_PALLAS + "condensed_kernels.py:1206"),
     "expand2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
-        replaces="crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:282"),
+        replaces=_PALLAS + "condensed_kernels.py:282"),
+    "bwd_c2": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        replaces=_PALLAS + "condensed_kernels.py:541"),
+    "fwd_c2": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        replaces=_PALLAS + "condensed_kernels.py:607"),
+    "bwd_vec_c2": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        replaces=_PALLAS + "condensed_kernels.py:589"),
+    "iter_sweep_c2": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/iter_c2.cu",
+        replaces=_PALLAS + "condensed_kernels.py:1009"),
 }
+# the split sweeps run on the long-horizon path: timed at its shapes
+LONG_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
+# the sweeps of that path (windowed=True and None), checked at its N too
+LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 
 
 def fail(msg: str):
@@ -87,10 +123,15 @@ def hover_batch(spec, B, seed):
     return x0s.to(device=spec.lbu.device, dtype=spec.lbu.dtype)
 
 
-def kernel_inputs(B, dtype, device, seed=0):
-    """Main-path-shaped inputs of the four kernels: K1's from perturbed
-    hover trajectories, K2's from K1's outputs (condensed QP data plus a
-    barrier shift), K3's from K2's factorization, K4's from both."""
+def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
+    """Inputs of every kernel at horizon n (m = n/2 condensed stages): K1's
+    from perturbed hover trajectories; K2's and bwd_c2's from K1's outputs
+    (condensed QP data plus a barrier shift); K3's and bwd_vec_c2's from
+    K2's factorization; fwd_c2's from K2's gains; K4's from both;
+    iter_sweep_c2's from K1's outputs plus seeded slacks, duals, residuals
+    and masks (a share 1 - `finite` of the bounds infinite, with s=1,
+    lam=r3=r4=0 there).  Returns {name: (kernel wrapper, plain version,
+    args)}."""
     import numpy as np
     import torch
 
@@ -101,39 +142,75 @@ def kernel_inputs(B, dtype, device, seed=0):
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prep_tiles,
                                                              to_batch_last)
 
+    m = n // 2
     rng = np.random.default_rng(seed)
-    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype,  # noqa: E731
-                                   device=device)
-    spec = default_ocp(N=N, dtype=dtype, device=device)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    r = lambda *s: tensor(rng.standard_normal(s))  # noqa: E731
+    spec = default_ocp(N=n, tf=TF * n / N, dtype=dtype, device=device)
     yref, yref_e = hover_yref(spec, device=device)
     st = to_batch_last(init_rti(spec, hover_batch(spec, B, seed),
                                 device=device))
     x = st.x_traj
-    u = (st.u_traj + 0.3 * r(N, 4, B)).contiguous()
-    yb = yref[:, :, None].expand(N, 17, B).contiguous()
+    u = (st.u_traj + 0.3 * r(n, 4, B)).contiguous()
+    yb = yref[:, :, None].expand(n, 17, B).contiguous()
     k1_in = (x, u, yb) + prep_tiles(spec, B, dtype, device)
     cnd, Ae, Be, c, lb, ub = pk.prep_condense2_ref(*k1_in)
 
     pT = torch.diagonal(spec.cost.W_e)[:, None].expand(13, B).contiguous()
-    ruu = torch.diagonal(spec.cost.W)[13:].repeat(2)[None, :, None]
-    ruu_shift = (ruu + torch.as_tensor(rng.uniform(0.01, 1.0, (M, 8, B)),
-                                       dtype=dtype, device=device))
+    ruu = (torch.diagonal(spec.cost.W)[13:].repeat(2)[None, :, None]
+           .expand(m, 8, B).contiguous())
+    ruu_shift = (ruu + tensor(rng.uniform(0.01, 1.0, (m, 8, B))))
     p_term = (pT * (x[-1] - yref_e[:, None])).contiguous()
     dx0 = (0.01 * r(13, B)).contiguous()
     k2_in = (cnd["Abar"], cnd["Bbar"], cnd["cbar"], cnd["Qbar"], cnd["S1T"],
-             cnd["R00"], cnd["qbar"], ruu_shift.contiguous(), cnd["rbar"],
-             pT, p_term, dx0)
+             cnd["R00"], cnd["qbar"], ruu_shift, cnd["rbar"], pT, p_term,
+             dx0)
     K, kff, L, Pc, dx, du = ck.kkt_sweep_c2_ref(*k2_in)
     k3_in = (cnd["Abar"], cnd["Bbar"], cnd["cbar"], cnd["qbar"],
-             (cnd["rbar"] + 0.1 * r(M, 8, B)).contiguous(), K, L, Pc,
+             (cnd["rbar"] + 0.1 * r(m, 8, B)).contiguous(), K, L, Pc,
              p_term, dx0)
     k4_in = (Ae, Be, c, dx[:-1].contiguous(), du[:, :4].contiguous())
+
+    mask = lambda: tensor(rng.uniform(size=(m, 8, B)) < finite)  # noqa: E731
+    m_l, m_u = mask(), mask()
+    s_l = torch.where(m_l > 0, tensor(rng.uniform(0.1, 2.0, (m, 8, B))), 1.0)
+    s_u = torch.where(m_u > 0, tensor(rng.uniform(0.1, 2.0, (m, 8, B))), 1.0)
+    lam_l = m_l * tensor(rng.uniform(0.05, 1.5, (m, 8, B)))
+    lam_u = m_u * tensor(rng.uniform(0.05, 1.5, (m, 8, B)))
+    n_fin = m_l.sum(dim=(0, 1)) + m_u.sum(dim=(0, 1))
+    scratch = ck.iter_scratch(m, B, dtype, device)
+    k10_in = (cnd["Abar"], cnd["Bbar"], cnd["cbar"], cnd["Qbar"], cnd["S1T"],
+              cnd["R00"], cnd["qbar"], ruu,
+              (cnd["rbar"] - lam_l + lam_u).contiguous(), s_l, s_u, lam_l,
+              lam_u, m_l * 0.05 * r(m, 8, B), m_u * 0.05 * r(m, 8, B), m_l,
+              m_u, 0.01 * r(m, 13, B), 0.01 * r(m, 8, B), pT, p_term, dx0,
+              0.01 * r(13, B), torch.clamp(n_fin, min=1)[None].contiguous(),
+              (n_fin > 0).to(dtype)[None].contiguous(), 0.995)
     return {"prep_condense2": (pk.prep_condense2, pk.prep_condense2_ref,
                                k1_in),
             "kkt_sweep_c2": (ck.kkt_sweep_c2, ck.kkt_sweep_c2_ref, k2_in),
             "corrector_sweep_c2": (ck.corrector_sweep_c2,
                                    ck.corrector_sweep_c2_ref, k3_in),
-            "expand2": (ck.expand2, ck.expand2_ref, k4_in)}
+            "expand2": (ck.expand2, ck.expand2_ref, k4_in),
+            "bwd_c2": (ck.bwd_c2, ck.bwd_c2_ref, k2_in[:-1]),
+            "fwd_c2": (ck.fwd_c2, ck.fwd_c2_ref,
+                       (cnd["Abar"], cnd["Bbar"], cnd["cbar"], K, kff, dx0)),
+            "bwd_vec_c2": (ck.bwd_vec_c2, ck.bwd_vec_c2_ref,
+                           k3_in[:2] + k3_in[3:9]),
+            "iter_sweep_c2": (functools.partial(ck.iter_sweep_c2,
+                                                scratch=scratch),
+                              ck.iter_sweep_c2_ref, k10_in)}
+
+
+def fresh(args):
+    """A copy of every tensor argument: iter_sweep_c2 updates its carried
+    inputs in place, so a comparison feeds the kernel copies."""
+    import torch
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args)
 
 
 def flat(out):
@@ -149,36 +226,51 @@ def flat(out):
 
 def bytes_of(name, args, out):
     """Bytes one call must move: each input read once, each output written
-    once.  expand2 reads only the even stages c[2k] of c (N, 13, B)."""
-    ins = list(args)
+    once (iter_sweep_c2's carried arrays are both; its device-memory
+    scratch round trip is the kernel's cost above the bound, not part of
+    it).  expand2 reads only the even stages c[2k] of c (N, 13, B)."""
+    import torch
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
     if name == "expand2":
         ins[2] = ins[2][0::2]
     return sum(t.numel() * t.element_size() for t in ins + flat(out))
 
 
-def flops_of(name, B):
-    """Operations each kernel needs for one call at (M, B), counted from
-    the algorithm (2 per multiply-add), not from what the kernel issues.
+def flops_of(name, B, m=M):
+    """Operations each kernel needs for one call at (m, B), counted from
+    the algorithm (2 per multiply-add, 1 per other operation), not from
+    what the kernel issues.
 
     K1, per pair: two ERK4 VDE stages (sparse J with ~60 nonzeros times the
     13+4 tangent columns at 3 RK stages, 4 dynamics and 4 Jacobian
     evaluations, the RK4 combinations) and the condensing products (Abar
     13^3, A1 B0 13^2 4, Qbar 13^3, S1T 13^2 4, R00 13 4^2, vectors).
     K2, per stage: PA, A'PA 2 x 13^3; PB, B'PA, Qux'K 3 x 13^2 8; B'PB
-    8^2 13; the 8x8 Cholesky and 14 solves; vectors and the rollout.
-    K3, per stage: B'm, A'm, K'Qu, one solve and the rollout.
-    K4, per pair: 13^2 + 13 4 multiply-adds.
+    8^2 13; the 8x8 Cholesky and 14 solves; vectors and the rollout (Kx,
+    Ax, Bu: 377 multiply-adds).  bwd_c2 is K2 without the rollout, fwd_c2
+    the rollout alone.  K3, per stage: B'm, A'm, K'Qu, one solve and the
+    rollout; bwd_vec_c2 is K3 without the rollout.  K4, per pair: 13^2 +
+    13 4 multiply-adds.  iter_sweep_c2 is K2 + K3 plus the barrier algebra
+    of its five phases, per (stage, input): 16 operations (shift, affine
+    right-hand side, S0), 35 (directions, S1/S2, four ratios), 24
+    (corrected residuals and right-hand side), 34 (directions, ratios)
+    and 38 (directions, update), and per stage 52 (z_dx, qx, c_res
+    updates).
     """
     vde = 3 * 60 * 17 + 4 * 100 + 4 * 150 + 6 * (169 + 52)
     k1 = 2 * (2 * vde) + 2 * (2197 + 676 + 2197 + 169 + 676 + 208
                               + 169 + 52 + 169)
+    fwd = 2 * 377
     k2 = 2 * (2 * 2197 + 3 * 1352 + 832 + 84 + 14 * 64 + 169 + 273 + 104
               + 377) + 36
     k3 = 2 * (104 + 64 + 273 + 377)
     k4 = 2 * (169 + 52) + 13
+    barrier = 8 * (16 + 35 + 24 + 34 + 38) + 52
     per = {"prep_condense2": k1, "kkt_sweep_c2": k2,
-           "corrector_sweep_c2": k3, "expand2": k4}[name]
-    return float(per) * M * B
+           "corrector_sweep_c2": k3, "expand2": k4, "bwd_c2": k2 - fwd,
+           "fwd_c2": fwd, "bwd_vec_c2": k3 - fwd,
+           "iter_sweep_c2": k2 + k3 + barrier}[name]
+    return float(per) * m * B
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +284,13 @@ def phase_build():
     info = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    names = "|".join(sorted(KERNEL_INFO, key=len, reverse=True))
     for src, rec in info.items():
         print(f"[build] {src}: {rec['seconds']:.1f} s"
               f"{' (cached)' if rec['cached'] else ''} -> {rec['lib']}")
         fn = None
         for line in rec["ptxas"].splitlines():
-            found = re.search(r"(%s)_kernelI([fd])E" % "|".join(KERNEL_INFO),
-                              line)
+            found = re.search(r"\d(%s)_kernelI([fd])E" % names, line)
             if "Compiling entry function" in line and found:
                 fn = found.group(1) + ("<float>" if found.group(2) == "f"
                                        else "<double>")
@@ -223,42 +315,51 @@ def compare(a, b):
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version, float64 then float32."""
+    """Each kernel against its plain version at N=50, float64 then
+    float32; then the sweeps of the long-horizon path (LONG_CHECKED) at
+    its N=400 in float64, where a fault in any of their 200 stages shows
+    far above rounding (phase_timing holds them in float32 there)."""
     import torch
 
     from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 
     kc.reset_launch_counts()
     errs = {}
-    for dtype in (torch.float64, torch.float32):
+    for n, dtype, names in ((N, torch.float64, tuple(KERNEL_INFO)),
+                            (N, torch.float32, tuple(KERNEL_INFO)),
+                            (N_LONG, torch.float64, LONG_CHECKED)):
         dn = str(dtype).split(".")[1]
-        for name, (kern, ref, args) in kernel_inputs(
-                B_CHECK, dtype, device).items():
-            got = flat(kern(*args))
+        inputs = kernel_inputs(B_CHECK, dtype, device, n=n)
+        for name in names:
+            kern, ref, args = inputs[name]
+            got = flat(kern(*fresh(args)))
             torch.cuda.synchronize()
             want = flat(ref(*args))
             if kc.launch_counts()[name] == 0:
                 fail(f"{name} did not launch its kernel")
             abs_err, rel_err = compare(got, want)
             ok = rel_err <= TOL[dn]
-            print(f"[kernel] {name} {dn} B={B_CHECK}: max abs err "
+            print(f"[kernel] {name} {dn} N={n} B={B_CHECK}: max abs err "
                   f"{abs_err:.3e}, rel {rel_err:.3e} (tol {TOL[dn]:.0e}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"{name} {dn} disagrees with its plain version")
-            errs[(name, dn)] = abs_err
+                fail(f"{name} {dn} N={n} disagrees with its plain version")
+            if n == N:
+                errs[(name, dn)] = abs_err
     print("[kernel] held against plain PyTorch in float64 and float32: "
-          + ", ".join(KERNEL_INFO))
+          + ", ".join(KERNEL_INFO) + "; at N=400 in float64: "
+          + ", ".join(LONG_CHECKED))
     return errs
 
 
-def run_chain(B, device):
-    """20 chained batch-last steps at batch B; returns the first step's
-    output, the last state, ms per step and the launch counts.
+def run_chain(B, device, n=N, **opts):
+    """20 chained batch-last steps at batch B and horizon n with the step
+    options `opts`; returns the first step's output, the last state, ms per
+    step and the launch counts.
 
     The steps run under torch.cuda.set_sync_debug_mode("error"), so any
-    host-device synchronisation on the main path fails the run.  ms is
-    the whole window's time over its 20 steps; the median and max of the
+    host-device synchronisation on the path fails the run.  ms is the
+    whole window's time over its 20 steps; the median and max of the
     step-to-step gaps are extra statistics.  host_ms is the host's time
     to issue one step from an idle card (median of 5): where it is close
     to ms, the host's launch loop sets the step time."""
@@ -271,7 +372,8 @@ def run_chain(B, device):
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
         rti_step_batched, to_batch_last)
 
-    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    spec = default_ocp(N=n, tf=TF * n / N, dtype=torch.float32,
+                       device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = hover_batch(spec, B, seed=B)
     st0 = to_batch_last(init_rti(spec, x0s, device=device))
@@ -279,7 +381,7 @@ def run_chain(B, device):
 
     def step(st):
         return rti_step_batched(spec, st, x0s, yref, yref_e, cfg,
-                                layout="batch_last")
+                                layout="batch_last", **opts)
 
     for _ in range(2):                        # warm-up, not timed
         step(st0)
@@ -313,8 +415,9 @@ def run_chain(B, device):
                 host_ms=sorted(host)[2], counts=counts, step=step)
 
 
-def cpu_reference_step(x0s, cfg):
-    """The same lanes through the port's plain versions on the CPU, f64."""
+def cpu_reference_step(x0s, cfg, n=N, dtype=None, **opts):
+    """The same lanes through the port's plain versions on the CPU, in
+    `dtype` (float64 by default)."""
     import torch
 
     from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
@@ -322,73 +425,168 @@ def cpu_reference_step(x0s, cfg):
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
         rti_step_batched, to_batch_last)
 
-    spec = default_ocp(N=N, dtype=torch.float64, device="cpu")
+    dtype = dtype or torch.float64
+    spec = default_ocp(N=n, tf=TF * n / N, dtype=dtype, device="cpu")
     yref, yref_e = hover_yref(spec, device="cpu")
-    x = x0s.to(device="cpu", dtype=torch.float64)
+    x = x0s.to(device="cpu", dtype=dtype)
     st = to_batch_last(init_rti(spec, x, device="cpu"))
     return rti_step_batched(spec, st, x, yref, yref_e, cfg,
-                            layout="batch_last")[1]
+                            layout="batch_last", **opts)[1]
 
 
-def phase_main(device):
+def check_chain(label, run, B, n, per_step):
+    """The run's launch counts are exactly `per_step` per step (0 for every
+    other kernel), and its outputs finite and of the right shapes; prints
+    the run's times.  Returns the counts."""
     import torch
 
+    for name, got in run["counts"].items():
+        want = per_step.get(name, 0) * STEPS
+        if got != want:
+            fail(f"[{label}] B={B}: {name} launched {got} times in {STEPS} "
+                 f"steps, expected {want}")
+    outputs = [(f"step 1 {k}", t) for k, t in run["first"]._asdict().items()]
+    outputs += [(f"step {STEPS} {k}", t) for k, t in
+                run["last"]._asdict().items()]
+    outputs += [("x_traj", run["st"].x_traj), ("u_traj", run["st"].u_traj)]
+    for key, t in outputs:
+        if not bool(torch.isfinite(t).all()):
+            fail(f"[{label}] B={B}: non-finite {key}")
+    if tuple(run["last"].u0.shape) != (4, B) or tuple(
+            run["last"].x_plan.shape) != (n + 1, 13, B):
+        fail(f"[{label}] B={B}: output shapes "
+             f"{tuple(run['last'].u0.shape)}, "
+             f"{tuple(run['last'].x_plan.shape)}")
+    print(f"[{label}] B={B} N={n}: {STEPS} steps, {run['ms']:.3f} ms/step "
+          f"(window / {STEPS}), {B / run['ms'] * 1e3:.0f} solves/s; "
+          f"step gaps median {run['ms_median']:.3f}, max "
+          f"{run['ms_max']:.3f} ms; host issue {run['host_ms']:.3f} "
+          f"ms/step; no host sync; launches per step "
+          + ", ".join(f"{k}={v // STEPS}" for k, v in run["counts"].items()
+                      if v))
+    return run["counts"]
+
+
+def step1_error(run, ref, lanes):
+    """max |du0| [kRPM] and max |dx_plan| of step 1 on `lanes` against a
+    CPU float64 output."""
+    first = run["first"]
+    du0 = float((first.u0[:, lanes].double().cpu() - ref.u0).abs().max())
+    dx = float((first.x_plan[..., lanes].double().cpu() - ref.x_plan)
+               .abs().max())
+    return du0, dx
+
+
+def drive(label, device, per_step, **opts):
+    """20 chained N=50 steps of one path at each B of B_MAIN (check_chain),
+    step 1 on N_REF_LANES lanes at the first B against the port's float64
+    CPU run of the same options.  Returns (launch totals, {B: run})."""
     from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 
-    per_step = {"prep_condense2": 1, "kkt_sweep_c2": ITERS,
-                "corrector_sweep_c2": ITERS, "expand2": 1}
-    totals = dict.fromkeys(per_step, 0)
-    rows = []
+    totals, runs = {}, {}
     for B in B_MAIN:
-        run = run_chain(B, device)
-        for name, n in per_step.items():
-            got = run["counts"][name]
-            if got != n * STEPS:
-                fail(f"B={B}: {name} launched {got} times in {STEPS} "
-                     f"steps, expected {n * STEPS}")
-            totals[name] += got
-        outputs = [(f"step 1 {k}", t) for k, t in
-                   run["first"]._asdict().items()]
-        outputs += [(f"step {STEPS} {k}", t) for k, t in
-                    run["last"]._asdict().items()]
-        outputs += [("x_traj", run["st"].x_traj),
-                    ("u_traj", run["st"].u_traj)]
-        for key, t in outputs:
-            if not bool(torch.isfinite(t).all()):
-                fail(f"B={B}: non-finite {key}")
-        if tuple(run["last"].u0.shape) != (4, B) or tuple(
-                run["last"].x_plan.shape) != (N + 1, 13, B):
-            fail(f"B={B}: output shapes {tuple(run['last'].u0.shape)}, "
-                 f"{tuple(run['last'].x_plan.shape)}")
-        print(f"[main] B={B}: {STEPS} steps, {run['ms']:.3f} ms/step "
-              f"(window / {STEPS}), {B / run['ms'] * 1e3:.0f} solves/s; "
-              f"step gaps median {run['ms_median']:.3f}, max "
-              f"{run['ms_max']:.3f} ms; host issue {run['host_ms']:.3f} "
-              f"ms/step; no host sync; launches per step "
-              + ", ".join(f"{k}={v // STEPS}" for k, v in
-                          run["counts"].items()))
-        rows.append(run if B == B_TIME else None)
+        run = run_chain(B, device, **opts)
+        for name, v in check_chain(label, run, B, N, per_step).items():
+            totals[name] = totals.get(name, 0) + v
+        runs[B] = run
         if B == B_MAIN[0]:
             lanes = slice(0, N_REF_LANES)
             ref = cpu_reference_step(run["x0s"][lanes],
-                                     IPMConfig(iters=ITERS))
-            first = run["first"]
-            du0 = float((first.u0[:, lanes].double().cpu() - ref.u0)
-                        .abs().max())
-            dx = float((first.x_plan[..., lanes].double().cpu()
-                        - ref.x_plan).abs().max())
+                                     IPMConfig(iters=ITERS), **opts)
+            du0, dx = step1_error(run, ref, lanes)
             # float32 on the card vs float64 on the CPU after 8 IPM
             # iterations: u0 [kRPM] to 1e-3 (the JAX package's own f32
             # cross-path bar, tests/test_pallas_kernels.py:621), the state
             # plan to 1e-3 (metres, unit quaternion, m/s, rad/s)
-            print(f"[main] step 1, {N_REF_LANES} lanes vs CPU float64: "
+            print(f"[{label}] step 1, {N_REF_LANES} lanes vs CPU float64: "
                   f"max |du0| {du0:.3e} kRPM, max |dx_plan| {dx:.3e}")
             if not (du0 <= 1e-3 and dx <= 1e-3):
-                fail("step 1 disagrees with the CPU float64 run")
-    return totals, next(r for r in rows if r is not None)
+                fail(f"[{label}] step 1 disagrees with the CPU float64 run")
+    return totals, runs
 
 
-def phase_profile(run, steps=3):
+def phase_main(device):
+    return drive("main", device, {"prep_condense2": 1,
+                                  "kkt_sweep_c2": ITERS,
+                                  "corrector_sweep_c2": ITERS,
+                                  "expand2": 1})
+
+
+def phase_fused_iter(device, main_runs):
+    """fused_iter=True: one iter_sweep_c2 launch per iteration and no
+    K2/K3 launch; its times beside [main]'s of this run."""
+    totals, runs = drive("fused_iter", device, {"prep_condense2": 1,
+                                                "iter_sweep_c2": ITERS,
+                                                "expand2": 1},
+                         fused_iter=True)
+    for B, run in runs.items():
+        main = main_runs.get(B)
+        if main is not None:
+            print(f"[fused_iter] B={B}: {run['ms']:.3f} ms/step against "
+                  f"[main] {main['ms']:.3f} (host issue "
+                  f"{run['host_ms']:.3f} against {main['host_ms']:.3f} ms)")
+    return totals, runs
+
+
+def phase_long(device):
+    """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
+    windowed=None (the fused sweeps), 20 chained steps each; step 1 of
+    both against each other and against a float64 CPU run of 8 lanes."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+
+    win = run_chain(B_LONG, device, n=N_LONG, windowed=True)
+    totals = check_chain("long windowed", win, B_LONG, N_LONG, {
+        "prep_condense2": 1, "bwd_c2": ITERS, "bwd_vec_c2": ITERS,
+        "fwd_c2": 2 * ITERS, "expand2": 1})
+    fused = run_chain(B_LONG, device, n=N_LONG, windowed=None)
+    check_chain("long fused", fused, B_LONG, N_LONG, {
+        "prep_condense2": 1, "kkt_sweep_c2": ITERS,
+        "corrector_sweep_c2": ITERS, "expand2": 1})
+    # the same formulas in the same order, one launch boundary apart:
+    # rounding-level agreement (the TPU's pair agreed bitwise)
+    d_win = float((win["first"].u0 - fused["first"].u0).abs().max())
+    dx_win = float((win["first"].x_plan - fused["first"].x_plan).abs().max())
+    lanes = slice(0, N_LONG_REF_LANES)
+    ref = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
+                             n=N_LONG)
+    scale = max(1.0, float(ref.x_plan.abs().max()))
+    e_win, x_win = step1_error(win, ref, lanes)
+    e_fused, x_fused = step1_error(fused, ref, lanes)
+    # the yardstick: the plain versions in float32 on the CPU, same lanes
+    ref32 = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
+                               n=N_LONG, dtype=torch.float32)
+    e32 = float((ref32.u0.double() - ref.u0).abs().max())
+    x32 = float((ref32.x_plan.double() - ref.x_plan).abs().max())
+    # float32 through a 200-stage Riccati recursion vs float64: u0 to 1e-2
+    # kRPM (the JAX package's f32 windowed path read 1.4e-3, BENCH_r05
+    # longN_windowed_vs_f64).  The 401-state plan, which the rollouts
+    # carry through all 200 stages (u0 does not depend on them), to 2e-2
+    # of its largest entry: after 8 iterations the N=400 iterate is far
+    # from converged and rounding-sensitive, so float32 moves its far
+    # stages by up to ~1% of that entry, in the plain versions as on the
+    # card (the yardstick's error is printed beside).  The kernels
+    # themselves are held against their plain versions at N=400 in
+    # phase_kernels and phase_timing.
+    print(f"[long] step 1: windowed vs fused on the card max |du0| "
+          f"{d_win:.3e} kRPM, |dx_plan| {dx_win:.3e}; vs CPU float64 "
+          f"({N_LONG_REF_LANES} lanes): windowed {e_win:.3e} kRPM, "
+          f"|dx_plan| {x_win:.3e}; fused {e_fused:.3e} kRPM, |dx_plan| "
+          f"{x_fused:.3e}; plain float32 on the CPU {e32:.3e} kRPM, "
+          f"|dx_plan| {x32:.3e} (largest plan entry {scale:.3f})")
+    print(f"[long] N={N_LONG} B={B_LONG}: windowed {win['ms']:.3f} ms/step, "
+          f"fused {fused['ms']:.3f} ms/step (window mean of {STEPS})")
+    if not (d_win <= 1e-4 and dx_win <= 1e-4 * scale):
+        fail("[long] windowed and fused sweeps disagree")
+    if not (e_win <= 1e-2 and e_fused <= 1e-2):
+        fail("[long] step 1 u0 disagrees with the CPU float64 run")
+    if not (x_win <= 2e-2 * scale and x_fused <= 2e-2 * scale):
+        fail("[long] step 1 plan disagrees with the CPU float64 run")
+    return totals
+
+
+def phase_profile(label, run, steps=3):
     """Where a step's time goes at B=B_TIME: a torch.profiler trace of a
     few chained steps, split into the port's kernels, the other kernels
     (the barrier algebra and layout glue, PyTorch's own), and the device
@@ -417,16 +615,18 @@ def phase_profile(run, steps=3):
     kern = [e for e in trace.get("traceEvents", [])
             if e.get("cat") == "kernel" and "dur" in e]
     if not kern:
-        print("[profile] torch.profiler recorded no device kernels: "
-              "device breakdown not measured")
+        print(f"[profile] {label}: torch.profiler recorded no device "
+              f"kernels: device breakdown not measured")
         return
     ours = dict.fromkeys(KERNEL_INFO, 0.0)
+    n_ours = dict.fromkeys(KERNEL_INFO, 0)
     other, n_other = 0.0, 0
     for e in kern:
         name = next((k for k in KERNEL_INFO if k + "_kernel" in e["name"]),
                     None)
         if name:
             ours[name] += e["dur"]
+            n_ours[name] += 1
         else:
             other += e["dur"]
             n_other += 1
@@ -434,11 +634,12 @@ def phase_profile(run, steps=3):
     t1 = max(e["ts"] + e["dur"] for e in kern)
     window = (t1 - t0) / steps / 1e3
     busy = (sum(ours.values()) + other) / steps / 1e3
-    print(f"[profile] B={run['x0s'].shape[0]}, {steps} traced steps, per "
-          f"step: window {window:.3f} ms, kernels busy {busy:.3f} ms "
-          f"(idle share {1 - busy / window:.3f}); "
-          + ", ".join(f"{k} {v / steps / 1e3:.3f} ms"
-                      for k, v in ours.items())
+    print(f"[profile] {label} B={run['x0s'].shape[0]}, {steps} traced "
+          f"steps, per step: window {window:.3f} ms, kernels busy "
+          f"{busy:.3f} ms (idle share {1 - busy / window:.3f}); "
+          + ", ".join(f"{k} {v / steps / 1e3:.3f} ms ({n_ours[k] // steps}"
+                      f" x {v / n_ours[k] / 1e3:.3f})"
+                      for k, v in ours.items() if v)
           + f", other kernels {other / steps / 1e3:.3f} ms "
           f"({n_other // steps} launches)")
 
@@ -532,32 +733,85 @@ def time_events(fn, reps):
     return ev0.elapsed_time(ev1) / reps
 
 
+def time_kernel(name, kern, args, reps=20):
+    """ms per launch over `reps` launches.  iter_sweep_c2 updates its
+    carried inputs in place, so each of its launches gets a copy of its own,
+    made before the timed window: every launch starts from the same
+    iterate, as the first one does."""
+    if name != "iter_sweep_c2":
+        return time_events(lambda: kern(*args), reps)
+    copies = iter([fresh(args) for _ in range(reps + 1)])
+    return time_events(lambda: kern(*next(copies)), reps)
+
+
 def phase_timing(device):
-    """Per-kernel time, plain version's time and bound at B=4096, f32."""
+    """Per-kernel time, plain version's time and bound, float32, B=4096:
+    every kernel at N=50; the split sweeps again at N=400, the shapes of
+    the path that runs them (their row), beside the fused sweeps there.
+    At N=400 each of them is also held in float32 against the plain
+    version in float64 (phase_kernels holds them in float64 there)."""
     import torch
 
     rows = {}
-    for name, (kern, ref, args) in kernel_inputs(
-            B_TIME, torch.float32, device, seed=1).items():
-        ms = time_events(lambda: kern(*args), 20)
-        plain_ms = time_events(lambda: ref(*args), 2)
-        nbytes = bytes_of(name, args, kern(*args))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops_of(name, B_TIME) / PEAK_FP32_FLOPS * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-        print(f"[timing] {name} B={B_TIME} float32: {ms:.4f} ms/launch, "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops_of(name, B_TIME) / 1e9:.2f} GFLOP)")
+    for n, names in ((N, tuple(KERNEL_INFO)), (N_LONG, LONG_CHECKED)):
+        # every bound finite, as on the main path ([0, 22] kRPM on every
+        # input): iter_sweep_c2's time depends on it
+        inputs = kernel_inputs(B_TIME, torch.float32, device, seed=1, n=n,
+                               finite=1.0)
+        for name in names:
+            kern, ref, args = inputs[name]
+            ms = time_kernel(name, kern, args)
+            if name == "iter_sweep_c2":
+                mixed = kernel_inputs(B_TIME, torch.float32, device,
+                                      seed=1)[name]
+                print(f"[timing] iter_sweep_c2 N={n} B={B_TIME} float32, "
+                      f"10% of the bounds infinite (the [kernel] check's "
+                      f"inputs): {time_kernel(name, mixed[0], mixed[2]):.4f}"
+                      f" ms/launch")
+            want = ref(*args)
+            plain_ms = time_events(lambda: ref(*args), 2)
+            if n == N_LONG:
+                # float32 rounding grows through the 200-stage recursion
+                # (outputs reach ~3e3), in the plain version as in the
+                # kernel, so two float32 evaluations in different orders
+                # drift apart by more than TOL.  Both are held to the
+                # exact answer for these inputs, the plain version in
+                # float64: the kernel's error there may be at most 3x the
+                # plain float32 version's (or TOL).
+                got = flat(kern(*args))
+                exact = flat(ref(*[a.double() if isinstance(a, torch.Tensor)
+                                   else a for a in args]))
+                _, rel_plain = compare(got, flat(want))
+                _, e_kern = compare(got, exact)
+                _, e_plain = compare(flat(want), exact)
+                ok = e_kern <= max(TOL["float32"], 3 * e_plain)
+                print(f"[kernel] {name} float32 N={n} B={B_TIME}: rel err "
+                      f"vs plain float32 {rel_plain:.3e}; vs plain float64 "
+                      f"on the same inputs: kernel {e_kern:.3e}, plain "
+                      f"float32 {e_plain:.3e} (limit max({TOL['float32']:.0e},"
+                      f" 3 x plain's)) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} float32 at N={n} is less accurate than "
+                         f"its plain version")
+            nbytes = bytes_of(name, args, want)
+            flops = flops_of(name, B_TIME, n // 2)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            if n == N or name in LONG_KERNELS:
+                rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[timing] {name} N={n} B={B_TIME} float32: {ms:.4f} "
+                  f"ms/launch, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP)")
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,main,certified,timing",
+    ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset (the ok line needs all)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -579,26 +833,41 @@ def main(argv=None) -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    errs, totals, timing, main_run = {}, {}, {}, None
+    t_start = time.perf_counter()
+    errs, totals, timing, main_runs, fused_runs = {}, {}, {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         errs = phase_kernels(device)
     if "main" in phases:
-        totals, main_run = phase_main(device)
+        main_totals, main_runs = phase_main(device)
+        totals.update({k: v for k, v in main_totals.items()
+                       if k in ("prep_condense2", "kkt_sweep_c2",
+                                "corrector_sweep_c2", "expand2")})
+    if "fused_iter" in phases:
+        fused_totals, fused_runs = phase_fused_iter(device, main_runs)
+        totals["iter_sweep_c2"] = fused_totals["iter_sweep_c2"]
+    if "long" in phases:
+        long_totals = phase_long(device)
+        totals.update({k: long_totals[k] for k in LONG_KERNELS})
     if "certified" in phases:
         phase_certified(device)
     if "timing" in phases:
         timing = phase_timing(device)
-        if main_run is not None:
-            phase_profile(main_run)
+        for label, runs in (("main", main_runs), ("fused_iter", fused_runs)):
+            if B_TIME in runs:
+                phase_profile(label, runs[B_TIME])
+    print(f"[done] phases {','.join(phases)} in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(smi)
-    if len(phases) < 5:
+    if set(phases) != set(PHASES):
         print("chip_smoke: partial run (--phases); no result line")
         return 0
     kernels = []
     for name, info in KERNEL_INFO.items():
+        if totals.get(name, 0) <= 0:
+            fail(f"{name} was not launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=totals[name],

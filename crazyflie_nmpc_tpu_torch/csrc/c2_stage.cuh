@@ -1,0 +1,368 @@
+// Stage bodies of the block-2 condensed sweeps, shared by the fused
+// sweeps (condensed_c2.cu: kkt_sweep_c2's rollout, corrector_sweep_c2),
+// their split long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2,
+// bwd_vec_c2) and the one-launch Mehrotra iteration (iter_c2.cu:
+// iter_sweep_c2).  kkt_sweep_c2 writes factor_sweep out in its own body
+// for speed (condensed_c2.cu).
+//
+// Counterparts of the per-stage math of
+// crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_kkt_c2_kernel,
+// _corr_c2_kernel, _bwd_c2_kernel, _bwd_vec_c2_kernel, _fwd_c2_kernel,
+// _iter_c2_kernel; _chol_n, _cho_solve_n_vec, _pk).  One thread owns one
+// batch lane: P, p and the rollout state live in its registers (and in
+// local memory where they spill).  The fused and split sweeps evaluate
+// the same formulas in the same order, and agree to the last bit on the
+// same inputs.
+#pragma once
+
+#include "batch_last.cuh"
+
+namespace cfl {
+
+// Unrolled n x n Cholesky of the lower triangle of Q -> packed L
+// (rsqrt formulation of condensed_kernels._chol_n: L_jj = s * rsqrt(s)).
+template <typename T, int n>
+__device__ __forceinline__ void chol(const T (&Q)[n][n], T* L) {
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    T s = Q[j][j];
+#pragma unroll
+    for (int t = 0; t < j; ++t) s = s - L[pk(j, t, n)] * L[pk(j, t, n)];
+    const T inv = rsqrt_t(s);
+    L[pk(j, j, n)] = s * inv;
+#pragma unroll
+    for (int i = j + 1; i < n; ++i) {
+      T r = Q[i][j];
+#pragma unroll
+      for (int t = 0; t < j; ++t) r = r - L[pk(i, t, n)] * L[pk(j, t, n)];
+      L[pk(i, j, n)] = r * inv;
+    }
+  }
+}
+
+// Solve (L L^T) x = y in place, packed L, reciprocal-diagonal
+// substitution (condensed_kernels._cho_solve_n_vec).
+template <typename T, int n>
+__device__ __forceinline__ void cho_solve(const T* L, T* y) {
+  T inv[n];
+#pragma unroll
+  for (int i = 0; i < n; ++i) inv[i] = T(1) / L[pk(i, i, n)];
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    T s = y[i];
+#pragma unroll
+    for (int t = 0; t < i; ++t) s = s - L[pk(i, t, n)] * y[t];
+    y[i] = s * inv[i];
+  }
+#pragma unroll
+  for (int i = n - 1; i >= 0; --i) {
+    T s = y[i];
+#pragma unroll
+    for (int t = i + 1; t < n; ++t) s = s - L[pk(t, i, n)] * y[t];
+    y[i] = s * inv[i];
+  }
+}
+
+// One backward stage k of the dense-cost Riccati recursion on the
+// cost-to-go (P, p) of stage k+1.  rs is R̄'s diagonal incl. the barrier
+// shift, r the linear input term: lane views of device memory (the
+// sweeps) or registers (iter_sweep_c2, which computes them), read where
+// they are used.  Writes K, kff, L and Pc = P_{k+1} c_k of stage k through
+// the lane views and leaves stage k's (P, p).
+template <typename T, typename V>
+__device__ __forceinline__ void factor_stage(
+    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> c,
+    LaneRef<const T> Q, LaneRef<const T> S, LaneRef<const T> R,
+    LaneRef<const T> q, const V& rs, const V& r, T (&P)[NX][NX],
+    T (&p)[NX], LaneRef<T> Ko, LaneRef<T> ko, LaneRef<T> Lo,
+    LaneRef<T> Pc) {
+  // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
+  T m[NX];
+  {
+    T cv[NX];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) cv[j] = c[j];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T s = P[i][0] * cv[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
+      Pc[i] = s;
+      m[i] = p[i] + s;
+    }
+  }
+
+  // Quu = B'PB + [R00 0; 0 0] + diag(rs) (lower triangle)
+  T Quu[NUC][NUC];
+  {
+    T PB[NX][NUC];
+#pragma unroll 1
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int a = 0; a < NUC; ++a) {
+        T s = P[i][0] * Bm[a];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) s = s + P[i][j] * Bm[j * NUC + a];
+        PB[i][a] = s;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < NUC; ++a) {
+#pragma unroll
+      for (int a2 = 0; a2 <= a; ++a2) {
+        T s = Bm[a] * PB[0][a2];
+#pragma unroll
+        for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PB[i][a2];
+        if (a < NU) s = s + R[a * NU + a2];
+        if (a == a2) s = s + rs[a];
+        Quu[a][a2] = s;
+      }
+    }
+  }
+
+  // PA = P A;  Qux = [S1T; 0] + B' PA;  Qu = r + B' m
+  T PA[NX][NX], Qux[NUC][NX], Qu[NUC];
+#pragma unroll 1
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      T s = P[i][0] * A[j];
+#pragma unroll
+      for (int l = 1; l < NX; ++l) s = s + P[i][l] * A[l * NX + j];
+      PA[i][j] = s;
+    }
+  }
+#pragma unroll 1
+  for (int a = 0; a < NUC; ++a) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      T s = Bm[a] * PA[0][j];
+#pragma unroll
+      for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PA[i][j];
+      Qux[a][j] = (a < NU) ? S[a * NX + j] + s : s;
+    }
+    T s = Bm[a] * m[0];
+#pragma unroll
+    for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
+    Qu[a] = r[a] + s;
+  }
+
+  // L = chol(Quu); K = -Quu^{-1} Qux; kff = -Quu^{-1} Qu
+  T Lp[NLC], Kk[NUC][NX], kf[NUC];
+  chol<T, NUC>(Quu, Lp);
+#pragma unroll 1
+  for (int j = 0; j < NX; ++j) {
+    T y[NUC];
+#pragma unroll
+    for (int a = 0; a < NUC; ++a) y[a] = Qux[a][j];
+    cho_solve<T, NUC>(Lp, y);
+#pragma unroll
+    for (int a = 0; a < NUC; ++a) Kk[a][j] = -y[a];
+  }
+#pragma unroll
+  for (int a = 0; a < NUC; ++a) kf[a] = Qu[a];
+  cho_solve<T, NUC>(Lp, kf);
+#pragma unroll
+  for (int a = 0; a < NUC; ++a) {
+    kf[a] = -kf[a];
+    ko[a] = kf[a];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Ko[a * NX + j] = Kk[a][j];
+  }
+#pragma unroll
+  for (int t = 0; t < NLC; ++t) Lo[t] = Lp[t];
+
+  // P <- sym(Qbar + A'PA + Qux'K);  p <- qx + A'm + K'Qu
+#pragma unroll 1
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      T s = A[i] * PA[0][j];
+#pragma unroll
+      for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * PA[l][j];
+      T t = Qux[0][i] * Kk[0][j];
+#pragma unroll
+      for (int a = 1; a < NUC; ++a) t = t + Qux[a][i] * Kk[a][j];
+      P[i][j] = Q[i * NX + j] + s + t;
+    }
+  }
+#pragma unroll 1
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      if (j > i) {
+        const T v = T(0.5) * (P[i][j] + P[j][i]);
+        P[i][j] = v;
+        P[j][i] = v;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T s = A[i] * m[0];
+#pragma unroll
+    for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
+    T t = Kk[0][i] * Qu[0];
+#pragma unroll
+    for (int a = 1; a < NUC; ++a) t = t + Kk[a][i] * Qu[a];
+    p[i] = q[i] + s + t;
+  }
+}
+
+// One stage of the backward vector pass on the stored factorization
+// (K, L, Pc of stage k): m = p + Pc, Qu = r + B'm, kff = -Quu^{-1} Qu,
+// p <- q + A'm + K'Qu.  r as in factor_stage.
+template <typename T, typename V>
+__device__ __forceinline__ void vec_stage(
+    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> Kk,
+    LaneRef<const T> Pck, LaneRef<const T> Lk, LaneRef<const T> q,
+    const V& r, T (&p)[NX], LaneRef<T> kff) {
+  T m[NX], Qu[NUC], kf[NUC], Lp[NLC];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) m[i] = p[i] + Pck[i];
+#pragma unroll
+  for (int a = 0; a < NUC; ++a) {
+    T s = Bm[a] * m[0];
+#pragma unroll
+    for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
+    Qu[a] = r[a] + s;
+    kf[a] = Qu[a];
+  }
+#pragma unroll
+  for (int t = 0; t < NLC; ++t) Lp[t] = Lk[t];
+  cho_solve<T, NUC>(Lp, kf);
+#pragma unroll
+  for (int a = 0; a < NUC; ++a) kff[a] = -kf[a];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T s = A[i] * m[0];
+#pragma unroll
+    for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
+    T t = Kk[i] * Qu[0];
+#pragma unroll
+    for (int a = 1; a < NUC; ++a) t = t + Kk[a * NX + i] * Qu[a];
+    p[i] = q[i] + s + t;
+  }
+}
+
+// One rollout stage: u = K x + kff, xn = A x + B u + c.
+template <typename T>
+__device__ __forceinline__ void rollout_stage(
+    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> c,
+    LaneRef<const T> Kk, LaneRef<const T> kff, const T (&x)[NX],
+    T (&u)[NUC], T (&xn)[NX]) {
+#pragma unroll
+  for (int a = 0; a < NUC; ++a) {
+    T s = Kk[a * NX] * x[0];
+#pragma unroll
+    for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
+    u[a] = s + kff[a];
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    T s = A[i * NX] * x[0];
+#pragma unroll
+    for (int j = 1; j < NX; ++j) s = s + A[i * NX + j] * x[j];
+    T t = Bm[i * NUC] * u[0];
+#pragma unroll
+    for (int a = 1; a < NUC; ++a) t = t + Bm[i * NUC + a] * u[a];
+    xn[i] = s + t + c[i];
+  }
+}
+
+// The whole backward factorization from the terminal cost-to-go
+// P = diag(pT), p = pterm: K, kff, L, Pc of every stage.
+template <typename T>
+__device__ __forceinline__ void factor_sweep(
+    const T* __restrict__ Abar, const T* __restrict__ Bbar,
+    const T* __restrict__ cbar, const T* __restrict__ Qbar,
+    const T* __restrict__ S1T, const T* __restrict__ R00,
+    const T* __restrict__ qx, const T* __restrict__ ruu,
+    const T* __restrict__ ru, const T* __restrict__ pT,
+    const T* __restrict__ pterm, T* __restrict__ K, T* __restrict__ kff,
+    T* __restrict__ L, T* __restrict__ Pc, int M, int B, int b) {
+  T P[NX][NX], p[NX];
+  {
+    auto d = lane(pT, NX, 0, B, b);
+    auto pt = lane(pterm, NX, 0, B, b);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) P[i][j] = (i == j) ? d[i] : T(0);
+      p[i] = pt[i];
+    }
+  }
+#pragma unroll 1
+  for (int k = M - 1; k >= 0; --k) {
+    factor_stage<T>(lane(Abar, NX * NX, k, B, b),
+                    lane(Bbar, NX * NUC, k, B, b), lane(cbar, NX, k, B, b),
+                    lane(Qbar, NX * NX, k, B, b), lane(S1T, NU * NX, k, B, b),
+                    lane(R00, NU * NU, k, B, b), lane(qx, NX, k, B, b),
+                    lane(ruu, NUC, k, B, b), lane(ru, NUC, k, B, b), P, p,
+                    lane(K, NUC * NX, k, B, b), lane(kff, NUC, k, B, b),
+                    lane(L, NLC, k, B, b), lane(Pc, NX, k, B, b));
+  }
+}
+
+// The whole backward vector pass from p = pterm: kff of every stage
+// (corrector_sweep_c2 parks it in its du output).
+template <typename T>
+__device__ __forceinline__ void vec_sweep(
+    const T* __restrict__ Abar, const T* __restrict__ Bbar,
+    const T* __restrict__ qx, const T* __restrict__ ru,
+    const T* __restrict__ K, const T* __restrict__ L,
+    const T* __restrict__ Pc, const T* __restrict__ pterm,
+    T* __restrict__ kff, int M, int B, int b) {
+  T p[NX];
+  {
+    auto pt = lane(pterm, NX, 0, B, b);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) p[i] = pt[i];
+  }
+#pragma unroll 1
+  for (int k = M - 1; k >= 0; --k)
+    vec_stage<T>(lane(Abar, NX * NX, k, B, b), lane(Bbar, NX * NUC, k, B, b),
+                 lane(K, NUC * NX, k, B, b), lane(Pc, NX, k, B, b),
+                 lane(L, NLC, k, B, b), lane(qx, NX, k, B, b),
+                 lane(ru, NUC, k, B, b), p, lane(kff, NUC, k, B, b));
+}
+
+// Forward rollout over the horizon from dx0: du_k = K_k dx_k + kff_k,
+// dx_{k+1} = A dx + B du + c; dx holds M+1 states (the terminal last).
+// kff may alias du (each stage reads its kff before writing its du).
+template <typename T>
+__device__ __forceinline__ void rollout(const T* __restrict__ Abar,
+                                        const T* __restrict__ Bbar,
+                                        const T* __restrict__ cbar,
+                                        const T* __restrict__ K,
+                                        const T* kff,
+                                        const T* __restrict__ dx0,
+                                        T* __restrict__ dx, T* du, int M,
+                                        int B, int b) {
+  T x[NX];
+  auto x0 = lane(dx0, NX, 0, B, b);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = x0[i];
+#pragma unroll 1
+  for (int k = 0; k < M; ++k) {
+    T u[NUC], xn[NX];
+    rollout_stage<T>(lane(Abar, NX * NX, k, B, b),
+                     lane(Bbar, NX * NUC, k, B, b), lane(cbar, NX, k, B, b),
+                     lane(K, NUC * NX, k, B, b), lane(kff, NUC, k, B, b), x,
+                     u, xn);
+    auto dxk = lane(dx, NX, k, B, b);
+    auto duk = lane(du, NUC, k, B, b);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      dxk[i] = x[i];
+      x[i] = xn[i];
+    }
+#pragma unroll
+    for (int a = 0; a < NUC; ++a) duk[a] = u[a];
+  }
+  auto xT = lane(dx, NX, M, B, b);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xT[i] = x[i];
+}
+
+}  // namespace cfl

@@ -6,16 +6,24 @@
 //                       _cho_solve_n_vec, _pk)  -> kkt_sweep_c2_kernel
 //   corrector_sweep_c2 (_corr_c2_kernel)        -> corrector_sweep_c2_kernel
 //   expand2            (_expand2_kernel, even_only=True) -> expand2_kernel
+//   kkt_sweep_c2_win / corrector_sweep_c2_win, the split long-horizon
+//   launches: _bwd_c2_kernel -> bwd_c2_kernel, _fwd_c2_kernel ->
+//   fwd_c2_kernel, _bwd_vec_c2_kernel -> bwd_vec_c2_kernel
 //
 // Design: one thread per batch lane, as the Pallas kernels make every
 // matrix entry a (B,)-lane vector.  The sweeps are sequential over the M
 // condensed stages, so the stage loop runs inside the thread in place of
 // the sequential Pallas grid, and the grid spans lanes only (64 threads a
-// block).  The whole-horizon K_all/kff_all VMEM scratch of the TPU kernel
-// becomes the K/kff outputs themselves: the backward phase writes them to
-// device memory and the forward phase reads them back (the same thread,
-// mostly from L2).  The corrector parks its kff in the du output the
-// same way.  The expansion is parallel over (lane, pair).
+// block).  The stage bodies are c2_stage.cuh's, shared by the sweep
+// kernels, except that kkt_sweep_c2 writes its factorization loop out
+// (see there).  The whole-horizon K_all/kff_all VMEM scratch of the fused TPU
+// kernels becomes the K/kff outputs themselves: the backward phase writes
+// them to device memory and the forward phase reads them back (the same
+// thread, mostly from L2).  The corrector parks its kff in the du output
+// the same way.  So the fused kernels need no VMEM-sized envelope here,
+// and the split forms differ from them only by the launch boundary: the
+// split forward launch re-reads the gains its backward launch wrote.  The
+// expansion is parallel over (lane, pair).
 //
 // Bounds on the H100: per stage and lane K2 reads ~550 values (Abar, Bbar,
 // Qbar, ...) and writes ~180 (the gains and the rollout) for ~11k FMAs,
@@ -28,105 +36,18 @@
 // live in local memory (L1); `ptxas -v` in the build log gives the spill
 // counts.  Splitting a lane's matrix work over several threads is later
 // work.  K4 is bound by bytes (it reads Ae/Be once).
-#include "batch_last.cuh"
+#include "c2_stage.cuh"
 
 using namespace cfl;
 
 namespace {
 
-// Unrolled n x n Cholesky of the lower triangle of Q -> packed L
-// (rsqrt formulation of condensed_kernels._chol_n: L_jj = s * rsqrt(s)).
-template <typename T, int n>
-__device__ __forceinline__ void chol(const T (&Q)[n][n], T* L) {
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    T s = Q[j][j];
-#pragma unroll
-    for (int t = 0; t < j; ++t) s = s - L[pk(j, t, n)] * L[pk(j, t, n)];
-    const T inv = rsqrt_t(s);
-    L[pk(j, j, n)] = s * inv;
-#pragma unroll
-    for (int i = j + 1; i < n; ++i) {
-      T r = Q[i][j];
-#pragma unroll
-      for (int t = 0; t < j; ++t) r = r - L[pk(i, t, n)] * L[pk(j, t, n)];
-      L[pk(i, j, n)] = r * inv;
-    }
-  }
-}
-
-// Solve (L L^T) x = y in place, packed L, reciprocal-diagonal
-// substitution (condensed_kernels._cho_solve_n_vec).
-template <typename T, int n>
-__device__ __forceinline__ void cho_solve(const T* L, T* y) {
-  T inv[n];
-#pragma unroll
-  for (int i = 0; i < n; ++i) inv[i] = T(1) / L[pk(i, i, n)];
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    T s = y[i];
-#pragma unroll
-    for (int t = 0; t < i; ++t) s = s - L[pk(i, t, n)] * y[t];
-    y[i] = s * inv[i];
-  }
-#pragma unroll
-  for (int i = n - 1; i >= 0; --i) {
-    T s = y[i];
-#pragma unroll
-    for (int t = i + 1; t < n; ++t) s = s - L[pk(t, i, n)] * y[t];
-    y[i] = s * inv[i];
-  }
-}
-
-// Forward rollout shared by both sweeps: du_k = K_k dx_k + kff_k,
-// dx_{k+1} = A dx + B du + c; kff arrives in `du` and is overwritten.
-template <typename T>
-__device__ __forceinline__ void rollout(const T* __restrict__ Abar,
-                                        const T* __restrict__ Bbar,
-                                        const T* __restrict__ cbar,
-                                        const T* K, const T* dx0, T* dx,
-                                        T* du, int M, int B, int b) {
-  T x[NX];
-  auto x0 = lane(dx0, NX, 0, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = x0[i];
-#pragma unroll 1
-  for (int k = 0; k < M; ++k) {
-    auto Kk = lane(K, NUC * NX, k, B, b);
-    auto duk = lane(du, NUC, k, B, b);
-    auto dxk = lane(dx, NX, k, B, b);
-    T u[NUC];
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) {
-      T s = Kk[a * NX] * x[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
-      u[a] = s + duk[a];
-    }
-    auto A = lane(Abar, NX * NX, k, B, b);
-    auto Bm = lane(Bbar, NX * NUC, k, B, b);
-    auto c = lane(cbar, NX, k, B, b);
-    T xn[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T s = A[i * NX] * x[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + A[i * NX + j] * x[j];
-      T t = Bm[i * NUC] * u[0];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a) t = t + Bm[i * NUC + a] * u[a];
-      xn[i] = s + t + c[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) { dxk[i] = x[i]; x[i] = xn[i]; }
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) duk[a] = u[a];
-  }
-  auto xT = lane(dx, NX, M, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xT[i] = x[i];
-}
-
+// The factorization loop is c2_stage.cuh's factor_sweep written out in the
+// kernel: the same source reached through an inlined device function
+// (factor_sweep, or the stage alone through factor_stage) comes out of
+// ptxas scheduled differently and runs measurably slower, with or without
+// __restrict__ and wherever the lane views are made (PERF.md, PR 2).  The
+// results are bitwise those of factor_sweep, which bwd_c2 runs.
 template <typename T>
 __global__ void __launch_bounds__(64)
 kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
@@ -139,7 +60,6 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
                     int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-
   // terminal cost-to-go: P = diag(pT), p = p_term
   T P[NX][NX], p[NX];
   {
@@ -308,15 +228,7 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
     }
   }
 
-  // forward phase: kff seeds du, the rollout overwrites it
-#pragma unroll 1
-  for (int k = 0; k < M; ++k) {
-    auto ko = lane(kff, NUC, k, B, b);
-    auto duk = lane(du, NUC, k, B, b);
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) duk[a] = ko[a];
-  }
-  rollout(Abar, Bbar, cbar, K, dx0, dx, du, M, B, b);
+  rollout<T>(Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B, b);
 }
 
 template <typename T>
@@ -332,52 +244,50 @@ corrector_sweep_c2_kernel(const T* __restrict__ Abar,
                           int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-
-  T p[NX];
-  {
-    auto pt = lane(pterm, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) p[i] = pt[i];
-  }
   // backward vector pass on the stored factorization; kff parks in du
-#pragma unroll 1
-  for (int k = M - 1; k >= 0; --k) {
-    auto A = lane(Abar, NX * NX, k, B, b);
-    auto Bm = lane(Bbar, NX * NUC, k, B, b);
-    auto Kk = lane(K, NUC * NX, k, B, b);
-    auto Pck = lane(Pc, NX, k, B, b);
-    auto r = lane(ru, NUC, k, B, b);
-    T m[NX], Qu[NUC], kf[NUC], Lp[NLC];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) m[i] = p[i] + Pck[i];
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) {
-      T s = Bm[a] * m[0];
-#pragma unroll
-      for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
-      Qu[a] = r[a] + s;
-      kf[a] = Qu[a];
-    }
-    auto Lk = lane(L, NLC, k, B, b);
-#pragma unroll
-    for (int t = 0; t < NLC; ++t) Lp[t] = Lk[t];
-    cho_solve<T, NUC>(Lp, kf);
-    auto duk = lane(du, NUC, k, B, b);
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) duk[a] = -kf[a];
-    auto q = lane(qx, NX, k, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T s = A[i] * m[0];
-#pragma unroll
-      for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
-      T t = Kk[i] * Qu[0];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a) t = t + Kk[a * NX + i] * Qu[a];
-      p[i] = q[i] + s + t;
-    }
-  }
-  rollout(Abar, Bbar, cbar, K, dx0, dx, du, M, B, b);
+  vec_sweep<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, du, M, B, b);
+  rollout<T>(Abar, Bbar, cbar, K, du, dx0, dx, du, M, B, b);
+}
+
+// The split forms: the backward factorization, the vector pass and the
+// rollout, each its own launch; gains travel through device memory.
+template <typename T>
+__global__ void __launch_bounds__(64)
+bwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+              const T* __restrict__ cbar, const T* __restrict__ Qbar,
+              const T* __restrict__ S1T, const T* __restrict__ R00,
+              const T* __restrict__ qx, const T* __restrict__ ruu,
+              const T* __restrict__ ru, const T* __restrict__ pT,
+              const T* __restrict__ pterm, T* __restrict__ K,
+              T* __restrict__ kff, T* __restrict__ L, T* __restrict__ Pc,
+              int M, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  factor_sweep<T>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm,
+                  K, kff, L, Pc, M, B, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(64)
+bwd_vec_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+                  const T* __restrict__ qx, const T* __restrict__ ru,
+                  const T* __restrict__ K, const T* __restrict__ L,
+                  const T* __restrict__ Pc, const T* __restrict__ pterm,
+                  T* __restrict__ kff, int M, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  vec_sweep<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(64)
+fwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+              const T* __restrict__ cbar, const T* __restrict__ K,
+              const T* __restrict__ kff, const T* __restrict__ dx0,
+              T* __restrict__ dx, T* __restrict__ du, int M, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  rollout<T>(Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B, b);
 }
 
 // dx_odd[k] = Ae[k] dx_even[k] + Be[k] du0[k] + c[2k]
@@ -412,61 +322,66 @@ expand2_kernel(const T* __restrict__ Ae, const T* __restrict__ Be,
   }
 }
 
-template <typename T>
-int launch_kkt(const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,
-               const T* S1T, const T* R00, const T* qx, const T* ruu,
-               const T* ru, const T* pT, const T* pterm, const T* dx0, T* K,
-               T* kff, T* L, T* Pc, T* dx, T* du, int M, int B,
-               void* stream) {
-  kkt_sweep_c2_kernel<T><<<(B + 63) / 64, 64, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K, kff,
-      L, Pc, dx, du, M, B);
-  return static_cast<int>(cudaGetLastError());
+inline cudaStream_t as_stream(void* s) {
+  return static_cast<cudaStream_t>(s);
 }
 
-template <typename T>
-int launch_corr(const T* Abar, const T* Bbar, const T* cbar, const T* qx,
-                const T* ru, const T* K, const T* L, const T* Pc,
-                const T* pterm, const T* dx0, T* dx, T* du, int M, int B,
-                void* stream) {
-  corrector_sweep_c2_kernel<T><<<(B + 63) / 64, 64, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0, dx, du, M, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_expand(const T* Ae, const T* Be, const T* c, const T* dxe,
-                  const T* du0, T* dxo, int M, int B, void* stream) {
-  const dim3 grid((B + 127) / 128, M);
-  expand2_kernel<T><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      Ae, Be, c, dxe, du0, dxo, B);
-  return static_cast<int>(cudaGetLastError());
-}
+inline int lanes_grid(int B) { return (B + 63) / 64; }
 
 }  // namespace
 
-#define C2_ENTRIES(SUFFIX, T)                                                \
-  extern "C" int kkt_sweep_c2_##SUFFIX(                                      \
-      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,            \
-      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,    \
-      const T* pT, const T* pterm, const T* dx0, T* K, T* kff, T* L, T* Pc,  \
-      T* dx, T* du, int M, int B, void* stream) {                            \
-    return launch_kkt<T>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT,  \
-                         pterm, dx0, K, kff, L, Pc, dx, du, M, B, stream);   \
-  }                                                                          \
-  extern "C" int corrector_sweep_c2_##SUFFIX(                                \
-      const T* Abar, const T* Bbar, const T* cbar, const T* qx, const T* ru, \
-      const T* K, const T* L, const T* Pc, const T* pterm, const T* dx0,     \
-      T* dx, T* du, int M, int B, void* stream) {                            \
-    return launch_corr<T>(Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0,    \
-                          dx, du, M, B, stream);                             \
-  }                                                                          \
-  extern "C" int expand2_##SUFFIX(const T* Ae, const T* Be, const T* c,      \
-                                  const T* dxe, const T* du0, T* dxo, int M, \
-                                  int B, void* stream) {                     \
-    return launch_expand<T>(Ae, Be, c, dxe, du0, dxo, M, B, stream);         \
+#define C2_ENTRIES(SUFFIX, T)                                                 \
+  extern "C" int kkt_sweep_c2_##SUFFIX(                                       \
+      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
+      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
+      const T* pT, const T* pterm, const T* dx0, T* K, T* kff, T* L, T* Pc,   \
+      T* dx, T* du, int M, int B, void* stream) {                             \
+    kkt_sweep_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(      \
+        Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K,     \
+        kff, L, Pc, dx, du, M, B);                                            \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int corrector_sweep_c2_##SUFFIX(                                 \
+      const T* Abar, const T* Bbar, const T* cbar, const T* qx, const T* ru,  \
+      const T* K, const T* L, const T* Pc, const T* pterm, const T* dx0,      \
+      T* dx, T* du, int M, int B, void* stream) {                             \
+    corrector_sweep_c2_kernel<T><<<lanes_grid(B), 64, 0,                      \
+                                   as_stream(stream)>>>(                      \
+        Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0, dx, du, M, B);        \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int bwd_c2_##SUFFIX(                                             \
+      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
+      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
+      const T* pT, const T* pterm, T* K, T* kff, T* L, T* Pc, int M, int B,   \
+      void* stream) {                                                         \
+    bwd_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(            \
+        Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, K, kff, L,  \
+        Pc, M, B);                                                            \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int bwd_vec_c2_##SUFFIX(                                         \
+      const T* Abar, const T* Bbar, const T* qx, const T* ru, const T* K,     \
+      const T* L, const T* Pc, const T* pterm, T* kff, int M, int B,          \
+      void* stream) {                                                         \
+    bwd_vec_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(        \
+        Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B);                      \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int fwd_c2_##SUFFIX(const T* Abar, const T* Bbar,                \
+                                 const T* cbar, const T* K, const T* kff,     \
+                                 const T* dx0, T* dx, T* du, int M, int B,    \
+                                 void* stream) {                              \
+    fwd_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(            \
+        Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B);                         \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int expand2_##SUFFIX(const T* Ae, const T* Be, const T* c,       \
+                                  const T* dxe, const T* du0, T* dxo, int M,  \
+                                  int B, void* stream) {                      \
+    expand2_kernel<T><<<dim3((B + 127) / 128, M), 128, 0,                     \
+                        as_stream(stream)>>>(Ae, Be, c, dxe, du0, dxo, B);    \
+    return static_cast<int>(cudaGetLastError());                              \
   }
 
 C2_ENTRIES(f32, float)

@@ -2,14 +2,20 @@
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (`wrapper.launches`), incremented only where it launches the kernel; a CPU
-tensor takes the plain version and counts nothing.
+tensor takes the plain version and counts nothing.  The split sweeps
+`kkt_sweep_c2_win` / `corrector_sweep_c2_win` are two launches each, of
+`bwd_c2` / `bwd_vec_c2` and then `fwd_c2`, counted on those kernels.
 """
 
 from __future__ import annotations
 
 from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
+    bwd_c2,
+    bwd_vec_c2,
     corrector_sweep_c2,
     expand2,
+    fwd_c2,
+    iter_sweep_c2,
     kkt_sweep_c2,
 )
 from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import prep_condense2
@@ -19,6 +25,10 @@ KERNELS = {
     "kkt_sweep_c2": kkt_sweep_c2,
     "corrector_sweep_c2": corrector_sweep_c2,
     "expand2": expand2,
+    "bwd_c2": bwd_c2,
+    "fwd_c2": fwd_c2,
+    "bwd_vec_c2": bwd_vec_c2,
+    "iter_sweep_c2": iter_sweep_c2,
 }
 
 

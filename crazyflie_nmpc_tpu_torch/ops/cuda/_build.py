@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("prep_condense2.cu", "condensed_c2.cu")
-HEADERS = ("batch_last.cuh",)
+SOURCES = ("prep_condense2.cu", "condensed_c2.cu", "iter_c2.cu")
+HEADERS = ("batch_last.cuh", "c2_stage.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,9 +121,10 @@ def check(name: str, tensors: dict, shapes: dict, dtype, device) -> None:
             raise ValueError(f"{name}: {key} exceeds 32-bit indexing")
 
 
-def launch(source: str, symbol: str, ptrs, ints) -> None:
-    """Call `int symbol(void* ptrs..., int ints..., stream)` on the current
-    stream (no synchronize); raise on a non-zero cudaGetLastError()."""
+def launch(source: str, symbol: str, ptrs, ints, floats=()) -> None:
+    """Call `int symbol(void* ptrs..., double floats..., int ints...,
+    stream)` on the current stream (no synchronize); raise on a non-zero
+    cudaGetLastError()."""
     import torch
 
     if not all(t.is_cuda for t in ptrs):
@@ -131,9 +132,10 @@ def launch(source: str, symbol: str, ptrs, ints) -> None:
     lib = load(source)
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_double] * len(floats)
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(*[t.data_ptr() for t in ptrs], *ints,
+    err = fn(*[t.data_ptr() for t in ptrs], *floats, *ints,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         lib.cuda_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,13 @@
-"""Sweeps of the block-2 condensed QP (K2, K3) and the expansion (K4).
+"""Sweeps of the block-2 condensed QP and the expansion.
 
 Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
-`kkt_sweep_c2`, `corrector_sweep_c2` and `expand2` (its `even_only=True`
-form, fed by `prep_condense2`).  Each wrapper launches its kernel in
-`csrc/condensed_c2.cu` for CUDA tensors and runs its `*_ref` plain
-PyTorch version for CPU tensors.
+`kkt_sweep_c2` (K2), `corrector_sweep_c2` (K3), `expand2` (K4, its
+`even_only=True` form, fed by `prep_condense2`), the split long-horizon
+sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the kernels
+`bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra iteration
+`iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
+`csrc/condensed_c2.cu` or `csrc/iter_c2.cu` for CUDA tensors and runs its
+`*_ref` plain PyTorch version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -22,6 +25,9 @@ NU = 4
 NUC = 2 * NU
 NLC = NUC * (NUC + 1) // 2
 _SOURCE = "condensed_c2.cu"
+_ITER_SOURCE = "iter_c2.cu"
+# fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
+_BIG = 3.4e38
 
 
 # --- small batch-last algebra on (n, m, B) tiles ---------------------------
@@ -89,7 +95,11 @@ def _cho_solve_n(L, Y, n):
     return _cho_solve_n_vec(L[:, None, :], Y, n)
 
 
-def _rollout_ref(Abar, Bbar, cbar, K, kff, dx0):
+# --- plain PyTorch versions ----------------------------------------------
+
+def fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0):
+    """Plain PyTorch `_fwd_c2_kernel`: the rollout du_k = K_k dx_k + kff_k,
+    dx_{k+1} = A dx + B du + c.  Returns (dx (M+1,13,B), du (M,8,B))."""
     M = Abar.shape[0]
     dx, du = [], []
     x = dx0
@@ -102,11 +112,10 @@ def _rollout_ref(Abar, Bbar, cbar, K, kff, dx0):
     return torch.stack(dx).contiguous(), torch.stack(du).contiguous()
 
 
-# --- plain PyTorch versions ----------------------------------------------
-
-def kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru,
-                     pT, p_term, dx0):
-    """Plain PyTorch `kkt_sweep_c2` (stage loop in Python)."""
+def bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
+               p_term):
+    """Plain PyTorch `_bwd_c2_kernel`: the backward factorization.
+    Returns (K (M,8,13,B), kff (M,8,B), L (M,36,B), Pc (M,13,B))."""
     M, _, _, B = Abar.shape
     eye = torch.eye(NX, dtype=Abar.dtype, device=Abar.device)[:, :, None]
     eye8 = torch.eye(NUC, dtype=Abar.dtype, device=Abar.device)[:, :, None]
@@ -132,14 +141,12 @@ def kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru,
         P = 0.5 * (P_new + P_new.transpose(0, 1))
         p = qx[k] + _mtv(A, m) + _mtv(K, Qu)
         Ks[k], kffs[k], Ls[k], Pcs[k] = K, kff, L, Pc
-    K, kff = torch.stack(Ks).contiguous(), torch.stack(kffs).contiguous()
-    dx, du = _rollout_ref(Abar, Bbar, cbar, K, kff, dx0)
-    return (K, kff, torch.stack(Ls).contiguous(),
-            torch.stack(Pcs).contiguous(), dx, du)
+    return tuple(torch.stack(z).contiguous() for z in (Ks, kffs, Ls, Pcs))
 
 
-def corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
-    """Plain PyTorch `corrector_sweep_c2`."""
+def bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term):
+    """Plain PyTorch `_bwd_vec_c2_kernel`: the backward vector pass on the
+    stored factorization.  Returns kff (M,8,B)."""
     M = Abar.shape[0]
     p = p_term
     kffs = [None] * M
@@ -148,7 +155,92 @@ def corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
         Qu = ru[k] + _mtv(Bbar[k], m)
         kffs[k] = -_cho_solve_n_vec(L[k], Qu, NUC)
         p = qx[k] + _mtv(Abar[k], m) + _mtv(K[k], Qu)
-    return _rollout_ref(Abar, Bbar, cbar, K, torch.stack(kffs), dx0)
+    return torch.stack(kffs).contiguous()
+
+
+def kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru,
+                     pT, p_term, dx0):
+    """Plain PyTorch `kkt_sweep_c2` (stage loop in Python)."""
+    K, kff, L, Pc = bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx,
+                               ruu_shift, ru, pT, p_term)
+    return (K, kff, L, Pc) + fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
+
+
+def corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
+    """Plain PyTorch `corrector_sweep_c2`."""
+    kff = bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term)
+    return fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
+
+
+def _min_ratio(pairs):
+    """Per-lane fraction-to-boundary minimum over the (M, 8) entries of
+    every (v, dv) pair: -v/dv where dv < 0, else BIG."""
+    ratio = None
+    for v, dv in pairs:
+        r = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), _BIG)
+        ratio = r if ratio is None else torch.minimum(ratio, r)
+    return torch.amin(ratio, dim=(0, 1))
+
+
+def iter_sweep_c2_ref(Abar, Bbar, c_res, Qbar, S1T, R00, qx, ruu, r1u,
+                      s_l, s_u, lam_l, lam_u, r3, r4, m_l, m_u, z_dx, z_du,
+                      pT, r1x_T, dx0_res, z_dxT, n_ineq, has_ineq,
+                      tau: float):
+    """Plain PyTorch `_iter_c2_kernel`: one Mehrotra iteration, written
+    from the Pallas kernel's phases (the recursions are the stage loops
+    above, the barrier algebra is elementwise over the horizon).  Pure:
+    returns the 16 outputs of `iter_sweep_c2` as new tensors."""
+    finfo = torch.finfo(c_res.dtype)
+    mu_floor = 100.0 * finfo.eps ** 2
+    n = n_ineq[0]
+
+    # phase 0: barrier shift, affine right-hand side, factorization
+    r5l, r5u = lam_l * s_l, lam_u * s_u
+    S0 = (r5l + r5u).sum(dim=(0, 1))
+    ruu_shift = ruu + lam_l / s_l + lam_u / s_u
+    rt1u = r1u + (r5l + lam_l * r3) / s_l - (r5u + lam_u * r4) / s_u
+    K, kff, L, Pc = bwd_c2_ref(Abar, Bbar, c_res, Qbar, S1T, R00, qx,
+                               ruu_shift, rt1u, pT, r1x_T)
+    # phase 1: affine rollout, directions, mu_aff sums -> sigma mu
+    _, du_a = fwd_c2_ref(Abar, Bbar, c_res, K, kff, dx0_res)
+    ds_l = m_l * (du_a + r3)
+    ds_u = m_u * (r4 - du_a)
+    dl_l = -(lam_l * s_l + lam_l * ds_l) / s_l
+    dl_u = -(lam_u * s_u + lam_u * ds_u) / s_u
+    S1 = (lam_l * ds_l + s_l * dl_l + lam_u * ds_u + s_u * dl_u).sum(
+        dim=(0, 1))
+    S2 = (dl_l * ds_l + dl_u * ds_u).sum(dim=(0, 1))
+    a = torch.clamp(_min_ratio(((s_l, ds_l), (s_u, ds_u), (lam_l, dl_l),
+                                (lam_u, dl_u))), max=1.0)
+    mu = S0 / n
+    mu_aff = (S0 + a * S1 + a * a * S2) / n
+    sig = mu_aff / torch.clamp(mu, min=finfo.tiny)
+    sigmu = torch.clamp(sig * sig * sig, 0.0, 1.0) * mu
+    # phase 2: corrected right-hand side, vector pass
+    r5c_l = r5l - sigmu + ds_l * dl_l
+    r5c_u = r5u - sigmu + ds_u * dl_u
+    rt1u_c = (r1u + m_l * (r5c_l + lam_l * r3) / s_l
+              - m_u * (r5c_u + lam_u * r4) / s_u)
+    kff_c = bwd_vec_c2_ref(Abar, Bbar, qx, rt1u_c, K, L, Pc, r1x_T)
+    # phase 3: corrector rollout, directions, step length
+    ddx, du = fwd_c2_ref(Abar, Bbar, c_res, K, kff_c, dx0_res)
+    ds_l = m_l * (du + r3)
+    ds_u = m_u * (r4 - du)
+    dl_l = -m_l * (r5c_l + lam_l * ds_l) / s_l
+    dl_u = -m_u * (r5c_u + lam_u * ds_u) / s_u
+    alpha = torch.clamp(tau * _min_ratio(((s_l, ds_l), (s_u, ds_u),
+                                          (lam_l, dl_l), (lam_u, dl_u))),
+                        max=1.0)
+    alpha = torch.where((has_ineq[0] > 0) & (mu <= mu_floor), 0.0, alpha)
+    # phase 4: update
+    shrink = 1.0 - alpha
+    return (z_dx + alpha * ddx[:-1], z_du + alpha * du,
+            s_l + alpha * ds_l, s_u + alpha * ds_u,
+            lam_l + alpha * dl_l, lam_u + alpha * dl_u,
+            shrink * qx, shrink * r1u, shrink * c_res,
+            shrink * r3, shrink * r4,
+            shrink * r1x_T, shrink * dx0_res, z_dxT + alpha * ddx[-1],
+            alpha[None], mu[None])
 
 
 def expand2_ref(Ae, Be, c, dx_even, du0):
@@ -163,6 +255,42 @@ def _sfx(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
 
+def _shapes(M, B):
+    """The expected shape of every named kernel argument at (M, B)."""
+    s8, s13, t13 = (M, NUC, B), (M, NX, B), (NX, B)
+    return dict(
+        Ae=(M, NX, NX, B), Be=(M, NX, NU, B), c=(2 * M, NX, B),
+        dx_even=s13, du0=(M, NU, B),
+        Abar=(M, NX, NX, B), Bbar=(M, NX, NUC, B), Qbar=(M, NX, NX, B),
+        S1T=(M, NU, NX, B), R00=(M, NU, NU, B), K=(M, NUC, NX, B),
+        L=(M, NLC, B), K_all=(M, NUC, NX, B), L_all=(M, NLC, B),
+        n_ineq=(1, B), has_ineq=(1, B),
+        **dict.fromkeys(("cbar", "c_res", "qx", "Pc", "z_dx", "Pc_all",
+                         "ddx_all"), s13),
+        **dict.fromkeys(("ruu_shift", "ruu", "ru", "r1u", "kff", "s_l",
+                         "s_u", "lam_l", "lam_u", "r3", "r4", "m_l", "m_u",
+                         "z_du", "kff_all", "dua_all", "du_all"), s8),
+        **dict.fromkeys(("pT", "p_term", "dx0", "r1x_T", "dx0_res",
+                         "z_dxT"), t13))
+
+
+def _launch(wrapper, source, ins, outs, floats=()):
+    """Check `ins` (named as in `_shapes`; the first is (M, ..., B)),
+    launch `wrapper`'s kernel on them and `outs`, and count the launch on
+    `wrapper`."""
+    first = next(iter(ins.values()))
+    M, B = first.shape[0], first.shape[-1]
+    _build.check(wrapper.__name__, ins, _shapes(M, B), first.dtype,
+                 first.device)
+    _build.launch(source, f"{wrapper.__name__}_{_sfx(first.dtype)}",
+                  list(ins.values()) + list(outs), [M, B], floats)
+    wrapper.launches += 1
+
+
+def _empty(like, *shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
                  p_term, dx0):
     """Dense-cost Riccati factorization + forward rollout over the condensed
@@ -172,22 +300,13 @@ def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
     if Abar.device.type == "cpu":
         return kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx,
                                 ruu_shift, ru, pT, p_term, dx0)
-    M, _, _, B = Abar.shape
-    dev, dt = Abar.device, Abar.dtype
-    ins = dict(Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00,
-               qx=qx, ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term,
-               dx0=dx0)
-    _build.check("kkt_sweep_c2", ins, dict(
-        Abar=(M, NX, NX, B), Bbar=(M, NX, NUC, B), cbar=(M, NX, B),
-        Qbar=(M, NX, NX, B), S1T=(M, NU, NX, B), R00=(M, NU, NU, B),
-        qx=(M, NX, B), ruu_shift=(M, NUC, B), ru=(M, NUC, B), pT=(NX, B),
-        p_term=(NX, B), dx0=(NX, B)), dt, dev)
-    new = lambda *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
-    outs = (new(M, NUC, NX, B), new(M, NUC, B), new(M, NLC, B),
-            new(M, NX, B), new(M + 1, NX, B), new(M, NUC, B))
-    _build.launch(_SOURCE, f"kkt_sweep_c2_{_sfx(dt)}",
-                  list(ins.values()) + list(outs), [M, B])
-    kkt_sweep_c2.launches += 1
+    M, B = Abar.shape[0], Abar.shape[-1]
+    outs = (_empty(Abar, M, NUC, NX, B), _empty(Abar, M, NUC, B),
+            _empty(Abar, M, NLC, B), _empty(Abar, M, NX, B),
+            _empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
+    _launch(kkt_sweep_c2, _SOURCE, dict(
+        Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00, qx=qx,
+        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term, dx0=dx0), outs)
     return outs
 
 
@@ -197,20 +316,126 @@ def corrector_sweep_c2(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
     if Abar.device.type == "cpu":
         return corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc,
                                       p_term, dx0)
-    M, _, _, B = Abar.shape
-    dev, dt = Abar.device, Abar.dtype
-    ins = dict(Abar=Abar, Bbar=Bbar, cbar=cbar, qx=qx, ru=ru, K=K, L=L,
-               Pc=Pc, p_term=p_term, dx0=dx0)
-    _build.check("corrector_sweep_c2", ins, dict(
-        Abar=(M, NX, NX, B), Bbar=(M, NX, NUC, B), cbar=(M, NX, B),
-        qx=(M, NX, B), ru=(M, NUC, B), K=(M, NUC, NX, B), L=(M, NLC, B),
-        Pc=(M, NX, B), p_term=(NX, B), dx0=(NX, B)), dt, dev)
-    dx = torch.empty((M + 1, NX, B), dtype=dt, device=dev)
-    du = torch.empty((M, NUC, B), dtype=dt, device=dev)
-    _build.launch(_SOURCE, f"corrector_sweep_c2_{_sfx(dt)}",
-                  list(ins.values()) + [dx, du], [M, B])
-    corrector_sweep_c2.launches += 1
-    return dx, du
+    M, B = Abar.shape[0], Abar.shape[-1]
+    outs = (_empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
+    _launch(corrector_sweep_c2, _SOURCE, dict(
+        Abar=Abar, Bbar=Bbar, cbar=cbar, qx=qx, ru=ru, K=K, L=L, Pc=Pc,
+        p_term=p_term, dx0=dx0), outs)
+    return outs
+
+
+def bwd_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
+           p_term):
+    """The backward factorization of `kkt_sweep_c2` alone.  Returns (K, kff,
+    L, Pc)."""
+    if Abar.device.type == "cpu":
+        return bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift,
+                          ru, pT, p_term)
+    M, B = Abar.shape[0], Abar.shape[-1]
+    outs = (_empty(Abar, M, NUC, NX, B), _empty(Abar, M, NUC, B),
+            _empty(Abar, M, NLC, B), _empty(Abar, M, NX, B))
+    _launch(bwd_c2, _SOURCE, dict(
+        Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00, qx=qx,
+        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term), outs)
+    return outs
+
+
+def bwd_vec_c2(Abar, Bbar, qx, ru, K, L, Pc, p_term):
+    """The backward vector pass of `corrector_sweep_c2` alone.  Returns
+    kff (M,8,B)."""
+    if Abar.device.type == "cpu":
+        return bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term)
+    M, B = Abar.shape[0], Abar.shape[-1]
+    kff = _empty(Abar, M, NUC, B)
+    _launch(bwd_vec_c2, _SOURCE, dict(
+        Abar=Abar, Bbar=Bbar, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term),
+        (kff,))
+    return kff
+
+
+def fwd_c2(Abar, Bbar, cbar, K, kff, dx0):
+    """The forward rollout from stored gains (K, kff).  Returns
+    (dx (M+1,13,B), du (M,8,B))."""
+    if Abar.device.type == "cpu":
+        return fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
+    M, B = Abar.shape[0], Abar.shape[-1]
+    outs = (_empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
+    _launch(fwd_c2, _SOURCE, dict(Abar=Abar, Bbar=Bbar, cbar=cbar, K=K,
+                                  kff=kff, dx0=dx0), outs)
+    return outs
+
+
+def kkt_sweep_c2_win(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru,
+                     pT, p_term, dx0):
+    """`kkt_sweep_c2` as two launches, `bwd_c2` then `fwd_c2`, the gains
+    through device memory (the JAX package's windowed long-horizon form).
+    Same arguments and outputs."""
+    K, kff, L, Pc = bwd_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift,
+                           ru, pT, p_term)
+    return (K, kff, L, Pc) + tuple(fwd_c2(Abar, Bbar, cbar, K, kff, dx0))
+
+
+def corrector_sweep_c2_win(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term,
+                           dx0):
+    """`corrector_sweep_c2` as two launches, `bwd_vec_c2` then `fwd_c2`.
+    Same arguments and outputs."""
+    kff = bwd_vec_c2(Abar, Bbar, qx, ru, K, L, Pc, p_term)
+    return fwd_c2(Abar, Bbar, cbar, K, kff, dx0)
+
+
+# outputs 0..13 of iter_sweep_c2 are these inputs, updated in place
+_ITER_CARRIED = ("z_dx", "z_du", "s_l", "s_u", "lam_l", "lam_u", "qx", "r1u",
+                 "c_res", "r3", "r4", "r1x_T", "dx0_res", "z_dxT")
+
+
+def iter_scratch(M, B, dtype, device):
+    """`iter_sweep_c2`'s device-memory scratch (the Pallas kernel's VMEM
+    K_all, kff_all, L_all, Pc_all, du_aff, du, ddx), allocated once per
+    solve and reused by every iteration."""
+    return dict(K_all=torch.empty((M, NUC, NX, B), dtype=dtype,
+                                  device=device),
+                **{k: torch.empty((M, n, B), dtype=dtype, device=device)
+                   for k, n in (("kff_all", NUC), ("L_all", NLC),
+                                ("Pc_all", NX), ("dua_all", NUC),
+                                ("du_all", NUC), ("ddx_all", NX))})
+
+
+def iter_sweep_c2(Abar, Bbar, c_res, Qbar, S1T, R00, qx, ruu, r1u,
+                  s_l, s_u, lam_l, lam_u, r3, r4, m_l, m_u, z_dx, z_du,
+                  pT, r1x_T, dx0_res, z_dxT, n_ineq, has_ineq, tau: float,
+                  scratch: dict):
+    """One Mehrotra iteration on the condensed problem in one launch.
+
+    Arguments as the JAX package's `iter_sweep_c2`: the condensed QP data,
+    ruu (M,8,B) R̄'s diagonal without the barrier shift, the carried
+    iterate and residuals (z_dx (M,13,B) / z_dxT (13,B), z_du, s/lam,
+    r1u, r3/r4 (M,8,B), the linear terms qx (M,13,B) / r1x_T (13,B), the
+    dynamics residuals c_res (M,13,B) / dx0_res (13,B)), the masks m_l/m_u
+    (1 at a finite bound, else 0, with s=1, lam=r3=r4=0 there), and
+    n_ineq/has_ineq as (1,B) tensors of the working dtype.
+
+    The 14 carried tensors are updated IN PLACE (the Pallas kernel's
+    input_output_aliases); the return value is the JAX package's 16
+    outputs: those 14 tensors, then alpha and mu (1,B).  `scratch` is
+    `iter_scratch(M, B, ...)`, which the caller allocates once per solve
+    (the CPU path does not use it)."""
+    ins = dict(Abar=Abar, Bbar=Bbar, c_res=c_res, Qbar=Qbar, S1T=S1T,
+               R00=R00, qx=qx, ruu=ruu, r1u=r1u, s_l=s_l, s_u=s_u,
+               lam_l=lam_l, lam_u=lam_u, r3=r3, r4=r4, m_l=m_l, m_u=m_u,
+               z_dx=z_dx, z_du=z_du, pT=pT, r1x_T=r1x_T, dx0_res=dx0_res,
+               z_dxT=z_dxT, n_ineq=n_ineq, has_ineq=has_ineq)
+    carried = tuple(ins[k] for k in _ITER_CARRIED)
+    if Abar.device.type == "cpu":
+        outs = iter_sweep_c2_ref(*ins.values(), tau)
+        for dst, src in zip(carried, outs):
+            dst.copy_(src)
+        return carried + outs[-2:]
+    B = Abar.shape[-1]
+    alpha, mu = _empty(Abar, 1, B), _empty(Abar, 1, B)
+    finfo = torch.finfo(Abar.dtype)
+    _launch(iter_sweep_c2, _ITER_SOURCE, dict(ins, **scratch), (alpha, mu),
+            floats=(tau, 100.0 * finfo.eps ** 2, finfo.tiny))
+    return carried + (alpha, mu)
 
 
 def expand2(Ae, Be, c, dx_even, du0):
@@ -219,19 +444,13 @@ def expand2(Ae, Be, c, dx_even, du0):
     and c the full-horizon defect (N,13,B).  Returns (M,13,B)."""
     if Ae.device.type == "cpu":
         return expand2_ref(Ae, Be, c, dx_even, du0)
-    M, _, _, B = Ae.shape
-    dev, dt = Ae.device, Ae.dtype
-    ins = dict(Ae=Ae, Be=Be, c=c, dx_even=dx_even, du0=du0)
-    _build.check("expand2", ins, dict(
-        Ae=(M, NX, NX, B), Be=(M, NX, NU, B), c=(2 * M, NX, B),
-        dx_even=(M, NX, B), du0=(M, NU, B)), dt, dev)
-    out = torch.empty((M, NX, B), dtype=dt, device=dev)
-    _build.launch(_SOURCE, f"expand2_{_sfx(dt)}",
-                  list(ins.values()) + [out], [M, B])
-    expand2.launches += 1
+    out = _empty(Ae, Ae.shape[0], NX, Ae.shape[-1])
+    _launch(expand2, _SOURCE, dict(Ae=Ae, Be=Be, c=c, dx_even=dx_even,
+                                   du0=du0), (out,))
     return out
 
 
-kkt_sweep_c2.launches = 0
-corrector_sweep_c2.launches = 0
-expand2.launches = 0
+for _fn in (kkt_sweep_c2, corrector_sweep_c2, bwd_c2, bwd_vec_c2, fwd_c2,
+            iter_sweep_c2, expand2):
+    _fn.launches = 0
+del _fn

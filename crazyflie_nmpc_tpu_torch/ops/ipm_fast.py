@@ -5,8 +5,11 @@ batched RTI step runs: block-2 partial condensing with the QP data
 precondensed by `prep_condense2` (the "c2*" keys).  Mehrotra
 predictor-corrector with exact (1 - alpha) affine-residual tracking; per
 iteration one `kkt_sweep_c2` and one `corrector_sweep_c2` launch, with the
-elementwise barrier algebra between them in plain PyTorch on the card.
-The expansion `expand2` recovers the eliminated states once per solve.
+elementwise barrier algebra between them in plain PyTorch on the card
+(`windowed=True`: each sweep as its two split launches;
+`fused_iter=True`: the whole iteration, barrier algebra included, in one
+`iter_sweep_c2` launch).  The expansion `expand2` recovers the eliminated
+states once per solve.
 
 All (B,) problems run in lockstep with per-lane step lengths; infinite
 bounds are masked.  Per-lane escalation re-solves the worst unconverged
@@ -41,13 +44,15 @@ def _not_ported(what: str):
 
 def check_supported(config: IPMConfig, condense: int, windowed,
                     fused_iter) -> None:
-    """Raise NotImplementedError for the options not ported yet."""
+    """Raise NotImplementedError for the options not ported yet, and
+    ValueError for fused_iter=True with windowed=True (as the JAX package
+    does: the one-launch iteration has no split form)."""
     if condense != 2:
         raise _not_ported("condense=1 / odd N (the uncondensed sweeps)")
-    if windowed:
-        raise _not_ported("windowed=True (the HBM-windowed c2 sweeps)")
-    if fused_iter:
-        raise _not_ported("fused_iter=True (the one-launch iteration)")
+    if fused_iter and windowed:
+        raise ValueError("fused_iter=True requires the fused c2 sweeps; "
+                         "windowed=True selects the split ones (use "
+                         "fused_iter=False)")
     if config.gondzio_correctors > 0:
         raise _not_ported("gondzio_correctors > 0")
     if config.compress_gains or config.compress_ab:
@@ -78,15 +83,30 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     Whether any lane is unconverged is one host sync per call
     (`bool(bad.any())`); converged batches then skip the re-solve.
     stats gains `escalated` (number of re-solved lanes) and
-    `escalated_lanes` ((B,) bool, the lanes that were re-solved).
+    `escalated_lanes` ((B,) bool, the lanes that were re-solved).  The
+    escalation re-solve runs the two-launch iteration (with `windowed`),
+    never `fused_iter`, as in the JAX package.
+
+    windowed: True runs each sweep as its split launches (`bwd_c2` +
+    `fwd_c2`, `bwd_vec_c2` + `fwd_c2`: the JAX package's long-horizon
+    form).  None or False run the fused `kkt_sweep_c2`/`corrector_sweep_c2`
+    at every horizon: their gains live in device memory, so they have no
+    VMEM-sized envelope to outgrow, and the JAX package's auto rule (the
+    TPU's VMEM clamps) does not apply.  stats gains `c2_windowed` (0/1)
+    and, as in the JAX package, `c2_compress_gains`/`c2_compress_ab` (0).
+
+    fused_iter: True runs each Mehrotra iteration as one `iter_sweep_c2`
+    launch; False (default) the two sweeps with the barrier algebra
+    between them.
     """
     check_supported(config, condense, windowed, fused_iter)
-    return solve_checked(qp, config)
+    return solve_checked(qp, config, windowed, fused_iter)
 
 
-def solve_checked(qp: dict, config: IPMConfig) -> BatchSolution:
+def solve_checked(qp: dict, config: IPMConfig, windowed: bool | None = None,
+                  fused_iter: bool = False) -> BatchSolution:
     """`solve_batched` for a caller that has run `check_supported`."""
-    sol = _solve_core(qp, config)
+    sol = _solve_core(qp, config, windowed, fused_iter)
     cap = config.escalate_capacity
     if config.escalate_iters <= 0 or cap <= 0:
         return sol
@@ -109,7 +129,7 @@ def solve_checked(qp: dict, config: IPMConfig) -> BatchSolution:
     idx = torch.topk(masked, cap).indices          # distinct lane indices
     valid = bad[idx]                               # (cap,)
     sub = _solve_core({k: v.index_select(-1, idx) for k, v in qp.items()},
-                      esc_cfg)
+                      esc_cfg, windowed)
 
     def scat(full, part):
         # in place on this call's own outputs: lanes `idx` take the
@@ -126,7 +146,8 @@ def solve_checked(qp: dict, config: IPMConfig) -> BatchSolution:
                          lam_u=scat(sol.lam_u, sub.lam_u), stats=stats)
 
 
-def _solve_core(qp: dict, config: IPMConfig) -> BatchSolution:
+def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
+                fused_iter: bool = False) -> BatchSolution:
     c = qp["c"]
     ruu = qp["ruu"]
     pT_diag, p_T = qp["pT"], qp["p"]
@@ -172,91 +193,115 @@ def _solve_core(qp: dict, config: IPMConfig) -> BatchSolution:
     r3 = torch.where(finite_l, -lb - s_l, 0.0)
     r4 = torch.where(finite_u, ub - s_u, 0.0)
 
-    # mu_floor = 100 eps^2 and tiny, both rounded to the working dtype
-    finfo = torch.finfo(dtype)
-    mu_floor = float(100.0 * torch.tensor(finfo.eps, dtype=dtype) ** 2)
-    tiny = torch.full((), finfo.tiny, dtype=dtype, device=c.device)
-
     def compl(a, b):
         return ((a[0] * b[0] * finite_l).sum(dim=(0, 1))
                 + (a[1] * b[1] * finite_u).sum(dim=(0, 1))) / n_ineq
 
-    for _ in range(config.iters):
-        mu = compl((lam_l, lam_u), (s_l, s_u))
-        sig_l = torch.where(finite_l, lam_l / s_l, 0.0)
-        sig_u = torch.where(finite_u, lam_u / s_u, 0.0)
-        ruu_shift = ruu + sig_l + sig_u                    # (N, nu, B)
+    if fused_iter:
+        # one launch per iteration (the JAX package's `iteration2`); the
+        # kernel updates its carries in place, and they are views of
+        # z_dx, r1x and cd, so nothing is reassembled afterwards
+        cd = -r2                                # rows dx0_res, c_res
+        m_l, m_u = finite_l.to(dtype), finite_u.to(dtype)
+        nin, has = n_ineq.to(dtype)[None], has_ineq.to(dtype)[None]
+        scratch = ck.iter_scratch(N, B, dtype, c.device)
+        for _ in range(config.iters):
+            ck.iter_sweep_c2(
+                Abar, Bbar, cd[1:], Qbar, S1T, R00, r1x[:-1], ruu, r1u,
+                s_l, s_u, lam_l, lam_u, r3, r4, m_l, m_u, z_dx[:-1], z_du,
+                pT_diag, r1x[-1], cd[0], z_dx[-1], nin, has, config.tau,
+                scratch=scratch)
+        r2 = -cd
+    else:
+        kkt, corr = ((ck.kkt_sweep_c2_win, ck.corrector_sweep_c2_win)
+                     if windowed else
+                     (ck.kkt_sweep_c2, ck.corrector_sweep_c2))
+        # mu_floor = 100 eps^2 and tiny, both rounded to the working dtype
+        finfo = torch.finfo(dtype)
+        mu_floor = float(100.0 * torch.tensor(finfo.eps, dtype=dtype) ** 2)
+        tiny = torch.full((), finfo.tiny, dtype=dtype, device=c.device)
+        for _ in range(config.iters):
+            mu = compl((lam_l, lam_u), (s_l, s_u))
+            sig_l = torch.where(finite_l, lam_l / s_l, 0.0)
+            sig_u = torch.where(finite_u, lam_u / s_u, 0.0)
+            ruu_shift = ruu + sig_l + sig_u                    # (N, nu, B)
 
-        r5l = lam_l * s_l
-        r5u = lam_u * s_u
-        rt1u = (r1u + torch.where(finite_l, (r5l + lam_l * r3) / s_l, 0.0)
-                - torch.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
+            r5l = lam_l * s_l
+            r5u = lam_u * s_u
+            rt1u = (r1u + torch.where(finite_l, (r5l + lam_l * r3) / s_l, 0.0)
+                    - torch.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
 
-        # predictor: factorization + affine backward + forward rollout
-        c_res = -r2[1:]
-        dx0_res = -r2[0]
-        K, _, L, Pc, ddx_a, ddu_a = ck.kkt_sweep_c2(
-            Abar, Bbar, c_res, Qbar, S1T, R00, r1x[:-1], ruu_shift, rt1u,
-            pT_diag, r1x[-1], dx0_res)
+            # predictor: factorization + affine backward + forward rollout
+            c_res = -r2[1:]
+            dx0_res = -r2[0]
+            K, _, L, Pc, ddx_a, ddu_a = kkt(
+                Abar, Bbar, c_res, Qbar, S1T, R00, r1x[:-1], ruu_shift, rt1u,
+                pT_diag, r1x[-1], dx0_res)
 
-        ds_l_a = torch.where(finite_l, ddu_a + r3, 0.0)
-        ds_u_a = torch.where(finite_u, r4 - ddu_a, 0.0)
-        dlam_l_a = torch.where(finite_l, -(r5l + lam_l * ds_l_a) / s_l, 0.0)
-        dlam_u_a = torch.where(finite_u, -(r5u + lam_u * ds_u_a) / s_u, 0.0)
+            ds_l_a = torch.where(finite_l, ddu_a + r3, 0.0)
+            ds_u_a = torch.where(finite_u, r4 - ddu_a, 0.0)
+            dlam_l_a = torch.where(finite_l,
+                                   -(r5l + lam_l * ds_l_a) / s_l, 0.0)
+            dlam_u_a = torch.where(finite_u,
+                                   -(r5u + lam_u * ds_u_a) / s_u, 0.0)
 
-        one_l = torch.where(finite_l, s_l, 1.0)
-        one_u = torch.where(finite_u, s_u, 1.0)
-        lam1_l = torch.where(finite_l, lam_l, 1.0)
-        lam1_u = torch.where(finite_u, lam_u, 1.0)
-        alpha_aff = torch.minimum(
-            torch.minimum(_max_step_lane(one_l, ds_l_a, 1.0),
-                          _max_step_lane(one_u, ds_u_a, 1.0)),
-            torch.minimum(_max_step_lane(lam1_l, dlam_l_a, 1.0),
-                          _max_step_lane(lam1_u, dlam_u_a, 1.0)))
-        mu_aff = compl((lam_l + alpha_aff * dlam_l_a,
-                        lam_u + alpha_aff * dlam_u_a),
-                       (s_l + alpha_aff * ds_l_a, s_u + alpha_aff * ds_u_a))
-        sigma = torch.clamp((mu_aff / torch.maximum(mu, tiny)) ** 3,
-                            0.0, 1.0)
+            one_l = torch.where(finite_l, s_l, 1.0)
+            one_u = torch.where(finite_u, s_u, 1.0)
+            lam1_l = torch.where(finite_l, lam_l, 1.0)
+            lam1_u = torch.where(finite_u, lam_u, 1.0)
+            alpha_aff = torch.minimum(
+                torch.minimum(_max_step_lane(one_l, ds_l_a, 1.0),
+                              _max_step_lane(one_u, ds_u_a, 1.0)),
+                torch.minimum(_max_step_lane(lam1_l, dlam_l_a, 1.0),
+                              _max_step_lane(lam1_u, dlam_u_a, 1.0)))
+            mu_aff = compl((lam_l + alpha_aff * dlam_l_a,
+                            lam_u + alpha_aff * dlam_u_a),
+                           (s_l + alpha_aff * ds_l_a,
+                            s_u + alpha_aff * ds_u_a))
+            sigma = torch.clamp((mu_aff / torch.maximum(mu, tiny)) ** 3,
+                                0.0, 1.0)
 
-        # corrector: reuse the factorization, new right-hand side
-        r5l_c = r5l - sigma * mu + ds_l_a * dlam_l_a
-        r5u_c = r5u - sigma * mu + ds_u_a * dlam_u_a
-        rt1u_c = (r1u
-                  + torch.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
-                  - torch.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
-        ddx, ddu = ck.corrector_sweep_c2(
-            Abar, Bbar, c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
-            dx0_res)
+            # corrector: reuse the factorization, new right-hand side
+            r5l_c = r5l - sigma * mu + ds_l_a * dlam_l_a
+            r5u_c = r5u - sigma * mu + ds_u_a * dlam_u_a
+            rt1u_c = (r1u
+                      + torch.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
+                      - torch.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
+            ddx, ddu = corr(
+                Abar, Bbar, c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
+                dx0_res)
 
-        ds_l = torch.where(finite_l, ddu + r3, 0.0)
-        ds_u = torch.where(finite_u, r4 - ddu, 0.0)
-        dlam_l = torch.where(finite_l, -(r5l_c + lam_l * ds_l) / s_l, 0.0)
-        dlam_u = torch.where(finite_u, -(r5u_c + lam_u * ds_u) / s_u, 0.0)
+            ds_l = torch.where(finite_l, ddu + r3, 0.0)
+            ds_u = torch.where(finite_u, r4 - ddu, 0.0)
+            dlam_l = torch.where(finite_l, -(r5l_c + lam_l * ds_l) / s_l, 0.0)
+            dlam_u = torch.where(finite_u, -(r5u_c + lam_u * ds_u) / s_u, 0.0)
 
-        alpha = torch.minimum(
-            torch.minimum(_max_step_lane(one_l, ds_l, config.tau),
-                          _max_step_lane(one_u, ds_u, config.tau)),
-            torch.minimum(_max_step_lane(lam1_l, dlam_l, config.tau),
-                          _max_step_lane(lam1_u, dlam_u, config.tau)))
-        alpha = torch.where(has_ineq & (mu <= mu_floor), 0.0, alpha)
+            alpha = torch.minimum(
+                torch.minimum(_max_step_lane(one_l, ds_l, config.tau),
+                              _max_step_lane(one_u, ds_u, config.tau)),
+                torch.minimum(_max_step_lane(lam1_l, dlam_l, config.tau),
+                              _max_step_lane(lam1_u, dlam_u, config.tau)))
+            alpha = torch.where(has_ineq & (mu <= mu_floor), 0.0, alpha)
 
-        z_dx = z_dx + alpha * ddx
-        z_du = z_du + alpha * ddu
-        s_l = torch.where(finite_l, s_l + alpha * ds_l, 1.0)
-        s_u = torch.where(finite_u, s_u + alpha * ds_u, 1.0)
-        lam_l = torch.where(finite_l, lam_l + alpha * dlam_l, 0.0)
-        lam_u = torch.where(finite_u, lam_u + alpha * dlam_u, 0.0)
+            z_dx = z_dx + alpha * ddx
+            z_du = z_du + alpha * ddu
+            s_l = torch.where(finite_l, s_l + alpha * ds_l, 1.0)
+            s_u = torch.where(finite_u, s_u + alpha * ds_u, 1.0)
+            lam_l = torch.where(finite_l, lam_l + alpha * dlam_l, 0.0)
+            lam_u = torch.where(finite_u, lam_u + alpha * dlam_u, 0.0)
 
-        shrink = 1.0 - alpha
-        r1x, r1u, r2 = shrink * r1x, shrink * r1u, shrink * r2
-        r3, r4 = shrink * r3, shrink * r4
+            shrink = 1.0 - alpha
+            r1x, r1u, r2 = shrink * r1x, shrink * r1u, shrink * r2
+            r3, r4 = shrink * r3, shrink * r4
 
     stats = dict(
         mu=compl((lam_l, lam_u), (s_l, s_u)),
         res_stat=torch.maximum(torch.amax(r1x.abs(), dim=(0, 1)),
                                torch.amax(r1u.abs(), dim=(0, 1))),
         res_eq=torch.amax(r2.abs(), dim=(0, 1)),
+        c2_windowed=int(bool(windowed)),
+        c2_compress_gains=0,
+        c2_compress_ab=0,
     )
 
     # expand: interior states were eliminated exactly through their

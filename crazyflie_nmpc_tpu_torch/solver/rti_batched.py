@@ -4,9 +4,11 @@
 Many independent NMPC instances advanced one SQP-RTI iteration per call:
 the preparation is ONE `prep_condense2` launch (ERK4 + exact VDE + QP
 assembly + block-2 condensing), the feedback is `ops.ipm_fast`'s
-Mehrotra solve on the condensed sweeps, the expansion recovers the
-eliminated states.  On CUDA tensors each of the four runs its hand-written
-kernel; on CPU tensors their plain PyTorch versions.
+Mehrotra solve on the condensed sweeps (or, with `fused_iter=True`, one
+`iter_sweep_c2` launch per iteration; with `windowed=True`, the split
+sweep launches), the expansion recovers the eliminated states.  On CUDA
+tensors each kernel is hand-written; on CPU tensors their plain PyTorch
+versions run.
 
 Layouts: batch-first by default (x_traj (B, N+1, nx)); a serving loop that
 chains steps on the card passes `layout="batch_last"` and carries
@@ -122,6 +124,8 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
       x0s: (B, nx).  yref: (N, ny) shared or (B, N, ny) per-problem;
         yref_e (nx,) or (B, nx).
       condense: None selects block-2 condensing (the only form ported).
+      windowed, fused_iter: the sweep forms of `ops.ipm_fast.solve_batched`
+        (split launches; one launch per Mehrotra iteration).
     Returns (RTIState', RTIOutput) in the input's layout (batch_last:
     u0/u1 are (nu,B), plans are stage-major batch-last).
     """
@@ -145,7 +149,7 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
     x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last)
 
     # feedback: batch-last IPM on the condensed sweeps
-    sol = ipm_fast.solve_checked(qp, config)
+    sol = ipm_fast.solve_checked(qp, config, windowed, fused_iter)
 
     x_traj_bl = x_bl + sol.dx
     u_traj_bl = u_bl + sol.du

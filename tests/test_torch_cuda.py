@@ -7,7 +7,9 @@ JAX it runs as
 
 Each kernel is held against its plain version on the card with a ragged
 lane count (37) that exercises the masked edge, and the batched step on
-the card against the same lanes through the plain versions on the CPU.
+the card (the default path, the certified one, fused_iter=True and
+windowed=True) against the same lanes through the plain versions on the
+CPU.
 """
 
 import pytest
@@ -38,20 +40,20 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol):
     kc.reset_launch_counts()
     for name, (kern, ref, args) in chip_smoke.kernel_inputs(
             B, dtype, cuda_device).items():
-        got = chip_smoke.flat(kern(*args))
+        got = chip_smoke.flat(kern(*chip_smoke.fresh(args)))
         want = chip_smoke.flat(ref(*args))
         _, rel = chip_smoke.compare(got, want)
         assert rel <= tol, (name, rel)
         assert kc.launch_counts()[name] >= 1
 
 
-def _step(device, x0s, config, N=10):
+def _step(device, x0s, config, N=10, **opts):
     spec = default_ocp(N=N, dtype=torch.float64, device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = x0s.to(device)
     st = to_batch_last(init_rti(spec, x0s, device=device))
     return rti_step_batched(spec, st, x0s, yref, yref_e, config,
-                            layout="batch_last")[1]
+                            layout="batch_last", **opts)[1]
 
 
 @pytest.mark.cuda
@@ -72,7 +74,37 @@ def test_rti_step_on_card_matches_cpu(cuda_device, config):
                             if config.escalate_capacity else 0)
     assert counts["prep_condense2"] == 1
     assert counts["kkt_sweep_c2"] == counts["corrector_sweep_c2"] == iters
+    _assert_close(card, cpu)
+
+
+def _assert_close(card, cpu):
     for field in ("u0", "x_plan", "u_plan", "kkt_res"):
         got, want = getattr(card, field).cpu(), getattr(cpu, field)
         scale = max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= 1e-8 * scale, field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option, per_iter", [
+    ("fused_iter", dict(iter_sweep_c2=1)),
+    ("windowed", dict(bwd_c2=1, bwd_vec_c2=1, fwd_c2=2)),
+])
+def test_sweep_options_on_card_match_cpu(cuda_device, option, per_iter):
+    """fused_iter=True and windowed=True on the card: their kernels, and
+    no other sweep kernel, launch once per iteration (fwd_c2 twice), and
+    the step matches the CPU's plain versions."""
+    gen = torch.Generator().manual_seed(5)
+    x0s = torch.zeros(B, 13, dtype=torch.float64)
+    x0s[:, 3] = 1.0
+    x0s += 0.05 * torch.randn(B, 13, generator=gen, dtype=torch.float64)
+    x0s[:5, 0] += 1.5
+    config = IPMConfig(iters=8)
+    kc.reset_launch_counts()
+    card = _step(cuda_device, x0s, config, **{option: True})
+    counts = kc.launch_counts()
+    cpu = _step("cpu", x0s, config, **{option: True})
+    want = dict.fromkeys(kc.KERNELS, 0)
+    want.update(prep_condense2=1, expand2=1,
+                **{k: v * config.iters for k, v in per_iter.items()})
+    assert counts == want
+    _assert_close(card, cpu)

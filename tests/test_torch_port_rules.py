@@ -76,10 +76,22 @@ def test_cpu_tensors_take_the_plain_versions(small):
     assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
 
 
+@pytest.mark.parametrize("option", ["windowed", "fused_iter"])
+def test_sweep_options_run_the_plain_versions_on_cpu(small, option):
+    """windowed=True and fused_iter=True run on CPU tensors through the
+    plain versions, escalation included, and launch no kernel."""
+    spec, st, x0s, yref, yref_e = small
+    kc.reset_launch_counts()
+    _, out = rti_step_batched(spec, st, x0s, yref, yref_e,
+                              IPMConfig(iters=3, escalate_iters=2,
+                                        escalate_capacity=2),
+                              **{option: True})
+    assert bool(torch.isfinite(out.u_plan).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(condense=1),
-    dict(windowed=True),
-    dict(fused_iter=True),
     dict(config=IPMConfig(gondzio_correctors=1)),
     dict(config=IPMConfig(compress_gains=True)),
     dict(config=IPMConfig(compress_ab=True)),
