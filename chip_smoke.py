@@ -5,22 +5,29 @@
 
 Builds the port's CUDA kernels from `crazyflie_nmpc_tpu_torch/csrc` (one
 nvcc per source, all started together), holds each against its plain
-PyTorch version at the main path's shapes (N=50, M=25) in float64 and
-float32, and drives three paths of the batched RTI step
-(`rti_step_batched`, IPMConfig(iters=8), batch-last, float32), 20 chained
-steps each, with launch counters proving which kernels ran:
+PyTorch version at the main path's shapes (N=50, M=25; the uncondensed
+preparation and sweeps at N=51 too) in float64 and float32, and drives
+five paths of the batched RTI step (`rti_step_batched`,
+IPMConfig(iters=8), batch-last, float32), 20 chained steps each, with
+launch counters proving which kernels ran:
 
-  [main]       the default path at N=50, B = 1024, 4096 and 8192;
-  [fused_iter] fused_iter=True (one iter_sweep_c2 launch per iteration),
-               N=50, the same batches;
-  [long]       N=400 (tf=6.0), B=4096, windowed=True (the split sweeps)
-               and windowed=None (the fused sweeps).
+  [main]         the default path at N=50, B = 1024, 4096 and 8192;
+  [fused_iter]   fused_iter=True (one iter_sweep_c2 launch per
+                 iteration), N=50, the same batches;
+  [long]         N=400 (tf=6.0), B=4096, windowed=True (the split sweeps)
+                 and windowed=None (the fused sweeps);
+  [uncondensed]  condense=1 (prep_sweep, then kkt_sweep/corrector_sweep)
+                 at N=50, the same batches, and the odd horizon N=51 with
+                 the default condense at B=4096;
+  [unfused_prep] fused_prep_condense=False (prep_sweep, condense2, the
+                 condensed sweeps, the stride-2 expand2), N=50, B=4096.
 
 Each path's step 1 is held against the port's float64 CPU run, and the
 sweeps of [long] against their plain versions at N=400 too.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel with CUDA events at the shapes of the path that runs it,
-and traces a few steps of [main] and [fused_iter] with torch.profiler.
+and traces a few steps of [main], [fused_iter] and [uncondensed] with
+torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -51,9 +58,10 @@ N_REF_LANES = 64      # lanes held against the CPU float64 run
 N_LONG = 400
 B_LONG = 4096
 N_LONG_REF_LANES = 8
+N_ODD = N + 1         # the odd horizon of [uncondensed]
 
-PHASES = ("build", "kernels", "main", "fused_iter", "long", "certified",
-          "timing")
+PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
+          "unfused_prep", "certified", "timing")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s, fp32
 # outside the tensor cores 67 TFLOP/s.
@@ -95,7 +103,24 @@ KERNEL_INFO = {
     "iter_sweep_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/iter_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:1009"),
+    "prep_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/prep_sweep.cu",
+        replaces=_PALLAS + "prep_kernel.py:485"),
+    "condense2": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        replaces=_PALLAS + "condensed_kernels.py:209"),
+    "kkt_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
+        replaces=_PALLAS + "riccati_kernels.py:459"),
+    "corrector_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
+        replaces=_PALLAS + "riccati_kernels.py:584"),
 }
+# the other form of a kernel, checked and timed under its own label: the
+# expansion of the full-horizon A/B (fused_prep_condense=False)
+FORMS = {"expand2 stride 2": "expand2"}
+# the kernels of the uncondensed path, checked at the odd horizon too
+UNCONDENSED_KERNELS = ("prep_sweep", "kkt_sweep", "corrector_sweep")
 # the split sweeps run on the long-horizon path: timed at its shapes
 LONG_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 # the sweeps of that path (windowed=True and None), checked at its N too
@@ -125,18 +150,22 @@ def hover_batch(spec, B, seed):
 
 def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
     """Inputs of every kernel at horizon n (m = n/2 condensed stages): K1's
-    from perturbed hover trajectories; K2's and bwd_c2's from K1's outputs
-    (condensed QP data plus a barrier shift); K3's and bwd_vec_c2's from
-    K2's factorization; fwd_c2's from K2's gains; K4's from both;
-    iter_sweep_c2's from K1's outputs plus seeded slacks, duals, residuals
-    and masks (a share 1 - `finite` of the bounds infinite, with s=1,
-    lam=r3=r4=0 there).  Returns {name: (kernel wrapper, plain version,
-    args)}."""
+    and K7's from perturbed hover trajectories; K2's and bwd_c2's from K1's
+    outputs (condensed QP data plus a barrier shift); K3's and
+    bwd_vec_c2's from K2's factorization; fwd_c2's from K2's gains; K4's
+    from both; iter_sweep_c2's from K1's outputs plus seeded slacks, duals,
+    residuals and masks (a share 1 - `finite` of the bounds infinite, with
+    s=1, lam=r3=r4=0 there); K6's and K8's from K7's outputs (K8's plus a
+    barrier shift, its corrector from its factorization), K4's stride-2
+    form from K7's A/B.  At odd n only K7 and K8 (UNCONDENSED_KERNELS).
+    Returns {label: (kernel wrapper, plain version, args)}, labelled by
+    kernel name or FORMS label."""
     import numpy as np
     import torch
 
     from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
     from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
     from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
                                                  init_rti)
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prep_tiles,
@@ -157,14 +186,30 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
     u = (st.u_traj + 0.3 * r(n, 4, B)).contiguous()
     yb = yref[:, :, None].expand(n, 17, B).contiguous()
     k1_in = (x, u, yb) + prep_tiles(spec, B, dtype, device)
-    cnd, Ae, Be, c, lb, ub = pk.prep_condense2_ref(*k1_in)
-
     pT = torch.diagonal(spec.cost.W_e)[:, None].expand(13, B).contiguous()
+    p_term = (pT * (x[-1] - yref_e[:, None])).contiguous()
+    dx0 = (0.01 * r(13, B)).contiguous()
+
+    # the uncondensed path: K7, then K8 on its stage data
+    A, Bm, c7, qx7, ru7, _, _ = pk.prep_sweep_ref(*k1_in)
+    qxx = k1_in[3][None].expand(n, 13, B).contiguous()
+    k8_in = (A, Bm, c7, qxx, qx7,
+             (k1_in[4][None] + tensor(rng.uniform(0.01, 1.0, (n, 4, B))))
+             .contiguous(), ru7, pT, p_term, dx0)
+    K8, _, L8, Pc8, _, _ = rk.kkt_sweep_ref(*k8_in)
+    k8c_in = (A, Bm, c7, qx7, (ru7 + 0.1 * r(n, 4, B)).contiguous(), K8, L8,
+              Pc8, p_term, dx0)
+    inputs = {"prep_sweep": (pk.prep_sweep, pk.prep_sweep_ref, k1_in),
+              "kkt_sweep": (rk.kkt_sweep, rk.kkt_sweep_ref, k8_in),
+              "corrector_sweep": (rk.corrector_sweep, rk.corrector_sweep_ref,
+                                  k8c_in)}
+    if n % 2:
+        return inputs
+
+    cnd, Ae, Be, c, lb, ub = pk.prep_condense2_ref(*k1_in)
     ruu = (torch.diagonal(spec.cost.W)[13:].repeat(2)[None, :, None]
            .expand(m, 8, B).contiguous())
     ruu_shift = (ruu + tensor(rng.uniform(0.01, 1.0, (m, 8, B))))
-    p_term = (pT * (x[-1] - yref_e[:, None])).contiguous()
-    dx0 = (0.01 * r(13, B)).contiguous()
     k2_in = (cnd["Abar"], cnd["Bbar"], cnd["cbar"], cnd["Qbar"], cnd["S1T"],
              cnd["R00"], cnd["qbar"], ruu_shift, cnd["rbar"], pT, p_term,
              dx0)
@@ -189,7 +234,9 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
               m_u, 0.01 * r(m, 13, B), 0.01 * r(m, 8, B), pT, p_term, dx0,
               0.01 * r(13, B), torch.clamp(n_fin, min=1)[None].contiguous(),
               (n_fin > 0).to(dtype)[None].contiguous(), 0.995)
-    return {"prep_condense2": (pk.prep_condense2, pk.prep_condense2_ref,
+    stride2 = (A, Bm, c7, k4_in[3], k4_in[4])
+    return {**inputs,
+            "prep_condense2": (pk.prep_condense2, pk.prep_condense2_ref,
                                k1_in),
             "kkt_sweep_c2": (ck.kkt_sweep_c2, ck.kkt_sweep_c2_ref, k2_in),
             "corrector_sweep_c2": (ck.corrector_sweep_c2,
@@ -202,7 +249,12 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
                            k3_in[:2] + k3_in[3:9]),
             "iter_sweep_c2": (functools.partial(ck.iter_sweep_c2,
                                                 scratch=scratch),
-                              ck.iter_sweep_c2_ref, k10_in)}
+                              ck.iter_sweep_c2_ref, k10_in),
+            "condense2": (ck.condense2, ck.condense2_ref,
+                          (A, Bm, c7, qxx, qx7, ru7)),
+            "expand2 stride 2": (functools.partial(ck.expand2, stride=2),
+                                 functools.partial(ck.expand2_ref, stride=2),
+                                 stride2)}
 
 
 def fresh(args):
@@ -218,28 +270,31 @@ def flat(out):
     import torch
     if isinstance(out, torch.Tensor):
         return [out]
-    res = []
-    for o in out:
-        res.extend(flat(list(o.values())) if isinstance(o, dict) else flat(o))
-    return res
+    if isinstance(out, dict):
+        out = list(out.values())
+    return [t for o in out for t in flat(o)]
 
 
 def bytes_of(name, args, out):
     """Bytes one call must move: each input read once, each output written
     once (iter_sweep_c2's carried arrays are both; its device-memory
     scratch round trip is the kernel's cost above the bound, not part of
-    it).  expand2 reads only the even stages c[2k] of c (N, 13, B)."""
+    it).  expand2 reads only the even stages c[2k] of c (N, 13, B), and in
+    its stride-2 form only the even stages of A and B too."""
     import torch
     ins = [a for a in args if isinstance(a, torch.Tensor)]
-    if name == "expand2":
+    if name in ("expand2", "expand2 stride 2"):
         ins[2] = ins[2][0::2]
+    if name == "expand2 stride 2":
+        ins[0], ins[1] = ins[0][0::2], ins[1][0::2]
     return sum(t.numel() * t.element_size() for t in ins + flat(out))
 
 
-def flops_of(name, B, m=M):
-    """Operations each kernel needs for one call at (m, B), counted from
-    the algorithm (2 per multiply-add, 1 per other operation), not from
-    what the kernel issues.
+def flops_of(name, B, n=N):
+    """Operations each kernel needs for one call at horizon n and batch B
+    (n/2 pairs or condensed stages, n stages), counted from the algorithm
+    (2 per multiply-add, 1 per other operation), not from what the kernel
+    issues.
 
     K1, per pair: two ERK4 VDE stages (sparse J with ~60 nonzeros times the
     13+4 tangent columns at 3 RK stages, 4 dynamics and 4 Jacobian
@@ -256,21 +311,35 @@ def flops_of(name, B, m=M):
     (corrected residuals and right-hand side), 34 (directions, ratios)
     and 38 (directions, update), and per stage 52 (z_dx, qx, c_res
     updates).
+    K7, per stage: one ERK4 VDE stage and the gradients and bounds (42).
+    K6, per pair: K1's condensing products.  kkt_sweep, per stage: PA,
+    A'PA 2 x 13^3; PB, B'PA, Qux'K 3 x 13^2 4; B'PB 4^2 13; the 4x4
+    Cholesky (20) and 14 solves (16 each); Pc, A'm + K'Qu, B'm; the
+    rollout (Kx, Ax, Bu: 273 multiply-adds).  corrector_sweep, per stage:
+    B'm, one solve, A'm + K'Qu and the rollout.
     """
     vde = 3 * 60 * 17 + 4 * 100 + 4 * 150 + 6 * (169 + 52)
-    k1 = 2 * (2 * vde) + 2 * (2197 + 676 + 2197 + 169 + 676 + 208
-                              + 169 + 52 + 169)
+    cond = 2 * (2197 + 676 + 2197 + 169 + 676 + 208 + 169 + 52 + 169)
+    k1 = 2 * (2 * vde) + cond
     fwd = 2 * 377
     k2 = 2 * (2 * 2197 + 3 * 1352 + 832 + 84 + 14 * 64 + 169 + 273 + 104
               + 377) + 36
     k3 = 2 * (104 + 64 + 273 + 377)
     k4 = 2 * (169 + 52) + 13
     barrier = 8 * (16 + 35 + 24 + 34 + 38) + 52
-    per = {"prep_condense2": k1, "kkt_sweep_c2": k2,
-           "corrector_sweep_c2": k3, "expand2": k4, "bwd_c2": k2 - fwd,
-           "fwd_c2": fwd, "bwd_vec_c2": k3 - fwd,
-           "iter_sweep_c2": k2 + k3 + barrier}[name]
-    return float(per) * m * B
+    per_pair = {"prep_condense2": k1, "kkt_sweep_c2": k2,
+                "corrector_sweep_c2": k3, "expand2": k4,
+                "expand2 stride 2": k4, "bwd_c2": k2 - fwd, "fwd_c2": fwd,
+                "bwd_vec_c2": k3 - fwd, "iter_sweep_c2": k2 + k3 + barrier,
+                "condense2": cond}
+    per_stage = {
+        "prep_sweep": 2 * vde + 42,
+        "kkt_sweep": 2 * (2 * 2197 + 3 * 676 + 208 + 20 + 14 * 16 + 169
+                          + 221 + 52 + 273) + 10,
+        "corrector_sweep": 2 * (52 + 16 + 221 + 273)}
+    if name in per_stage:
+        return float(per_stage[name]) * n * B
+    return float(per_pair[name]) * (n // 2) * B
 
 
 # ---------------------------------------------------------------------------
@@ -315,40 +384,50 @@ def compare(a, b):
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version at N=50, float64 then
-    float32; then the sweeps of the long-horizon path (LONG_CHECKED) at
-    its N=400 in float64, where a fault in any of their 200 stages shows
-    far above rounding (phase_timing holds them in float32 there)."""
+    """Each kernel (and FORMS) against its plain version at N=50, float64
+    then float32; the uncondensed kernels (UNCONDENSED_KERNELS) at the odd
+    N=51 in both too; then the sweeps of the long-horizon path
+    (LONG_CHECKED) at its N=400 in float64, where a fault in any of their
+    200 stages shows far above rounding (phase_timing holds them in
+    float32 there).
+    Returns {(kernel name, dtype name): max abs err} at N=50 (a kernel's
+    forms pooled)."""
     import torch
 
     from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 
     kc.reset_launch_counts()
     errs = {}
-    for n, dtype, names in ((N, torch.float64, tuple(KERNEL_INFO)),
-                            (N, torch.float32, tuple(KERNEL_INFO)),
-                            (N_LONG, torch.float64, LONG_CHECKED)):
+    checked = tuple(KERNEL_INFO) + tuple(FORMS)
+    for n, dtype, labels in ((N, torch.float64, checked),
+                             (N, torch.float32, checked),
+                             (N_ODD, torch.float64, UNCONDENSED_KERNELS),
+                             (N_ODD, torch.float32, UNCONDENSED_KERNELS),
+                             (N_LONG, torch.float64, LONG_CHECKED)):
         dn = str(dtype).split(".")[1]
         inputs = kernel_inputs(B_CHECK, dtype, device, n=n)
-        for name in names:
-            kern, ref, args = inputs[name]
+        for label in labels:
+            name = FORMS.get(label, label)
+            kern, ref, args = inputs[label]
+            before = kc.launch_counts()[name]
             got = flat(kern(*fresh(args)))
             torch.cuda.synchronize()
             want = flat(ref(*args))
-            if kc.launch_counts()[name] == 0:
-                fail(f"{name} did not launch its kernel")
+            if kc.launch_counts()[name] != before + 1:
+                fail(f"{label} did not launch its kernel once")
             abs_err, rel_err = compare(got, want)
             ok = rel_err <= TOL[dn]
-            print(f"[kernel] {name} {dn} N={n} B={B_CHECK}: max abs err "
+            print(f"[kernel] {label} {dn} N={n} B={B_CHECK}: max abs err "
                   f"{abs_err:.3e}, rel {rel_err:.3e} (tol {TOL[dn]:.0e}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"{name} {dn} N={n} disagrees with its plain version")
+                fail(f"{label} {dn} N={n} disagrees with its plain version")
             if n == N:
-                errs[(name, dn)] = abs_err
+                errs[(name, dn)] = max(errs.get((name, dn), 0.0), abs_err)
     print("[kernel] held against plain PyTorch in float64 and float32: "
-          + ", ".join(KERNEL_INFO) + "; at N=400 in float64: "
-          + ", ".join(LONG_CHECKED))
+          + ", ".join(checked) + f"; at N={N_ODD}: "
+          + ", ".join(UNCONDENSED_KERNELS)
+          + f"; at N={N_LONG} in float64: " + ", ".join(LONG_CHECKED))
     return errs
 
 
@@ -477,22 +556,23 @@ def step1_error(run, ref, lanes):
     return du0, dx
 
 
-def drive(label, device, per_step, **opts):
-    """20 chained N=50 steps of one path at each B of B_MAIN (check_chain),
-    step 1 on N_REF_LANES lanes at the first B against the port's float64
-    CPU run of the same options.  Returns (launch totals, {B: run})."""
+def drive(label, device, per_step, batches=B_MAIN, n=N, **opts):
+    """20 chained steps of one path at horizon n and each B of `batches`
+    (check_chain), step 1 on N_REF_LANES lanes at the first B against the
+    port's float64 CPU run of the same options.  Returns (launch totals,
+    {B: run})."""
     from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 
     totals, runs = {}, {}
-    for B in B_MAIN:
-        run = run_chain(B, device, **opts)
-        for name, v in check_chain(label, run, B, N, per_step).items():
+    for B in batches:
+        run = run_chain(B, device, n=n, **opts)
+        for name, v in check_chain(label, run, B, n, per_step).items():
             totals[name] = totals.get(name, 0) + v
         runs[B] = run
-        if B == B_MAIN[0]:
+        if B == batches[0]:
             lanes = slice(0, N_REF_LANES)
             ref = cpu_reference_step(run["x0s"][lanes],
-                                     IPMConfig(iters=ITERS), **opts)
+                                     IPMConfig(iters=ITERS), n=n, **opts)
             du0, dx = step1_error(run, ref, lanes)
             # float32 on the card vs float64 on the CPU after 8 IPM
             # iterations: u0 [kRPM] to 1e-3 (the JAX package's own f32
@@ -526,6 +606,36 @@ def phase_fused_iter(device, main_runs):
                   f"[main] {main['ms']:.3f} (host issue "
                   f"{run['host_ms']:.3f} against {main['host_ms']:.3f} ms)")
     return totals, runs
+
+
+def phase_uncondensed(device, main_runs):
+    """condense=1 at N=50 (each B of B_MAIN) and the odd horizon N=51 with
+    the default condense (B=4096): prep_sweep once and kkt_sweep /
+    corrector_sweep once per iteration, no condensed kernel; the N=50
+    times beside [main]'s of this run (the two forms of the same QP)."""
+    per_step = {"prep_sweep": 1, "kkt_sweep": ITERS,
+                "corrector_sweep": ITERS}
+    totals, runs = drive("uncondensed", device, per_step, condense=1)
+    odd, _ = drive("uncondensed", device, per_step, batches=(B_TIME,),
+                   n=N_ODD)
+    for name, v in odd.items():
+        totals[name] = totals.get(name, 0) + v
+    for B, run in runs.items():
+        main = main_runs.get(B)
+        if main is not None:
+            print(f"[uncondensed] B={B}: condense=1 {run['ms']:.3f} ms/step "
+                  f"against [main] (condense=2) {main['ms']:.3f} (host issue "
+                  f"{run['host_ms']:.3f} against {main['host_ms']:.3f} ms)")
+    return totals, runs
+
+
+def phase_unfused_prep(device):
+    """fused_prep_condense=False at N=50, B=4096: prep_sweep, condense2,
+    the condensed sweeps and the stride-2 expand2."""
+    return drive("unfused_prep", device, {
+        "prep_sweep": 1, "condense2": 1, "kkt_sweep_c2": ITERS,
+        "corrector_sweep_c2": ITERS, "expand2": 1}, batches=(B_TIME,),
+        fused_prep_condense=False)
 
 
 def phase_long(device):
@@ -621,9 +731,13 @@ def phase_profile(label, run, steps=3):
     ours = dict.fromkeys(KERNEL_INFO, 0.0)
     n_ours = dict.fromkeys(KERNEL_INFO, 0)
     other, n_other = 0.0, 0
+    # a port kernel's name, mangled or not, not the tail of a longer one
+    # (condense2_kernel inside prep_condense2_kernel)
+    names = "|".join(sorted(KERNEL_INFO, key=len, reverse=True))
+    pattern = re.compile(r"(?<![A-Za-z_])(%s)_kernel" % names)
     for e in kern:
-        name = next((k for k in KERNEL_INFO if k + "_kernel" in e["name"]),
-                    None)
+        found = pattern.search(e["name"])
+        name = found.group(1) if found else None
         if name:
             ours[name] += e["dur"]
             n_ours[name] += 1
@@ -664,7 +778,7 @@ def phase_certified(device):
         yref, yref_e = hover_yref(spec, device=dev)
         st = to_batch_last(init_rti(spec, x0s, device=dev))
         x_bl, u_bl, qp = prepare_qp(spec, st, x0s, yref, yref_e, True)
-        sol = ipm_fast.solve_batched(qp, config)
+        sol = ipm_fast.solve_batched(qp, config, condense=2)
         return u_bl[0] + sol.du[0], sol.stats
 
     spec = default_ocp(N=N, dtype=torch.float32, device=device)
@@ -746,14 +860,16 @@ def time_kernel(name, kern, args, reps=20):
 
 def phase_timing(device):
     """Per-kernel time, plain version's time and bound, float32, B=4096:
-    every kernel at N=50; the split sweeps again at N=400, the shapes of
+    every kernel (and FORMS) at N=50, the uncondensed ones at their
+    [uncondensed] shapes; the split sweeps again at N=400, the shapes of
     the path that runs them (their row), beside the fused sweeps there.
     At N=400 each of them is also held in float32 against the plain
     version in float64 (phase_kernels holds them in float64 there)."""
     import torch
 
     rows = {}
-    for n, names in ((N, tuple(KERNEL_INFO)), (N_LONG, LONG_CHECKED)):
+    for n, names in ((N, tuple(KERNEL_INFO) + tuple(FORMS)),
+                     (N_LONG, LONG_CHECKED)):
         # every bound finite, as on the main path ([0, 22] kRPM on every
         # input): iter_sweep_c2's time depends on it
         inputs = kernel_inputs(B_TIME, torch.float32, device, seed=1, n=n,
@@ -794,12 +910,12 @@ def phase_timing(device):
                     fail(f"{name} float32 at N={n} is less accurate than "
                          f"its plain version")
             nbytes = bytes_of(name, args, want)
-            flops = flops_of(name, B_TIME, n // 2)
+            flops = flops_of(name, B_TIME, n)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FP32_FLOPS * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            if n == N or name in LONG_KERNELS:
+            if (n == N and name in KERNEL_INFO) or name in LONG_KERNELS:
                 rows[name] = dict(ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
             print(f"[timing] {name} N={n} B={B_TIME} float32: {ms:.4f} "
@@ -834,7 +950,8 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = time.perf_counter()
-    errs, totals, timing, main_runs, fused_runs = {}, {}, {}, {}, {}
+    errs, totals, timing = {}, {}, {}
+    main_runs, fused_runs, unc_runs = {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -850,11 +967,20 @@ def main(argv=None) -> int:
     if "long" in phases:
         long_totals = phase_long(device)
         totals.update({k: long_totals[k] for k in LONG_KERNELS})
+    if "uncondensed" in phases:
+        unc_totals, unc_runs = phase_uncondensed(device, main_runs)
+        totals.update({k: unc_totals[k] for k in UNCONDENSED_KERNELS})
+    if "unfused_prep" in phases:
+        unf_totals, _ = phase_unfused_prep(device)
+        totals["prep_sweep"] = (totals.get("prep_sweep", 0)
+                                + unf_totals["prep_sweep"])
+        totals["condense2"] = unf_totals["condense2"]
     if "certified" in phases:
         phase_certified(device)
     if "timing" in phases:
         timing = phase_timing(device)
-        for label, runs in (("main", main_runs), ("fused_iter", fused_runs)):
+        for label, runs in (("main", main_runs), ("fused_iter", fused_runs),
+                            ("uncondensed", unc_runs)):
             if B_TIME in runs:
                 phase_profile(label, runs[B_TIME])
     print(f"[done] phases {','.join(phases)} in "

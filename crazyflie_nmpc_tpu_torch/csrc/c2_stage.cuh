@@ -3,7 +3,9 @@
 // their split long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2,
 // bwd_vec_c2) and the one-launch Mehrotra iteration (iter_c2.cu:
 // iter_sweep_c2).  kkt_sweep_c2 writes factor_sweep out in its own body
-// for speed (condensed_c2.cu).
+// for speed (condensed_c2.cu).  The vector pass and the rollout take the
+// input width nu as a template argument (NUC by default), so that the
+// uncondensed sweeps (riccati.cu, nu = NU) run them too.
 //
 // Counterparts of the per-stage math of
 // crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_kkt_c2_kernel,
@@ -212,27 +214,28 @@ __device__ __forceinline__ void factor_stage(
 // One stage of the backward vector pass on the stored factorization
 // (K, L, Pc of stage k): m = p + Pc, Qu = r + B'm, kff = -Quu^{-1} Qu,
 // p <- q + A'm + K'Qu.  r as in factor_stage.
-template <typename T, typename V>
+template <typename T, int nu = NUC, typename V>
 __device__ __forceinline__ void vec_stage(
     LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> Kk,
     LaneRef<const T> Pck, LaneRef<const T> Lk, LaneRef<const T> q,
     const V& r, T (&p)[NX], LaneRef<T> kff) {
-  T m[NX], Qu[NUC], kf[NUC], Lp[NLC];
+  constexpr int nl = nu * (nu + 1) / 2;
+  T m[NX], Qu[nu], kf[nu], Lp[nl];
 #pragma unroll
   for (int i = 0; i < NX; ++i) m[i] = p[i] + Pck[i];
 #pragma unroll
-  for (int a = 0; a < NUC; ++a) {
+  for (int a = 0; a < nu; ++a) {
     T s = Bm[a] * m[0];
 #pragma unroll
-    for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
+    for (int i = 1; i < NX; ++i) s = s + Bm[i * nu + a] * m[i];
     Qu[a] = r[a] + s;
     kf[a] = Qu[a];
   }
 #pragma unroll
-  for (int t = 0; t < NLC; ++t) Lp[t] = Lk[t];
-  cho_solve<T, NUC>(Lp, kf);
+  for (int t = 0; t < nl; ++t) Lp[t] = Lk[t];
+  cho_solve<T, nu>(Lp, kf);
 #pragma unroll
-  for (int a = 0; a < NUC; ++a) kff[a] = -kf[a];
+  for (int a = 0; a < nu; ++a) kff[a] = -kf[a];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     T s = A[i] * m[0];
@@ -240,19 +243,19 @@ __device__ __forceinline__ void vec_stage(
     for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
     T t = Kk[i] * Qu[0];
 #pragma unroll
-    for (int a = 1; a < NUC; ++a) t = t + Kk[a * NX + i] * Qu[a];
+    for (int a = 1; a < nu; ++a) t = t + Kk[a * NX + i] * Qu[a];
     p[i] = q[i] + s + t;
   }
 }
 
 // One rollout stage: u = K x + kff, xn = A x + B u + c.
-template <typename T>
+template <typename T, int nu = NUC>
 __device__ __forceinline__ void rollout_stage(
     LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> c,
     LaneRef<const T> Kk, LaneRef<const T> kff, const T (&x)[NX],
-    T (&u)[NUC], T (&xn)[NX]) {
+    T (&u)[nu], T (&xn)[NX]) {
 #pragma unroll
-  for (int a = 0; a < NUC; ++a) {
+  for (int a = 0; a < nu; ++a) {
     T s = Kk[a * NX] * x[0];
 #pragma unroll
     for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
@@ -263,9 +266,9 @@ __device__ __forceinline__ void rollout_stage(
     T s = A[i * NX] * x[0];
 #pragma unroll
     for (int j = 1; j < NX; ++j) s = s + A[i * NX + j] * x[j];
-    T t = Bm[i * NUC] * u[0];
+    T t = Bm[i * nu] * u[0];
 #pragma unroll
-    for (int a = 1; a < NUC; ++a) t = t + Bm[i * NUC + a] * u[a];
+    for (int a = 1; a < nu; ++a) t = t + Bm[i * nu + a] * u[a];
     xn[i] = s + t + c[i];
   }
 }
@@ -306,7 +309,7 @@ __device__ __forceinline__ void factor_sweep(
 
 // The whole backward vector pass from p = pterm: kff of every stage
 // (corrector_sweep_c2 parks it in its du output).
-template <typename T>
+template <typename T, int nu = NUC>
 __device__ __forceinline__ void vec_sweep(
     const T* __restrict__ Abar, const T* __restrict__ Bbar,
     const T* __restrict__ qx, const T* __restrict__ ru,
@@ -321,16 +324,17 @@ __device__ __forceinline__ void vec_sweep(
   }
 #pragma unroll 1
   for (int k = M - 1; k >= 0; --k)
-    vec_stage<T>(lane(Abar, NX * NX, k, B, b), lane(Bbar, NX * NUC, k, B, b),
-                 lane(K, NUC * NX, k, B, b), lane(Pc, NX, k, B, b),
-                 lane(L, NLC, k, B, b), lane(qx, NX, k, B, b),
-                 lane(ru, NUC, k, B, b), p, lane(kff, NUC, k, B, b));
+    vec_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
+                     lane(Bbar, NX * nu, k, B, b), lane(K, nu * NX, k, B, b),
+                     lane(Pc, NX, k, B, b), lane(L, nu * (nu + 1) / 2, k, B, b),
+                     lane(qx, NX, k, B, b), lane(ru, nu, k, B, b), p,
+                     lane(kff, nu, k, B, b));
 }
 
 // Forward rollout over the horizon from dx0: du_k = K_k dx_k + kff_k,
 // dx_{k+1} = A dx + B du + c; dx holds M+1 states (the terminal last).
 // kff may alias du (each stage reads its kff before writing its du).
-template <typename T>
+template <typename T, int nu = NUC>
 __device__ __forceinline__ void rollout(const T* __restrict__ Abar,
                                         const T* __restrict__ Bbar,
                                         const T* __restrict__ cbar,
@@ -345,20 +349,20 @@ __device__ __forceinline__ void rollout(const T* __restrict__ Abar,
   for (int i = 0; i < NX; ++i) x[i] = x0[i];
 #pragma unroll 1
   for (int k = 0; k < M; ++k) {
-    T u[NUC], xn[NX];
-    rollout_stage<T>(lane(Abar, NX * NX, k, B, b),
-                     lane(Bbar, NX * NUC, k, B, b), lane(cbar, NX, k, B, b),
-                     lane(K, NUC * NX, k, B, b), lane(kff, NUC, k, B, b), x,
-                     u, xn);
+    T u[nu], xn[NX];
+    rollout_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
+                         lane(Bbar, NX * nu, k, B, b), lane(cbar, NX, k, B, b),
+                         lane(K, nu * NX, k, B, b), lane(kff, nu, k, B, b), x,
+                         u, xn);
     auto dxk = lane(dx, NX, k, B, b);
-    auto duk = lane(du, NUC, k, B, b);
+    auto duk = lane(du, nu, k, B, b);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       dxk[i] = x[i];
       x[i] = xn[i];
     }
 #pragma unroll
-    for (int a = 0; a < NUC; ++a) duk[a] = u[a];
+    for (int a = 0; a < nu; ++a) duk[a] = u[a];
   }
   auto xT = lane(dx, NX, M, B, b);
 #pragma unroll

@@ -5,6 +5,7 @@ Each wrapper counts its kernel launches in a plain integer attribute
 tensor takes the plain version and counts nothing.  The split sweeps
 `kkt_sweep_c2_win` / `corrector_sweep_c2_win` are two launches each, of
 `bwd_c2` / `bwd_vec_c2` and then `fwd_c2`, counted on those kernels.
+`expand2` counts both of its forms (stride 1 and 2).
 """
 
 from __future__ import annotations
@@ -12,13 +13,19 @@ from __future__ import annotations
 from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
     bwd_c2,
     bwd_vec_c2,
+    condense2,
     corrector_sweep_c2,
     expand2,
     fwd_c2,
     iter_sweep_c2,
     kkt_sweep_c2,
 )
-from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import prep_condense2
+from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import (prep_condense2,
+                                                           prep_sweep)
+from crazyflie_nmpc_tpu_torch.ops.cuda.riccati_kernels import (
+    corrector_sweep,
+    kkt_sweep,
+)
 
 KERNELS = {
     "prep_condense2": prep_condense2,
@@ -29,6 +36,10 @@ KERNELS = {
     "fwd_c2": fwd_c2,
     "bwd_vec_c2": bwd_vec_c2,
     "iter_sweep_c2": iter_sweep_c2,
+    "prep_sweep": prep_sweep,
+    "condense2": condense2,
+    "kkt_sweep": kkt_sweep,
+    "corrector_sweep": corrector_sweep,
 }
 
 

@@ -27,8 +27,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("prep_condense2.cu", "condensed_c2.cu", "iter_c2.cu")
-HEADERS = ("batch_last.cuh", "c2_stage.cuh")
+SOURCES = ("prep_condense2.cu", "prep_sweep.cu", "condensed_c2.cu",
+           "iter_c2.cu", "riccati.cu")
+HEADERS = ("batch_last.cuh", "c2_stage.cuh", "prep_stage.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -142,3 +143,18 @@ def launch(source: str, symbol: str, ptrs, ints, floats=()) -> None:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
+
+
+def run(wrapper, source: str, ins: dict, outs, shapes: dict, ints,
+        floats=()) -> None:
+    """Check `ins` against `shapes` (dtype and device those of the first
+    input), launch `<wrapper name>_<f32|f64>` of `source` on `ins` and
+    `outs`, and count the launch on `wrapper.launches`."""
+    import torch
+
+    first = next(iter(ins.values()))
+    check(wrapper.__name__, ins, shapes, first.dtype, first.device)
+    sfx = "f32" if first.dtype == torch.float32 else "f64"
+    launch(source, f"{wrapper.__name__}_{sfx}",
+           list(ins.values()) + list(outs), ints, floats)
+    wrapper.launches += 1

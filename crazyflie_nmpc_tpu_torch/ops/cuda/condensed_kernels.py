@@ -1,11 +1,12 @@
-"""Sweeps of the block-2 condensed QP and the expansion.
+"""Block-2 condensing, the sweeps of the condensed QP and the expansion.
 
 Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
-`kkt_sweep_c2` (K2), `corrector_sweep_c2` (K3), `expand2` (K4, its
-`even_only=True` form, fed by `prep_condense2`), the split long-horizon
-sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the kernels
-`bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra iteration
-`iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
+`condense2` (K6), `kkt_sweep_c2` (K2), `corrector_sweep_c2` (K3),
+`expand2` (K4: stride 1 is the `even_only=True` form fed by
+`prep_condense2`, stride 2 reads the full-horizon A/B), the split
+long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
+kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
+iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
 `csrc/condensed_c2.cu` or `csrc/iter_c2.cu` for CUDA tensors and runs its
 `*_ref` plain PyTorch version for CPU tensors.
 
@@ -99,7 +100,8 @@ def _cho_solve_n(L, Y, n):
 
 def fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0):
     """Plain PyTorch `_fwd_c2_kernel`: the rollout du_k = K_k dx_k + kff_k,
-    dx_{k+1} = A dx + B du + c.  Returns (dx (M+1,13,B), du (M,8,B))."""
+    dx_{k+1} = A dx + B du + c.  Returns (dx (M+1,13,B), du (M,8,B)); any
+    input width (the uncondensed sweeps' rollout is this one with 4)."""
     M = Abar.shape[0]
     dx, du = [], []
     x = dx0
@@ -146,14 +148,15 @@ def bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
 
 def bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term):
     """Plain PyTorch `_bwd_vec_c2_kernel`: the backward vector pass on the
-    stored factorization.  Returns kff (M,8,B)."""
-    M = Abar.shape[0]
+    stored factorization.  Returns kff (M,8,B); any input width, as
+    `fwd_c2_ref`."""
+    M, nu = Abar.shape[0], Bbar.shape[2]
     p = p_term
     kffs = [None] * M
     for k in range(M - 1, -1, -1):
         m = p + Pc[k]
         Qu = ru[k] + _mtv(Bbar[k], m)
-        kffs[k] = -_cho_solve_n_vec(L[k], Qu, NUC)
+        kffs[k] = -_cho_solve_n_vec(L[k], Qu, nu)
         p = qx[k] + _mtv(Abar[k], m) + _mtv(K[k], Qu)
     return torch.stack(kffs).contiguous()
 
@@ -243,17 +246,38 @@ def iter_sweep_c2_ref(Abar, Bbar, c_res, Qbar, S1T, R00, qx, ruu, r1u,
             alpha[None], mu[None])
 
 
-def expand2_ref(Ae, Be, c, dx_even, du0):
-    """Plain PyTorch `expand2` (even_only)."""
-    return (torch.einsum("sijb,sjb->sib", Ae, dx_even)
-            + torch.einsum("sijb,sjb->sib", Be, du0) + c[0::2]).contiguous()
+def condense2_ref(A, Bm, c, qxx, qx, ru):
+    """Plain PyTorch `condense2` (all pairs at once)."""
+    A0, A1, B0, B1 = A[0::2], A[1::2], Bm[0::2], Bm[1::2]
+    c0, c1 = c[0::2], c[1::2]
+    q1 = qxx[1::2]                  # the eliminated state's cost diagonal
+    qA = q1[:, :, None] * A0
+    qB = q1[:, :, None] * B0
+    eye = torch.eye(NX, dtype=A.dtype, device=A.device)[:, :, None]
+    h = q1 * c0 + qx[1::2]
+    cnd = dict(
+        Abar=torch.einsum("sikb,skjb->sijb", A1, A0),
+        Bbar=torch.cat([torch.einsum("sikb,skjb->sijb", A1, B0), B1], dim=2),
+        cbar=torch.einsum("sikb,skb->sib", A1, c0) + c1,
+        Qbar=(torch.einsum("skib,skjb->sijb", A0, qA)
+              + eye * qxx[0::2][:, None]),
+        S1T=torch.einsum("skib,skjb->sijb", B0, qA),
+        R00=torch.einsum("skib,skjb->sijb", B0, qB),
+        qbar=qx[0::2] + torch.einsum("skib,skb->sib", A0, h),
+        rbar=torch.cat([ru[0::2] + torch.einsum("skib,skb->sib", B0, h),
+                        ru[1::2]], dim=1))
+    return {k: v.contiguous() for k, v in cnd.items()}
+
+
+def expand2_ref(Ae, Be, c, dx_even, du0, stride=1):
+    """Plain PyTorch `expand2`: stride 1 takes the even-stage Ae/Be
+    (even_only), stride 2 the full-horizon A/B."""
+    return (torch.einsum("sijb,sjb->sib", Ae[0::stride], dx_even)
+            + torch.einsum("sijb,sjb->sib", Be[0::stride], du0)
+            + c[0::2]).contiguous()
 
 
 # --- CUDA kernel wrappers ------------------------------------------------
-
-def _sfx(dtype):
-    return "f32" if dtype == torch.float32 else "f64"
-
 
 def _shapes(M, B):
     """The expected shape of every named kernel argument at (M, B)."""
@@ -274,17 +298,26 @@ def _shapes(M, B):
                          "z_dxT"), t13))
 
 
+def stage_shapes(N, B):
+    """The expected shape of every named argument of the uncondensed
+    stage-wise kernels (`condense2`'s inputs, `riccati_kernels`) at
+    (N, B): 13 states, 4 inputs, L the packed 4x4 Cholesky factor."""
+    s4, s13, t13 = (N, NU, B), (N, NX, B), (NX, B)
+    return dict(
+        A=(N, NX, NX, B), Bm=(N, NX, NU, B), K=(N, NU, NX, B),
+        L=(N, NU * (NU + 1) // 2, B),
+        **dict.fromkeys(("c", "qxx", "qx", "Pc"), s13),
+        **dict.fromkeys(("ruu", "ru", "kff"), s4),
+        **dict.fromkeys(("pT", "p_term", "dx0"), t13))
+
+
 def _launch(wrapper, source, ins, outs, floats=()):
     """Check `ins` (named as in `_shapes`; the first is (M, ..., B)),
     launch `wrapper`'s kernel on them and `outs`, and count the launch on
     `wrapper`."""
     first = next(iter(ins.values()))
     M, B = first.shape[0], first.shape[-1]
-    _build.check(wrapper.__name__, ins, _shapes(M, B), first.dtype,
-                 first.device)
-    _build.launch(source, f"{wrapper.__name__}_{_sfx(first.dtype)}",
-                  list(ins.values()) + list(outs), [M, B], floats)
-    wrapper.launches += 1
+    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B], floats)
 
 
 def _empty(like, *shape):
@@ -438,19 +471,52 @@ def iter_sweep_c2(Abar, Bbar, c_res, Qbar, S1T, R00, qx, ruu, r1u,
     return carried + (alpha, mu)
 
 
-def expand2(Ae, Be, c, dx_even, du0):
-    """Eliminated states: dx_odd[k] = Ae[k] dx_even[k] + Be[k] du0[k]
-    + c[2k], with Ae/Be the even-stage Jacobians (M,13,13,B)/(M,13,4,B)
-    and c the full-horizon defect (N,13,B).  Returns (M,13,B)."""
+def condense2(A, Bm, c, qxx, qx, ru):
+    """Block-2 condensing of stage-wise diagonal-cost QP data (N even):
+    A (N,13,13,B), Bm (N,13,4,B), c/qxx/qx (N,13,B), ru (N,4,B) -> the
+    dict `prep_condense2` returns (Abar (M,13,13,B), Bbar (M,13,8,B),
+    cbar (M,13,B), Qbar (M,13,13,B), S1T (M,4,13,B), R00 (M,4,4,B),
+    qbar (M,13,B), rbar (M,8,B)).  qxx is read at both stages of a pair:
+    the odd one is the eliminated state's cost, the even one Qbar's
+    diagonal."""
+    N, B = A.shape[0], A.shape[-1]
+    if N % 2 != 0:
+        raise ValueError("condense2 needs even N")
+    if A.device.type == "cpu":
+        return condense2_ref(A, Bm, c, qxx, qx, ru)
+    M = N // 2
+    outs = (_empty(A, M, NX, NX, B), _empty(A, M, NX, NUC, B),
+            _empty(A, M, NX, B), _empty(A, M, NX, NX, B),
+            _empty(A, M, NU, NX, B), _empty(A, M, NU, NU, B),
+            _empty(A, M, NX, B), _empty(A, M, NUC, B))
+    _build.run(condense2, _SOURCE, dict(A=A, Bm=Bm, c=c, qxx=qxx, qx=qx,
+                                        ru=ru), outs, stage_shapes(N, B),
+               [M, B])
+    return dict(zip(("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar",
+                     "rbar"), outs))
+
+
+def expand2(Ae, Be, c, dx_even, du0, stride=1):
+    """Eliminated states: dx_odd[k] = Ae[s k] dx_even[k] + Be[s k] du0[k]
+    + c[2k] for stride s, with c the full-horizon defect (N,13,B).
+    stride 1: Ae/Be are the even-stage Jacobians (M,13,13,B)/(M,13,4,B)
+    (`prep_condense2`'s); stride 2: the full-horizon A/B (N,...), read in
+    place at their even stages.  Returns (M,13,B)."""
     if Ae.device.type == "cpu":
-        return expand2_ref(Ae, Be, c, dx_even, du0)
-    out = _empty(Ae, Ae.shape[0], NX, Ae.shape[-1])
-    _launch(expand2, _SOURCE, dict(Ae=Ae, Be=Be, c=c, dx_even=dx_even,
-                                   du0=du0), (out,))
+        return expand2_ref(Ae, Be, c, dx_even, du0, stride)
+    if stride not in (1, 2):
+        raise ValueError(f"expand2: stride {stride} (1 or 2)")
+    M, B = dx_even.shape[0], dx_even.shape[-1]
+    out = _empty(Ae, M, NX, B)
+    shapes = dict(_shapes(M, B), Ae=(stride * M, NX, NX, B),
+                  Be=(stride * M, NX, NU, B))
+    _build.run(expand2, _SOURCE, dict(Ae=Ae, Be=Be, c=c, dx_even=dx_even,
+                                      du0=du0), (out,), shapes,
+               [M, B, stride])
     return out
 
 
 for _fn in (kkt_sweep_c2, corrector_sweep_c2, bwd_c2, bwd_vec_c2, fwd_c2,
-            iter_sweep_c2, expand2):
+            iter_sweep_c2, condense2, expand2):
     _fn.launches = 0
 del _fn

@@ -1,9 +1,13 @@
-"""Fused RTI preparation + block-2 condensing (K1), CUDA and plain PyTorch.
+"""RTI preparation kernels, CUDA and plain PyTorch: the fused preparation
++ block-2 condensing (K1) and the preparation without condensing (K7).
 
-Counterpart of `crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:
-prep_condense2`.  `prep_condense2` launches `csrc/prep_condense2.cu` for
-CUDA tensors and runs `prep_condense2_ref` for CPU tensors; the plain
-version is the CPU tests' path and the kernel's yardstick on the card.
+Counterparts of `crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:
+prep_condense2` and `prep_sweep` (whose `batch_rows > 1` variant,
+`_prep_sweep_2d`, computes the same outputs in the same layout).
+`prep_condense2` launches `csrc/prep_condense2.cu` and `prep_sweep`
+`csrc/prep_sweep.cu` for CUDA tensors; CPU tensors run
+`prep_condense2_ref` / `prep_sweep_ref`, the CPU tests' path and the
+kernels' yardstick on the card.
 
 Layout: batch-last, every input and output contiguous with B last:
   x (N+1, 13, B), u (N, 4, B), yref (N, 17, B), q_diag (13, B),
@@ -22,6 +26,7 @@ NU = 4
 NY = NX + NU
 NPARAM = 9
 _SOURCE = "prep_condense2.cu"
+_SWEEP_SOURCE = "prep_sweep.cu"
 
 _CND_KEYS = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar")
 
@@ -225,7 +230,16 @@ def prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
             ubu - u_traj)
 
 
-# --- CUDA kernel wrapper ---------------------------------------------------
+def prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
+    """Plain PyTorch `prep_sweep` (all stages at once)."""
+    x = x_traj[:-1]
+    A, Bm, x_next = _vde_stage(params, x, u_traj)
+    return tuple(t.contiguous() for t in (
+        A, Bm, x_next - x_traj[1:], q_diag * (x - yref[:, :NX]),
+        r_diag * (u_traj - yref[:, NX:]), lbu - u_traj, ubu - u_traj))
+
+
+# --- CUDA kernel wrappers --------------------------------------------------
 
 def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
     """One launch from (x, u, yref) to the condensed QP data.
@@ -236,12 +250,12 @@ def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
     Jacobians (M,13,13,B)/(M,13,4,B); c the defect (N,13,B); lb/ub the
     bound offsets (N,4,B).  CPU tensors take the plain version.
     """
-    if x_traj.device.type == "cpu":
-        return prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag,
-                                  lbu, ubu, params)
     N, _, B = u_traj.shape
     if N % 2 != 0:
         raise ValueError("prep_condense2 needs even N")
+    if x_traj.device.type == "cpu":
+        return prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag,
+                                  lbu, ubu, params)
     M = N // 2
     dev, dt = x_traj.device, x_traj.dtype
     ins = dict(x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
@@ -263,4 +277,34 @@ def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
     return (dict(zip(_CND_KEYS, outs[:8])),) + outs[8:]
 
 
+def prep_sweep(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
+    """One launch from (x, u, yref) to the stage-wise QP data, inputs as
+    `prep_condense2`'s at any N.
+
+    Returns (A (N,13,13,B), B (N,13,4,B), c (N,13,B), qx (N,13,B),
+    ru (N,4,B), lb (N,4,B), ub (N,4,B)).  CPU tensors take the plain
+    version.
+    """
+    if x_traj.device.type == "cpu":
+        return prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
+                              params)
+    N, _, B = u_traj.shape
+    dev, dt = x_traj.device, x_traj.dtype
+    ins = dict(x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
+               lbu=lbu, ubu=ubu, params=params)
+    _build.check("prep_sweep", ins, dict(
+        x=(N + 1, NX, B), u=(N, NU, B), yref=(N, NY, B), q_diag=(NX, B),
+        r_diag=(NU, B), lbu=(NU, B), ubu=(NU, B), params=(NPARAM, B)),
+        dt, dev)
+    new = lambda *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
+    outs = (new(N, NX, NX, B), new(N, NX, NU, B), new(N, NX, B),
+            new(N, NX, B), new(N, NU, B), new(N, NU, B), new(N, NU, B))
+    sfx = "f32" if dt == torch.float32 else "f64"
+    _build.launch(_SWEEP_SOURCE, f"prep_sweep_{sfx}",
+                  list(ins.values()) + list(outs), [N, B])
+    prep_sweep.launches += 1
+    return outs
+
+
 prep_condense2.launches = 0
+prep_sweep.launches = 0

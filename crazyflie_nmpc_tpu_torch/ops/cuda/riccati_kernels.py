@@ -1,0 +1,109 @@
+"""Sweeps of the uncondensed diagonal-cost QP (K8), CUDA and plain PyTorch.
+
+Counterparts of `crazyflie_nmpc_tpu/ops/pallas/riccati_kernels.py`:
+`kkt_sweep` (Riccati factorization with the 4x4 rsqrt Cholesky, then the
+forward rollout) and `corrector_sweep` (the backward vector pass on the
+stored factorization, then the rollout), the sweeps of `condense=1` and of
+every odd horizon.  Each wrapper launches its kernel in `csrc/riccati.cu`
+for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
+tensors.
+
+Layout: batch-last, contiguous, B last.  N stages with 13 states and 4
+inputs; the cost is diagonal (qxx (N,13,B), ruu (N,4,B) including the
+barrier shift, pT (13,B)); L is the packed column-major lower Cholesky
+factor of the 4x4 Quu (10 entries, `condensed_kernels._pk`).  Both sweeps
+return the whole rollout, its last state dx[N] included.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crazyflie_nmpc_tpu_torch.ops.cuda import _build
+from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
+    _chol_n,
+    _cho_solve_n,
+    _cho_solve_n_vec,
+    _empty,
+    _mm,
+    _mtm,
+    _mtv,
+    _mv,
+    corrector_sweep_c2_ref,
+    fwd_c2_ref,
+    stage_shapes,
+)
+
+NX = 13
+NU = 4
+NL = NU * (NU + 1) // 2
+_SOURCE = "riccati.cu"
+
+
+def kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
+    """Plain PyTorch `kkt_sweep` (stage loop in Python).  Returns
+    (K (N,4,13,B), kff (N,4,B), L (N,10,B), Pc (N,13,B), dx (N+1,13,B),
+    du (N,4,B))."""
+    N = A.shape[0]
+    eye = torch.eye(NX, dtype=A.dtype, device=A.device)[:, :, None]
+    eye4 = torch.eye(NU, dtype=A.dtype, device=A.device)[:, :, None]
+    P = eye * pT[None]
+    p = p_term
+    Ks, kffs, Ls, Pcs = [None] * N, [None] * N, [None] * N, [None] * N
+    for k in range(N - 1, -1, -1):
+        Ak, Bk = A[k], Bm[k]
+        PA = _mm(P, Ak)
+        Pc = _mv(P, c[k])
+        m = p + Pc
+        Quu = _mtm(Bk, _mm(P, Bk)) + eye4 * ruu[k][None]
+        Qux = _mtm(Bk, PA)                            # S = 0
+        Qu = ru[k] + _mtv(Bk, m)
+        L = _chol_n(Quu, NU)
+        K = -_cho_solve_n(L, Qux, NU)
+        kff = -_cho_solve_n_vec(L, Qu, NU)
+        P_new = _mtm(Ak, PA) + _mtm(Qux, K) + eye * qxx[k][None]
+        P = 0.5 * (P_new + P_new.transpose(0, 1))
+        p = qx[k] + _mtv(Ak, m) + _mtv(K, Qu)
+        Ks[k], kffs[k], Ls[k], Pcs[k] = K, kff, L, Pc
+    K, kff, L, Pc = (torch.stack(z).contiguous()
+                     for z in (Ks, kffs, Ls, Pcs))
+    return (K, kff, L, Pc) + fwd_c2_ref(A, Bm, c, K, kff, dx0)
+
+
+def corrector_sweep_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
+    """Plain PyTorch `corrector_sweep`: the condensed sweep's plain version
+    at 4 inputs.  Returns (dx (N+1,13,B), du (N,4,B))."""
+    return corrector_sweep_c2_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0)
+
+
+def kkt_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
+    """Diagonal-cost Riccati factorization + forward rollout in one launch.
+    A (N,13,13,B), Bm (N,13,4,B), c/qxx/qx (N,13,B), ruu/ru (N,4,B) (ruu
+    with the barrier shift), pT/p_term/dx0 (13,B).  Returns (K, kff, L, Pc,
+    dx (N+1,13,B), du (N,4,B))."""
+    if A.device.type == "cpu":
+        return kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0)
+    N, B = A.shape[0], A.shape[-1]
+    outs = (_empty(A, N, NU, NX, B), _empty(A, N, NU, B), _empty(A, N, NL, B),
+            _empty(A, N, NX, B), _empty(A, N + 1, NX, B), _empty(A, N, NU, B))
+    _build.run(kkt_sweep, _SOURCE, dict(
+        A=A, Bm=Bm, c=c, qxx=qxx, qx=qx, ruu=ruu, ru=ru, pT=pT,
+        p_term=p_term, dx0=dx0), outs, stage_shapes(N, B), [N, B])
+    return outs
+
+
+def corrector_sweep(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
+    """Backward vector pass on the stored factorization (K, L, Pc) +
+    forward rollout in one launch.  Returns (dx (N+1,13,B), du (N,4,B))."""
+    if A.device.type == "cpu":
+        return corrector_sweep_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0)
+    N, B = A.shape[0], A.shape[-1]
+    outs = (_empty(A, N + 1, NX, B), _empty(A, N, NU, B))
+    _build.run(corrector_sweep, _SOURCE, dict(
+        A=A, Bm=Bm, c=c, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term,
+        dx0=dx0), outs, stage_shapes(N, B), [N, B])
+    return outs
+
+
+kkt_sweep.launches = 0
+corrector_sweep.launches = 0

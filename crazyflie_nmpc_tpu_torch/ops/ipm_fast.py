@@ -1,15 +1,20 @@
-"""Batch-last interior-point solver on the condensed sweeps (PyTorch).
+"""Batch-last interior-point solver on the fused Riccati sweeps (PyTorch).
 
-Counterpart of `crazyflie_nmpc_tpu/ops/ipm_fast.py` for the path the
-batched RTI step runs: block-2 partial condensing with the QP data
-precondensed by `prep_condense2` (the "c2*" keys).  Mehrotra
+Counterpart of `crazyflie_nmpc_tpu/ops/ipm_fast.py`.  Mehrotra
 predictor-corrector with exact (1 - alpha) affine-residual tracking; per
-iteration one `kkt_sweep_c2` and one `corrector_sweep_c2` launch, with the
-elementwise barrier algebra between them in plain PyTorch on the card
-(`windowed=True`: each sweep as its two split launches;
-`fused_iter=True`: the whole iteration, barrier algebra included, in one
-`iter_sweep_c2` launch).  The expansion `expand2` recovers the eliminated
-states once per solve.
+iteration one factorization sweep and one corrector sweep, with the
+elementwise barrier algebra between them in plain PyTorch on the card.
+The sweeps are those of the problem's form:
+
+  * condense=1: the uncondensed diagonal-cost sweeps `kkt_sweep` /
+    `corrector_sweep` on the stage data (A, B, c, qxx, qx, ru);
+  * condense=2: block-2 partial condensing, the condensed sweeps
+    `kkt_sweep_c2` / `corrector_sweep_c2` (`windowed=True`: each as its
+    two split launches; `fused_iter=True`: the whole iteration, barrier
+    algebra included, in one `iter_sweep_c2` launch), on data
+    precondensed by `prep_condense2` (the "c2*" keys) or condensed here by
+    `condense2`; the expansion `expand2` recovers the eliminated states
+    once per solve.
 
 All (B,) problems run in lockstep with per-lane step lengths; infinite
 bounds are masked.  Per-lane escalation re-solves the worst unconverged
@@ -23,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 
 _C2_KEYS = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar")
@@ -36,20 +42,26 @@ class BatchSolution(NamedTuple):
     stats: Any   # dict with (B,) entries
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str = "Queue 1, item 7"):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item 7: the rest of "
-        f"solve_batched)")
+        f"{what} is not ported yet (ROADMAP {item})")
 
 
 def check_supported(config: IPMConfig, condense: int, windowed,
-                    fused_iter) -> None:
+                    fused_iter, fused: bool = True) -> None:
     """Raise NotImplementedError for the options not ported yet, and
-    ValueError for fused_iter=True with windowed=True (as the JAX package
-    does: the one-launch iteration has no split form)."""
-    if condense != 2:
-        raise _not_ported("condense=1 / odd N (the uncondensed sweeps)")
-    if fused_iter and windowed:
+    ValueError where the JAX package does: condense not 1 or 2, condense=2
+    with fused=False, and fused_iter=True with windowed=True on the
+    condensed path (the one-launch iteration has no split form; with
+    condense=1 both options have no effect)."""
+    if condense not in (1, 2):
+        raise ValueError(f"condense={condense} (1 or 2)")
+    if not fused:
+        if condense == 2:
+            raise ValueError("condense=2 requires the fused kernel path")
+        raise _not_ported("fused=False (the split uncondensed sweeps)",
+                          "Queue 2, K9")
+    if condense == 2 and fused_iter and windowed:
         raise ValueError("fused_iter=True requires the fused c2 sweeps; "
                          "windowed=True selects the split ones (use "
                          "fused_iter=False)")
@@ -67,13 +79,23 @@ def _max_step_lane(v, dv, tau):
 
 
 def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
-                  condense: int = 2, windowed: bool | None = None,
-                  fused_iter: bool = False) -> BatchSolution:
-    """Solve a batch of precondensed box-constrained QPs (batch-last).
+                  fused: bool = True, lam0_l=None, lam0_u=None,
+                  condense: int = 1, fused_iter: bool = False,
+                  windowed: bool | None = None) -> BatchSolution:
+    """Solve a batch of box-constrained multistage QPs (batch-last,
+    diagonal stage cost), as the JAX package's `solve_batched` (without
+    its TPU blocking arguments).
 
-    `qp` holds the `prep_condense2` outputs under "c2Abar" ... "c2rbar",
-    "c2Ae", "c2Be", plus c (N,13,B), lb/ub (N,4,B), ruu (N,4,B),
-    pT/p/dx0 (13,B).
+    `qp` holds c (N,13,B), lb/ub (N,4,B), ruu (N,4,B), pT/p/dx0 (13,B) and
+    either the stage data A (N,13,13,B), B (N,13,4,B), qxx/qx (N,13,B),
+    ru (N,4,B), or (condense=2 only) the `prep_condense2` outputs under
+    "c2Abar" ... "c2rbar", "c2Ae", "c2Be".
+
+    condense: 1 runs the uncondensed sweeps; 2 block-2 partial condensing
+    (N even), with `condense2` first where the data are not precondensed.
+    fused=False (the split uncondensed sweeps) is not ported.
+    lam0_l/lam0_u (N,4,B): warm-start bound duals, clipped to >= 1e-4 on
+    the finite bounds.
 
     Per-lane escalation (config.escalate_iters > 0 and
     escalate_capacity > 0): the worst `escalate_capacity` lanes by final
@@ -87,26 +109,33 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     escalation re-solve runs the two-launch iteration (with `windowed`),
     never `fused_iter`, as in the JAX package.
 
-    windowed: True runs each sweep as its split launches (`bwd_c2` +
-    `fwd_c2`, `bwd_vec_c2` + `fwd_c2`: the JAX package's long-horizon
-    form).  None or False run the fused `kkt_sweep_c2`/`corrector_sweep_c2`
-    at every horizon: their gains live in device memory, so they have no
-    VMEM-sized envelope to outgrow, and the JAX package's auto rule (the
-    TPU's VMEM clamps) does not apply.  stats gains `c2_windowed` (0/1)
-    and, as in the JAX package, `c2_compress_gains`/`c2_compress_ab` (0).
+    windowed (condense=2): True runs each sweep as its split launches
+    (`bwd_c2` + `fwd_c2`, `bwd_vec_c2` + `fwd_c2`: the JAX package's
+    long-horizon form).  None or False run the fused `kkt_sweep_c2`/
+    `corrector_sweep_c2` at every horizon: their gains live in device
+    memory, so they have no VMEM-sized envelope to outgrow, and the JAX
+    package's auto rule (the TPU's VMEM clamps) does not apply.  stats
+    gains `c2_windowed` (0/1) and, as in the JAX package,
+    `c2_compress_gains`/`c2_compress_ab` (0).
 
-    fused_iter: True runs each Mehrotra iteration as one `iter_sweep_c2`
-    launch; False (default) the two sweeps with the barrier algebra
-    between them.
+    fused_iter (condense=2): True runs each Mehrotra iteration as one
+    `iter_sweep_c2` launch; False (default) the two sweeps with the
+    barrier algebra between them.  With condense=1, windowed and
+    fused_iter have no effect and stats carry no c2_* keys.
     """
-    check_supported(config, condense, windowed, fused_iter)
-    return solve_checked(qp, config, windowed, fused_iter)
+    if "c2Abar" in qp and condense != 2:
+        raise ValueError("precondensed (c2*) QP data requires condense=2")
+    check_supported(config, condense, windowed, fused_iter, fused)
+    return solve_checked(qp, config, condense, windowed, fused_iter,
+                         lam0_l, lam0_u)
 
 
-def solve_checked(qp: dict, config: IPMConfig, windowed: bool | None = None,
-                  fused_iter: bool = False) -> BatchSolution:
+def solve_checked(qp: dict, config: IPMConfig, condense: int,
+                  windowed: bool | None = None, fused_iter: bool = False,
+                  lam0_l=None, lam0_u=None) -> BatchSolution:
     """`solve_batched` for a caller that has run `check_supported`."""
-    sol = _solve_core(qp, config, windowed, fused_iter)
+    sol = _solve_core(qp, config, condense, windowed, fused_iter, lam0_l,
+                      lam0_u)
     cap = config.escalate_capacity
     if config.escalate_iters <= 0 or cap <= 0:
         return sol
@@ -129,7 +158,7 @@ def solve_checked(qp: dict, config: IPMConfig, windowed: bool | None = None,
     idx = torch.topk(masked, cap).indices          # distinct lane indices
     valid = bad[idx]                               # (cap,)
     sub = _solve_core({k: v.index_select(-1, idx) for k, v in qp.items()},
-                      esc_cfg, windowed)
+                      esc_cfg, condense, windowed)
 
     def scat(full, part):
         # in place on this call's own outputs: lanes `idx` take the
@@ -146,27 +175,60 @@ def solve_checked(qp: dict, config: IPMConfig, windowed: bool | None = None,
                          lam_u=scat(sol.lam_u, sub.lam_u), stats=stats)
 
 
-def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
-                fused_iter: bool = False) -> BatchSolution:
+def _solve_core(qp: dict, config: IPMConfig, condense: int,
+                windowed: bool | None = None, fused_iter: bool = False,
+                lam0_l=None, lam0_u=None) -> BatchSolution:
     c = qp["c"]
     ruu = qp["ruu"]
     pT_diag, p_T = qp["pT"], qp["p"]
     N_orig, nu_orig, B = ruu.shape
     nx = c.shape[1]
     dtype = c.dtype
-    M = N_orig // 2
-    N, nu = M, 2 * nu_orig
+    lb0, ub0 = qp["lb"], qp["ub"]
 
-    cnd = {k: qp["c2" + k] for k in _C2_KEYS}
-    exp_A, exp_B = qp["c2Ae"], qp["c2Be"]
-    # bounds / slacks / duals are per original input; the stage-major
-    # layout makes the condensed stacking a pure reshape
-    lb0 = qp["lb"].reshape(M, nu, B)
-    ub0 = qp["ub"].reshape(M, nu, B)
-    ruu = ruu.reshape(M, nu, B)
-    ru, qx, cb = cnd["rbar"], cnd["qbar"], cnd["cbar"]
-    Abar, Bbar = cnd["Abar"], cnd["Bbar"]
-    Qbar, S1T, R00 = cnd["Qbar"], cnd["S1T"], cnd["R00"]
+    if condense == 2:
+        if "c2Abar" in qp:
+            cnd = {k: qp["c2" + k] for k in _C2_KEYS}
+            exp_A, exp_B, stride = qp["c2Ae"], qp["c2Be"], 1
+        else:
+            cnd = ck.condense2(qp["A"], qp["B"], c, qp["qxx"], qp["qx"],
+                               qp["ru"])
+            exp_A, exp_B, stride = qp["A"], qp["B"], 2
+        # bounds / slacks / duals are per original input; the stage-major
+        # layout makes the condensed stacking a pure reshape
+        N, nu = N_orig // 2, 2 * nu_orig
+        resh = lambda z: z.reshape(N, nu, B)  # noqa: E731
+        lb0, ub0, ruu = resh(lb0), resh(ub0), resh(ruu)
+        if lam0_l is not None:
+            lam0_l = resh(lam0_l)
+        if lam0_u is not None:
+            lam0_u = resh(lam0_u)
+        ru, qx, cs = cnd["rbar"], cnd["qbar"], cnd["cbar"]
+        Abar, Bbar = cnd["Abar"], cnd["Bbar"]
+        Qbar, S1T, R00 = cnd["Qbar"], cnd["S1T"], cnd["R00"]
+        kkt_c2, corr_c2 = ((ck.kkt_sweep_c2_win, ck.corrector_sweep_c2_win)
+                           if windowed else
+                           (ck.kkt_sweep_c2, ck.corrector_sweep_c2))
+
+        def kkt(c_res, q, rs, r, pterm, dx0):
+            return kkt_c2(Abar, Bbar, c_res, Qbar, S1T, R00, q, rs, r,
+                          pT_diag, pterm, dx0)
+
+        def corr(c_res, q, r, K, L, Pc, pterm, dx0):
+            return corr_c2(Abar, Bbar, c_res, q, r, K, L, Pc, pterm, dx0)
+    else:
+        N, nu = N_orig, nu_orig
+        A, Bm, qxx = qp["A"], qp["B"], qp["qxx"]
+        ru, qx, cs = qp["ru"], qp["qx"], c
+        fused_iter = False          # no effect here, as in the JAX package
+
+        def kkt(c_res, q, rs, r, pterm, dx0):
+            return rk.kkt_sweep(A, Bm, c_res, qxx, q, rs, r, pT_diag, pterm,
+                                dx0)
+
+        def corr(c_res, q, r, K, L, Pc, pterm, dx0):
+            return rk.corrector_sweep(A, Bm, c_res, q, r, K, L, Pc, pterm,
+                                      dx0)
 
     finite_l = torch.isfinite(lb0)
     finite_u = torch.isfinite(ub0)
@@ -186,10 +248,15 @@ def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
     mu0 = torch.full((), config.mu0_init, dtype=dtype, device=c.device)
     lam_l = torch.where(finite_l, mu0 / s_l, 0.0)
     lam_u = torch.where(finite_u, mu0 / s_u, 0.0)
+    # warm-started bound duals (cf. ipm.init_state): clipped interior
+    if lam0_l is not None:
+        lam_l = torch.where(finite_l, torch.clamp(lam0_l, min=1e-4), 0.0)
+    if lam0_u is not None:
+        lam_u = torch.where(finite_u, torch.clamp(lam0_u, min=1e-4), 0.0)
 
     r1x = torch.cat([qx, p_T[None]], dim=0)               # (N+1, nx, B)
     r1u = ru - lam_l + lam_u
-    r2 = torch.cat([-qp["dx0"][None], -cb], dim=0)        # (N+1, nx, B)
+    r2 = torch.cat([-qp["dx0"][None], -cs], dim=0)        # (N+1, nx, B)
     r3 = torch.where(finite_l, -lb - s_l, 0.0)
     r4 = torch.where(finite_u, ub - s_u, 0.0)
 
@@ -213,9 +280,6 @@ def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
                 scratch=scratch)
         r2 = -cd
     else:
-        kkt, corr = ((ck.kkt_sweep_c2_win, ck.corrector_sweep_c2_win)
-                     if windowed else
-                     (ck.kkt_sweep_c2, ck.corrector_sweep_c2))
         # mu_floor = 100 eps^2 and tiny, both rounded to the working dtype
         finfo = torch.finfo(dtype)
         mu_floor = float(100.0 * torch.tensor(finfo.eps, dtype=dtype) ** 2)
@@ -234,9 +298,8 @@ def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
             # predictor: factorization + affine backward + forward rollout
             c_res = -r2[1:]
             dx0_res = -r2[0]
-            K, _, L, Pc, ddx_a, ddu_a = kkt(
-                Abar, Bbar, c_res, Qbar, S1T, R00, r1x[:-1], ruu_shift, rt1u,
-                pT_diag, r1x[-1], dx0_res)
+            K, _, L, Pc, ddx_a, ddu_a = kkt(c_res, r1x[:-1], ruu_shift,
+                                            rt1u, r1x[-1], dx0_res)
 
             ds_l_a = torch.where(finite_l, ddu_a + r3, 0.0)
             ds_u_a = torch.where(finite_u, r4 - ddu_a, 0.0)
@@ -267,9 +330,8 @@ def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
             rt1u_c = (r1u
                       + torch.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
                       - torch.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
-            ddx, ddu = corr(
-                Abar, Bbar, c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
-                dx0_res)
+            ddx, ddu = corr(c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
+                            dx0_res)
 
             ds_l = torch.where(finite_l, ddu + r3, 0.0)
             ds_u = torch.where(finite_u, r4 - ddu, 0.0)
@@ -299,16 +361,18 @@ def _solve_core(qp: dict, config: IPMConfig, windowed: bool | None = None,
         res_stat=torch.maximum(torch.amax(r1x.abs(), dim=(0, 1)),
                                torch.amax(r1u.abs(), dim=(0, 1))),
         res_eq=torch.amax(r2.abs(), dim=(0, 1)),
-        c2_windowed=int(bool(windowed)),
-        c2_compress_gains=0,
-        c2_compress_ab=0,
     )
+    if condense == 1:
+        return BatchSolution(dx=z_dx, du=z_du, lam_l=lam_l, lam_u=lam_u,
+                             stats=stats)
+    stats.update(c2_windowed=int(bool(windowed)), c2_compress_gains=0,
+                 c2_compress_ab=0)
 
     # expand: interior states were eliminated exactly through their
     # dynamics row; recover them once (not per iteration)
     dx_even = z_dx[:-1]                                 # (M, 13, B)
     dx_odd = ck.expand2(exp_A, exp_B, c, dx_even,
-                        z_du[:, :nu_orig].contiguous())
+                        z_du[:, :nu_orig].contiguous(), stride)
     dx_full = torch.cat([
         torch.stack([dx_even, dx_odd], dim=1).reshape(N_orig, nx, B),
         z_dx[-1:]], dim=0)                              # (N_orig+1, nx, B)

@@ -1,14 +1,17 @@
 """Throughput-oriented batched RTI step (counterpart of
 `solver/rti_batched.py`).
 
-Many independent NMPC instances advanced one SQP-RTI iteration per call:
-the preparation is ONE `prep_condense2` launch (ERK4 + exact VDE + QP
-assembly + block-2 condensing), the feedback is `ops.ipm_fast`'s
-Mehrotra solve on the condensed sweeps (or, with `fused_iter=True`, one
-`iter_sweep_c2` launch per iteration; with `windowed=True`, the split
-sweep launches), the expansion recovers the eliminated states.  On CUDA
-tensors each kernel is hand-written; on CPU tensors their plain PyTorch
-versions run.
+Many independent NMPC instances advanced one SQP-RTI iteration per call.
+At even N (block-2 condensing, the default) the preparation is ONE
+`prep_condense2` launch (ERK4 + exact VDE + QP assembly + condensing), the
+feedback is `ops.ipm_fast`'s Mehrotra solve on the condensed sweeps (or,
+with `fused_iter=True`, one `iter_sweep_c2` launch per iteration; with
+`windowed=True`, the split sweep launches), the expansion recovers the
+eliminated states.  With `fused_prep_condense=False` the preparation is a
+`prep_sweep` launch and the condensing a `condense2` launch.  At odd N (or
+condense=1) `prep_sweep` feeds the uncondensed sweeps `kkt_sweep` /
+`corrector_sweep`.  On CUDA tensors each kernel is hand-written; on CPU
+tensors their plain PyTorch versions run.
 
 Layouts: batch-first by default (x_traj (B, N+1, nx)); a serving loop that
 chains steps on the card passes `layout="batch_last"` and carries
@@ -20,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops import ipm_fast
-from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import prep_condense2
+from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import (prep_condense2,
+                                                           prep_sweep)
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.solver.ocp import OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIOutput, RTIState
@@ -70,9 +74,10 @@ def prep_tiles(spec: OCPSpec, B: int, dtype, device):
 
 
 def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
-               batch_last: bool):
-    """Preparation phase: one `prep_condense2` launch from the iterate to
-    the precondensed QP dict `ops.ipm_fast.solve_batched` takes.
+               batch_last: bool, fused_condense: bool = True):
+    """Preparation phase: one launch from the iterate to the QP dict
+    `ops.ipm_fast.solve_batched` takes, `prep_condense2`'s precondensed
+    one (fused_condense, even N) or `prep_sweep`'s stage-wise one.
 
     Returns (x_bl, u_bl, qp) with the iterate in the kernels' layout.
     """
@@ -93,15 +98,20 @@ def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
     q_t, r_t, lbu_t, ubu_t, p_t = prep_tiles(spec, B, dtype, dev)
     pT_diag = torch.diagonal(spec.cost.W_e).to(dtype)
 
-    cnd, Ae, Be, c_k, lb_k, ub_k = prep_condense2(
-        x_bl, u_bl, yref_bl.to(dtype).contiguous(), q_t, r_t, lbu_t, ubu_t,
-        p_t)
-    qp = dict(c=c_k, lb=lb_k, ub=ub_k, c2Ae=Ae, c2Be=Be,
-              ruu=r_t[None].expand(N, nu, B).contiguous(),
+    prep_args = (x_bl, u_bl, yref_bl.to(dtype).contiguous(), q_t, r_t, lbu_t,
+                 ubu_t, p_t)
+    qp = dict(ruu=r_t[None].expand(N, nu, B).contiguous(),
               pT=pT_diag[:, None].expand(nx, B).contiguous(),
               p=(pT_diag[:, None] * (x_bl[-1] - yref_e_bl)).contiguous(),
-              dx0=(bl(x0s) - x_bl[0]).contiguous(),
-              **{"c2" + k: v for k, v in cnd.items()})
+              dx0=(bl(x0s) - x_bl[0]).contiguous())
+    if fused_condense:
+        cnd, Ae, Be, c_k, lb_k, ub_k = prep_condense2(*prep_args)
+        qp.update(c=c_k, lb=lb_k, ub=ub_k, c2Ae=Ae, c2Be=Be,
+                  **{"c2" + k: v for k, v in cnd.items()})
+    else:
+        A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep_sweep(*prep_args)
+        qp.update(A=A_k, B=B_k, c=c_k, qx=qx_k, ru=ru_k, lb=lb_k, ub=ub_k,
+                  qxx=q_t[None].expand(N, nx, B).contiguous())
     return x_bl, u_bl, qp
 
 
@@ -110,6 +120,7 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
                      config: IPMConfig = IPMConfig(),
                      fused_prep: bool = True,
                      fused_prep_condense: bool | None = None,
+                     prep_batch_rows: int | None = None,
                      condense: int | None = None,
                      layout: str = "batch_first",
                      windowed: bool | None = None,
@@ -123,33 +134,45 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
         (x_traj (N+1,nx,B), u_traj (N,nu,B)).
       x0s: (B, nx).  yref: (N, ny) shared or (B, N, ny) per-problem;
         yref_e (nx,) or (B, nx).
-      condense: None selects block-2 condensing (the only form ported).
+      fused_prep_condense: None selects the fused `prep_condense2` launch
+        when condense=2 and prep_batch_rows is None or 1; False the
+        `prep_sweep` + `condense2` launches (True with condense=1 raises
+        ValueError, as in the JAX package).
+      prep_batch_rows: the JAX package's batch tiling of its preparation
+        kernel; it has no counterpart on the card (the same `prep_sweep`
+        kernel runs) and only selects the unfused preparation, as there.
+      condense: None selects block-2 condensing at even N and the
+        uncondensed sweeps at odd N; 1 or 2 forces one form.
       windowed, fused_iter: the sweep forms of `ops.ipm_fast.solve_batched`
-        (split launches; one launch per Mehrotra iteration).
+        (split launches; one launch per Mehrotra iteration), condense=2
+        only.
     Returns (RTIState', RTIOutput) in the input's layout (batch_last:
     u0/u1 are (nu,B), plans are stage-major batch-last).
     """
     if condense is None:
         condense = 2 if spec.N % 2 == 0 else 1
+    if fused_prep_condense is None:
+        fused_prep_condense = (condense == 2
+                               and prep_batch_rows in (None, 1))
+    if fused_prep_condense and condense != 2:
+        raise ValueError("fused_prep_condense requires condense=2")
     ipm_fast.check_supported(config, condense, windowed, fused_iter)
     if spec.f is not None:
         raise _not_ported("a custom model ODE (spec.f)", 12)
     if not fused_prep or spec.sim_steps != 1:
         raise _not_ported("the XLA-style preparation (fused_prep=False, "
                           "sim_steps>1)", 7)
-    if fused_prep_condense is False:
-        raise _not_ported("the unfused prep + condense2 launches "
-                          "(fused_prep_condense=False)", 7)
     if prep_vde_order != 4:
         raise _not_ported("prep_vde_order=2", 7)
     if layout not in ("batch_first", "batch_last"):
         raise ValueError(f"layout {layout!r}")
 
     batch_last = layout == "batch_last"
-    x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last)
+    x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last,
+                                fused_prep_condense)
 
-    # feedback: batch-last IPM on the condensed sweeps
-    sol = ipm_fast.solve_checked(qp, config, windowed, fused_iter)
+    # feedback: batch-last IPM on the sweeps of the problem's form
+    sol = ipm_fast.solve_checked(qp, config, condense, windowed, fused_iter)
 
     x_traj_bl = x_bl + sol.dx
     u_traj_bl = u_bl + sol.du

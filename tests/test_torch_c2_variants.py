@@ -245,7 +245,7 @@ def test_certified_fused_iter_solve_matches_jax(certified_qp):
             {k: jnp.asarray(v) for k, v in certified_qp.items()})
     tsol = tfast.solve_batched(
         {k: torch.as_tensor(v) for k, v in certified_qp.items()},
-        certified_config(capacity=4), fused_iter=True)
+        certified_config(capacity=4), condense=2, fused_iter=True)
     n = int(tsol.stats["escalated"])
     assert n == int(jsol.stats["escalated"]) and 0 < n <= 4
     for name in SOLVE_FIELDS:
@@ -262,7 +262,8 @@ def test_certified_fused_iter_solve_matches_jax(certified_qp):
                                             (True, 1)])
 def test_stats_report_the_windowed_sweeps(certified_qp, windowed, flag):
     q = {k: torch.as_tensor(v) for k, v in certified_qp.items()}
-    stats = tfast.solve_batched(q, TCfg(iters=2), windowed=windowed).stats
+    stats = tfast.solve_batched(q, TCfg(iters=2), condense=2,
+                                windowed=windowed).stats
     assert stats["c2_windowed"] == flag
     assert stats["c2_compress_gains"] == stats["c2_compress_ab"] == 0
 
@@ -276,5 +277,6 @@ def test_fused_iter_with_windowed_raises(problem):
         rti_step_batched(tspec, st, x, yref, yref_e, fused_iter=True,
                          windowed=True)
     with pytest.raises(ValueError, match="fused_iter"):
-        tfast.solve_batched({}, TCfg(), fused_iter=True, windowed=True)
+        tfast.solve_batched({}, TCfg(), condense=2, fused_iter=True,
+                            windowed=True)
 

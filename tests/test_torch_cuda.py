@@ -6,10 +6,11 @@ JAX it runs as
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Each kernel is held against its plain version on the card with a ragged
-lane count (37) that exercises the masked edge, and the batched step on
-the card (the default path, the certified one, fused_iter=True and
-windowed=True) against the same lanes through the plain versions on the
-CPU.
+lane count (37) that exercises the masked edge (the uncondensed
+preparation and sweeps at an odd horizon too), and the batched step on
+the card (the default path, the certified one, fused_iter=True,
+windowed=True, condense=1 at an odd horizon and fused_prep_condense=False)
+against the same lanes through the plain versions on the CPU.
 """
 
 import pytest
@@ -32,19 +33,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 11])
 @pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
                                         (torch.float32, 1e-4)])
-def test_kernels_match_plain_on_card(cuda_device, dtype, tol):
+def test_kernels_match_plain_on_card(cuda_device, dtype, tol, n):
+    """Every kernel and form at N=10; at the odd N=11 the uncondensed
+    ones (the only ones that take an odd horizon)."""
     import chip_smoke
 
-    kc.reset_launch_counts()
-    for name, (kern, ref, args) in chip_smoke.kernel_inputs(
-            B, dtype, cuda_device).items():
+    inputs = chip_smoke.kernel_inputs(B, dtype, cuda_device, n=n)
+    assert len(inputs) == (len(kc.KERNELS) + len(chip_smoke.FORMS)
+                           if n % 2 == 0 else
+                           len(chip_smoke.UNCONDENSED_KERNELS))
+    for label, (kern, ref, args) in inputs.items():
+        name = chip_smoke.FORMS.get(label, label)
+        before = kc.launch_counts()[name]
         got = chip_smoke.flat(kern(*chip_smoke.fresh(args)))
         want = chip_smoke.flat(ref(*args))
         _, rel = chip_smoke.compare(got, want)
-        assert rel <= tol, (name, rel)
-        assert kc.launch_counts()[name] >= 1
+        assert rel <= tol, (label, rel)
+        assert kc.launch_counts()[name] == before + 1, label
 
 
 def _step(device, x0s, config, N=10, **opts):
@@ -105,6 +113,36 @@ def test_sweep_options_on_card_match_cpu(cuda_device, option, per_iter):
     cpu = _step("cpu", x0s, config, **{option: True})
     want = dict.fromkeys(kc.KERNELS, 0)
     want.update(prep_condense2=1, expand2=1,
+                **{k: v * config.iters for k, v in per_iter.items()})
+    assert counts == want
+    _assert_close(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, opts, per_step, per_iter", [
+    (9, {}, dict(prep_sweep=1), dict(kkt_sweep=1, corrector_sweep=1)),
+    (10, dict(fused_prep_condense=False),
+     dict(prep_sweep=1, condense2=1, expand2=1),
+     dict(kkt_sweep_c2=1, corrector_sweep_c2=1)),
+], ids=["odd_N", "unfused_prep"])
+def test_uncondensed_and_unfused_paths_on_card_match_cpu(
+        cuda_device, N, opts, per_step, per_iter):
+    """The odd horizon (condense=1: prep_sweep, kkt_sweep,
+    corrector_sweep) and fused_prep_condense=False (prep_sweep, condense2,
+    the condensed sweeps, the stride-2 expand2) on the card launch exactly
+    their kernels and match the CPU's plain versions."""
+    gen = torch.Generator().manual_seed(6)
+    x0s = torch.zeros(B, 13, dtype=torch.float64)
+    x0s[:, 3] = 1.0
+    x0s += 0.05 * torch.randn(B, 13, generator=gen, dtype=torch.float64)
+    x0s[:5, 0] += 1.5
+    config = IPMConfig(iters=8)
+    kc.reset_launch_counts()
+    card = _step(cuda_device, x0s, config, N=N, **opts)
+    counts = kc.launch_counts()
+    cpu = _step("cpu", x0s, config, N=N, **opts)
+    want = dict.fromkeys(kc.KERNELS, 0)
+    want.update(**per_step,
                 **{k: v * config.iters for k, v in per_iter.items()})
     assert counts == want
     _assert_close(card, cpu)

@@ -67,7 +67,7 @@ def solved(request, qp):
         q, JCfg(**kw), block_b=B, stages_per_step=2, interpret=True,
         condense=2))({k: jnp.asarray(v) for k, v in qp.items()})
     tsol = tfast.solve_batched({k: torch.as_tensor(v) for k, v in qp.items()},
-                               TCfg(**kw))
+                               TCfg(**kw), condense=2)
     return request.param, jsol, tsol
 
 
@@ -101,8 +101,10 @@ def test_escalated_lanes_are_the_worst_unconverged(qp):
     mu after the first pass."""
     kw = CONFIGS["escalate"]
     tq = {k: torch.as_tensor(v) for k, v in qp.items()}
-    first = tfast.solve_batched(tq, TCfg(iters=kw["iters"])).stats["mu"]
-    lanes = tfast.solve_batched(tq, TCfg(**kw)).stats["escalated_lanes"]
+    first = tfast.solve_batched(tq, TCfg(iters=kw["iters"]),
+                                condense=2).stats["mu"]
+    lanes = tfast.solve_batched(tq, TCfg(**kw),
+                                condense=2).stats["escalated_lanes"]
     bad = first > TCfg().escalate_mu_tol
     worst = torch.argsort(torch.where(bad, first, -torch.inf),
                           descending=True)[:kw["escalate_capacity"]]

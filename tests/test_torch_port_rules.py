@@ -1,5 +1,6 @@
 """Rules the port keeps: no JAX, the card by default, no hidden fallback,
-unported options refused by name."""
+unported options refused by name, ported ones run on CPU tensors through
+the plain versions."""
 
 import ast
 from pathlib import Path
@@ -90,14 +91,38 @@ def test_sweep_options_run_the_plain_versions_on_cpu(small, option):
     assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
 
 
+@pytest.mark.parametrize("change, kwargs", [
+    ({}, dict(condense=1)),
+    ({}, dict(fused_prep_condense=False)),
+    ({}, dict(prep_batch_rows=2)),
+    (dict(N=7), {}),
+], ids=["condense", "fused_prep_condense", "prep_batch_rows", "odd_N"])
+def test_uncondensed_and_unfused_paths_run_on_cpu(small, change, kwargs):
+    """condense=1, the unfused preparation and odd horizons run on CPU
+    tensors through the plain versions, escalation included, and launch
+    no kernel."""
+    import dataclasses
+
+    spec, st, x0s, yref, yref_e = small
+    if change:
+        spec = dataclasses.replace(spec, **change)
+        st = ts.init_rti(spec, x0s, device="cpu")
+        yref, yref_e = ts.hover_yref(spec, device="cpu")
+    kc.reset_launch_counts()
+    _, out = rti_step_batched(spec, st, x0s, yref, yref_e,
+                              IPMConfig(iters=3, escalate_iters=2,
+                                        escalate_capacity=2), **kwargs)
+    assert out.u_plan.shape == (3, spec.N, 4)
+    assert bool(torch.isfinite(out.u_plan).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(condense=1),
     dict(config=IPMConfig(gondzio_correctors=1)),
     dict(config=IPMConfig(compress_gains=True)),
     dict(config=IPMConfig(compress_ab=True)),
     dict(prep_vde_order=2),
     dict(fused_prep=False),
-    dict(fused_prep_condense=False),
 ], ids=lambda kw: next(iter(kw)) if "config" not in kw else
     next(k for k, v in vars(kw["config"]).items()
          if v != getattr(IPMConfig(), k)))
@@ -108,8 +133,8 @@ def test_unported_options_raise(small, kwargs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(N=7), dict(sim_steps=2), dict(f=lambda p, x, u: x)],
-    ids=["odd_N", "sim_steps", "custom_ode"])
+    dict(sim_steps=2), dict(f=lambda p, x, u: x)],
+    ids=["sim_steps", "custom_ode"])
 def test_unported_specs_raise(small, change):
     import dataclasses
 
@@ -119,9 +144,26 @@ def test_unported_specs_raise(small, change):
                          yref_e)
 
 
-def test_solve_batched_refuses_condense_1():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ipm_fast.solve_batched({}, IPMConfig(), condense=1)
+def test_solve_batched_runs_condense_1(small):
+    """solve_batched's default form (condense=1) on the stage-wise QP of
+    the unfused preparation, through the plain sweeps."""
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import prepare_qp
+
+    spec, st, x0s, yref, yref_e = small
+    _, _, qp = prepare_qp(spec, st, x0s, yref, yref_e, batch_last=False,
+                          fused_condense=False)
+    kc.reset_launch_counts()
+    sol = ipm_fast.solve_batched(qp, IPMConfig(iters=3))
+    assert sol.dx.shape == (spec.N + 1, 13, 3)
+    assert bool(torch.isfinite(sol.du).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
+
+
+def test_solve_batched_refuses_the_split_uncondensed_sweeps():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, K9"):
+        ipm_fast.solve_batched({}, IPMConfig(), fused=False)
+    with pytest.raises(ValueError, match="fused"):
+        ipm_fast.solve_batched({}, IPMConfig(), fused=False, condense=2)
 
 
 @pytest.mark.parametrize("bad, match", [
