@@ -7,9 +7,9 @@ Builds the port's CUDA kernels from `crazyflie_nmpc_tpu_torch/csrc` (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version at the main path's shapes (N=50, M=25; the uncondensed
 preparation and sweeps at N=51 too) in float64 and float32, and drives
-five paths of the batched RTI step (`rti_step_batched`,
-IPMConfig(iters=8), batch-last, float32), 20 chained steps each, with
-launch counters proving which kernels ran:
+eight paths of the batched RTI step (`rti_step_batched`,
+IPMConfig(iters=8) unless named, batch-last, float32), 20 chained steps
+each, with launch counters proving which kernels ran:
 
   [main]         the default path at N=50, B = 1024, 4096 and 8192;
   [fused_iter]   fused_iter=True (one iter_sweep_c2 launch per
@@ -20,14 +20,26 @@ launch counters proving which kernels ran:
                  at N=50, the same batches, and the odd horizon N=51 with
                  the default condense at B=4096;
   [unfused_prep] fused_prep_condense=False (prep_sweep, condense2, the
-                 condensed sweeps, the stride-2 expand2), N=50, B=4096.
+                 condensed sweeps, the stride-2 expand2), N=50, B=4096;
+  [split]        the stage QP of prepare_qp(fused_condense=False) solved
+                 by solve_batched(fused=False) (backward_sweep,
+                 forward_sweep, backward_vector_sweep) with the step's
+                 update, N=50 and N=51, B=4096;
+  [gondzio]      IPMConfig(iters=6, gondzio_correctors=1), N=50 and N=51,
+                 B=4096;
+  [throughput_mode] IPMConfig(iters=8, compress_gains=True,
+                 compress_ab=True) with prep_vde_order=2 (the bf16-stream
+                 forms of kkt_sweep_c2 / corrector_sweep_c2 and the
+                 order-2 prep_condense2), N=50, B = 2048 and 4096.
 
 Each path's step 1 is held against the port's float64 CPU run, and the
-sweeps of [long] against their plain versions at N=400 too.  It also
+sweeps of [long] against their plain versions at N=400 too; [split]'s
+against the fused sweeps on the same QP, [throughput_mode]'s against the
+uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel with CUDA events at the shapes of the path that runs it,
-and traces a few steps of [main], [fused_iter] and [uncondensed] with
-torch.profiler.
+and traces a few steps of [main], [fused_iter], [uncondensed], [split],
+[gondzio] and [throughput_mode] with torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -61,7 +73,21 @@ N_LONG_REF_LANES = 8
 N_ODD = N + 1         # the odd horizon of [uncondensed]
 
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
-          "unfused_prep", "certified", "timing")
+          "unfused_prep", "split", "gondzio", "throughput_mode", "certified",
+          "timing")
+B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
+GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
+THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
+# the JAX package's own throughput-mode step on [throughput_mode]'s
+# N_REF_LANES lanes (B=2048, seed 2048), Pallas in interpret mode on the
+# CPU: `python tools/throughput_envelope.py` (its JSON line).  dev_*: max
+# |du - du_exact| / max |du_exact| against the uncompressed float64 step;
+# f32_vs_f64_*: its float32 run against its float64 one
+JAX_THROUGHPUT = dict(du_exact_max=6.222269832743075,
+                      dev_f64=0.15259322536710077,
+                      dev_f32=0.1473521350790647,
+                      f32_vs_f64_u0=0.03820863421097087,
+                      f32_vs_f64_x_plan=0.2731285092978418)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s, fp32
 # outside the tensor cores 67 TFLOP/s.
@@ -115,12 +141,40 @@ KERNEL_INFO = {
     "corrector_sweep": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
         replaces=_PALLAS + "riccati_kernels.py:584"),
+    "backward_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
+        replaces=_PALLAS + "riccati_kernels.py:233"),
+    "forward_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
+        replaces=_PALLAS + "riccati_kernels.py:327"),
+    "backward_vector_sweep": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
+        replaces=_PALLAS + "riccati_kernels.py:665"),
 }
-# the other form of a kernel, checked and timed under its own label: the
-# expansion of the full-horizon A/B (fused_prep_condense=False)
-FORMS = {"expand2 stride 2": "expand2"}
+# the other forms of a kernel, each checked and timed under its own label:
+# the expansion of the full-horizon A/B (fused_prep_condense=False), the
+# bf16-stream forms of the condensed sweeps (compress_gains: bf16 K/L/Pc;
+# compress_ab: the deviation-coded bf16 Abar - I, Bbar, cbar) and the
+# order-2 VDE preparations (prep_vde_order=2)
+FORMS = {"expand2 stride 2": "expand2",
+         "kkt_sweep_c2 bf16 gains": "kkt_sweep_c2",
+         "kkt_sweep_c2 bf16 stream": "kkt_sweep_c2",
+         "kkt_sweep_c2 bf16 gains+stream": "kkt_sweep_c2",
+         "corrector_sweep_c2 bf16 gains": "corrector_sweep_c2",
+         "corrector_sweep_c2 bf16 stream": "corrector_sweep_c2",
+         "corrector_sweep_c2 bf16 gains+stream": "corrector_sweep_c2",
+         "prep_condense2 vde_order=2": "prep_condense2",
+         "prep_sweep vde_order=2": "prep_sweep"}
+# the bf16-gain forms of K2 and their full-precision twins on the same
+# inputs: the factorization is the same code in both, so the bf16 K, L and
+# Pc are the twin's rounded to bfloat16 through float32, exactly
+BF16_TWINS = {"kkt_sweep_c2 bf16 gains": "kkt_sweep_c2",
+              "kkt_sweep_c2 bf16 gains+stream": "kkt_sweep_c2 bf16 stream"}
 # the kernels of the uncondensed path, checked at the odd horizon too
-UNCONDENSED_KERNELS = ("prep_sweep", "kkt_sweep", "corrector_sweep")
+UNCONDENSED_KERNELS = ("prep_sweep", "kkt_sweep", "corrector_sweep",
+                       "backward_sweep", "forward_sweep",
+                       "backward_vector_sweep")
+SPLIT_KERNELS = ("backward_sweep", "forward_sweep", "backward_vector_sweep")
 # the split sweeps run on the long-horizon path: timed at its shapes
 LONG_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 # the sweeps of that path (windowed=True and None), checked at its N too
@@ -157,9 +211,12 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
     residuals and masks (a share 1 - `finite` of the bounds infinite, with
     s=1, lam=r3=r4=0 there); K6's and K8's from K7's outputs (K8's plus a
     barrier shift, its corrector from its factorization), K4's stride-2
-    form from K7's A/B.  At odd n only K7 and K8 (UNCONDENSED_KERNELS).
-    Returns {label: (kernel wrapper, plain version, args)}, labelled by
-    kernel name or FORMS label."""
+    form from K7's A/B; K9's from K8's (its factorization's, and the
+    corrector's right-hand side); the bf16-stream forms of K2/K3 from K2's
+    inputs and factorization rounded to bfloat16 (Abar - I, Bbar, cbar;
+    K, L, Pc); the order-2 preparations from K1's.  At odd n only K7, K8
+    and K9 (UNCONDENSED_KERNELS).  Returns {label: (kernel wrapper, plain
+    version, args)}, labelled by kernel name or FORMS label."""
     import numpy as np
     import torch
 
@@ -196,13 +253,20 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
     k8_in = (A, Bm, c7, qxx, qx7,
              (k1_in[4][None] + tensor(rng.uniform(0.01, 1.0, (n, 4, B))))
              .contiguous(), ru7, pT, p_term, dx0)
-    K8, _, L8, Pc8, _, _ = rk.kkt_sweep_ref(*k8_in)
+    K8, kff8, L8, Pc8, _, _ = rk.kkt_sweep_ref(*k8_in)
     k8c_in = (A, Bm, c7, qx7, (ru7 + 0.1 * r(n, 4, B)).contiguous(), K8, L8,
               Pc8, p_term, dx0)
     inputs = {"prep_sweep": (pk.prep_sweep, pk.prep_sweep_ref, k1_in),
               "kkt_sweep": (rk.kkt_sweep, rk.kkt_sweep_ref, k8_in),
               "corrector_sweep": (rk.corrector_sweep, rk.corrector_sweep_ref,
-                                  k8c_in)}
+                                  k8c_in),
+              "backward_sweep": (rk.backward_sweep, rk.backward_sweep_ref,
+                                 k8_in[:-1]),
+              "forward_sweep": (rk.forward_sweep, rk.forward_sweep_ref,
+                                (A, Bm, c7, K8, kff8, dx0)),
+              "backward_vector_sweep": (
+                  rk.backward_vector_sweep, rk.backward_vector_sweep_ref,
+                  k8c_in[:2] + k8c_in[3:9])}
     if n % 2:
         return inputs
 
@@ -235,7 +299,42 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
               0.01 * r(13, B), torch.clamp(n_fin, min=1)[None].contiguous(),
               (n_fin > 0).to(dtype)[None].contiguous(), 0.995)
     stride2 = (A, Bm, c7, k4_in[3], k4_in[4])
-    return {**inputs,
+    # the bf16-stream forms (compress_gains, compress_ab)
+    bf = torch.bfloat16
+    eye = torch.eye(13, dtype=dtype, device=device)[:, :, None]
+    stream = ((cnd["Abar"] - eye).to(bf), cnd["Bbar"].to(bf),
+              cnd["cbar"].to(bf))
+    gains = tuple(t.to(bf) for t in (K, L, Pc))
+    part = functools.partial
+    forms = {
+        "kkt_sweep_c2 bf16 gains": (
+            part(ck.kkt_sweep_c2, gains_dtype=bf),
+            part(ck.kkt_sweep_c2_ref, gains_dtype=bf), k2_in),
+        "kkt_sweep_c2 bf16 stream": (
+            part(ck.kkt_sweep_c2, a_dev=True),
+            part(ck.kkt_sweep_c2_ref, a_dev=True), stream + k2_in[3:]),
+        "kkt_sweep_c2 bf16 gains+stream": (
+            part(ck.kkt_sweep_c2, gains_dtype=bf, a_dev=True),
+            part(ck.kkt_sweep_c2_ref, gains_dtype=bf, a_dev=True),
+            stream + k2_in[3:]),
+        "corrector_sweep_c2 bf16 gains": (
+            ck.corrector_sweep_c2, ck.corrector_sweep_c2_ref,
+            k3_in[:5] + gains + k3_in[8:]),
+        "corrector_sweep_c2 bf16 stream": (
+            part(ck.corrector_sweep_c2, a_dev=True),
+            part(ck.corrector_sweep_c2_ref, a_dev=True),
+            stream + k3_in[3:]),
+        "corrector_sweep_c2 bf16 gains+stream": (
+            part(ck.corrector_sweep_c2, a_dev=True),
+            part(ck.corrector_sweep_c2_ref, a_dev=True),
+            stream + k3_in[3:5] + gains + k3_in[8:]),
+        "prep_condense2 vde_order=2": (
+            part(pk.prep_condense2, vde_order=2),
+            part(pk.prep_condense2_ref, vde_order=2), k1_in),
+        "prep_sweep vde_order=2": (part(pk.prep_sweep, vde_order=2),
+                                   part(pk.prep_sweep_ref, vde_order=2),
+                                   k1_in)}
+    return {**inputs, **forms,
             "prep_condense2": (pk.prep_condense2, pk.prep_condense2_ref,
                                k1_in),
             "kkt_sweep_c2": (ck.kkt_sweep_c2, ck.kkt_sweep_c2_ref, k2_in),
@@ -319,6 +418,7 @@ def flops_of(name, B, n=N):
     B'm, one solve, A'm + K'Qu and the rollout.
     """
     vde = 3 * 60 * 17 + 4 * 100 + 4 * 150 + 6 * (169 + 52)
+    vde2 = 60 * 13 + 60 * 4 + 4 * 100 + 150 + 2 * (169 + 52)
     cond = 2 * (2197 + 676 + 2197 + 169 + 676 + 208 + 169 + 52 + 169)
     k1 = 2 * (2 * vde) + cond
     fwd = 2 * 377
@@ -331,12 +431,19 @@ def flops_of(name, B, n=N):
                 "corrector_sweep_c2": k3, "expand2": k4,
                 "expand2 stride 2": k4, "bwd_c2": k2 - fwd, "fwd_c2": fwd,
                 "bwd_vec_c2": k3 - fwd, "iter_sweep_c2": k2 + k3 + barrier,
-                "condense2": cond}
+                "condense2": cond,
+                "prep_condense2 vde_order=2": 2 * (2 * vde2) + cond}
+    for label, base in FORMS.items():
+        per_pair.setdefault(label, per_pair.get(base))
+    rollout = 2 * 273
+    kkt = 2 * (2 * 2197 + 3 * 676 + 208 + 20 + 14 * 16 + 169 + 221 + 52
+               + 273) + 10
+    corr = 2 * (52 + 16 + 221 + 273)
     per_stage = {
-        "prep_sweep": 2 * vde + 42,
-        "kkt_sweep": 2 * (2 * 2197 + 3 * 676 + 208 + 20 + 14 * 16 + 169
-                          + 221 + 52 + 273) + 10,
-        "corrector_sweep": 2 * (52 + 16 + 221 + 273)}
+        "prep_sweep": 2 * vde + 42, "prep_sweep vde_order=2": 2 * vde2 + 42,
+        "kkt_sweep": kkt, "corrector_sweep": corr,
+        "backward_sweep": kkt - rollout, "forward_sweep": rollout,
+        "backward_vector_sweep": corr - rollout}
     if name in per_stage:
         return float(per_stage[name]) * n * B
     return float(per_pair[name]) * (n // 2) * B
@@ -354,15 +461,17 @@ def phase_build():
     print(f"[build] {time.perf_counter() - t0:.1f} s wall "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     names = "|".join(sorted(KERNEL_INFO, key=len, reverse=True))
+    print("[build] ptxas per kernel instance, its mangled template "
+          "arguments in <>: f float, d double, 13__nv_bfloat16 (S0_ the "
+          "same) bfloat16, Lb0/Lb1 a bool false/true, Li2/Li4 an int")
     for src, rec in info.items():
         print(f"[build] {src}: {rec['seconds']:.1f} s"
               f"{' (cached)' if rec['cached'] else ''} -> {rec['lib']}")
         fn = None
         for line in rec["ptxas"].splitlines():
-            found = re.search(r"\d(%s)_kernelI([fd])E" % names, line)
+            found = re.search(r"\d(%s)_kernelI(.*?)E+v" % names, line)
             if "Compiling entry function" in line and found:
-                fn = found.group(1) + ("<float>" if found.group(2) == "f"
-                                       else "<double>")
+                fn = f"{found.group(1)}<{found.group(2)}>"
             elif "spill stores" in line or "Used " in line:
                 print(f"[ptxas] {fn}: {line.split(':', 1)[-1].strip()}")
     return info
@@ -370,17 +479,47 @@ def phase_build():
 
 def compare(a, b):
     """(max abs err, max over outputs of abs err / max(1, max |b_i|)) over
-    matching lists of outputs."""
+    matching lists of outputs.  A bfloat16 output (the compressed gains)
+    is allowed one bf16 rounding step (2^-7 of the larger magnitude) per
+    entry beyond that: the kernel and the plain version round values that
+    differ in the last bits of the working dtype, which can straddle a
+    rounding boundary.  The kernel's rounding itself is held exactly
+    (BF16_TWINS, check_bf16_rounding)."""
+    import torch
+
     err = rel = 0.0
     for x, y in zip(a, b):
         if x.shape != y.shape:
             fail(f"shape {tuple(x.shape)} vs {tuple(y.shape)}")
+        if (x.dtype == torch.bfloat16) != (y.dtype == torch.bfloat16):
+            fail(f"dtype {x.dtype} vs {y.dtype}")
         if not bool(x.isfinite().all()):
             fail("non-finite kernel output")
-        e = float((x - y).abs().max())
+        d = (x.double() - y.double()).abs()
+        if x.dtype == torch.bfloat16:
+            step = 2.0**-7 * torch.maximum(x.double().abs(), y.double().abs())
+            d = torch.clamp(d - step, min=0.0)
+        e = float(d.max())
         err = max(err, e)
         rel = max(rel, e / max(1.0, float(y.abs().max())))
     return err, rel
+
+
+def check_bf16_rounding(outs, dn):
+    """The bf16 K, L, Pc (outputs 0, 2, 3) of each BF16_TWINS form equal
+    its twin's full-precision ones rounded by PyTorch through float32,
+    bit for bit: this pins the kernel's rounding mode (to nearest even,
+    double through float), which compare()'s allowance would not."""
+    import torch
+
+    for label, twin in BF16_TWINS.items():
+        got, full = outs[label], outs[twin]
+        same = [bool(torch.equal(got[i], full[i].float().to(torch.bfloat16)))
+                for i in (0, 2, 3)]
+        print(f"[kernel] {label} {dn}: K, L, Pc bitwise equal to "
+              f"{twin}'s rounded through float32: {same}")
+        if not all(same):
+            fail(f"{label} {dn}: the kernel's bf16 rounding differs")
 
 
 def phase_kernels(device):
@@ -406,11 +545,12 @@ def phase_kernels(device):
                              (N_LONG, torch.float64, LONG_CHECKED)):
         dn = str(dtype).split(".")[1]
         inputs = kernel_inputs(B_CHECK, dtype, device, n=n)
+        outs = {}
         for label in labels:
             name = FORMS.get(label, label)
             kern, ref, args = inputs[label]
             before = kc.launch_counts()[name]
-            got = flat(kern(*fresh(args)))
+            got = outs[label] = flat(kern(*fresh(args)))
             torch.cuda.synchronize()
             want = flat(ref(*args))
             if kc.launch_counts()[name] != before + 1:
@@ -424,6 +564,8 @@ def phase_kernels(device):
                 fail(f"{label} {dn} N={n} disagrees with its plain version")
             if n == N:
                 errs[(name, dn)] = max(errs.get((name, dn), 0.0), abs_err)
+        if n == N:
+            check_bf16_rounding(outs, dn)
     print("[kernel] held against plain PyTorch in float64 and float32: "
           + ", ".join(checked) + f"; at N={N_ODD}: "
           + ", ".join(UNCONDENSED_KERNELS)
@@ -431,10 +573,33 @@ def phase_kernels(device):
     return errs
 
 
-def run_chain(B, device, n=N, **opts):
-    """20 chained batch-last steps at batch B and horizon n with the step
-    options `opts`; returns the first step's output, the last state, ms per
-    step and the launch counts.
+def make_step(spec, x0s, yref, yref_e, cfg, fused=True, **opts):
+    """One batch-last step of the path: `rti_step_batched` with the step
+    options `opts`, or with fused=False the stage QP of
+    prepare_qp(fused_condense=False) solved by
+    solve_batched(fused=False) (the split uncondensed sweeps) with the
+    step's update, `rti_update`."""
+    from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
+        prepare_qp, rti_step_batched, rti_update)
+
+    if fused:
+        return lambda st: rti_step_batched(spec, st, x0s, yref, yref_e, cfg,
+                                           layout="batch_last", **opts)
+
+    def split_step(st):
+        x_bl, u_bl, qp = prepare_qp(spec, st, x0s, yref, yref_e, True,
+                                    fused_condense=False)
+        sol = ipm_fast.solve_batched(qp, cfg, fused=False)
+        return rti_update(qp, sol, x_bl, u_bl, True)
+    return split_step
+
+
+def run_chain(B, device, n=N, cfg=None, fused=True, **opts):
+    """20 chained batch-last steps at batch B and horizon n with the
+    IPMConfig `cfg` (iters=8 by default) and the step options (`fused`,
+    `opts`: make_step); returns the first step's output, the last state,
+    ms per step and the launch counts.
 
     The steps run under torch.cuda.set_sync_debug_mode("error"), so any
     host-device synchronisation on the path fails the run.  ms is the
@@ -448,19 +613,15 @@ def run_chain(B, device, n=N, **opts):
     from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
     from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
                                                  init_rti)
-    from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
-        rti_step_batched, to_batch_last)
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
 
     spec = default_ocp(N=n, tf=TF * n / N, dtype=torch.float32,
                        device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = hover_batch(spec, B, seed=B)
     st0 = to_batch_last(init_rti(spec, x0s, device=device))
-    cfg = IPMConfig(iters=ITERS)
-
-    def step(st):
-        return rti_step_batched(spec, st, x0s, yref, yref_e, cfg,
-                                layout="batch_last", **opts)
+    step = make_step(spec, x0s, yref, yref_e, cfg or IPMConfig(iters=ITERS),
+                     fused, **opts)
 
     for _ in range(2):                        # warm-up, not timed
         step(st0)
@@ -488,29 +649,28 @@ def run_chain(B, device, n=N, **opts):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     gaps = sorted(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
-    return dict(x0s=x0s, first=first, last=out, st=st,
+    return dict(x0s=x0s, st0=st0, first=first, last=out, st=st,
                 ms=evs[0].elapsed_time(evs[-1]) / STEPS,
                 ms_median=gaps[STEPS // 2], ms_max=gaps[-1],
                 host_ms=sorted(host)[2], counts=counts, step=step)
 
 
-def cpu_reference_step(x0s, cfg, n=N, dtype=None, **opts):
+def cpu_reference_step(x0s, cfg, n=N, dtype=None, fused=True, **opts):
     """The same lanes through the port's plain versions on the CPU, in
-    `dtype` (float64 by default)."""
+    `dtype` (float64 by default); returns the step's RTIOutput and its
+    input state."""
     import torch
 
     from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
                                                  init_rti)
-    from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
-        rti_step_batched, to_batch_last)
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
 
     dtype = dtype or torch.float64
     spec = default_ocp(N=n, tf=TF * n / N, dtype=dtype, device="cpu")
     yref, yref_e = hover_yref(spec, device="cpu")
     x = x0s.to(device="cpu", dtype=dtype)
     st = to_batch_last(init_rti(spec, x, device="cpu"))
-    return rti_step_batched(spec, st, x, yref, yref_e, cfg,
-                            layout="batch_last", **opts)[1]
+    return make_step(spec, x, yref, yref_e, cfg, fused, **opts)(st)[1], st
 
 
 def check_chain(label, run, B, n, per_step):
@@ -556,23 +716,25 @@ def step1_error(run, ref, lanes):
     return du0, dx
 
 
-def drive(label, device, per_step, batches=B_MAIN, n=N, **opts):
+def drive(label, device, per_step, batches=B_MAIN, n=N, cfg=None,
+          fused=True, check_step1=True, **opts):
     """20 chained steps of one path at horizon n and each B of `batches`
     (check_chain), step 1 on N_REF_LANES lanes at the first B against the
-    port's float64 CPU run of the same options.  Returns (launch totals,
-    {B: run})."""
+    port's float64 CPU run of the same options (unless check_step1 is
+    False: the caller holds it).  Returns (launch totals, {B: run})."""
     from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 
+    cfg = cfg or IPMConfig(iters=ITERS)
     totals, runs = {}, {}
     for B in batches:
-        run = run_chain(B, device, n=n, **opts)
+        run = run_chain(B, device, n=n, cfg=cfg, fused=fused, **opts)
         for name, v in check_chain(label, run, B, n, per_step).items():
             totals[name] = totals.get(name, 0) + v
         runs[B] = run
-        if B == batches[0]:
+        if B == batches[0] and check_step1:
             lanes = slice(0, N_REF_LANES)
-            ref = cpu_reference_step(run["x0s"][lanes],
-                                     IPMConfig(iters=ITERS), n=n, **opts)
+            ref, _ = cpu_reference_step(run["x0s"][lanes], cfg, n=n,
+                                        fused=fused, **opts)
             du0, dx = step1_error(run, ref, lanes)
             # float32 on the card vs float64 on the CPU after 8 IPM
             # iterations: u0 [kRPM] to 1e-3 (the JAX package's own f32
@@ -638,6 +800,156 @@ def phase_unfused_prep(device):
         fused_prep_condense=False)
 
 
+def compare_paths(label, run, other, other_label):
+    """One path's step time beside another's of this call, same B."""
+    if other is None:
+        return
+    B, n = run["x0s"].shape[0], run["st"].u_traj.shape[0]
+    print(f"[{label}] B={B} N={n}: {run['ms']:.3f} ms/step against "
+          f"{other_label} {other['ms']:.3f} (host issue {run['host_ms']:.3f}"
+          f" against {other['host_ms']:.3f} ms)")
+
+
+def phase_split(device, unc_runs):
+    """solve_batched(fused=False) on the stage QP at N=50 and N=51,
+    B=4096: prep_sweep once, backward_sweep and backward_vector_sweep once
+    and forward_sweep twice per iteration, no other kernel.  Step 1's QP
+    is solved again with the fused sweeps (kkt_sweep, corrector_sweep) on
+    the card: the same formulas in the same order, one launch boundary
+    apart, so the two agree to rounding."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp, hover_yref
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import prepare_qp
+
+    per_step = {"prep_sweep": 1, "backward_sweep": ITERS,
+                "forward_sweep": 2 * ITERS, "backward_vector_sweep": ITERS}
+    totals, runs = {}, {}
+    for n in (N, N_ODD):
+        t, r = drive("split", device, per_step, batches=(B_TIME,), n=n,
+                     fused=False)
+        for name, v in t.items():
+            totals[name] = totals.get(name, 0) + v
+        run = r[B_TIME]
+        runs[n] = run
+        spec = default_ocp(N=n, tf=TF * n / N, dtype=torch.float32,
+                           device=device)
+        yref, yref_e = hover_yref(spec, device=device)
+        _, _, qp = prepare_qp(spec, run["st0"], run["x0s"], yref, yref_e,
+                              True, fused_condense=False)
+        cfg = IPMConfig(iters=ITERS)
+        split = ipm_fast.solve_batched(qp, cfg, fused=False)
+        fused = ipm_fast.solve_batched(qp, cfg)
+        d_du = float((split.du - fused.du).abs().max())
+        d_dx = float((split.dx - fused.dx).abs().max())
+        scale = max(1.0, float(fused.dx.abs().max()))
+        print(f"[split] N={n}: split vs fused sweeps on step 1's QP, max "
+              f"|du| {d_du:.3e} kRPM, max |dx| {d_dx:.3e} (bitwise: "
+              f"{bool(torch.equal(split.du, fused.du))})")
+        if not (d_du <= 1e-4 and d_dx <= 1e-4 * scale):
+            fail(f"[split] N={n}: split and fused sweeps disagree")
+    compare_paths("split", runs[N], unc_runs.get(B_TIME),
+                  "[uncondensed] (fused sweeps)")
+    return totals, runs
+
+
+def phase_gondzio(device):
+    """IPMConfig(iters=6, gondzio_correctors=1), bench.py's 6+1 point, at
+    N=50 (the condensed sweeps: kkt_sweep_c2 once and corrector_sweep_c2
+    twice per iteration) and N=51 (kkt_sweep, corrector_sweep), B=4096."""
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+
+    cfg, it = IPMConfig(**GONDZIO), GONDZIO["iters"]
+    corr = it * (1 + GONDZIO["gondzio_correctors"])
+    totals, runs = drive("gondzio", device, {
+        "prep_condense2": 1, "kkt_sweep_c2": it, "corrector_sweep_c2": corr,
+        "expand2": 1}, batches=(B_TIME,), cfg=cfg)
+    odd, odd_runs = drive("gondzio", device, {
+        "prep_sweep": 1, "kkt_sweep": it, "corrector_sweep": corr},
+        batches=(B_TIME,), n=N_ODD, cfg=cfg)
+    for name, v in odd.items():
+        totals[name] = totals.get(name, 0) + v
+    return totals, {N: runs[B_TIME], N_ODD: odd_runs[B_TIME]}
+
+
+def phase_throughput_mode(device):
+    """bench.py's throughput mode: IPMConfig(iters=8, compress_gains=True,
+    compress_ab=True) with prep_vde_order=2, N=50, B = 2048 and 4096: the
+    order-2 prep_condense2, the bf16-stream kkt_sweep_c2 /
+    corrector_sweep_c2 (counted on their kernels) and expand2.
+
+    Step 1 on N_REF_LANES lanes is held against the port's float64 CPU run
+    of the same configuration.  The bf16 gains make this step sensitive to
+    the last bits of the working dtype (a rounding step of one gain moves
+    it), so float32 and float64 differ far more than on the exact path: the
+    yardsticks are two float32 runs of the same step, the port's plain
+    versions on the CPU and the JAX package's (JAX_THROUGHPUT), and the
+    card may be at most 1.5x as far from float64 as the farther of them.
+    It is also held against the uncompressed float64 answer
+    (IPMConfig(iters=8), order-4 VDE): JAX's envelope for the compressed
+    streams on random bounded QPs is 5e-2 of max |du|
+    (tests/test_pallas_kernels.py), but on this OCP the JAX package's own
+    compressed step lands 0.153 (float64) and 0.147 (float32) of max |du|
+    off it, so the card may be at most 1.1x the larger of those; the
+    port's float64 distance must be JAX's to 1e-6 (the port's and JAX's
+    float64 runs on the CPU agree to 1e-14)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+
+    cfg = IPMConfig(**THROUGHPUT)
+    opts = dict(prep_vde_order=2)
+    totals, runs = drive("throughput_mode", device, {
+        "prep_condense2": 1, "kkt_sweep_c2": ITERS,
+        "corrector_sweep_c2": ITERS, "expand2": 1}, batches=B_THROUGHPUT,
+        cfg=cfg, check_step1=False, **opts)
+    run = runs[B_THROUGHPUT[0]]
+    lanes = slice(0, N_REF_LANES)
+    x0s = run["x0s"][lanes]
+    ref, st = cpu_reference_step(x0s, cfg, **opts)
+    ref32, _ = cpu_reference_step(x0s, cfg, dtype=torch.float32, **opts)
+    exact, _ = cpu_reference_step(x0s, IPMConfig(iters=ITERS))
+    du0, dx = step1_error(run, ref, lanes)
+    e32 = float((ref32.u0.double() - ref.u0).abs().max())
+    x32 = float((ref32.x_plan.double() - ref.x_plan).abs().max())
+    jx = JAX_THROUGHPUT
+
+    def du(u_plan):       # the QP step of each lane: u_plan - u_traj
+        return u_plan.double().cpu() - st.u_traj
+    scale = float(du(exact.u_plan).abs().max())
+
+    def dev(u_plan):
+        return float((du(u_plan) - du(exact.u_plan)).abs().max()) / scale
+    dev_card = dev(run["first"].u_plan[..., lanes])
+    dev64, dev32 = dev(ref.u_plan), dev(ref32.u_plan)
+    lim_u0 = 1.5 * max(e32, jx["f32_vs_f64_u0"])
+    lim_x = 1.5 * max(x32, jx["f32_vs_f64_x_plan"])
+    lim_dev = 1.1 * max(jx["dev_f64"], jx["dev_f32"])
+    print(f"[throughput_mode] step 1, {N_REF_LANES} lanes vs CPU float64 "
+          f"(same configuration): max |du0| {du0:.3e} kRPM, max |dx_plan| "
+          f"{dx:.3e}; float32 yardsticks: the port's plain versions "
+          f"{e32:.3e} kRPM, {x32:.3e}, the JAX package's "
+          f"{jx['f32_vs_f64_u0']:.3e}, {jx['f32_vs_f64_x_plan']:.3e} "
+          f"(limits {lim_u0:.3e}, {lim_x:.3e})")
+    print(f"[throughput_mode] step 1 vs the uncompressed float64 answer "
+          f"(order-4 VDE), max |du - du_exact| / max |du_exact| "
+          f"({scale:.3f} kRPM): card {dev_card:.3e} (limit {lim_dev:.3e}), "
+          f"plain float64 {dev64:.3e}, plain float32 {dev32:.3e}; the JAX "
+          f"package's float64 {jx['dev_f64']:.3e}, float32 "
+          f"{jx['dev_f32']:.3e} (tools/throughput_envelope.py)")
+    if not (du0 <= lim_u0 and dx <= lim_x):
+        fail("[throughput_mode] step 1 disagrees with the CPU float64 run")
+    if abs(dev64 - jx["dev_f64"]) > 1e-6:
+        fail("[throughput_mode] the port's float64 step is not the JAX "
+             "package's distance from the uncompressed answer")
+    if not dev_card <= lim_dev:
+        fail("[throughput_mode] step 1 is further from the uncompressed "
+             "answer than the JAX package's compressed step")
+    return totals, runs
+
+
 def phase_long(device):
     """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
     windowed=None (the fused sweeps), 20 chained steps each; step 1 of
@@ -659,14 +971,14 @@ def phase_long(device):
     d_win = float((win["first"].u0 - fused["first"].u0).abs().max())
     dx_win = float((win["first"].x_plan - fused["first"].x_plan).abs().max())
     lanes = slice(0, N_LONG_REF_LANES)
-    ref = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
-                             n=N_LONG)
+    ref, _ = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
+                                n=N_LONG)
     scale = max(1.0, float(ref.x_plan.abs().max()))
     e_win, x_win = step1_error(win, ref, lanes)
     e_fused, x_fused = step1_error(fused, ref, lanes)
     # the yardstick: the plain versions in float32 on the CPU, same lanes
-    ref32 = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
-                               n=N_LONG, dtype=torch.float32)
+    ref32, _ = cpu_reference_step(win["x0s"][lanes], IPMConfig(iters=ITERS),
+                                  n=N_LONG, dtype=torch.float32)
     e32 = float((ref32.u0.double() - ref.u0).abs().max())
     x32 = float((ref32.x_plan.double() - ref.x_plan).abs().max())
     # float32 through a 200-stage Riccati recursion vs float64: u0 to 1e-2
@@ -952,6 +1264,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     errs, totals, timing = {}, {}, {}
     main_runs, fused_runs, unc_runs = {}, {}, {}
+    split_runs, gondzio_runs, thr_runs = {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -969,20 +1282,38 @@ def main(argv=None) -> int:
         totals.update({k: long_totals[k] for k in LONG_KERNELS})
     if "uncondensed" in phases:
         unc_totals, unc_runs = phase_uncondensed(device, main_runs)
-        totals.update({k: unc_totals[k] for k in UNCONDENSED_KERNELS})
+        totals.update({k: unc_totals[k] for k in UNCONDENSED_KERNELS
+                       if k not in SPLIT_KERNELS})
     if "unfused_prep" in phases:
         unf_totals, _ = phase_unfused_prep(device)
         totals["prep_sweep"] = (totals.get("prep_sweep", 0)
                                 + unf_totals["prep_sweep"])
         totals["condense2"] = unf_totals["condense2"]
+    if "split" in phases:
+        split_totals, split_runs = phase_split(device, unc_runs)
+        totals.update({k: split_totals[k] for k in SPLIT_KERNELS})
+    if "gondzio" in phases:
+        _, gondzio_runs = phase_gondzio(device)
+        compare_paths("gondzio", gondzio_runs[N], main_runs.get(B_TIME),
+                      "[main]")
+        compare_paths("gondzio", gondzio_runs[N_ODD], unc_runs.get(B_TIME),
+                      "[uncondensed] N=50")
+    if "throughput_mode" in phases:
+        _, thr_runs = phase_throughput_mode(device)
+        compare_paths("throughput_mode", thr_runs[B_TIME],
+                      main_runs.get(B_TIME), "[main]")
     if "certified" in phases:
         phase_certified(device)
     if "timing" in phases:
         timing = phase_timing(device)
-        for label, runs in (("main", main_runs), ("fused_iter", fused_runs),
-                            ("uncondensed", unc_runs)):
-            if B_TIME in runs:
-                phase_profile(label, runs[B_TIME])
+        for label, run in (("main", main_runs.get(B_TIME)),
+                           ("fused_iter", fused_runs.get(B_TIME)),
+                           ("uncondensed", unc_runs.get(B_TIME)),
+                           ("split", split_runs.get(N)),
+                           ("gondzio", gondzio_runs.get(N)),
+                           ("throughput_mode", thr_runs.get(B_TIME))):
+            if run is not None:
+                phase_profile(label, run)
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s")
 

@@ -213,11 +213,12 @@ __device__ __forceinline__ void factor_stage(
 
 // One stage of the backward vector pass on the stored factorization
 // (K, L, Pc of stage k): m = p + Pc, Qu = r + B'm, kff = -Quu^{-1} Qu,
-// p <- q + A'm + K'Qu.  r as in factor_stage.
-template <typename T, int nu = NUC, typename V>
+// p <- q + A'm + K'Qu.  r as in factor_stage; A, B, K, Pc and L are lane
+// views (LaneRef, or LaneLd for the compressed streams).
+template <typename T, int nu = NUC, typename VA, typename VB, typename VK,
+          typename VP, typename VL, typename V>
 __device__ __forceinline__ void vec_stage(
-    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> Kk,
-    LaneRef<const T> Pck, LaneRef<const T> Lk, LaneRef<const T> q,
+    VA A, VB Bm, VK Kk, VP Pck, VL Lk, LaneRef<const T> q,
     const V& r, T (&p)[NX], LaneRef<T> kff) {
   constexpr int nl = nu * (nu + 1) / 2;
   T m[NX], Qu[nu], kf[nu], Lp[nl];
@@ -248,11 +249,12 @@ __device__ __forceinline__ void vec_stage(
   }
 }
 
-// One rollout stage: u = K x + kff, xn = A x + B u + c.
-template <typename T, int nu = NUC>
+// One rollout stage: u = K x + kff, xn = A x + B u + c (A, B, c and K lane
+// views as in vec_stage).
+template <typename T, int nu = NUC, typename VA, typename VB, typename VC,
+          typename VK>
 __device__ __forceinline__ void rollout_stage(
-    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> c,
-    LaneRef<const T> Kk, LaneRef<const T> kff, const T (&x)[NX],
+    VA A, VB Bm, VC c, VK Kk, LaneRef<const T> kff, const T (&x)[NX],
     T (&u)[nu], T (&xn)[NX]) {
 #pragma unroll
   for (int a = 0; a < nu; ++a) {
@@ -308,13 +310,16 @@ __device__ __forceinline__ void factor_sweep(
 }
 
 // The whole backward vector pass from p = pterm: kff of every stage
-// (corrector_sweep_c2 parks it in its du output).
-template <typename T, int nu = NUC>
+// (corrector_sweep_c2 parks it in its du output).  The stage stream A/B
+// (type TA; DEV: A deviation-coded) and the factorization K/L/Pc (type TG)
+// may be stored bf16 (the compressed forms); they are read as T.
+template <typename T, int nu = NUC, bool DEV = false, typename TA,
+          typename TG>
 __device__ __forceinline__ void vec_sweep(
-    const T* __restrict__ Abar, const T* __restrict__ Bbar,
+    const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
     const T* __restrict__ qx, const T* __restrict__ ru,
-    const T* __restrict__ K, const T* __restrict__ L,
-    const T* __restrict__ Pc, const T* __restrict__ pterm,
+    const TG* __restrict__ K, const TG* __restrict__ L,
+    const TG* __restrict__ Pc, const T* __restrict__ pterm,
     T* __restrict__ kff, int M, int B, int b) {
   T p[NX];
   {
@@ -324,9 +329,11 @@ __device__ __forceinline__ void vec_sweep(
   }
 #pragma unroll 1
   for (int k = M - 1; k >= 0; --k)
-    vec_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
-                     lane(Bbar, NX * nu, k, B, b), lane(K, nu * NX, k, B, b),
-                     lane(Pc, NX, k, B, b), lane(L, nu * (nu + 1) / 2, k, B, b),
+    vec_stage<T, nu>(in_lane<T, DEV>(Abar, NX * NX, k, B, b),
+                     in_lane<T>(Bbar, NX * nu, k, B, b),
+                     in_lane<T>(K, nu * NX, k, B, b),
+                     in_lane<T>(Pc, NX, k, B, b),
+                     in_lane<T>(L, nu * (nu + 1) / 2, k, B, b),
                      lane(qx, NX, k, B, b), lane(ru, nu, k, B, b), p,
                      lane(kff, nu, k, B, b));
 }
@@ -334,11 +341,13 @@ __device__ __forceinline__ void vec_sweep(
 // Forward rollout over the horizon from dx0: du_k = K_k dx_k + kff_k,
 // dx_{k+1} = A dx + B du + c; dx holds M+1 states (the terminal last).
 // kff may alias du (each stage reads its kff before writing its du).
-template <typename T, int nu = NUC>
-__device__ __forceinline__ void rollout(const T* __restrict__ Abar,
-                                        const T* __restrict__ Bbar,
-                                        const T* __restrict__ cbar,
-                                        const T* __restrict__ K,
+// A/B/c (type TA, DEV) and K (type TK) may be stored bf16, as in vec_sweep.
+template <typename T, int nu = NUC, bool DEV = false, typename TA,
+          typename TK>
+__device__ __forceinline__ void rollout(const TA* __restrict__ Abar,
+                                        const TA* __restrict__ Bbar,
+                                        const TA* __restrict__ cbar,
+                                        const TK* __restrict__ K,
                                         const T* kff,
                                         const T* __restrict__ dx0,
                                         T* __restrict__ dx, T* du, int M,
@@ -350,10 +359,11 @@ __device__ __forceinline__ void rollout(const T* __restrict__ Abar,
 #pragma unroll 1
   for (int k = 0; k < M; ++k) {
     T u[nu], xn[NX];
-    rollout_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
-                         lane(Bbar, NX * nu, k, B, b), lane(cbar, NX, k, B, b),
-                         lane(K, nu * NX, k, B, b), lane(kff, nu, k, B, b), x,
-                         u, xn);
+    rollout_stage<T, nu>(in_lane<T, DEV>(Abar, NX * NX, k, B, b),
+                         in_lane<T>(Bbar, NX * nu, k, B, b),
+                         in_lane<T>(cbar, NX, k, B, b),
+                         in_lane<T>(K, nu * NX, k, B, b),
+                         lane(kff, nu, k, B, b), x, u, xn);
     auto dxk = lane(dx, NX, k, B, b);
     auto duk = lane(du, nu, k, B, b);
 #pragma unroll

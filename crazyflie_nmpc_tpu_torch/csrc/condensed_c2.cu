@@ -6,6 +6,9 @@
 //   kkt_sweep_c2       (_kkt_c2_kernel, _chol_n, _cho_solve_n,
 //                       _cho_solve_n_vec, _pk)  -> kkt_sweep_c2_kernel
 //   corrector_sweep_c2 (_corr_c2_kernel)        -> corrector_sweep_c2_kernel
+//   and their compressed-stream forms (gains_dtype=bfloat16: bf16 K/L/Pc;
+//   a_dev=True with bf16 Abar - I, Bbar, cbar; _ld, _ld_A) -> the same
+//   kernels instantiated on the stored types (the *_g, *_a, *_ga entries)
 //   expand2            (_expand2_kernel, both forms: even_only=True is
 //                       stride 1, even_only=False stride 2) -> expand2_kernel
 //   kkt_sweep_c2_win / corrector_sweep_c2_win, the split long-horizon
@@ -37,10 +40,14 @@
 // P, PA, Qux and K (~550 values per thread) exceed the register file and
 // live in local memory (L1); `ptxas -v` in the build log gives the spill
 // counts.  Splitting a lane's matrix work over several threads is later
-// work.  K4 is bound by bytes (it reads Ae/Be once).  K6, like the
+// work.  The compressed forms halve the bytes of the streams they store in
+// bf16, which moves the bound, not the latency that sets the time.
+// K4 is bound by bytes (it reads Ae/Be once).  K6, like the
 // expansion parallel over (lane, pair), is bound by bytes too: per pair and
 // lane it reads ~500 values and writes ~660 for ~6k FMAs; it holds A0/B0
 // (221 values) for the cost products as K1 does.
+#include <type_traits>
+
 #include "c2_stage.cuh"
 
 using namespace cfl;
@@ -53,16 +60,26 @@ namespace {
 // ptxas scheduled differently and runs measurably slower, with or without
 // __restrict__ and wherever the lane views are made (PERF.md, PR 2).  The
 // results are bitwise those of factor_sweep, which bwd_c2 runs.
-template <typename T>
+//
+// The compressed forms (IPMConfig.compress_gains / compress_ab) are other
+// instantiations of the same body.  TG = bf16 writes K, L and Pc in bf16
+// for the corrector to re-read, while the recursion, kff and this kernel's
+// own rollout stay in T: the rollout reads the full-precision K from Kf, a
+// device-memory scratch standing in for the Pallas kernel's K_all (with
+// TG = T it reads the K output, and Kf is unused).  TA = bf16 with DEV
+// reads the deviation-coded stage stream (Abar - I, Bbar, cbar in bf16)
+// and adds the identity back at load.
+template <typename T, typename TA = T, typename TG = T, bool DEV = false>
 __global__ void __launch_bounds__(64)
-kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
-                    const T* __restrict__ cbar, const T* __restrict__ Qbar,
+kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
+                    const TA* __restrict__ cbar, const T* __restrict__ Qbar,
                     const T* __restrict__ S1T, const T* __restrict__ R00,
                     const T* __restrict__ qx, const T* __restrict__ ruu,
                     const T* __restrict__ ru, const T* __restrict__ pT,
                     const T* __restrict__ pterm, const T* __restrict__ dx0,
-                    T* K, T* kff, T* Lout, T* Pcout, T* dx, T* du, int M,
-                    int B) {
+                    TG* K, T* kff, TG* Lout, TG* Pcout, T* dx, T* du, T* Kf,
+                    int M, int B) {
+  constexpr bool kGainsT = std::is_same<TG, T>::value;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   // terminal cost-to-go: P = diag(pT), p = p_term
@@ -80,13 +97,13 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
 
 #pragma unroll 1
   for (int k = M - 1; k >= 0; --k) {
-    auto A = lane(Abar, NX * NX, k, B, b);
-    auto Bm = lane(Bbar, NX * NUC, k, B, b);
+    auto A = in_lane<T, DEV>(Abar, NX * NX, k, B, b);
+    auto Bm = in_lane<T>(Bbar, NX * NUC, k, B, b);
 
     // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
     T m[NX];
     {
-      auto c = lane(cbar, NX, k, B, b);
+      auto c = in_lane<T>(cbar, NX, k, B, b);
       auto Pc = lane(Pcout, NX, k, B, b);
       T cv[NX];
 #pragma unroll
@@ -96,7 +113,7 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
         T s = P[i][0] * cv[0];
 #pragma unroll
         for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
-        Pc[i] = s;
+        Pc[i] = cvt<TG>(s);
         m[i] = p[i] + s;
       }
     }
@@ -186,10 +203,18 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
         kf[a] = -kf[a];
         ko[a] = kf[a];
 #pragma unroll
-        for (int j = 0; j < NX; ++j) Ko[a * NX + j] = Kk[a][j];
+        for (int j = 0; j < NX; ++j) Ko[a * NX + j] = cvt<TG>(Kk[a][j]);
+      }
+      if constexpr (!kGainsT) {
+        auto Kfo = lane(Kf, NUC * NX, k, B, b);
+#pragma unroll
+        for (int a = 0; a < NUC; ++a) {
+#pragma unroll
+          for (int j = 0; j < NX; ++j) Kfo[a * NX + j] = Kk[a][j];
+        }
       }
 #pragma unroll
-      for (int t = 0; t < NLC; ++t) Lo[t] = Lp[t];
+      for (int t = 0; t < NLC; ++t) Lo[t] = cvt<TG>(Lp[t]);
     }
 
     // P <- sym(Qbar + A'PA + Qux'K);  p <- qx + A'm + K'Qu
@@ -233,25 +258,33 @@ kkt_sweep_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
     }
   }
 
-  rollout<T>(Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B, b);
+  if constexpr (kGainsT) {
+    rollout<T, NUC, DEV>(Abar, Bbar, cbar, static_cast<const T*>(K), kff,
+                         dx0, dx, du, M, B, b);
+  } else {
+    rollout<T, NUC, DEV>(Abar, Bbar, cbar, static_cast<const T*>(Kf), kff,
+                         dx0, dx, du, M, B, b);
+  }
 }
 
-template <typename T>
+// The compressed forms read K/L/Pc (TG) and the stage stream (TA, DEV) as
+// kkt_sweep_c2_kernel writes and takes them, upcast to T at load.
+template <typename T, typename TA = T, typename TG = T, bool DEV = false>
 __global__ void __launch_bounds__(64)
-corrector_sweep_c2_kernel(const T* __restrict__ Abar,
-                          const T* __restrict__ Bbar,
-                          const T* __restrict__ cbar,
+corrector_sweep_c2_kernel(const TA* __restrict__ Abar,
+                          const TA* __restrict__ Bbar,
+                          const TA* __restrict__ cbar,
                           const T* __restrict__ qx, const T* __restrict__ ru,
-                          const T* __restrict__ K, const T* __restrict__ L,
-                          const T* __restrict__ Pc,
+                          const TG* __restrict__ K, const TG* __restrict__ L,
+                          const TG* __restrict__ Pc,
                           const T* __restrict__ pterm,
                           const T* __restrict__ dx0, T* dx, T* du, int M,
                           int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   // backward vector pass on the stored factorization; kff parks in du
-  vec_sweep<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, du, M, B, b);
-  rollout<T>(Abar, Bbar, cbar, K, du, dx0, dx, du, M, B, b);
+  vec_sweep<T, NUC, DEV>(Abar, Bbar, qx, ru, K, L, Pc, pterm, du, M, B, b);
+  rollout<T, NUC, DEV>(Abar, Bbar, cbar, K, du, dx0, dx, du, M, B, b);
 }
 
 // The split forms: the backward factorization, the vector pass and the
@@ -474,7 +507,7 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
       T* dx, T* du, int M, int B, void* stream) {                             \
     kkt_sweep_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(      \
         Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K,     \
-        kff, L, Pc, dx, du, M, B);                                            \
+        kff, L, Pc, dx, du, nullptr, M, B);                                   \
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int corrector_sweep_c2_##SUFFIX(                                 \
@@ -533,3 +566,38 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 
 C2_ENTRIES(f32, float)
 C2_ENTRIES(f64, double)
+
+// The compressed forms of kkt_sweep_c2 / corrector_sweep_c2, FORM in the
+// symbol: _g bf16 gains (K, L, Pc), _a the deviation-coded bf16 stage
+// stream (Abar - I, Bbar, cbar), _ga both.  kkt_sweep_c2's take Kf last,
+// the full-precision scratch its rollout reads with bf16 gains (unused
+// by _a, whose rollout reads K).
+#define C2_COMPRESSED_ENTRIES(FORM, SUFFIX, T, TA, TG, DEV)                   \
+  extern "C" int kkt_sweep_c2##FORM##_##SUFFIX(                               \
+      const TA* Abar, const TA* Bbar, const TA* cbar, const T* Qbar,          \
+      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
+      const T* pT, const T* pterm, const T* dx0, TG* K, T* kff, TG* L,        \
+      TG* Pc, T* dx, T* du, T* Kf, int M, int B, void* stream) {              \
+    kkt_sweep_c2_kernel<T, TA, TG, DEV>                                       \
+        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(                        \
+            Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K, \
+            kff, L, Pc, dx, du, Kf, M, B);                                    \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int corrector_sweep_c2##FORM##_##SUFFIX(                         \
+      const TA* Abar, const TA* Bbar, const TA* cbar, const T* qx,            \
+      const T* ru, const TG* K, const TG* L, const TG* Pc, const T* pterm,    \
+      const T* dx0, T* dx, T* du, int M, int B, void* stream) {               \
+    corrector_sweep_c2_kernel<T, TA, TG, DEV>                                 \
+        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(                        \
+            Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0, dx, du, M, B);    \
+    return static_cast<int>(cudaGetLastError());                              \
+  }
+
+using bf16 = __nv_bfloat16;
+C2_COMPRESSED_ENTRIES(_g, f32, float, float, bf16, false)
+C2_COMPRESSED_ENTRIES(_g, f64, double, double, bf16, false)
+C2_COMPRESSED_ENTRIES(_a, f32, float, bf16, float, true)
+C2_COMPRESSED_ENTRIES(_a, f64, double, bf16, double, true)
+C2_COMPRESSED_ENTRIES(_ga, f32, float, bf16, bf16, true)
+C2_COMPRESSED_ENTRIES(_ga, f64, double, bf16, bf16, true)

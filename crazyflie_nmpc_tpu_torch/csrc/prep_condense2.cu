@@ -2,7 +2,9 @@
 //
 // Replaces crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:prep_condense2
 // (_prep_c2_kernel with _vde_stage, _dyn_rows, _jx_entries, _ju_rows,
-// _jx_mul; that stage math is prep_stage.cuh's, shared with prep_sweep.cu).
+// _jx_mul; that stage math is prep_stage.cuh's, shared with prep_sweep.cu),
+// and its vde_order=2 form (_vde_stage_o2: the same kernel with ORDER 2,
+// A and B from the midpoint Jacobian, the state still through ERK4).
 // For each stage pair (2j, 2j+1) and batch lane b:
 //   ERK4 propagation of both stages, the exact ERK4 matrix VDE
 //   sensitivities A, B from the sparse hand Jacobians, the defect c, the
@@ -34,7 +36,7 @@ using namespace cfl;
 
 namespace {
 
-template <typename T>
+template <typename T, int ORDER>
 __global__ void __launch_bounds__(128)
 prep_condense2_kernel(const T* __restrict__ x, const T* __restrict__ u,
                       const T* __restrict__ yref, const T* __restrict__ qd_,
@@ -92,13 +94,13 @@ prep_condense2_kernel(const T* __restrict__ x, const T* __restrict__ u,
     for (int jc = 0; jc < NX; ++jc) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) w[i] = (i == jc) ? T(1) : T(0);
-      tangent_x(p, X, w, col);
+      tangent_x<ORDER>(p, X, w, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) { A0[i][jc] = col[i]; Ael[i * NX + jc] = col[i]; }
     }
 #pragma unroll 1
     for (int jc = 0; jc < NU; ++jc) {
-      tangent_u(p, X, ue, jc, col);
+      tangent_u<ORDER>(p, X, ue, jc, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) { B0[i][jc] = col[i]; Bel[i * NU + jc] = col[i]; }
     }
@@ -138,14 +140,14 @@ prep_condense2_kernel(const T* __restrict__ x, const T* __restrict__ u,
     T w[NX], col[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) { c1[i] = xn[i] - xoo[i]; co[i] = c1[i]; }
-    tangent_x(p, X, c0, col);
+    tangent_x<ORDER>(p, X, c0, col);
 #pragma unroll
     for (int i = 0; i < NX; ++i) cb[i] = col[i] + c1[i];
 #pragma unroll 1
     for (int jc = 0; jc < NX; ++jc) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) w[i] = A0[i][jc];
-      tangent_x(p, X, w, col);
+      tangent_x<ORDER>(p, X, w, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) Ab[i * NX + jc] = col[i];
     }
@@ -153,10 +155,10 @@ prep_condense2_kernel(const T* __restrict__ x, const T* __restrict__ u,
     for (int jc = 0; jc < NU; ++jc) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) w[i] = B0[i][jc];
-      tangent_x(p, X, w, col);
+      tangent_x<ORDER>(p, X, w, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) Bb[i * NUC + jc] = col[i];
-      tangent_u(p, X, uo, jc, col);
+      tangent_u<ORDER>(p, X, uo, jc, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) Bb[i * NUC + NU + jc] = col[i];
     }
@@ -214,13 +216,14 @@ prep_condense2_kernel(const T* __restrict__ x, const T* __restrict__ u,
   }
 }
 
-template <typename T>
+template <typename T, int ORDER>
 int launch(const T* x, const T* u, const T* yref, const T* qd, const T* rd,
            const T* lbu, const T* ubu, const T* par, T* Abar, T* Bbar,
            T* cbar, T* Qbar, T* S1T, T* R00, T* qbar, T* rbar, T* Ae, T* Be,
            T* c, T* lb, T* ub, int M, int B, void* stream) {
   const dim3 grid((B + 127) / 128, M);
-  prep_condense2_kernel<T><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  prep_condense2_kernel<T, ORDER>
+      <<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       x, u, yref, qd, rd, lbu, ubu, par, Abar, Bbar, cbar, Qbar, S1T, R00,
       qbar, rbar, Ae, Be, c, lb, ub, B);
   return static_cast<int>(cudaGetLastError());
@@ -228,16 +231,19 @@ int launch(const T* x, const T* u, const T* yref, const T* qd, const T* rd,
 
 }  // namespace
 
-#define PREP_ENTRY(NAME, T)                                                  \
+#define PREP_ENTRY(NAME, T, ORDER)                                           \
   extern "C" int NAME(const T* x, const T* u, const T* yref, const T* qd,    \
                       const T* rd, const T* lbu, const T* ubu, const T* par, \
                       T* Abar, T* Bbar, T* cbar, T* Qbar, T* S1T, T* R00,    \
                       T* qbar, T* rbar, T* Ae, T* Be, T* c, T* lb, T* ub,    \
                       int M, int B, void* stream) {                          \
-    return launch<T>(x, u, yref, qd, rd, lbu, ubu, par, Abar, Bbar, cbar,    \
-                     Qbar, S1T, R00, qbar, rbar, Ae, Be, c, lb, ub, M, B,    \
-                     stream);                                                \
+    return launch<T, ORDER>(x, u, yref, qd, rd, lbu, ubu, par, Abar, Bbar,   \
+                            cbar, Qbar, S1T, R00, qbar, rbar, Ae, Be, c, lb, \
+                            ub, M, B, stream);                               \
   }
 
-PREP_ENTRY(prep_condense2_f32, float)
-PREP_ENTRY(prep_condense2_f64, double)
+PREP_ENTRY(prep_condense2_f32, float, 4)
+PREP_ENTRY(prep_condense2_f64, double, 4)
+// the order-2 VDE sensitivities (vde_order=2)
+PREP_ENTRY(prep_condense2_o2_f32, float, 2)
+PREP_ENTRY(prep_condense2_o2_f64, double, 2)

@@ -3,11 +3,12 @@
 // (prep_sweep.cu, K7).
 //
 // Counterparts of crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py's
-// _dyn_rows, _jx_entries/_jx_mul, _ju_rows and _vde_stage, for one batch
-// lane held by one thread: the quadrotor ODE, its sparse Jacobian applied
-// to a vector, the four RK4 stage states of one shooting interval, and the
-// columns of A = dF/dx and B = dF/du pushed through the RK4 tangent chain
-// (the exact ERK4 matrix VDE).
+// _dyn_rows, _jx_entries/_jx_mul, _ju_rows, _vde_stage and _vde_stage_o2,
+// for one batch lane held by one thread: the quadrotor ODE, its sparse
+// Jacobian applied to a vector, the four RK4 stage states of one shooting
+// interval, and the columns of A = dF/dx and B = dF/du, either pushed
+// through the RK4 tangent chain (ORDER 4: the exact ERK4 matrix VDE) or
+// from the midpoint Jacobian alone (ORDER 2: the order-2 sensitivities).
 #pragma once
 
 #include "batch_last.cuh"
@@ -135,12 +136,23 @@ __device__ __forceinline__ void rk4_stages(const Par<T>& p, const T* x,
     x_next[i] = x[i] + d6 * (k1[i] + 2 * k2[i] + 2 * k3[i] + k4[i]);
 }
 
-// out = A w for the interval's A = dF/dx: w pushed through the RK4 tangent
-// chain m_i = J(X_i) (w + c_i dt m_{i-1}).
-template <typename T>
+// out = A w for the interval's A = dF/dx.  ORDER 4: w pushed through the
+// RK4 tangent chain m_i = J(X_i) (w + c_i dt m_{i-1}).  ORDER 2: the
+// midpoint expansion A = I + dt J + dt^2/2 J J with J = J(X_2), the
+// Jacobian at the RK4 midpoint state x + dt/2 k1 (_vde_stage_o2).
+template <int ORDER = 4, typename T>
 __device__ __forceinline__ void tangent_x(const Par<T>& p,
                                           const T (&X)[4][NX], const T* w,
                                           T* out) {
+  if constexpr (ORDER == 2) {
+    T j1[NX], j2[NX];
+    jx_mul(p, X[1], w, j1);
+    jx_mul(p, X[1], j1, j2);
+    const T h2 = p.dt * p.dt / T(2);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) out[i] = w[i] + p.dt * j1[i] + h2 * j2[i];
+    return;
+  }
   T m1[NX], m2[NX], m3[NX], m4[NX], v[NX];
   const T h = T(0.5) * p.dt;
   jx_mul(p, X[0], w, m1);
@@ -159,9 +171,10 @@ __device__ __forceinline__ void tangent_x(const Par<T>& p,
     out[i] = w[i] + d6 * (m1[i] + 2 * m2[i] + 2 * m3[i] + m4[i]);
 }
 
-// out = column `col` of B = dF/du: M_1 = G e_col,
+// out = column `col` of B = dF/du.  ORDER 4: M_1 = G e_col,
 // M_i = G e_col + J(X_i) (c_i dt M_{i-1}) (prep_kernel._vde_stage).
-template <typename T>
+// ORDER 2: B = dt (G + dt/2 J G) with J = J(X_2) (_vde_stage_o2).
+template <int ORDER = 4, typename T>
 __device__ __forceinline__ void tangent_u(const Par<T>& p,
                                           const T (&X)[4][NX], const T* u,
                                           int col, T* out) {
@@ -179,6 +192,14 @@ __device__ __forceinline__ void tangent_u(const Par<T>& p,
   g[11] = (col == 0 || col == 3 ? -tly : tly) * w;
   g[12] = (col % 2 == 0 ? -tdz : tdz) * w;
 
+  if constexpr (ORDER == 2) {
+    T jg[NX];
+    jx_mul(p, X[1], g, jg);
+    const T h = p.dt / T(2);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) out[i] = p.dt * (g[i] + h * jg[i]);
+    return;
+  }
   T m1[NX], m2[NX], m3[NX], m4[NX], v[NX], jv[NX];
   const T h = T(0.5) * p.dt;
 #pragma unroll

@@ -1,14 +1,15 @@
 // RTI preparation without condensing, one launch per step.
 //
 // Replaces crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:prep_sweep
-// (_prep_kernel with _vde_stage) and its (bs, 128)-tile variant
-// _prep_sweep_2d, which runs the same body with the same device-memory
-// layout.  For each stage k and batch lane b: ERK4 propagation, the exact
-// ERK4 matrix VDE sensitivities A = dF/dx, B = dF/du from the sparse hand
-// Jacobians, the defect c = F(x_k, u_k) - x_{k+1}, the diagonal LLS
-// gradients qx = q (x - yref_x), ru = r (u - yref_u) and the bound offsets
-// lb = lbu - u, ub = ubu - u.  The stage math is prep_stage.cuh's, the
-// same device functions as K1 (prep_condense2.cu).
+// (_prep_kernel with _vde_stage, and with _vde_stage_o2 for vde_order=2:
+// ORDER 2 here) and its (bs, 128)-tile variant _prep_sweep_2d, which runs
+// the same body with the same device-memory layout.  For each stage k and
+// batch lane b: ERK4 propagation, the exact ERK4 matrix VDE sensitivities
+// A = dF/dx, B = dF/du from the sparse hand Jacobians (or the order-2
+// ones from the midpoint Jacobian), the defect c = F(x_k, u_k) - x_{k+1},
+// the diagonal LLS gradients qx = q (x - yref_x), ru = r (u - yref_u) and
+// the bound offsets lb = lbu - u, ub = ubu - u.  The stage math is
+// prep_stage.cuh's, the same device functions as K1 (prep_condense2.cu).
 //
 // Design: one thread per (lane, stage); grid (ceil(B/128), N), stages
 // independent, B-contiguous loads and stores coalesce across a warp.  Each
@@ -25,7 +26,7 @@ using namespace cfl;
 
 namespace {
 
-template <typename T>
+template <typename T, int ORDER>
 __global__ void __launch_bounds__(128)
 prep_sweep_kernel(const T* __restrict__ x, const T* __restrict__ u,
                   const T* __restrict__ yref, const T* __restrict__ qd,
@@ -65,14 +66,14 @@ prep_sweep_kernel(const T* __restrict__ x, const T* __restrict__ u,
     for (int jc = 0; jc < NX; ++jc) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) w[i] = (i == jc) ? T(1) : T(0);
-      tangent_x(p, X, w, col);
+      tangent_x<ORDER>(p, X, w, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) Ak[i * NX + jc] = col[i];
     }
     auto Bk = lane(Bm, NX * NU, k, B, b);
 #pragma unroll 1
     for (int jc = 0; jc < NU; ++jc) {
-      tangent_u(p, X, uk, jc, col);
+      tangent_u<ORDER>(p, X, uk, jc, col);
 #pragma unroll
       for (int i = 0; i < NX; ++i) Bk[i * NU + jc] = col[i];
     }
@@ -97,26 +98,30 @@ prep_sweep_kernel(const T* __restrict__ x, const T* __restrict__ u,
   }
 }
 
-template <typename T>
+template <typename T, int ORDER>
 int launch(const T* x, const T* u, const T* yref, const T* qd, const T* rd,
            const T* lbu, const T* ubu, const T* par, T* A, T* Bm, T* c,
            T* qx, T* ru, T* lb, T* ub, int N, int B, void* stream) {
   const dim3 grid((B + 127) / 128, N);
-  prep_sweep_kernel<T><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  prep_sweep_kernel<T, ORDER>
+      <<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       x, u, yref, qd, rd, lbu, ubu, par, A, Bm, c, qx, ru, lb, ub, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define PREP_SWEEP_ENTRY(NAME, T)                                           \
+#define PREP_SWEEP_ENTRY(NAME, T, ORDER)                                    \
   extern "C" int NAME(const T* x, const T* u, const T* yref, const T* qd,   \
                       const T* rd, const T* lbu, const T* ubu, const T* par,\
                       T* A, T* Bm, T* c, T* qx, T* ru, T* lb, T* ub, int N, \
                       int B, void* stream) {                                \
-    return launch<T>(x, u, yref, qd, rd, lbu, ubu, par, A, Bm, c, qx, ru,   \
-                     lb, ub, N, B, stream);                                 \
+    return launch<T, ORDER>(x, u, yref, qd, rd, lbu, ubu, par, A, Bm, c,    \
+                            qx, ru, lb, ub, N, B, stream);                  \
   }
 
-PREP_SWEEP_ENTRY(prep_sweep_f32, float)
-PREP_SWEEP_ENTRY(prep_sweep_f64, double)
+PREP_SWEEP_ENTRY(prep_sweep_f32, float, 4)
+PREP_SWEEP_ENTRY(prep_sweep_f64, double, 4)
+// the order-2 VDE sensitivities (vde_order=2)
+PREP_SWEEP_ENTRY(prep_sweep_o2_f32, float, 2)
+PREP_SWEEP_ENTRY(prep_sweep_o2_f64, double, 2)

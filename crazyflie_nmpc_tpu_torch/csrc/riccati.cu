@@ -5,6 +5,12 @@
 //   kkt_sweep       (_kkt_kernel, _chol4, _cho_solve4, _cho_solve4_vec)
 //                   -> kkt_sweep_kernel
 //   corrector_sweep (_corrector_kernel) -> corrector_sweep_kernel
+//   and the split forms of solve_batched(fused=False):
+//   backward_sweep  (_backward_kernel) -> kkt_sweep_kernel<T, false>, the
+//                   factorization without its rollout
+//   forward_sweep   (_forward_kernel) -> forward_sweep_kernel
+//   backward_vector_sweep (_backward_vec_kernel)
+//                   -> backward_vector_sweep_kernel
 // The JAX package computes the last rollout state dx[N] outside its Pallas
 // kernels (an einsum after the launch); these kernels write it themselves.
 //
@@ -19,11 +25,17 @@
 // rsqrt form, packed column-major lower, [l00,l10,l20,l30,l11,l21,l31,
 // l22,l32,l33] (riccati_kernels._chol4).
 //
+// The split forms share those bodies: backward_sweep is kkt_sweep's
+// factorization loop (the same kernel template, ROLLOUT false), and the two
+// others are c2_stage.cuh's rollout and vector pass, which the fused sweeps
+// run too, so split and fused agree to the last bit on the same inputs.
+//
 // Bound on the H100: per stage and lane kkt_sweep reads ~260 values and
 // writes ~90 for ~6.5k FMAs, corrector_sweep reads ~290 and writes ~20 for
 // ~500: both bytes-bound in principle, but at the path's B only B threads
 // run, so the latency of one thread's dependent chain over the N stages
-// sets the time (PERF.md).
+// sets the time (PERF.md).  The split forms are bound the same way; the
+// rollout alone re-reads the gains its backward launch wrote.
 #include "c2_stage.cuh"
 
 using namespace cfl;
@@ -32,7 +44,7 @@ namespace {
 
 constexpr int NL = NU * (NU + 1) / 2;  // packed 4x4 Cholesky entries
 
-template <typename T>
+template <typename T, bool ROLLOUT>
 __global__ void __launch_bounds__(64)
 kkt_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                  const T* __restrict__ c, const T* __restrict__ qxx,
@@ -208,7 +220,8 @@ kkt_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
     }
   }
 
-  rollout<T, NU>(A, Bm, c, K, kff, dx0, dx, du, N, B, b);
+  if constexpr (ROLLOUT)
+    rollout<T, NU>(A, Bm, c, K, kff, dx0, dx, du, N, B, b);
 }
 
 template <typename T>
@@ -227,6 +240,34 @@ corrector_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
   rollout<T, NU>(A, Bm, c, K, du, dx0, dx, du, N, B, b);
 }
 
+// The split sweeps (fused=False): the rollout alone from stored gains, and
+// the backward vector pass alone on the stored factorization.
+template <typename T>
+__global__ void __launch_bounds__(64)
+forward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
+                     const T* __restrict__ c, const T* __restrict__ K,
+                     const T* __restrict__ kff, const T* __restrict__ dx0,
+                     T* __restrict__ dx, T* __restrict__ du, int N, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  rollout<T, NU>(A, Bm, c, K, kff, dx0, dx, du, N, B, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(64)
+backward_vector_sweep_kernel(const T* __restrict__ A,
+                             const T* __restrict__ Bm,
+                             const T* __restrict__ qx,
+                             const T* __restrict__ ru,
+                             const T* __restrict__ K, const T* __restrict__ L,
+                             const T* __restrict__ Pc,
+                             const T* __restrict__ pterm,
+                             T* __restrict__ kff, int N, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  vec_sweep<T, NU>(A, Bm, qx, ru, K, L, Pc, pterm, kff, N, B, b);
+}
+
 inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
 }
@@ -240,9 +281,35 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ruu, const T* ru, const T* pT, const T* pterm, const T* dx0,   \
       T* K, T* kff, T* L, T* Pc, T* dx, T* du, int N, int B, void* stream) {  \
-    kkt_sweep_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(         \
+    kkt_sweep_kernel<T, true><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(   \
         A, Bm, c, qxx, qx, ruu, ru, pT, pterm, dx0, K, kff, L, Pc, dx, du, N, \
         B);                                                                   \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int backward_sweep_##SUFFIX(                                     \
+      const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
+      const T* ruu, const T* ru, const T* pT, const T* pterm, T* K, T* kff,   \
+      T* L, T* Pc, int N, int B, void* stream) {                              \
+    kkt_sweep_kernel<T, false><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(  \
+        A, Bm, c, qxx, qx, ruu, ru, pT, pterm, nullptr, K, kff, L, Pc,        \
+        nullptr, nullptr, N, B);                                              \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int forward_sweep_##SUFFIX(const T* A, const T* Bm, const T* c,  \
+                                        const T* K, const T* kff,             \
+                                        const T* dx0, T* dx, T* du, int N,    \
+                                        int B, void* stream) {                \
+    forward_sweep_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(     \
+        A, Bm, c, K, kff, dx0, dx, du, N, B);                                 \
+    return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int backward_vector_sweep_##SUFFIX(                              \
+      const T* A, const T* Bm, const T* qx, const T* ru, const T* K,          \
+      const T* L, const T* Pc, const T* pterm, T* kff, int N, int B,          \
+      void* stream) {                                                         \
+    backward_vector_sweep_kernel<T>                                           \
+        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(A, Bm, qx, ru, K, L,    \
+                                                      Pc, pterm, kff, N, B);  \
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int corrector_sweep_##SUFFIX(                                    \

@@ -5,7 +5,9 @@ Each wrapper counts its kernel launches in a plain integer attribute
 tensor takes the plain version and counts nothing.  The split sweeps
 `kkt_sweep_c2_win` / `corrector_sweep_c2_win` are two launches each, of
 `bwd_c2` / `bwd_vec_c2` and then `fwd_c2`, counted on those kernels.
-`expand2` counts both of its forms (stride 1 and 2).
+`expand2` counts both of its forms (stride 1 and 2), `prep_condense2` and
+`prep_sweep` both VDE orders, `kkt_sweep_c2` and `corrector_sweep_c2` their
+compressed-stream forms too.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
 from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import (prep_condense2,
                                                            prep_sweep)
 from crazyflie_nmpc_tpu_torch.ops.cuda.riccati_kernels import (
+    backward_sweep,
+    backward_vector_sweep,
     corrector_sweep,
+    forward_sweep,
     kkt_sweep,
 )
 
@@ -40,6 +45,9 @@ KERNELS = {
     "condense2": condense2,
     "kkt_sweep": kkt_sweep,
     "corrector_sweep": corrector_sweep,
+    "backward_sweep": backward_sweep,
+    "forward_sweep": forward_sweep,
+    "backward_vector_sweep": backward_vector_sweep,
 }
 
 

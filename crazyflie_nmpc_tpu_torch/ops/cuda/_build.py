@@ -102,17 +102,21 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
-def check(name: str, tensors: dict, shapes: dict, dtype, device) -> None:
+def check(name: str, tensors: dict, shapes: dict, dtype, device,
+          bf16=()) -> None:
     """Raise unless every tensor is contiguous, on `device`, of `dtype`
-    (float32 or float64) and of its expected shape."""
+    (float32 or float64) and of its expected shape.  The compressed
+    streams named in `bf16` must be torch.bfloat16 instead, and no other
+    tensor may be."""
     import torch
 
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {dtype} (float32 or float64 only)")
     for key, t in tensors.items():
-        if t.device != device or t.dtype != dtype:
+        want = torch.bfloat16 if key in bf16 else dtype
+        if t.device != device or t.dtype != want:
             raise ValueError(f"{name}: {key} is {t.dtype} on {t.device}, "
-                             f"expected {dtype} on {device}")
+                             f"expected {want} on {device}")
         if tuple(t.shape) != tuple(shapes[key]):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shapes[key])}")
@@ -146,15 +150,16 @@ def launch(source: str, symbol: str, ptrs, ints, floats=()) -> None:
 
 
 def run(wrapper, source: str, ins: dict, outs, shapes: dict, ints,
-        floats=()) -> None:
+        floats=(), form: str = "", bf16=()) -> None:
     """Check `ins` against `shapes` (dtype and device those of the first
-    input), launch `<wrapper name>_<f32|f64>` of `source` on `ins` and
-    `outs`, and count the launch on `wrapper.launches`."""
+    input not named in `bf16`, the bfloat16 compressed streams), launch
+    `<wrapper name><form>_<f32|f64>` of `source` on `ins` and `outs`, and
+    count the launch on `wrapper.launches`."""
     import torch
 
-    first = next(iter(ins.values()))
-    check(wrapper.__name__, ins, shapes, first.dtype, first.device)
+    first = next(t for k, t in ins.items() if k not in bf16)
+    check(wrapper.__name__, ins, shapes, first.dtype, first.device, bf16)
     sfx = "f32" if first.dtype == torch.float32 else "f64"
-    launch(source, f"{wrapper.__name__}_{sfx}",
+    launch(source, f"{wrapper.__name__}{form}_{sfx}",
            list(ins.values()) + list(outs), ints, floats)
     wrapper.launches += 1

@@ -13,6 +13,16 @@ iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
 factor of the 8x8 Quu (36 entries, `_pk`).
+
+Compressed streams (`IPMConfig.compress_gains` / `compress_ab`, the JAX
+module's note): `kkt_sweep_c2(gains_dtype=torch.bfloat16)` writes K, L
+and Pc in bfloat16 for `corrector_sweep_c2` to re-read, while kff and the
+rollout stay in the compute dtype (the rollout uses the full-precision K);
+`a_dev=True` marks the stage stream as deviation-coded: Abar - I, Bbar and
+cbar arrive in bfloat16 and the identity is added back at load.  All
+arithmetic stays in the compute dtype, the dtype of Qbar (K2) or qx (K3).
+A float64 value rounds to bfloat16 through float32, in the kernels as in
+PyTorch's casts.
 """
 
 from __future__ import annotations
@@ -161,18 +171,38 @@ def bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term):
     return torch.stack(kffs).contiguous()
 
 
+def _load_stream(Abar, Bbar, cbar, dtype, a_dev):
+    """The stage stream in the compute dtype: bfloat16 entries upcast, the
+    identity added back to a deviation-coded Abar (`_ld_A`)."""
+    A, Bm, c = (t.to(dtype) for t in (Abar, Bbar, cbar))
+    if a_dev:
+        A = A + torch.eye(NX, dtype=dtype, device=A.device)[:, :, None]
+    return A, Bm, c
+
+
 def kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru,
-                     pT, p_term, dx0):
-    """Plain PyTorch `kkt_sweep_c2` (stage loop in Python)."""
-    K, kff, L, Pc = bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx,
-                               ruu_shift, ru, pT, p_term)
-    return (K, kff, L, Pc) + fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
+                     pT, p_term, dx0, gains_dtype=None, a_dev=False):
+    """Plain PyTorch `kkt_sweep_c2` (stage loop in Python), compressed
+    forms included: the rollout runs on the full-precision gains, which are
+    then rounded to `gains_dtype`."""
+    A, Bm, c = _load_stream(Abar, Bbar, cbar, Qbar.dtype, a_dev)
+    K, kff, L, Pc = bwd_c2_ref(A, Bm, c, Qbar, S1T, R00, qx, ruu_shift, ru,
+                               pT, p_term)
+    dx, du = fwd_c2_ref(A, Bm, c, K, kff, dx0)
+    if gains_dtype is not None:
+        K, L, Pc = (t.to(gains_dtype) for t in (K, L, Pc))
+    return K, kff, L, Pc, dx, du
 
 
-def corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
-    """Plain PyTorch `corrector_sweep_c2`."""
-    kff = bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term)
-    return fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
+def corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0,
+                           a_dev=False):
+    """Plain PyTorch `corrector_sweep_c2`, compressed forms included (every
+    stream upcast to qx's dtype at load)."""
+    dtype = qx.dtype
+    A, Bm, c = _load_stream(Abar, Bbar, cbar, dtype, a_dev)
+    K, L, Pc = (t.to(dtype) for t in (K, L, Pc))
+    kff = bwd_vec_c2_ref(A, Bm, qx, ru, K, L, Pc, p_term)
+    return fwd_c2_ref(A, Bm, c, K, kff, dx0)
 
 
 def _min_ratio(pairs):
@@ -311,13 +341,34 @@ def stage_shapes(N, B):
         **dict.fromkeys(("pT", "p_term", "dx0"), t13))
 
 
-def _launch(wrapper, source, ins, outs, floats=()):
+def _launch(wrapper, source, ins, outs, floats=(), form="", bf16=()):
     """Check `ins` (named as in `_shapes`; the first is (M, ..., B)),
-    launch `wrapper`'s kernel on them and `outs`, and count the launch on
+    launch `wrapper`'s kernel (its compressed `form`, whose bfloat16
+    inputs `bf16` names) on them and `outs`, and count the launch on
     `wrapper`."""
     first = next(iter(ins.values()))
     M, B = first.shape[0], first.shape[-1]
-    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B], floats)
+    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B], floats,
+               form, bf16)
+
+
+_STREAM = ("Abar", "Bbar", "cbar")
+_GAINS = ("K", "L", "Pc")
+
+
+def _form(a_dev, stream, gains):
+    """The compressed form's symbol suffix: "_g" with bfloat16 gains, "_a"
+    with the deviation-coded bfloat16 stage stream, "_ga" with both, ""
+    with neither; and the names of its bfloat16 inputs.  Raises ValueError
+    for a mix the kernels do not take (a_dev with a full-precision stream,
+    or a bfloat16 stream without a_dev)."""
+    bf = [t.dtype == torch.bfloat16 for t in stream]
+    if not (all(bf) if a_dev else not any(bf)):
+        raise ValueError("a_dev=True takes the deviation-coded stream (Abar "
+                         "- I, Bbar, cbar) in bfloat16, a_dev=False the "
+                         "full-precision one")
+    tag = "g" * bool(gains) + "a" * bool(a_dev)
+    return ("_" + tag if tag else ""), _STREAM * bool(a_dev)
 
 
 def _empty(like, *shape):
@@ -325,35 +376,59 @@ def _empty(like, *shape):
 
 
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
-                 p_term, dx0):
+                 p_term, dx0, gains_dtype=None, a_dev: bool = False):
     """Dense-cost Riccati factorization + forward rollout over the condensed
     horizon.  ruu_shift (M,8,B) is R̄'s diagonal incl. the barrier shift;
     pT (13,B) the terminal Hessian diagonal.  Returns (K (M,8,13,B),
-    kff (M,8,B), L (M,36,B), Pc (M,13,B), dx (M+1,13,B), du (M,8,B))."""
+    kff (M,8,B), L (M,36,B), Pc (M,13,B), dx (M+1,13,B), du (M,8,B)).
+
+    Compressed streams (module note): gains_dtype=torch.bfloat16 returns
+    K, L and Pc in bfloat16; a_dev=True takes Abar - I, Bbar and cbar in
+    bfloat16."""
+    if gains_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"gains_dtype {gains_dtype} (None or bfloat16)")
+    form, bf16 = _form(a_dev, (Abar, Bbar, cbar), gains_dtype)
     if Abar.device.type == "cpu":
         return kkt_sweep_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx,
-                                ruu_shift, ru, pT, p_term, dx0)
+                                ruu_shift, ru, pT, p_term, dx0, gains_dtype,
+                                a_dev)
     M, B = Abar.shape[0], Abar.shape[-1]
-    outs = (_empty(Abar, M, NUC, NX, B), _empty(Abar, M, NUC, B),
-            _empty(Abar, M, NLC, B), _empty(Abar, M, NX, B),
-            _empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
+    gdt = gains_dtype or Qbar.dtype
+    new = lambda *s, dt=Qbar.dtype: torch.empty(  # noqa: E731
+        s, dtype=dt, device=Qbar.device)
+    outs = (new(M, NUC, NX, B, dt=gdt), new(M, NUC, B), new(M, NLC, B, dt=gdt),
+            new(M, NX, B, dt=gdt), new(M + 1, NX, B), new(M, NUC, B))
+    # the compressed forms take Kf, the full-precision K their rollout
+    # reads: with bf16 gains a scratch (the Pallas kernel's K_all), else
+    # the K output itself, which the kernel then ignores
+    kf = ((new(M, NUC, NX, B) if gains_dtype is not None else outs[0],)
+          if form else ())
     _launch(kkt_sweep_c2, _SOURCE, dict(
         Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00, qx=qx,
-        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term, dx0=dx0), outs)
+        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term, dx0=dx0),
+        outs + kf, form=form, bf16=bf16)
     return outs
 
 
-def corrector_sweep_c2(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0):
+def corrector_sweep_c2(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0,
+                       a_dev: bool = False):
     """Backward vector pass on the stored factorization (K, L, Pc) +
-    forward rollout.  Returns (dx (M+1,13,B), du (M,8,B))."""
+    forward rollout.  Returns (dx (M+1,13,B), du (M,8,B)).  K, L and Pc
+    may be bfloat16 (all three or none), and a_dev=True takes the
+    deviation-coded stream, as in `kkt_sweep_c2`."""
+    gains = K.dtype == torch.bfloat16
+    if any((t.dtype == torch.bfloat16) != gains for t in (L, Pc)):
+        raise ValueError("K, L and Pc are all bfloat16 or none is")
+    form, bf16 = _form(a_dev, (Abar, Bbar, cbar), gains)
     if Abar.device.type == "cpu":
         return corrector_sweep_c2_ref(Abar, Bbar, cbar, qx, ru, K, L, Pc,
-                                      p_term, dx0)
+                                      p_term, dx0, a_dev)
     M, B = Abar.shape[0], Abar.shape[-1]
-    outs = (_empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
+    outs = (_empty(qx, M + 1, NX, B), _empty(qx, M, NUC, B))
     _launch(corrector_sweep_c2, _SOURCE, dict(
         Abar=Abar, Bbar=Bbar, cbar=cbar, qx=qx, ru=ru, K=K, L=L, Pc=Pc,
-        p_term=p_term, dx0=dx0), outs)
+        p_term=p_term, dx0=dx0), outs, form=form,
+        bf16=bf16 + _GAINS * gains)
     return outs
 
 

@@ -1,5 +1,7 @@
 """RTI preparation kernels, CUDA and plain PyTorch: the fused preparation
-+ block-2 condensing (K1) and the preparation without condensing (K7).
++ block-2 condensing (K1) and the preparation without condensing (K7),
+each with the exact ERK4 matrix VDE (vde_order=4) or the order-2 midpoint
+sensitivities (vde_order=2).
 
 Counterparts of `crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:
 prep_condense2` and `prep_sweep` (whose `batch_rows > 1` variant,
@@ -158,21 +160,30 @@ def _ju_dense(p, u, pi):
     return G
 
 
-def _vde_stage(p, x, u):
-    """ERK4 step + exact matrix VDE: (A (S,13,13,B), B (S,13,4,B), x_next)."""
+def _vde_stage(p, x, u, order=4):
+    """ERK4 step + sensitivities: (A (S,13,13,B), B (S,13,4,B), x_next).
+    order 4: the exact matrix VDE; order 2 (`_vde_stage_o2`): the state
+    still through the exact ERK4, A = I + dt J + dt^2/2 J J and
+    B = dt (G + dt/2 J G) from the Jacobian J at the midpoint state x2."""
     dt = p[8]
     pi = (1.0 / p[1], 1.0 / p[2], 1.0 / p[3], 1.0 / p[4])
     eye = torch.eye(NX, dtype=x.dtype, device=x.device)[None, :, :, None]
     k1 = _dyn_rows(p, x, u, pi)
-    J1 = _jx_dense(p, x, pi)
     x2 = x + 0.5 * dt * k1
     k2 = _dyn_rows(p, x2, u, pi)
-    J2 = _jx_dense(p, x2, pi)
     x3 = x + 0.5 * dt * k2
     k3 = _dyn_rows(p, x3, u, pi)
-    J3 = _jx_dense(p, x3, pi)
     x4 = x + dt * k3
     k4 = _dyn_rows(p, x4, u, pi)
+    x_next = x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    J2 = _jx_dense(p, x2, pi)
+    G = _ju_dense(p, u, pi)
+    if order == 2:
+        A = eye + dt * J2 + (dt * dt / 2.0) * _mm(J2, J2)
+        Bm = dt * (G + (dt / 2.0) * _mm(J2, G))
+        return A, Bm, x_next
+    J1 = _jx_dense(p, x, pi)
+    J3 = _jx_dense(p, x3, pi)
     J4 = _jx_dense(p, x4, pi)
 
     K1 = J1
@@ -181,19 +192,16 @@ def _vde_stage(p, x, u):
     K4 = _mm(J4, eye + dt * K3)
     A = eye + (dt / 6.0) * (K1 + 2 * K2 + 2 * K3 + K4)
 
-    G = _ju_dense(p, u, pi)
     M1 = G
     M2 = G + _mm(J2, 0.5 * dt * M1)
     M3 = G + _mm(J3, 0.5 * dt * M2)
     M4 = G + _mm(J4, dt * M3)
     Bm = (dt / 6.0) * (M1 + 2 * M2 + 2 * M3 + M4)
-
-    x_next = x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
     return A, Bm, x_next
 
 
 def prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
-                       params):
+                       params, vde_order=4):
     """Plain PyTorch `prep_condense2` (the same math, all pairs at once)."""
     N = u_traj.shape[0]
     xe, xo, xoo = x_traj[0:N:2], x_traj[1:N:2], x_traj[2:N + 1:2]
@@ -201,8 +209,8 @@ def prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
     ye, yo = yref[0::2], yref[1::2]
     qd = q_diag
 
-    A0, B0, x1p = _vde_stage(params, xe, ue)
-    A1, B1, x2p = _vde_stage(params, xo, uo)
+    A0, B0, x1p = _vde_stage(params, xe, ue, vde_order)
+    A1, B1, x2p = _vde_stage(params, xo, uo, vde_order)
     c0 = x1p - xo
     c1 = x2p - xoo
     qx0 = qd * (xe - ye[:, :NX])
@@ -230,10 +238,11 @@ def prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
             ubu - u_traj)
 
 
-def prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
+def prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params,
+                   vde_order=4):
     """Plain PyTorch `prep_sweep` (all stages at once)."""
     x = x_traj[:-1]
-    A, Bm, x_next = _vde_stage(params, x, u_traj)
+    A, Bm, x_next = _vde_stage(params, x, u_traj, vde_order)
     return tuple(t.contiguous() for t in (
         A, Bm, x_next - x_traj[1:], q_diag * (x - yref[:, :NX]),
         r_diag * (u_traj - yref[:, NX:]), lbu - u_traj, ubu - u_traj))
@@ -241,8 +250,19 @@ def prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
 
 # --- CUDA kernel wrappers --------------------------------------------------
 
-def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
-    """One launch from (x, u, yref) to the condensed QP data.
+def _vde_form(vde_order):
+    """The symbol infix of the VDE order: "" for the exact ERK4 matrix VDE
+    (4), "_o2" for the order-2 midpoint sensitivities."""
+    if vde_order not in (2, 4):
+        raise ValueError(f"vde_order={vde_order} (2 or 4)")
+    return "_o2" if vde_order == 2 else ""
+
+
+def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params,
+                   vde_order=4):
+    """One launch from (x, u, yref) to the condensed QP data, A and B
+    from the exact ERK4 matrix VDE (vde_order=4) or the order-2 midpoint
+    sensitivities (vde_order=2, `_vde_stage`).
 
     Returns (cnd, Ae, Be, c, lb, ub): `cnd` holds Abar (M,13,13,B),
     Bbar (M,13,8,B), cbar (M,13,B), Qbar (M,13,13,B), S1T (M,4,13,B),
@@ -253,9 +273,10 @@ def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
     N, _, B = u_traj.shape
     if N % 2 != 0:
         raise ValueError("prep_condense2 needs even N")
+    form = _vde_form(vde_order)
     if x_traj.device.type == "cpu":
         return prep_condense2_ref(x_traj, u_traj, yref, q_diag, r_diag,
-                                  lbu, ubu, params)
+                                  lbu, ubu, params, vde_order)
     M = N // 2
     dev, dt = x_traj.device, x_traj.dtype
     ins = dict(x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
@@ -271,23 +292,25 @@ def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
             new(M, NX, NX, B), new(M, NX, NU, B),
             new(N, NX, B), new(N, NU, B), new(N, NU, B))
     sfx = "f32" if dt == torch.float32 else "f64"
-    _build.launch(_SOURCE, f"prep_condense2_{sfx}",
+    _build.launch(_SOURCE, f"prep_condense2{form}_{sfx}",
                   list(ins.values()) + list(outs), [M, B])
     prep_condense2.launches += 1
     return (dict(zip(_CND_KEYS, outs[:8])),) + outs[8:]
 
 
-def prep_sweep(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
-    """One launch from (x, u, yref) to the stage-wise QP data, inputs as
-    `prep_condense2`'s at any N.
+def prep_sweep(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params,
+               vde_order=4):
+    """One launch from (x, u, yref) to the stage-wise QP data, inputs and
+    vde_order as `prep_condense2`'s, at any N.
 
     Returns (A (N,13,13,B), B (N,13,4,B), c (N,13,B), qx (N,13,B),
     ru (N,4,B), lb (N,4,B), ub (N,4,B)).  CPU tensors take the plain
     version.
     """
+    form = _vde_form(vde_order)
     if x_traj.device.type == "cpu":
         return prep_sweep_ref(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu,
-                              params)
+                              params, vde_order)
     N, _, B = u_traj.shape
     dev, dt = x_traj.device, x_traj.dtype
     ins = dict(x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
@@ -300,7 +323,7 @@ def prep_sweep(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params):
     outs = (new(N, NX, NX, B), new(N, NX, NU, B), new(N, NX, B),
             new(N, NX, B), new(N, NU, B), new(N, NU, B), new(N, NU, B))
     sfx = "f32" if dt == torch.float32 else "f64"
-    _build.launch(_SWEEP_SOURCE, f"prep_sweep_{sfx}",
+    _build.launch(_SWEEP_SOURCE, f"prep_sweep{form}_{sfx}",
                   list(ins.values()) + list(outs), [N, B])
     prep_sweep.launches += 1
     return outs

@@ -1,18 +1,22 @@
-"""Sweeps of the uncondensed diagonal-cost QP (K8), CUDA and plain PyTorch.
+"""Sweeps of the uncondensed diagonal-cost QP (K8, K9), CUDA and plain
+PyTorch.
 
 Counterparts of `crazyflie_nmpc_tpu/ops/pallas/riccati_kernels.py`:
 `kkt_sweep` (Riccati factorization with the 4x4 rsqrt Cholesky, then the
 forward rollout) and `corrector_sweep` (the backward vector pass on the
 stored factorization, then the rollout), the sweeps of `condense=1` and of
-every odd horizon.  Each wrapper launches its kernel in `csrc/riccati.cu`
-for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
-tensors.
+every odd horizon; and their split forms, the sweeps of
+`solve_batched(fused=False)`: `backward_sweep` (the factorization alone),
+`forward_sweep` (the rollout alone) and `backward_vector_sweep` (the
+vector pass alone).  Each wrapper launches its kernel in
+`csrc/riccati.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
+version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  N stages with 13 states and 4
 inputs; the cost is diagonal (qxx (N,13,B), ruu (N,4,B) including the
 barrier shift, pT (13,B)); L is the packed column-major lower Cholesky
-factor of the 4x4 Quu (10 entries, `condensed_kernels._pk`).  Both sweeps
-return the whole rollout, its last state dx[N] included.
+factor of the 4x4 Quu (10 entries, `condensed_kernels._pk`).  Every sweep
+with a rollout returns all of it, its last state dx[N] included.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
     _mtm,
     _mtv,
     _mv,
-    corrector_sweep_c2_ref,
+    bwd_vec_c2_ref,
     fwd_c2_ref,
     stage_shapes,
 )
@@ -40,10 +44,9 @@ NL = NU * (NU + 1) // 2
 _SOURCE = "riccati.cu"
 
 
-def kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
-    """Plain PyTorch `kkt_sweep` (stage loop in Python).  Returns
-    (K (N,4,13,B), kff (N,4,B), L (N,10,B), Pc (N,13,B), dx (N+1,13,B),
-    du (N,4,B))."""
+def backward_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
+    """Plain PyTorch `backward_sweep` (stage loop in Python).  Returns
+    (K (N,4,13,B), kff (N,4,B), L (N,10,B), Pc (N,13,B))."""
     N = A.shape[0]
     eye = torch.eye(NX, dtype=A.dtype, device=A.device)[:, :, None]
     eye4 = torch.eye(NU, dtype=A.dtype, device=A.device)[:, :, None]
@@ -65,15 +68,35 @@ def kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
         P = 0.5 * (P_new + P_new.transpose(0, 1))
         p = qx[k] + _mtv(Ak, m) + _mtv(K, Qu)
         Ks[k], kffs[k], Ls[k], Pcs[k] = K, kff, L, Pc
-    K, kff, L, Pc = (torch.stack(z).contiguous()
-                     for z in (Ks, kffs, Ls, Pcs))
-    return (K, kff, L, Pc) + fwd_c2_ref(A, Bm, c, K, kff, dx0)
+    return tuple(torch.stack(z).contiguous() for z in (Ks, kffs, Ls, Pcs))
+
+
+def forward_sweep_ref(A, Bm, c, K, kff, dx0):
+    """Plain PyTorch `forward_sweep`: the condensed rollout's plain version
+    at 4 inputs.  Returns (dx (N+1,13,B), du (N,4,B))."""
+    return fwd_c2_ref(A, Bm, c, K, kff, dx0)
+
+
+def backward_vector_sweep_ref(A, Bm, qx, ru, K, L, Pc, p_term):
+    """Plain PyTorch `backward_vector_sweep`: the condensed vector pass's
+    plain version at 4 inputs.  Returns kff (N,4,B)."""
+    return bwd_vec_c2_ref(A, Bm, qx, ru, K, L, Pc, p_term)
+
+
+def kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
+    """Plain PyTorch `kkt_sweep`: `backward_sweep_ref`, then
+    `forward_sweep_ref`.  Returns (K (N,4,13,B), kff (N,4,B), L (N,10,B),
+    Pc (N,13,B), dx (N+1,13,B), du (N,4,B))."""
+    K, kff, L, Pc = backward_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT,
+                                       p_term)
+    return (K, kff, L, Pc) + forward_sweep_ref(A, Bm, c, K, kff, dx0)
 
 
 def corrector_sweep_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
-    """Plain PyTorch `corrector_sweep`: the condensed sweep's plain version
-    at 4 inputs.  Returns (dx (N+1,13,B), du (N,4,B))."""
-    return corrector_sweep_c2_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0)
+    """Plain PyTorch `corrector_sweep`: `backward_vector_sweep_ref`, then
+    `forward_sweep_ref`.  Returns (dx (N+1,13,B), du (N,4,B))."""
+    kff = backward_vector_sweep_ref(A, Bm, qx, ru, K, L, Pc, p_term)
+    return forward_sweep_ref(A, Bm, c, K, kff, dx0)
 
 
 def kkt_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
@@ -105,5 +128,47 @@ def corrector_sweep(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
     return outs
 
 
-kkt_sweep.launches = 0
-corrector_sweep.launches = 0
+def backward_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
+    """`kkt_sweep`'s factorization alone (fused=False).  Returns (K, kff,
+    L, Pc)."""
+    if A.device.type == "cpu":
+        return backward_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term)
+    N, B = A.shape[0], A.shape[-1]
+    outs = (_empty(A, N, NU, NX, B), _empty(A, N, NU, B), _empty(A, N, NL, B),
+            _empty(A, N, NX, B))
+    _build.run(backward_sweep, _SOURCE, dict(
+        A=A, Bm=Bm, c=c, qxx=qxx, qx=qx, ruu=ruu, ru=ru, pT=pT,
+        p_term=p_term), outs, stage_shapes(N, B), [N, B])
+    return outs
+
+
+def forward_sweep(A, Bm, c, K, kff, dx0):
+    """The rollout from stored gains (K, kff) alone.  Returns
+    (dx (N+1,13,B), du (N,4,B)); the kernel writes dx[N] itself."""
+    if A.device.type == "cpu":
+        return forward_sweep_ref(A, Bm, c, K, kff, dx0)
+    N, B = A.shape[0], A.shape[-1]
+    outs = (_empty(A, N + 1, NX, B), _empty(A, N, NU, B))
+    _build.run(forward_sweep, _SOURCE, dict(A=A, Bm=Bm, c=c, K=K, kff=kff,
+                                            dx0=dx0), outs,
+               stage_shapes(N, B), [N, B])
+    return outs
+
+
+def backward_vector_sweep(A, Bm, qx, ru, K, L, Pc, p_term):
+    """`corrector_sweep`'s vector pass on the stored factorization alone.
+    Returns kff (N,4,B)."""
+    if A.device.type == "cpu":
+        return backward_vector_sweep_ref(A, Bm, qx, ru, K, L, Pc, p_term)
+    N, B = A.shape[0], A.shape[-1]
+    kff = _empty(A, N, NU, B)
+    _build.run(backward_vector_sweep, _SOURCE, dict(
+        A=A, Bm=Bm, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term), (kff,),
+        stage_shapes(N, B), [N, B])
+    return kff
+
+
+for _fn in (kkt_sweep, corrector_sweep, backward_sweep, forward_sweep,
+            backward_vector_sweep):
+    _fn.launches = 0
+del _fn

@@ -21,7 +21,9 @@ class IPMConfig:
     s_min_init: float = 1e-2
     # duals start at lam = mu0_init / s (1.0 is the classic cold start)
     mu0_init: float = 1.0
-    # Gondzio centrality correctors: not ported yet (ROADMAP Queue 1, item 7)
+    # Gondzio centrality correctors per iteration: each one more corrector
+    # sweep on the same factorization, kept per lane where it lengthens
+    # the step
     gondzio_correctors: int = 0
     # per-lane escalation: lanes whose final mu exceeds escalate_mu_tol are
     # re-solved from scratch with escalate_iters iterations, at most
@@ -29,7 +31,10 @@ class IPMConfig:
     escalate_iters: int = 0
     escalate_mu_tol: float = 1e-9
     escalate_capacity: int = 0
-    # bf16 compressed streams: not ported yet (ROADMAP Queue 1, item 7)
+    # bf16 compressed streams of the condensed sweeps (condense=2, fused
+    # sweeps only): K/L/Pc from the factorization to the correctors
+    # (compress_gains), the deviation-coded Abar - I, Bbar and the
+    # dynamics residual (compress_ab); arithmetic stays in the working dtype
     compress_gains: bool = False
     compress_ab: bool = False
 

@@ -2,19 +2,22 @@
 
 Counterpart of `crazyflie_nmpc_tpu/ops/ipm_fast.py`.  Mehrotra
 predictor-corrector with exact (1 - alpha) affine-residual tracking; per
-iteration one factorization sweep and one corrector sweep, with the
-elementwise barrier algebra between them in plain PyTorch on the card.
-The sweeps are those of the problem's form:
+iteration one factorization sweep and one corrector sweep (and one more
+corrector sweep per Gondzio corrector), with the elementwise barrier
+algebra between them in plain PyTorch on the card.  The sweeps are those
+of the problem's form:
 
   * condense=1: the uncondensed diagonal-cost sweeps `kkt_sweep` /
-    `corrector_sweep` on the stage data (A, B, c, qxx, qx, ru);
+    `corrector_sweep` on the stage data (A, B, c, qxx, qx, ru), or with
+    fused=False their split launches (`backward_sweep` + `forward_sweep`,
+    `backward_vector_sweep` + `forward_sweep`);
   * condense=2: block-2 partial condensing, the condensed sweeps
     `kkt_sweep_c2` / `corrector_sweep_c2` (`windowed=True`: each as its
     two split launches; `fused_iter=True`: the whole iteration, barrier
-    algebra included, in one `iter_sweep_c2` launch), on data
-    precondensed by `prep_condense2` (the "c2*" keys) or condensed here by
-    `condense2`; the expansion `expand2` recovers the eliminated states
-    once per solve.
+    algebra included, in one `iter_sweep_c2` launch; compress_gains /
+    compress_ab: their bfloat16-stream forms), on data precondensed by
+    `prep_condense2` (the "c2*" keys) or condensed here by `condense2`;
+    the expansion `expand2` recovers the eliminated states once per solve.
 
 All (B,) problems run in lockstep with per-lane step lengths; infinite
 bounds are masked.  Per-lane escalation re-solves the worst unconverged
@@ -23,6 +26,8 @@ lanes as a sub-batch (see `solve_batched`).
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Any, NamedTuple
 
 import torch
@@ -42,33 +47,40 @@ class BatchSolution(NamedTuple):
     stats: Any   # dict with (B,) entries
 
 
-def _not_ported(what: str, item: str = "Queue 1, item 7"):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item})")
+def _uses_iter(config: IPMConfig, condense: int, fused_iter) -> bool:
+    """Whether the one-launch iteration runs: condense=2 and fused_iter
+    without Gondzio correctors (with them the two-launch iteration runs,
+    as in the JAX package)."""
+    return bool(condense == 2 and fused_iter
+                and config.gondzio_correctors == 0)
 
 
 def check_supported(config: IPMConfig, condense: int, windowed,
                     fused_iter, fused: bool = True) -> None:
-    """Raise NotImplementedError for the options not ported yet, and
-    ValueError where the JAX package does: condense not 1 or 2, condense=2
-    with fused=False, and fused_iter=True with windowed=True on the
-    condensed path (the one-launch iteration has no split form; with
-    condense=1 both options have no effect)."""
+    """Raise ValueError where the JAX package does: condense not 1 or 2,
+    condense=2 with fused=False, and the one-launch iteration
+    (`_uses_iter`) with windowed=True (it has no split form) or with a
+    compressed stream (its gains never leave the kernel).  With condense=1
+    windowed, fused_iter and the compressions have no effect."""
     if condense not in (1, 2):
         raise ValueError(f"condense={condense} (1 or 2)")
-    if not fused:
-        if condense == 2:
-            raise ValueError("condense=2 requires the fused kernel path")
-        raise _not_ported("fused=False (the split uncondensed sweeps)",
-                          "Queue 2, K9")
-    if condense == 2 and fused_iter and windowed:
-        raise ValueError("fused_iter=True requires the fused c2 sweeps; "
-                         "windowed=True selects the split ones (use "
-                         "fused_iter=False)")
-    if config.gondzio_correctors > 0:
-        raise _not_ported("gondzio_correctors > 0")
-    if config.compress_gains or config.compress_ab:
-        raise _not_ported("compress_gains/compress_ab (bf16 streams)")
+    if not fused and condense == 2:
+        raise ValueError("condense=2 requires the fused kernel path")
+    if _uses_iter(config, condense, fused_iter):
+        if windowed:
+            raise ValueError("fused_iter=True requires the fused c2 sweeps; "
+                             "windowed=True selects the split ones (use "
+                             "fused_iter=False)")
+        if config.compress_gains or config.compress_ab:
+            raise ValueError("compress_gains/compress_ab are not "
+                             "supported with fused_iter=True (its gains "
+                             "never leave the kernel)")
+
+
+def _clip(v, lo, hi):
+    """jnp.clip(v, lo, hi) with (B,) bounds: max with lo, then min with
+    hi."""
+    return torch.minimum(torch.maximum(v, lo), hi)
 
 
 def _max_step_lane(v, dv, tau):
@@ -93,7 +105,9 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
 
     condense: 1 runs the uncondensed sweeps; 2 block-2 partial condensing
     (N even), with `condense2` first where the data are not precondensed.
-    fused=False (the split uncondensed sweeps) is not ported.
+    fused=False (condense=1 only) runs each uncondensed sweep as its split
+    launches: `backward_sweep` + `forward_sweep` for the factorization,
+    `backward_vector_sweep` + `forward_sweep` for each corrector.
     lam0_l/lam0_u (N,4,B): warm-start bound duals, clipped to >= 1e-4 on
     the finite bounds.
 
@@ -106,8 +120,15 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     (`bool(bad.any())`); converged batches then skip the re-solve.
     stats gains `escalated` (number of re-solved lanes) and
     `escalated_lanes` ((B,) bool, the lanes that were re-solved).  The
-    escalation re-solve runs the two-launch iteration (with `windowed`),
-    never `fused_iter`, as in the JAX package.
+    escalation re-solve runs the two-launch iteration (with `windowed` and
+    `fused`), never `fused_iter`, without Gondzio correctors and in full
+    precision, as in the JAX package.
+
+    config.gondzio_correctors = k > 0: after each Mehrotra corrector, k
+    Gondzio centrality correctors, each one more corrector sweep on the
+    same factorization with Pc zeroed, accepted per lane where it
+    lengthens the step (on every sweep form; with fused_iter=True the
+    two-launch iteration runs, as in the JAX package).
 
     windowed (condense=2): True runs each sweep as its split launches
     (`bwd_c2` + `fwd_c2`, `bwd_vec_c2` + `fwd_c2`: the JAX package's
@@ -115,27 +136,35 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     `corrector_sweep_c2` at every horizon: their gains live in device
     memory, so they have no VMEM-sized envelope to outgrow, and the JAX
     package's auto rule (the TPU's VMEM clamps) does not apply.  stats
-    gains `c2_windowed` (0/1) and, as in the JAX package,
-    `c2_compress_gains`/`c2_compress_ab` (0).
+    gains `c2_windowed` (0/1) and `c2_compress_gains`/`c2_compress_ab`
+    (0/1: the compressions that ran).
+
+    config.compress_gains / compress_ab (condense=2, the JAX package's
+    bfloat16 streams): K, L and Pc travel from the factorization to the
+    correctors in bfloat16; Abar - I and Bbar are stored in bfloat16 once
+    per solve and the dynamics residual stream is cast to bfloat16 at
+    every use.  windowed=True drops both with a warning (its sweeps run
+    full precision), fused_iter=True with either raises ValueError.
 
     fused_iter (condense=2): True runs each Mehrotra iteration as one
     `iter_sweep_c2` launch; False (default) the two sweeps with the
-    barrier algebra between them.  With condense=1, windowed and
-    fused_iter have no effect and stats carry no c2_* keys.
+    barrier algebra between them.  With condense=1, windowed, fused_iter
+    and the compressions have no effect and stats carry no c2_* keys.
     """
     if "c2Abar" in qp and condense != 2:
         raise ValueError("precondensed (c2*) QP data requires condense=2")
     check_supported(config, condense, windowed, fused_iter, fused)
     return solve_checked(qp, config, condense, windowed, fused_iter,
-                         lam0_l, lam0_u)
+                         lam0_l, lam0_u, fused)
 
 
 def solve_checked(qp: dict, config: IPMConfig, condense: int,
                   windowed: bool | None = None, fused_iter: bool = False,
-                  lam0_l=None, lam0_u=None) -> BatchSolution:
+                  lam0_l=None, lam0_u=None,
+                  fused: bool = True) -> BatchSolution:
     """`solve_batched` for a caller that has run `check_supported`."""
     sol = _solve_core(qp, config, condense, windowed, fused_iter, lam0_l,
-                      lam0_u)
+                      lam0_u, fused)
     cap = config.escalate_capacity
     if config.escalate_iters <= 0 or cap <= 0:
         return sol
@@ -158,7 +187,7 @@ def solve_checked(qp: dict, config: IPMConfig, condense: int,
     idx = torch.topk(masked, cap).indices          # distinct lane indices
     valid = bad[idx]                               # (cap,)
     sub = _solve_core({k: v.index_select(-1, idx) for k, v in qp.items()},
-                      esc_cfg, condense, windowed)
+                      esc_cfg, condense, windowed, fused=fused)
 
     def scat(full, part):
         # in place on this call's own outputs: lanes `idx` take the
@@ -177,7 +206,8 @@ def solve_checked(qp: dict, config: IPMConfig, condense: int,
 
 def _solve_core(qp: dict, config: IPMConfig, condense: int,
                 windowed: bool | None = None, fused_iter: bool = False,
-                lam0_l=None, lam0_u=None) -> BatchSolution:
+                lam0_l=None, lam0_u=None,
+                fused: bool = True) -> BatchSolution:
     c = qp["c"]
     ruu = qp["ruu"]
     pT_diag, p_T = qp["pT"], qp["p"]
@@ -185,6 +215,8 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
     nx = c.shape[1]
     dtype = c.dtype
     lb0, ub0 = qp["lb"], qp["ub"]
+    use_iter = _uses_iter(config, condense, fused_iter)
+    comp_g = comp_ab = False
 
     if condense == 2:
         if "c2Abar" in qp:
@@ -206,9 +238,29 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
         ru, qx, cs = cnd["rbar"], cnd["qbar"], cnd["cbar"]
         Abar, Bbar = cnd["Abar"], cnd["Bbar"]
         Qbar, S1T, R00 = cnd["Qbar"], cnd["S1T"], cnd["R00"]
-        kkt_c2, corr_c2 = ((ck.kkt_sweep_c2_win, ck.corrector_sweep_c2_win)
-                           if windowed else
-                           (ck.kkt_sweep_c2, ck.corrector_sweep_c2))
+        # bf16 compressed streams (the JAX package's IPMConfig note): on the
+        # fused two-launch sweeps only
+        comp_g = bool(config.compress_gains)
+        comp_ab = bool(config.compress_ab)
+        if (comp_g or comp_ab) and windowed:
+            warnings.warn(
+                "compress_gains/compress_ab ignored: windowed=True selects "
+                "the split c2 sweeps, which run full-precision",
+                stacklevel=3)
+            comp_g = comp_ab = False
+        if windowed:
+            kkt_c2, corr_c2 = ck.kkt_sweep_c2_win, ck.corrector_sweep_c2_win
+        else:
+            kkt_c2 = functools.partial(
+                ck.kkt_sweep_c2, gains_dtype=torch.bfloat16 if comp_g
+                else None, a_dev=comp_ab)
+            corr_c2 = functools.partial(ck.corrector_sweep_c2, a_dev=comp_ab)
+        if comp_ab:
+            # deviation-coded A: the bf16 rounding lands on the O(dt J)
+            # deviation, not on the unit diagonal
+            eye = torch.eye(nx, dtype=dtype, device=c.device)[:, :, None]
+            Abar = (Abar - eye).to(torch.bfloat16)
+            Bbar = Bbar.to(torch.bfloat16)
 
         def kkt(c_res, q, rs, r, pterm, dx0):
             return kkt_c2(Abar, Bbar, c_res, Qbar, S1T, R00, q, rs, r,
@@ -220,15 +272,29 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
         N, nu = N_orig, nu_orig
         A, Bm, qxx = qp["A"], qp["B"], qp["qxx"]
         ru, qx, cs = qp["ru"], qp["qx"], c
-        fused_iter = False          # no effect here, as in the JAX package
 
-        def kkt(c_res, q, rs, r, pterm, dx0):
-            return rk.kkt_sweep(A, Bm, c_res, qxx, q, rs, r, pT_diag, pterm,
-                                dx0)
+        if fused:
+            def kkt(c_res, q, rs, r, pterm, dx0):
+                return rk.kkt_sweep(A, Bm, c_res, qxx, q, rs, r, pT_diag,
+                                    pterm, dx0)
 
-        def corr(c_res, q, r, K, L, Pc, pterm, dx0):
-            return rk.corrector_sweep(A, Bm, c_res, q, r, K, L, Pc, pterm,
-                                      dx0)
+            def corr(c_res, q, r, K, L, Pc, pterm, dx0):
+                return rk.corrector_sweep(A, Bm, c_res, q, r, K, L, Pc,
+                                          pterm, dx0)
+        else:
+            def kkt(c_res, q, rs, r, pterm, dx0):
+                K, kff, L, Pc = rk.backward_sweep(A, Bm, c_res, qxx, q, rs, r,
+                                                  pT_diag, pterm)
+                return (K, kff, L, Pc) + tuple(
+                    rk.forward_sweep(A, Bm, c_res, K, kff, dx0))
+
+            def corr(c_res, q, r, K, L, Pc, pterm, dx0):
+                kff = rk.backward_vector_sweep(A, Bm, q, r, K, L, Pc, pterm)
+                return rk.forward_sweep(A, Bm, c_res, K, kff, dx0)
+    # the dynamics-residual stream as the sweeps take it (bf16 with
+    # compress_ab, cast at every use as in the JAX package)
+    cstream = ((lambda z: z.to(torch.bfloat16)) if comp_ab
+               else (lambda z: z))
 
     finite_l = torch.isfinite(lb0)
     finite_u = torch.isfinite(ub0)
@@ -264,7 +330,7 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
         return ((a[0] * b[0] * finite_l).sum(dim=(0, 1))
                 + (a[1] * b[1] * finite_u).sum(dim=(0, 1))) / n_ineq
 
-    if fused_iter:
+    if use_iter:
         # one launch per iteration (the JAX package's `iteration2`); the
         # kernel updates its carries in place, and they are views of
         # z_dx, r1x and cd, so nothing is reassembled afterwards
@@ -296,7 +362,7 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
                     - torch.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
 
             # predictor: factorization + affine backward + forward rollout
-            c_res = -r2[1:]
+            c_res = cstream(-r2[1:])
             dx0_res = -r2[0]
             K, _, L, Pc, ddx_a, ddu_a = kkt(c_res, r1x[:-1], ruu_shift,
                                             rt1u, r1x[-1], dx0_res)
@@ -343,6 +409,52 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
                               _max_step_lane(one_u, ds_u, config.tau)),
                 torch.minimum(_max_step_lane(lam1_l, dlam_l, config.tau),
                               _max_step_lane(lam1_u, dlam_u, config.tau)))
+            # Gondzio centrality correctors: one more corrector sweep each
+            # on the same factorization, right-hand side the pure
+            # complementarity outlier correction, kept per lane where the
+            # step lengthens.  The stored Pc = P_{k+1} c_k carries the
+            # original dynamics residual into the vector pass, and this
+            # solve has none, so Pc is zeroed (K and L do not depend on
+            # the right-hand side).
+            for _ in range(config.gondzio_correctors):
+                mu_t = sigma * mu                                   # (B,)
+                a_hat = torch.clamp(alpha + 0.1, max=1.0)
+                v_l = (s_l + a_hat * ds_l) * (lam_l + a_hat * dlam_l)
+                v_u = (s_u + a_hat * ds_u) * (lam_u + a_hat * dlam_u)
+                t_l = torch.where(finite_l, _clip(v_l, 0.1 * mu_t,
+                                                  10.0 * mu_t) - v_l, 0.0)
+                t_u = torch.where(finite_u, _clip(v_u, 0.1 * mu_t,
+                                                  10.0 * mu_t) - v_u, 0.0)
+                rt1u_g = (torch.where(finite_l, -t_l / s_l, 0.0)
+                          + torch.where(finite_u, t_u / s_u, 0.0))
+                ddx_g, ddu_g = corr(
+                    cstream(torch.zeros_like(r2[1:])),
+                    torch.zeros_like(r1x[:-1]), rt1u_g, K, L,
+                    torch.zeros_like(Pc), torch.zeros_like(r1x[-1]),
+                    torch.zeros_like(r2[0]))
+                ds_l_g = torch.where(finite_l, ddu_g, 0.0)
+                ds_u_g = torch.where(finite_u, -ddu_g, 0.0)
+                dlam_l_g = torch.where(finite_l,
+                                       (t_l - lam_l * ds_l_g) / s_l, 0.0)
+                dlam_u_g = torch.where(finite_u,
+                                       (t_u - lam_u * ds_u_g) / s_u, 0.0)
+                ds_l2, ds_u2 = ds_l + ds_l_g, ds_u + ds_u_g
+                dlam_l2, dlam_u2 = dlam_l + dlam_l_g, dlam_u + dlam_u_g
+                alpha2 = torch.minimum(
+                    torch.minimum(_max_step_lane(one_l, ds_l2, config.tau),
+                                  _max_step_lane(one_u, ds_u2, config.tau)),
+                    torch.minimum(
+                        _max_step_lane(lam1_l, dlam_l2, config.tau),
+                        _max_step_lane(lam1_u, dlam_u2, config.tau)))
+                keep = alpha2 > alpha                               # (B,)
+                ddx = torch.where(keep, ddx + ddx_g, ddx)
+                ddu = torch.where(keep, ddu + ddu_g, ddu)
+                ds_l = torch.where(keep, ds_l2, ds_l)
+                ds_u = torch.where(keep, ds_u2, ds_u)
+                dlam_l = torch.where(keep, dlam_l2, dlam_l)
+                dlam_u = torch.where(keep, dlam_u2, dlam_u)
+                alpha = torch.maximum(alpha, alpha2)
+
             alpha = torch.where(has_ineq & (mu <= mu_floor), 0.0, alpha)
 
             z_dx = z_dx + alpha * ddx
@@ -365,8 +477,8 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
     if condense == 1:
         return BatchSolution(dx=z_dx, du=z_du, lam_l=lam_l, lam_u=lam_u,
                              stats=stats)
-    stats.update(c2_windowed=int(bool(windowed)), c2_compress_gains=0,
-                 c2_compress_ab=0)
+    stats.update(c2_windowed=int(bool(windowed)),
+                 c2_compress_gains=int(comp_g), c2_compress_ab=int(comp_ab))
 
     # expand: interior states were eliminated exactly through their
     # dynamics row; recover them once (not per iteration)

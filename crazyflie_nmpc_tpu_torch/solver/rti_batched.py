@@ -10,8 +10,10 @@ with `fused_iter=True`, one `iter_sweep_c2` launch per iteration; with
 eliminated states.  With `fused_prep_condense=False` the preparation is a
 `prep_sweep` launch and the condensing a `condense2` launch.  At odd N (or
 condense=1) `prep_sweep` feeds the uncondensed sweeps `kkt_sweep` /
-`corrector_sweep`.  On CUDA tensors each kernel is hand-written; on CPU
-tensors their plain PyTorch versions run.
+`corrector_sweep`.  `prep_vde_order=2` selects the order-2 sensitivities in
+either preparation; the solver's options (Gondzio correctors, bf16
+streams) are `IPMConfig`'s.  On CUDA tensors each kernel is hand-written;
+on CPU tensors their plain PyTorch versions run.
 
 Layouts: batch-first by default (x_traj (B, N+1, nx)); a serving loop that
 chains steps on the card passes `layout="batch_last"` and carries
@@ -74,10 +76,12 @@ def prep_tiles(spec: OCPSpec, B: int, dtype, device):
 
 
 def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
-               batch_last: bool, fused_condense: bool = True):
+               batch_last: bool, fused_condense: bool = True,
+               vde_order: int = 4):
     """Preparation phase: one launch from the iterate to the QP dict
     `ops.ipm_fast.solve_batched` takes, `prep_condense2`'s precondensed
-    one (fused_condense, even N) or `prep_sweep`'s stage-wise one.
+    one (fused_condense, even N) or `prep_sweep`'s stage-wise one, with
+    the sensitivities of `vde_order` (4: exact ERK4 VDE, 2: midpoint).
 
     Returns (x_bl, u_bl, qp) with the iterate in the kernels' layout.
     """
@@ -105,11 +109,12 @@ def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
               p=(pT_diag[:, None] * (x_bl[-1] - yref_e_bl)).contiguous(),
               dx0=(bl(x0s) - x_bl[0]).contiguous())
     if fused_condense:
-        cnd, Ae, Be, c_k, lb_k, ub_k = prep_condense2(*prep_args)
+        cnd, Ae, Be, c_k, lb_k, ub_k = prep_condense2(*prep_args, vde_order)
         qp.update(c=c_k, lb=lb_k, ub=ub_k, c2Ae=Ae, c2Be=Be,
                   **{"c2" + k: v for k, v in cnd.items()})
     else:
-        A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep_sweep(*prep_args)
+        A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep_sweep(*prep_args,
+                                                           vde_order)
         qp.update(A=A_k, B=B_k, c=c_k, qx=qx_k, ru=ru_k, lb=lb_k, ub=ub_k,
                   qxx=q_t[None].expand(N, nx, B).contiguous())
     return x_bl, u_bl, qp
@@ -146,34 +151,46 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
       windowed, fused_iter: the sweep forms of `ops.ipm_fast.solve_batched`
         (split launches; one launch per Mehrotra iteration), condense=2
         only.
+      prep_vde_order: 4 (default) the exact ERK4 matrix VDE sensitivities;
+        2 the midpoint order-2 ones on the exact ERK4 state propagation
+        (an inexact-Jacobian Gauss-Newton step, as in the JAX package).
     Returns (RTIState', RTIOutput) in the input's layout (batch_last:
     u0/u1 are (nu,B), plans are stage-major batch-last).
+    Raises ValueError for a custom model ODE (spec.f): such specs use
+    `solver.rti.rti_step`, as in the JAX package.
     """
     if condense is None:
         condense = 2 if spec.N % 2 == 0 else 1
+    if spec.f is not None:
+        raise ValueError(
+            "rti_step_batched is specialized to the Crazyflie quadrotor "
+            "(fused prep kernel with hand-derived sparse Jacobians); "
+            "custom-model specs (spec.f set) use solver.rti.rti_step")
     if fused_prep_condense is None:
         fused_prep_condense = (condense == 2
                                and prep_batch_rows in (None, 1))
     if fused_prep_condense and condense != 2:
         raise ValueError("fused_prep_condense requires condense=2")
     ipm_fast.check_supported(config, condense, windowed, fused_iter)
-    if spec.f is not None:
-        raise _not_ported("a custom model ODE (spec.f)", 12)
     if not fused_prep or spec.sim_steps != 1:
         raise _not_ported("the XLA-style preparation (fused_prep=False, "
-                          "sim_steps>1)", 7)
-    if prep_vde_order != 4:
-        raise _not_ported("prep_vde_order=2", 7)
+                          "sim_steps>1)", 8)
     if layout not in ("batch_first", "batch_last"):
         raise ValueError(f"layout {layout!r}")
 
     batch_last = layout == "batch_last"
     x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last,
-                                fused_prep_condense)
+                                fused_prep_condense, prep_vde_order)
 
     # feedback: batch-last IPM on the sweeps of the problem's form
     sol = ipm_fast.solve_checked(qp, config, condense, windowed, fused_iter)
+    return rti_update(qp, sol, x_bl, u_bl, batch_last)
 
+
+def rti_update(qp: dict, sol, x_bl, u_bl, batch_last: bool):
+    """The step's update from the QP and its solution: the new iterate
+    and the RTIOutput (its residuals and plans), in the layout
+    `batch_last` selects, as `rti_step_batched` returns them."""
     x_traj_bl = x_bl + sol.dx
     u_traj_bl = u_bl + sol.du
 

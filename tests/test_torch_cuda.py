@@ -9,7 +9,8 @@ Each kernel is held against its plain version on the card with a ragged
 lane count (37) that exercises the masked edge (the uncondensed
 preparation and sweeps at an odd horizon too), and the batched step on
 the card (the default path, the certified one, fused_iter=True,
-windowed=True, condense=1 at an odd horizon and fused_prep_condense=False)
+windowed=True, condense=1 at an odd horizon, fused_prep_condense=False,
+the split uncondensed sweeps, Gondzio correctors and the throughput mode)
 against the same lanes through the plain versions on the CPU.
 """
 
@@ -17,9 +18,12 @@ import pytest
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+from crazyflie_nmpc_tpu_torch.ops import ipm_fast
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
 from crazyflie_nmpc_tpu_torch.solver import default_ocp, hover_yref, init_rti
-from crazyflie_nmpc_tpu_torch.solver.rti_batched import (rti_step_batched,
+from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prepare_qp,
+                                                         rti_step_batched,
+                                                         rti_update,
                                                          to_batch_last)
 
 B = 37
@@ -55,13 +59,22 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol, n):
         assert kc.launch_counts()[name] == before + 1, label
 
 
-def _step(device, x0s, config, N=10, **opts):
+def _step(device, x0s, config, N=10, fused=True, **opts):
+    """One batch-last step: `rti_step_batched`, or with fused=False the
+    stage QP of `prepare_qp(fused_condense=False)` solved by
+    `solve_batched(fused=False)` (the split uncondensed sweeps) with the
+    step's update `rti_update`."""
     spec = default_ocp(N=N, dtype=torch.float64, device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = x0s.to(device)
     st = to_batch_last(init_rti(spec, x0s, device=device))
-    return rti_step_batched(spec, st, x0s, yref, yref_e, config,
-                            layout="batch_last", **opts)[1]
+    if fused:
+        return rti_step_batched(spec, st, x0s, yref, yref_e, config,
+                                layout="batch_last", **opts)[1]
+    x_bl, u_bl, qp = prepare_qp(spec, st, x0s, yref, yref_e, True,
+                                fused_condense=False)
+    sol = ipm_fast.solve_batched(qp, config, fused=False)
+    return rti_update(qp, sol, x_bl, u_bl, True)[1]
 
 
 @pytest.mark.cuda
@@ -85,11 +98,11 @@ def test_rti_step_on_card_matches_cpu(cuda_device, config):
     _assert_close(card, cpu)
 
 
-def _assert_close(card, cpu):
+def _assert_close(card, cpu, tol=1e-8):
     for field in ("u0", "x_plan", "u_plan", "kkt_res"):
         got, want = getattr(card, field).cpu(), getattr(cpu, field)
         scale = max(1.0, float(want.abs().max()))
-        assert float((got - want).abs().max()) <= 1e-8 * scale, field
+        assert float((got - want).abs().max()) <= tol * scale, field
 
 
 @pytest.mark.cuda
@@ -146,3 +159,39 @@ def test_uncondensed_and_unfused_paths_on_card_match_cpu(
                 **{k: v * config.iters for k, v in per_iter.items()})
     assert counts == want
     _assert_close(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, config, opts, per_step, per_iter, tol", [
+    (9, IPMConfig(iters=8), dict(fused=False), dict(prep_sweep=1),
+     dict(backward_sweep=1, forward_sweep=2, backward_vector_sweep=1), 1e-8),
+    (10, IPMConfig(iters=5, gondzio_correctors=2), {},
+     dict(prep_condense2=1, expand2=1),
+     dict(kkt_sweep_c2=1, corrector_sweep_c2=3), 1e-8),
+    (9, IPMConfig(iters=5, gondzio_correctors=2), {}, dict(prep_sweep=1),
+     dict(kkt_sweep=1, corrector_sweep=3), 1e-8),
+    # bf16 gains: a float64 difference in the last bits can move a gain by
+    # one bf16 rounding step, which moves the step by ~1e-7 of its scale
+    (10, IPMConfig(iters=8, compress_gains=True, compress_ab=True),
+     dict(prep_vde_order=2), dict(prep_condense2=1, expand2=1),
+     dict(kkt_sweep_c2=1, corrector_sweep_c2=1), 1e-5),
+], ids=["split", "gondzio_c2", "gondzio_odd_N", "throughput_mode"])
+def test_solver_options_on_card_match_cpu(cuda_device, N, config, opts,
+                                          per_step, per_iter, tol):
+    """solve_batched(fused=False) (the K9 kernels), Gondzio correctors and
+    the throughput mode (bf16-stream K2/K3 forms, order-2 K1) on the card
+    launch exactly their kernels and match the CPU's plain versions."""
+    gen = torch.Generator().manual_seed(7)
+    x0s = torch.zeros(B, 13, dtype=torch.float64)
+    x0s[:, 3] = 1.0
+    x0s += 0.05 * torch.randn(B, 13, generator=gen, dtype=torch.float64)
+    x0s[:5, 0] += 1.5
+    kc.reset_launch_counts()
+    card = _step(cuda_device, x0s, config, N=N, **opts)
+    counts = kc.launch_counts()
+    cpu = _step("cpu", x0s, config, N=N, **opts)
+    want = dict.fromkeys(kc.KERNELS, 0)
+    want.update(**per_step,
+                **{k: v * config.iters for k, v in per_iter.items()})
+    assert counts == want
+    _assert_close(card, cpu, tol)

@@ -1,8 +1,9 @@
 """Rules the port keeps: no JAX, the card by default, no hidden fallback,
 unported options refused by name, ported ones run on CPU tensors through
-the plain versions."""
+the plain versions, and the JAX package's ValueErrors kept."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -101,8 +102,6 @@ def test_uncondensed_and_unfused_paths_run_on_cpu(small, change, kwargs):
     """condense=1, the unfused preparation and odd horizons run on CPU
     tensors through the plain versions, escalation included, and launch
     no kernel."""
-    import dataclasses
-
     spec, st, x0s, yref, yref_e = small
     if change:
         spec = dataclasses.replace(spec, **change)
@@ -127,19 +126,34 @@ def test_uncondensed_and_unfused_paths_run_on_cpu(small, change, kwargs):
     next(k for k, v in vars(kw["config"]).items()
          if v != getattr(IPMConfig(), k)))
 def test_unported_options_raise(small, kwargs):
+    """The step's options: the XLA-style preparation (fused_prep=False)
+    is refused by its ROADMAP item; Gondzio correctors, the bf16 streams
+    and the order-2 VDE run on CPU tensors through the plain versions
+    (escalation included) and launch no kernel."""
     spec, st, x0s, yref, yref_e = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rti_step_batched(spec, st, x0s, yref, yref_e, **kwargs)
+    if "fused_prep" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rti_step_batched(spec, st, x0s, yref, yref_e, **kwargs)
+        return
+    kw = dict(kwargs)
+    cfg = dataclasses.replace(kw.pop("config", IPMConfig()), iters=3,
+                              escalate_iters=2, escalate_capacity=2)
+    kc.reset_launch_counts()
+    _, out = rti_step_batched(spec, st, x0s, yref, yref_e, cfg, **kw)
+    assert bool(torch.isfinite(out.u_plan).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
 
 
-@pytest.mark.parametrize("change", [
-    dict(sim_steps=2), dict(f=lambda p, x, u: x)],
-    ids=["sim_steps", "custom_ode"])
-def test_unported_specs_raise(small, change):
-    import dataclasses
-
+@pytest.mark.parametrize("change, error, match", [
+    (dict(sim_steps=2), NotImplementedError, "ROADMAP"),
+    (dict(f=lambda p, x, u: x), ValueError, "rti_step"),
+], ids=["sim_steps", "custom_ode"])
+def test_unported_specs_raise(small, change, error, match):
+    """sim_steps > 1 needs the XLA-style preparation, not ported yet; a
+    custom model ODE is refused as in the JAX package (ValueError: such
+    specs use solver.rti.rti_step)."""
     spec, st, x0s, yref, yref_e = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         rti_step_batched(dataclasses.replace(spec, **change), st, x0s, yref,
                          yref_e)
 
@@ -159,9 +173,20 @@ def test_solve_batched_runs_condense_1(small):
     assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
 
 
-def test_solve_batched_refuses_the_split_uncondensed_sweeps():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, K9"):
-        ipm_fast.solve_batched({}, IPMConfig(), fused=False)
+def test_solve_batched_refuses_the_split_uncondensed_sweeps(small):
+    """fused=False runs the split uncondensed sweeps on CPU tensors through
+    the plain versions (no kernel launched); with condense=2 it raises
+    ValueError, as in the JAX package."""
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import prepare_qp
+
+    spec, st, x0s, yref, yref_e = small
+    _, _, qp = prepare_qp(spec, st, x0s, yref, yref_e, batch_last=False,
+                          fused_condense=False)
+    kc.reset_launch_counts()
+    sol = ipm_fast.solve_batched(qp, IPMConfig(iters=3), fused=False)
+    assert sol.dx.shape == (spec.N + 1, 13, 3)
+    assert bool(torch.isfinite(sol.du).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
     with pytest.raises(ValueError, match="fused"):
         ipm_fast.solve_batched({}, IPMConfig(), fused=False, condense=2)
 
@@ -171,13 +196,17 @@ def test_solve_batched_refuses_the_split_uncondensed_sweeps():
     ("shape", "expected"),
     ("layout", "contiguous"),
     ("device", "expected"),
+    ("bf16", "expected torch.float32"),
 ])
 def test_kernel_input_checks_raise(bad, match):
-    """What the wrappers check before any launch."""
+    """What the wrappers check before any launch (bf16: a bfloat16 tensor
+    not named as a compressed stream)."""
     good = torch.zeros(4, 3, dtype=torch.float32)
     t, dtype, device = good, torch.float32, good.device
     if bad == "dtype":
         t, dtype = good.half(), torch.float16
+    elif bad == "bf16":
+        t = good.bfloat16()
     elif bad == "shape":
         t = torch.zeros(4, 2)
     elif bad == "layout":
@@ -186,6 +215,18 @@ def test_kernel_input_checks_raise(bad, match):
         device = torch.device("meta")
     with pytest.raises((TypeError, ValueError), match=match):
         _build.check("k", dict(a=t), dict(a=(4, 3)), dtype, device)
+
+
+def test_kernel_input_checks_take_the_named_bf16_streams():
+    """The compressed streams named in `bf16` must be bfloat16, the rest
+    the working dtype."""
+    f32 = torch.zeros(4, 3)
+    shapes = dict(a=(4, 3), K=(4, 3))
+    _build.check("k", dict(a=f32, K=f32.bfloat16()), shapes, torch.float32,
+                 f32.device, bf16=("K",))
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        _build.check("k", dict(a=f32, K=f32), shapes, torch.float32,
+                     f32.device, bf16=("K",))
 
 
 def test_build_hash_covers_sources_and_flags():
