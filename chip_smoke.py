@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from `crazyflie_nmpc_tpu_torch/csrc` (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version at the main path's shapes (N=50, M=25; the uncondensed
 preparation and sweeps at N=51 too) in float64 and float32, and drives
-eight paths of the batched RTI step (`rti_step_batched`,
+nine paths of the batched RTI step (`rti_step_batched`,
 IPMConfig(iters=8) unless named, batch-last, float32), 20 chained steps
 each, with launch counters proving which kernels ran:
 
@@ -30,7 +30,23 @@ each, with launch counters proving which kernels ran:
   [throughput_mode] IPMConfig(iters=8, compress_gains=True,
                  compress_ab=True) with prep_vde_order=2 (the bf16-stream
                  forms of kkt_sweep_c2 / corrector_sweep_c2 and the
-                 order-2 prep_condense2), N=50, B = 2048 and 4096.
+                 order-2 prep_condense2), N=50, B = 2048 and 4096;
+  [xla_prep]     fused_prep=False (the jacfwd preparation in plain
+                 PyTorch, then condense2, the condensed sweeps and the
+                 stride-2 expand2), N=50, B=4096, held against [main]'s
+                 step 1 too, and a sim_steps=2 spec at B=1024 (its bars
+                 shown to catch faults planted in the preparation).
+
+and two paths of their own:
+
+  [single]       the single-instance rti_step (plain PyTorch), N=50, 20
+                 closed-loop ticks from a 1.5 m offset, and one certified
+                 tick;
+  [roofline]     the speed-of-light probes fma_chain and stage_replay
+                 against their plain versions (on inputs whose output
+                 depends on every product and stage), then the study of
+                 crazyflie_nmpc_tpu_torch/roofline/ipm_iter_sol.py at N=50,
+                 B=4096 (its table on the lines it prints).
 
 Each path's step 1 is held against the port's float64 CPU run, and the
 sweeps of [long] against their plain versions at N=400 too; [split]'s
@@ -39,7 +55,8 @@ uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel with CUDA events at the shapes of the path that runs it,
 and traces a few steps of [main], [fused_iter], [uncondensed], [split],
-[gondzio] and [throughput_mode] with torch.profiler.
+[gondzio], [throughput_mode] and [xla_prep] ([single] its own ticks) with
+torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -55,6 +72,11 @@ import re
 import subprocess
 import sys
 import time
+
+# the H100's published peaks and the CUDA-event timer, shared with the
+# speed-of-light study (fails outside the repo: the port is needed)
+from crazyflie_nmpc_tpu_torch.roofline import (HBM_BYTES_PER_S,
+                                               PEAK_FP32_FLOPS, time_events)
 
 # main path: the reference OCP at full width
 N = 50
@@ -73,8 +95,8 @@ N_LONG_REF_LANES = 8
 N_ODD = N + 1         # the odd horizon of [uncondensed]
 
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
-          "unfused_prep", "split", "gondzio", "throughput_mode", "certified",
-          "timing")
+          "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
+          "single", "roofline", "certified", "timing")
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -88,11 +110,6 @@ JAX_THROUGHPUT = dict(du_exact_max=6.222269832743075,
                       dev_f32=0.1473521350790647,
                       f32_vs_f64_u0=0.03820863421097087,
                       f32_vs_f64_x_plan=0.2731285092978418)
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s, fp32
-# outside the tensor cores 67 TFLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
 
 # Tolerances of kernel vs plain version, as max |kernel - plain| over
 # max(1, max |plain|), per output.  float64: both evaluate the same
@@ -150,6 +167,17 @@ KERNEL_INFO = {
     "backward_vector_sweep": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/riccati.cu",
         replaces=_PALLAS + "riccati_kernels.py:665"),
+}
+# the speed-of-light probes (ops.cuda.PROBES), on no solver path: checked,
+# driven and timed by [roofline], listed in the kernels line after
+# KERNEL_INFO's
+PROBE_INFO = {
+    "fma_chain": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/sol_probes.cu",
+        replaces="tools/ipm_iter_sol.py:112"),
+    "stage_replay": dict(
+        source="crazyflie_nmpc_tpu_torch/csrc/sol_probes.cu",
+        replaces="tools/ipm_iter_sol.py:154"),
 }
 # the other forms of a kernel, each checked and timed under its own label:
 # the expansion of the full-horizon A/B (fused_prep_condense=False), the
@@ -460,7 +488,8 @@ def phase_build():
     info = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    names = "|".join(sorted(KERNEL_INFO, key=len, reverse=True))
+    names = "|".join(sorted({**KERNEL_INFO, **PROBE_INFO}, key=len,
+                            reverse=True))
     print("[build] ptxas per kernel instance, its mangled template "
           "arguments in <>: f float, d double, 13__nv_bfloat16 (S0_ the "
           "same) bfloat16, Lb0/Lb1 a bool false/true, Li2/Li4 an int")
@@ -595,7 +624,7 @@ def make_step(spec, x0s, yref, yref_e, cfg, fused=True, **opts):
     return split_step
 
 
-def run_chain(B, device, n=N, cfg=None, fused=True, **opts):
+def run_chain(B, device, n=N, cfg=None, fused=True, sim_steps=1, **opts):
     """20 chained batch-last steps at batch B and horizon n with the
     IPMConfig `cfg` (iters=8 by default) and the step options (`fused`,
     `opts`: make_step); returns the first step's output, the last state,
@@ -615,8 +644,8 @@ def run_chain(B, device, n=N, cfg=None, fused=True, **opts):
                                                  init_rti)
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
 
-    spec = default_ocp(N=n, tf=TF * n / N, dtype=torch.float32,
-                       device=device)
+    spec = default_ocp(N=n, tf=TF * n / N, sim_steps=sim_steps,
+                       dtype=torch.float32, device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = hover_batch(spec, B, seed=B)
     st0 = to_batch_last(init_rti(spec, x0s, device=device))
@@ -655,7 +684,8 @@ def run_chain(B, device, n=N, cfg=None, fused=True, **opts):
                 host_ms=sorted(host)[2], counts=counts, step=step)
 
 
-def cpu_reference_step(x0s, cfg, n=N, dtype=None, fused=True, **opts):
+def cpu_reference_step(x0s, cfg, n=N, dtype=None, fused=True, sim_steps=1,
+                       **opts):
     """The same lanes through the port's plain versions on the CPU, in
     `dtype` (float64 by default); returns the step's RTIOutput and its
     input state."""
@@ -666,7 +696,8 @@ def cpu_reference_step(x0s, cfg, n=N, dtype=None, fused=True, **opts):
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
 
     dtype = dtype or torch.float64
-    spec = default_ocp(N=n, tf=TF * n / N, dtype=dtype, device="cpu")
+    spec = default_ocp(N=n, tf=TF * n / N, sim_steps=sim_steps, dtype=dtype,
+                       device="cpu")
     yref, yref_e = hover_yref(spec, device="cpu")
     x = x0s.to(device="cpu", dtype=dtype)
     st = to_batch_last(init_rti(spec, x, device="cpu"))
@@ -950,6 +981,208 @@ def phase_throughput_mode(device):
     return totals, runs
 
 
+def phase_xla_prep(device, main_runs):
+    """The XLA-style preparation (`prepare_qp_xla`: torch.func.jacfwd
+    through the integrator, plain PyTorch) and the same solver:
+    fused_prep=False at N=50, B=4096 (condense2, the condensed sweeps and
+    the stride-2 expand2 on the card), step 1 held against [main]'s on the
+    same states (the same QP from the fused preparation's VDE) and against
+    float64; then a sim_steps=2 spec at B=1024, held on N_REF_LANES lanes
+    against its own float64 CPU run."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+
+    per_step = {"condense2": 1, "kkt_sweep_c2": ITERS,
+                "corrector_sweep_c2": ITERS, "expand2": 1}
+    totals, runs = drive("xla_prep", device, per_step, batches=(B_TIME,),
+                         fused_prep=False)
+    run, main = runs[B_TIME], main_runs.get(B_TIME)
+    if main is not None:
+        du0 = float((run["first"].u0 - main["first"].u0).abs().max())
+        dx = float((run["first"].x_plan - main["first"].x_plan).abs().max())
+        print(f"[xla_prep] step 1 vs [main]'s on the same {B_TIME} states: "
+              f"max |du0| {du0:.3e} kRPM, max |dx_plan| {dx:.3e}")
+        if not (du0 <= 1e-3 and dx <= 1e-3):
+            fail("[xla_prep] step 1 disagrees with [main]'s")
+        compare_paths("xla_prep", run, main, "[main]")
+    label = "xla_prep sim_steps=2"
+    sim2, sim2_runs = drive(label, device, per_step, batches=(B_CHECK,),
+                            check_step1=False, sim_steps=2)
+    for name, v in sim2.items():
+        totals[name] = totals.get(name, 0) + v
+    # the shooting interval is sim_steps x dt, as in the JAX package, so
+    # the plan spans 1.5 s and float32 rounding grows along it: u0 to 1e-3
+    # kRPM as on every path, the plan to 1e-3 or 3x the plain float32
+    # run's distance from float64 on the same lanes (the yardstick [long]
+    # and phase_timing use), whichever is larger
+    run, lanes = sim2_runs[B_CHECK], slice(0, N_REF_LANES)
+    x0s = run["x0s"][lanes]
+    ref, _ = cpu_reference_step(x0s, IPMConfig(iters=ITERS), sim_steps=2)
+    ref32, _ = cpu_reference_step(x0s, IPMConfig(iters=ITERS),
+                                  dtype=torch.float32, sim_steps=2)
+    du0, dx = step1_error(run, ref, lanes)
+    x32 = float((ref32.x_plan.double() - ref.x_plan).abs().max())
+    e32 = float((ref32.u0.double() - ref.u0).abs().max())
+    lim_x = max(1e-3, 3 * x32)
+    print(f"[{label}] step 1, {N_REF_LANES} lanes vs CPU float64: max "
+          f"|du0| {du0:.3e} kRPM, max |dx_plan| {dx:.3e} (limit "
+          f"{lim_x:.3e}); plain float32 on the CPU {e32:.3e} kRPM, "
+          f"|dx_plan| {x32:.3e}")
+    if not (du0 <= 1e-3 and dx <= lim_x):
+        fail(f"[{label}] step 1 disagrees with the CPU float64 run")
+    planted_prep_faults(label, x0s, ref, lim_x)
+    return totals, {**runs, "sim_steps=2": run}
+
+
+def planted_prep_faults(label, x0s, ref, lim_x):
+    """The power of the sim_steps=2 bar: the same step in float32 on the
+    CPU with a fault planted in its preparation (the linearization that
+    `prepare_qp_xla` calls, patched for the call), held against the same
+    float64 answer and bars.  F1 (the interval ignores sim_steps) and F2
+    (A, B of one sub-step, the chain rule dropped) must fail them; F3 (one
+    RK4 step over the whole interval: a change of discretization only) is
+    printed, not required: it moves the plan less than float32 rounding
+    does, and only the float64 CPU tests against the JAX package see it."""
+    from unittest import mock
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.integrators import linearize_trajectory
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.solver import rti_batched
+
+    lin = linearize_trajectory
+    faults = {
+        "F1 interval ignores sim_steps": (
+            lambda f, p, x, u, dt, n: lin(f, p, x, u, dt, 1), True),
+        "F2 A, B of one sub-step": (
+            lambda f, p, x, u, dt, n: (lin(f, p, x, u, dt, n)[0],
+                                       *lin(f, p, x, u, dt, 1)[1:]), True),
+        "F3 one RK4 step over the interval": (
+            lambda f, p, x, u, dt, n: lin(f, p, x, u, dt * n, 1), False),
+    }
+    for name, (fault, must_fail) in faults.items():
+        with mock.patch.object(rti_batched, "linearize_trajectory", fault):
+            out, _ = cpu_reference_step(x0s, IPMConfig(iters=ITERS),
+                                        dtype=torch.float32, sim_steps=2)
+        du0 = float((out.u0.double() - ref.u0).abs().max())
+        dx = float((out.x_plan.double() - ref.x_plan).abs().max())
+        caught = not (du0 <= 1e-3 and dx <= lim_x)
+        print(f"[{label}] planted fault {name} (CPU float32): max |du0| "
+              f"{du0:.3e} kRPM, max |dx_plan| {dx:.3e} -> "
+              f"{'fails' if caught else 'passes'} the bars"
+              f"{' (required to fail)' if must_fail else ''}")
+        if must_fail and not caught:
+            fail(f"[{label}] the bars do not see the planted fault {name}")
+
+
+SINGLE_TICKS = 20
+
+
+def phase_single(device):
+    """The single-instance RTI step (`solver.rti.rti_step`: jacfwd
+    linearization, Gauss-Newton QP, `ops.ipm.solve`, plain PyTorch on the
+    card), N=50, float32, from the certified transient's 1.5 m offset:
+    SINGLE_TICKS chained closed-loop ticks (the plant an RK4 step of the
+    model under u0) with escalation off under
+    torch.cuda.set_sync_debug_mode("error"), ms per tick from CUDA events
+    and the host's issue time; tick 1's u0 held against the port's float64
+    CPU run to 1e-3 kRPM.  Then one certified tick (certified_config(),
+    escalation: one host read) held the same way, at the first tick whose
+    8 iterations left mu above the escalation tolerance.  Last, two ticks
+    traced (phase_profile): kernel launches per tick, device busy time."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.models import dynamics
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.integrators import integrate
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
+    from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
+                                                 init_rti, rti_step)
+
+    def setup(dtype, dev):
+        spec = default_ocp(N=N, dtype=dtype, device=dev)
+        yref, yref_e = hover_yref(spec, device=dev)
+        x0 = hover_batch(spec, 1, seed=7)[0]
+        x0[0] += 1.5
+        return spec, yref, yref_e, x0, init_rti(spec, x0, device=dev)
+
+    spec, yref, yref_e, x0, st0 = setup(torch.float32, device)
+    cfg = IPMConfig(iters=ITERS)
+
+    def tick(carry):
+        st, x = carry
+        st, out = rti_step(spec, st, x, yref, yref_e, cfg)
+        x = integrate(dynamics, spec.params, x, out.u0, spec.dt)
+        return (st, x), out
+
+    tick((st0, x0))                           # warm-up, not timed
+    torch.cuda.synchronize()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(SINGLE_TICKS + 1)]
+    host, inputs, mus = [], [], []
+    kc.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = (st0, x0)
+        evs[0].record()
+        for i in range(SINGLE_TICKS):
+            inputs.append(carry)
+            t0 = time.perf_counter()
+            carry, out = tick(carry)
+            host.append((time.perf_counter() - t0) * 1e3)
+            evs[i + 1].record()
+            mus.append(out.qp_mu)
+            if i == 0:
+                first = out
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = evs[0].elapsed_time(evs[-1]) / SINGLE_TICKS
+    counts = {k: v for k, v in kc.launch_counts().items() if v}
+    for key, t in list(first._asdict().items()) + list(
+            out._asdict().items()):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"[single] non-finite {key}")
+    pos = float(carry[1][:3].sub(yref_e[:3]).norm())
+    print(f"[single] N={N} float32: {SINGLE_TICKS} closed-loop ticks from "
+          f"1.5 m off, {ms:.3f} ms/tick (window / {SINGLE_TICKS}), host "
+          f"issue median {sorted(host)[SINGLE_TICKS // 2]:.3f} ms/tick; no "
+          f"host sync; position error after {SINGLE_TICKS} ticks "
+          f"{pos:.4f} m; hand-written kernels launched: {counts or 'none'}")
+
+    # the certified tick: the first tick whose 8 iterations left mu above
+    # the escalation tolerance (tick 1 if none did), from that tick's
+    # inputs; its float64 CPU run starts from the same values
+    cert = certified_config()
+    hard = next((i for i, mu in enumerate(mus)
+                 if float(mu) > cert.escalate_mu_tol), 0)
+    spec64, yref64, yref_e64, _, _ = setup(torch.float64, "cpu")
+    for label, c, i in (("escalation off", cfg, 0), ("certified", cert,
+                                                      hard)):
+        (st_i, x_i) = inputs[i]
+        got = (first if i == 0 and c is cfg else
+               rti_step(spec, st_i, x_i, yref, yref_e, c)[1])
+        st64 = type(st_i)(x_traj=st_i.x_traj.double().cpu(),
+                          u_traj=st_i.u_traj.double().cpu())
+        _, ref = rti_step(spec64, st64, x_i.double().cpu(), yref64,
+                          yref_e64, c)
+        du0 = float((got.u0.double().cpu() - ref.u0).abs().max())
+        note = f", 8-iteration mu {float(mus[i]):.3e}" if c is cert else ""
+        print(f"[single] tick {i + 1} ({label}{note}) vs CPU float64: max "
+              f"|du0| {du0:.3e} kRPM (u0 "
+              f"{[round(float(v), 4) for v in ref.u0]}, mu "
+              f"{float(got.qp_mu):.3e})")
+        if not du0 <= 1e-3:
+            fail(f"[single] tick {i + 1} ({label}) disagrees with float64")
+
+    def step(st):
+        return rti_step(spec, st, x0, yref, yref_e, cfg)
+    # launches per tick and the device's idle share
+    phase_profile("single", dict(st=st0, step=step, x0s=x0[None]), steps=2)
+
+
 def phase_long(device):
     """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
     windowed=None (the fused sweeps), 20 chained steps each; step 1 of
@@ -1060,14 +1293,14 @@ def phase_profile(label, run, steps=3):
     t1 = max(e["ts"] + e["dur"] for e in kern)
     window = (t1 - t0) / steps / 1e3
     busy = (sum(ours.values()) + other) / steps / 1e3
+    parts = [f"{k} {v / steps / 1e3:.3f} ms ({n_ours[k] // steps} x "
+             f"{v / n_ours[k] / 1e3:.3f})" for k, v in ours.items() if v]
+    parts.append(f"other kernels {other / steps / 1e3:.3f} ms "
+                 f"({n_other // steps} launches)")
     print(f"[profile] {label} B={run['x0s'].shape[0]}, {steps} traced "
           f"steps, per step: window {window:.3f} ms, kernels busy "
           f"{busy:.3f} ms (idle share {1 - busy / window:.3f}); "
-          + ", ".join(f"{k} {v / steps / 1e3:.3f} ms ({n_ours[k] // steps}"
-                      f" x {v / n_ours[k] / 1e3:.3f})"
-                      for k, v in ours.items() if v)
-          + f", other kernels {other / steps / 1e3:.3f} ms "
-          f"({n_other // steps} launches)")
+          + ", ".join(parts))
 
 
 def phase_certified(device):
@@ -1143,20 +1376,6 @@ def phase_certified(device):
     print(f"[certified] B={B} step, mean of 5: {ms['certified']:.3f} ms "
           f"with {esc} lanes escalated to 32 iterations, "
           f"{ms['iters8']:.3f} ms at iters=8 without escalation")
-
-
-def time_events(fn, reps):
-    import torch
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    ev0.record()
-    for _ in range(reps):
-        fn()
-    ev1.record()
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / reps
 
 
 def time_kernel(name, kern, args, reps=20):
@@ -1237,6 +1456,102 @@ def phase_timing(device):
     return rows
 
 
+def probe_flops(name, B, reps):
+    """Operations one probe launch needs (2 per multiply-add, 1 per other
+    operation).  fma_chain: per product and lane 13^3 multiply-adds and
+    13^2 for the scale and the added b.  stage_replay: per stage and lane
+    bwd_c2's stage (flops_of) without kff's solve (64 multiply-adds),
+    which the replay drops."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+
+    if name == "fma_chain":
+        return float(2 * (2197 + 169)) * (reps // sk.UNROLL * sk.UNROLL) * B
+    return (flops_of("bwd_c2", 1, 2) - 2 * 64) * reps * B
+
+
+def phase_roofline(device):
+    """The speed-of-light study's probes and path: fma_chain and
+    stage_replay against their plain versions at B=B_CHECK in float64
+    and float32 (their default reps), on inputs whose output depends on
+    every product and stage (probe_inputs(parity=True)): the kernel's
+    answer must also disagree, beyond the same tolerance, with the plain
+    version one unrolled group of products (fma_chain) or one stage
+    (stage_replay) short, so a wrong count cannot pass.  Then the study of
+    roofline/ipm_iter_sol.py at N=50, B=B_TIME (its table on the lines
+    above), with the launch counts read around it; then each probe's
+    time, plain time and bound at the study's B.  Returns (errs, totals,
+    rows) keyed as phase_kernels', drive()'s and phase_timing's."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+    from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
+
+    kern = {"fma_chain": (sk.fma_chain, sk.fma_chain_plain),
+            "stage_replay": (sk.stage_replay, sk.stage_replay_plain)}
+    reps = {"fma_chain": sol.FMA_REPS, "stage_replay": sol.REPLAY_REPS}
+    short = {"fma_chain": sk.UNROLL, "stage_replay": 1}
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for name, args in zip(PROBE_INFO, sol.probe_inputs(
+                B_CHECK, dtype, device, parity=True)):
+            fn, plain = kern[name]
+            before = kc.launch_counts(kc.PROBES)[name]
+            got = flat(fn(*args))
+            torch.cuda.synchronize()
+            if kc.launch_counts(kc.PROBES)[name] != before + 1:
+                fail(f"{name} did not launch its kernel once")
+            abs_err, rel_err = compare(got, flat(plain(*args)))
+            _, rel_short = compare(got, flat(plain(
+                *args, reps=reps[name] - short[name])))
+            ok = rel_err <= TOL[dn] < rel_short
+            print(f"[roofline] {name} {dn} B={B_CHECK}: max abs err "
+                  f"{abs_err:.3e}, rel {rel_err:.3e} (tol {TOL[dn]:.0e}); "
+                  f"rel {rel_short:.3e} against the plain version "
+                  f"{short[name]} short of {reps[name]} (must exceed the "
+                  f"tol) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} {dn} disagrees with its plain version, or "
+                     f"the check cannot see a wrong count")
+            errs[(name, dn)] = abs_err
+
+    kc.reset_launch_counts()
+    kc.reset_launch_counts(kc.PROBES)
+    try:
+        sol.study(B_TIME, device,
+                  log=lambda line: print(f"[roofline] {line}"))
+    except RuntimeError as e:
+        fail(f"[roofline] {e}")
+    counts = {**kc.launch_counts(), **kc.launch_counts(kc.PROBES)}
+    totals = {name: counts[name] for name in PROBE_INFO}
+    print("[roofline] launches in the study: " + ", ".join(
+        f"{k}={v}" for k, v in counts.items() if v))
+    if not all(totals.values()):
+        fail("[roofline] a probe was not launched by the study")
+
+    rows = {}
+    for name, args in zip(PROBE_INFO, sol.probe_inputs(B_TIME,
+                                                       torch.float32,
+                                                       device)):
+        fn, plain = kern[name]
+        ms = time_events(lambda: fn(*args), 10)
+        plain_ms = time_events(lambda: plain(*args), 2)
+        nbytes = bytes_of(name, args, fn(*args))
+        flops = probe_flops(name, B_TIME, reps[name])
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        print(f"[timing] {name} B={B_TIME} float32, reps {reps[name]}: "
+              f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
+    return errs, totals, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1249,7 +1564,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import crazyflie_nmpc_tpu_torch  # noqa: F401  (fails outside the repo)
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1265,6 +1579,7 @@ def main(argv=None) -> int:
     errs, totals, timing = {}, {}, {}
     main_runs, fused_runs, unc_runs = {}, {}, {}
     split_runs, gondzio_runs, thr_runs = {}, {}, {}
+    roofline_rows, xla_runs = {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -1302,6 +1617,15 @@ def main(argv=None) -> int:
         _, thr_runs = phase_throughput_mode(device)
         compare_paths("throughput_mode", thr_runs[B_TIME],
                       main_runs.get(B_TIME), "[main]")
+    if "xla_prep" in phases:
+        _, xla_runs = phase_xla_prep(device, main_runs)
+    if "single" in phases:
+        phase_single(device)
+    if "roofline" in phases:
+        r_errs, r_totals, r_rows = phase_roofline(device)
+        errs.update(r_errs)
+        totals.update(r_totals)
+        roofline_rows = r_rows
     if "certified" in phases:
         phase_certified(device)
     if "timing" in phases:
@@ -1311,9 +1635,11 @@ def main(argv=None) -> int:
                            ("uncondensed", unc_runs.get(B_TIME)),
                            ("split", split_runs.get(N)),
                            ("gondzio", gondzio_runs.get(N)),
-                           ("throughput_mode", thr_runs.get(B_TIME))):
+                           ("throughput_mode", thr_runs.get(B_TIME)),
+                           ("xla_prep", xla_runs.get(B_TIME))):
             if run is not None:
                 phase_profile(label, run)
+    timing.update(roofline_rows)
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1322,7 +1648,7 @@ def main(argv=None) -> int:
         print("chip_smoke: partial run (--phases); no result line")
         return 0
     kernels = []
-    for name, info in KERNEL_INFO.items():
+    for name, info in {**KERNEL_INFO, **PROBE_INFO}.items():
         if totals.get(name, 0) <= 0:
             fail(f"{name} was not launched on its path")
         kernels.append(dict(

@@ -1,36 +1,42 @@
-"""Carry a problem and a warm start across from numpy arrays.
+"""Carry a problem, a QP and a warm start across from numpy arrays.
 
-The JAX package's `OCPSpec` and `RTIState` leaves, taken out with
-`np.asarray`, become the port's objects, so both packages solve the same
-problem.  This module imports nothing of the JAX package.
+The JAX package's `OCPSpec`, `QPData` and `RTIState` leaves (batched or
+single-instance), taken out with `np.asarray`, become the port's objects,
+so both packages solve the same problem.  This module imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from crazyflie_nmpc_tpu_torch.device import resolve_device
 from crazyflie_nmpc_tpu_torch.models.quadrotor import QuadrotorParams
+from crazyflie_nmpc_tpu_torch.ops.qp import QPData
 from crazyflie_nmpc_tpu_torch.solver.ocp import CostSpec, OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIState
 
 PARAM_KEYS = ("g0", "mq", "Ixx", "Iyy", "Izz", "Cd", "Ct", "l")
 COST_KEYS = ("W", "Vx", "Vu", "W_e", "Vx_e")
+QP_KEYS = tuple(f.name for f in dataclasses.fields(QPData))
+
+
+def _np(v):
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+    return np.array(v)
 
 
 def leaves_from_spec(spec) -> dict:
     """numpy copies of the leaves `spec_from_numpy` takes, read by
     attribute from any OCPSpec-like object (this package's or the JAX
     package's, whose arrays convert with `np.asarray`)."""
-    def arr(v):
-        if isinstance(v, torch.Tensor):
-            v = v.detach().cpu()
-        return np.array(v)
-
-    leaves = {k: arr(getattr(spec.params, k)) for k in PARAM_KEYS}
-    leaves.update({k: arr(getattr(spec.cost, k)) for k in COST_KEYS})
-    leaves.update(lbu=arr(spec.lbu), ubu=arr(spec.ubu), tf=arr(spec.tf))
+    leaves = {k: _np(getattr(spec.params, k)) for k in PARAM_KEYS}
+    leaves.update({k: _np(getattr(spec.cost, k)) for k in COST_KEYS})
+    leaves.update(lbu=_np(spec.lbu), ubu=_np(spec.ubu), tf=_np(spec.tf))
     return leaves
 
 
@@ -57,3 +63,18 @@ def state_from_numpy(x_traj, u_traj, *, device=None,
     return RTIState(
         x_traj=torch.as_tensor(np.array(x_traj), device=dev).to(dtype),
         u_traj=torch.as_tensor(np.array(u_traj), device=dev).to(dtype))
+
+
+def leaves_from_qp(qp) -> dict:
+    """numpy copies of a QPData-like object's 13 fields (this package's or
+    the JAX package's), read by attribute."""
+    return {k: _np(getattr(qp, k)) for k in QP_KEYS}
+
+
+def qp_from_numpy(leaves: dict, *, device=None,
+                  dtype=torch.float32) -> QPData:
+    """`QPData` from numpy leaves (`leaves_from_qp`), infinite bounds
+    kept."""
+    dev = resolve_device(device)
+    return QPData(**{k: torch.as_tensor(np.array(leaves[k]), device=dev)
+                     .to(dtype) for k in QP_KEYS})

@@ -7,6 +7,7 @@ from crazyflie_nmpc_tpu_torch.models.quadrotor import (  # noqa: F401
     W_MIN_KRPM,
     QuadrotorParams,
     dynamics,
+    dynamics_jacobians,
     hover_control,
     hover_state,
 )

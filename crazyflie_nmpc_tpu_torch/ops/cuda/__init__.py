@@ -7,7 +7,10 @@ tensor takes the plain version and counts nothing.  The split sweeps
 `bwd_c2` / `bwd_vec_c2` and then `fwd_c2`, counted on those kernels.
 `expand2` counts both of its forms (stride 1 and 2), `prep_condense2` and
 `prep_sweep` both VDE orders, `kkt_sweep_c2` and `corrector_sweep_c2` their
-compressed-stream forms too.
+compressed-stream forms too.  `KERNELS` holds the solver's kernels; the
+speed-of-light probes of `roofline.ipm_iter_sol` (`fma_chain`,
+`stage_replay`), on no solver path, count the same way in `PROBES`: pass
+it to `launch_counts` / `reset_launch_counts`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from crazyflie_nmpc_tpu_torch.ops.cuda.riccati_kernels import (
     forward_sweep,
     kkt_sweep,
 )
+from crazyflie_nmpc_tpu_torch.ops.cuda.sol_kernels import PROBES  # noqa: F401
 
 KERNELS = {
     "prep_condense2": prep_condense2,
@@ -51,10 +55,10 @@ KERNELS = {
 }
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(kernels=KERNELS) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+def reset_launch_counts(kernels=KERNELS) -> None:
+    for fn in kernels.values():
         fn.launches = 0

@@ -124,35 +124,43 @@ def fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0):
     return torch.stack(dx).contiguous(), torch.stack(du).contiguous()
 
 
+def c2_stage_ref(P, p, A, Bm, c, Q, S1T, R00, qx, ruu_shift, ru):
+    """One backward stage of the dense-cost Riccati recursion on the
+    cost-to-go (P, p) of the next stage, for one stage's (n, m, B) data.
+    Returns this stage's (P, p, K, kff, L, Pc)."""
+    B = A.shape[-1]
+    eye8 = torch.eye(NUC, dtype=A.dtype, device=A.device)[:, :, None]
+    PA = _mm(P, A)
+    PB = _mm(P, Bm)
+    Pc = _mv(P, c)
+    m = p + Pc
+    R00p = A.new_zeros((NUC, NUC, B))
+    R00p[:NU, :NU] = R00
+    Quu = _mtm(Bm, PB) + R00p + eye8 * ruu_shift[None]
+    SxT = torch.cat([S1T, torch.zeros_like(S1T)], dim=0)
+    Qux = SxT + _mtm(Bm, PA)
+    Qu = ru + _mtv(Bm, m)
+    L = _chol_n(Quu, NUC)
+    K = -_cho_solve_n(L, Qux, NUC)
+    kff = -_cho_solve_n_vec(L, Qu, NUC)
+    P_new = Q + _mtm(A, PA) + _mtm(Qux, K)
+    return (0.5 * (P_new + P_new.transpose(0, 1)),
+            qx + _mtv(A, m) + _mtv(K, Qu), K, kff, L, Pc)
+
+
 def bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
                p_term):
     """Plain PyTorch `_bwd_c2_kernel`: the backward factorization.
     Returns (K (M,8,13,B), kff (M,8,B), L (M,36,B), Pc (M,13,B))."""
-    M, _, _, B = Abar.shape
+    M = Abar.shape[0]
     eye = torch.eye(NX, dtype=Abar.dtype, device=Abar.device)[:, :, None]
-    eye8 = torch.eye(NUC, dtype=Abar.dtype, device=Abar.device)[:, :, None]
     P = eye * pT[None]
     p = p_term
     Ks, kffs, Ls, Pcs = [None] * M, [None] * M, [None] * M, [None] * M
     for k in range(M - 1, -1, -1):
-        A, Bm, c = Abar[k], Bbar[k], cbar[k]
-        PA = _mm(P, A)
-        PB = _mm(P, Bm)
-        Pc = _mv(P, c)
-        m = p + Pc
-        R00p = Abar.new_zeros((NUC, NUC, B))
-        R00p[:NU, :NU] = R00[k]
-        Quu = _mtm(Bm, PB) + R00p + eye8 * ruu_shift[k][None]
-        SxT = torch.cat([S1T[k], torch.zeros_like(S1T[k])], dim=0)
-        Qux = SxT + _mtm(Bm, PA)
-        Qu = ru[k] + _mtv(Bm, m)
-        L = _chol_n(Quu, NUC)
-        K = -_cho_solve_n(L, Qux, NUC)
-        kff = -_cho_solve_n_vec(L, Qu, NUC)
-        P_new = Qbar[k] + _mtm(A, PA) + _mtm(Qux, K)
-        P = 0.5 * (P_new + P_new.transpose(0, 1))
-        p = qx[k] + _mtv(A, m) + _mtv(K, Qu)
-        Ks[k], kffs[k], Ls[k], Pcs[k] = K, kff, L, Pc
+        P, p, Ks[k], kffs[k], Ls[k], Pcs[k] = c2_stage_ref(
+            P, p, Abar[k], Bbar[k], cbar[k], Qbar[k], S1T[k], R00[k], qx[k],
+            ruu_shift[k], ru[k])
     return tuple(torch.stack(z).contiguous() for z in (Ks, kffs, Ls, Pcs))
 
 

@@ -12,8 +12,12 @@ eliminated states.  With `fused_prep_condense=False` the preparation is a
 condense=1) `prep_sweep` feeds the uncondensed sweeps `kkt_sweep` /
 `corrector_sweep`.  `prep_vde_order=2` selects the order-2 sensitivities in
 either preparation; the solver's options (Gondzio correctors, bf16
-streams) are `IPMConfig`'s.  On CUDA tensors each kernel is hand-written;
-on CPU tensors their plain PyTorch versions run.
+streams) are `IPMConfig`'s.  With `fused_prep=False` or `sim_steps>1` the
+preparation is the XLA-style one (`prepare_qp_xla`: `torch.func.jacfwd`
+through the integrator, plain PyTorch) and the same solver follows (at
+even N `condense2`, the condensed sweeps and the stride-2 `expand2`).  On
+CUDA tensors each kernel is hand-written; on CPU tensors their plain
+PyTorch versions run.
 
 Layouts: batch-first by default (x_traj (B, N+1, nx)); a serving loop that
 chains steps on the card passes `layout="batch_last"` and carries
@@ -24,9 +28,11 @@ from __future__ import annotations
 
 import torch
 
+from crazyflie_nmpc_tpu_torch.models.quadrotor import dynamics
 from crazyflie_nmpc_tpu_torch.ops import ipm_fast
 from crazyflie_nmpc_tpu_torch.ops.cuda.prep_kernel import (prep_condense2,
                                                            prep_sweep)
+from crazyflie_nmpc_tpu_torch.ops.integrators import linearize_trajectory
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.solver.ocp import OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIOutput, RTIState
@@ -41,11 +47,6 @@ def to_batch_last(states: RTIState) -> RTIState:
 def to_batch_first(states: RTIState) -> RTIState:
     return RTIState(x_traj=states.x_traj.movedim(-1, 0).contiguous(),
                     u_traj=states.u_traj.movedim(-1, 0).contiguous())
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
 
 
 def prep_tiles(spec: OCPSpec, B: int, dtype, device):
@@ -120,6 +121,47 @@ def prepare_qp(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
     return x_bl, u_bl, qp
 
 
+def prepare_qp_xla(spec: OCPSpec, states: RTIState, x0s, yref, yref_e,
+                   batch_last: bool):
+    """The XLA-style preparation (the JAX package's `fused_prep=False` or
+    `sim_steps>1` branch): `linearize_trajectory` (`torch.func.jacfwd`
+    through `spec.sim_steps` RK4 sub-steps of the quadrotor dynamics) on
+    the batch-first iterate, then the diagonal-cost QP assembly, in plain
+    PyTorch.  Returns (x_bl, u_bl, qp) as `prepare_qp` does, with the
+    stage-wise QP dict (A, B, c, qxx, qx, ruu, ru, pT, p, lb, ub, dx0)."""
+    bl = lambda z: z.movedim(0, -1).contiguous()  # noqa: E731
+    bf = lambda z: z.movedim(-1, 0)  # noqa: E731
+    x_bl = (states.x_traj if batch_last else bl(states.x_traj)).contiguous()
+    u_bl = (states.u_traj if batch_last else bl(states.u_traj)).contiguous()
+    N, nu, B = u_bl.shape
+    nx = x_bl.shape[1]
+    dtype = x_bl.dtype
+    x_bf, u_bf = bf(x_bl), bf(u_bl)
+
+    W = torch.diagonal(spec.cost.W).to(dtype)
+    q_diag, r_diag = W[:nx], W[nx:]
+    pT_diag = torch.diagonal(spec.cost.W_e).to(dtype)
+    if yref.ndim == 2:  # shared across the batch
+        yref_bf = yref.to(dtype).expand(B, N, nx + nu)
+        yref_e_bf = yref_e.to(dtype).expand(B, nx)
+    else:
+        yref_bf, yref_e_bf = yref.to(dtype), yref_e.to(dtype)
+
+    x_next, A, Bm = linearize_trajectory(dynamics, spec.params, x_bf, u_bf,
+                                         spec.dt, spec.sim_steps)
+    qp = dict(
+        A=bl(A), B=bl(Bm), c=bl(x_next - x_bf[:, 1:]),
+        qxx=q_diag[None, :, None].expand(N, nx, B).contiguous(),
+        qx=bl(q_diag * (x_bf[:, :-1] - yref_bf[..., :nx])),
+        ruu=r_diag[None, :, None].expand(N, nu, B).contiguous(),
+        ru=bl(r_diag * (u_bf - yref_bf[..., nx:])),
+        pT=pT_diag[:, None].expand(nx, B).contiguous(),
+        p=bl(pT_diag * (x_bf[:, -1] - yref_e_bf)),
+        lb=bl(spec.lbu.to(dtype) - u_bf), ub=bl(spec.ubu.to(dtype) - u_bf),
+        dx0=bl(x0s.to(dtype) - x_bf[:, 0]))
+    return x_bl, u_bl, qp
+
+
 def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
                      yref: torch.Tensor, yref_e: torch.Tensor,
                      config: IPMConfig = IPMConfig(),
@@ -154,6 +196,10 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
       prep_vde_order: 4 (default) the exact ERK4 matrix VDE sensitivities;
         2 the midpoint order-2 ones on the exact ERK4 state propagation
         (an inexact-Jacobian Gauss-Newton step, as in the JAX package).
+      fused_prep: False (or spec.sim_steps > 1) selects the XLA-style
+        preparation, `prepare_qp_xla`; fused_prep_condense,
+        prep_batch_rows and prep_vde_order then have no effect, as in the
+        JAX package.
     Returns (RTIState', RTIOutput) in the input's layout (batch_last:
     u0/u1 are (nu,B), plans are stage-major batch-last).
     Raises ValueError for a custom model ODE (spec.f): such specs use
@@ -166,21 +212,24 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
             "rti_step_batched is specialized to the Crazyflie quadrotor "
             "(fused prep kernel with hand-derived sparse Jacobians); "
             "custom-model specs (spec.f set) use solver.rti.rti_step")
+    kernel_prep = fused_prep and spec.sim_steps == 1
     if fused_prep_condense is None:
         fused_prep_condense = (condense == 2
                                and prep_batch_rows in (None, 1))
-    if fused_prep_condense and condense != 2:
+    if kernel_prep and fused_prep_condense and condense != 2:
         raise ValueError("fused_prep_condense requires condense=2")
     ipm_fast.check_supported(config, condense, windowed, fused_iter)
-    if not fused_prep or spec.sim_steps != 1:
-        raise _not_ported("the XLA-style preparation (fused_prep=False, "
-                          "sim_steps>1)", 8)
     if layout not in ("batch_first", "batch_last"):
         raise ValueError(f"layout {layout!r}")
 
     batch_last = layout == "batch_last"
-    x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e, batch_last,
-                                fused_prep_condense, prep_vde_order)
+    if kernel_prep:
+        x_bl, u_bl, qp = prepare_qp(spec, states, x0s, yref, yref_e,
+                                    batch_last, fused_prep_condense,
+                                    prep_vde_order)
+    else:
+        x_bl, u_bl, qp = prepare_qp_xla(spec, states, x0s, yref, yref_e,
+                                        batch_last)
 
     # feedback: batch-last IPM on the sweeps of the problem's form
     sol = ipm_fast.solve_checked(qp, config, condense, windowed, fused_iter)

@@ -59,12 +59,44 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol, n):
         assert kc.launch_counts()[name] == before + 1, label
 
 
-def _step(device, x0s, config, N=10, fused=True, **opts):
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_probes_match_plain_on_card(cuda_device, dtype, tol):
+    """The speed-of-light probes fma_chain and stage_replay against their
+    plain versions (the masked lane edge at B=37), one launch each, on
+    inputs whose output depends on every product and stage: the kernel
+    also disagrees with the plain version one unrolled group of products
+    or one stage short."""
+    import chip_smoke
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+    from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
+
+    fma, replay = sol.probe_inputs(B, dtype, cuda_device, parity=True)
+    for name, fn, plain, args, reps, step in (
+            ("fma_chain", sk.fma_chain, sk.fma_chain_plain, fma, 48,
+             sk.UNROLL),
+            ("stage_replay", sk.stage_replay, sk.stage_replay_plain, replay,
+             7, 1)):
+        before = kc.launch_counts(kc.PROBES)[name]
+        got = chip_smoke.flat(fn(*args, reps=reps))
+        want = chip_smoke.flat(plain(*args, reps=reps))
+        _, rel = chip_smoke.compare(got, want)
+        assert rel <= tol, (name, rel)
+        _, rel_short = chip_smoke.compare(
+            got, chip_smoke.flat(plain(*args, reps=reps - step)))
+        assert rel_short > tol, (name, rel_short)
+        assert kc.launch_counts(kc.PROBES)[name] == before + 1, name
+    assert sk.blocks_per_sm("fma_chain", dtype) >= 1
+
+
+def _step(device, x0s, config, N=10, fused=True, sim_steps=1, **opts):
     """One batch-last step: `rti_step_batched`, or with fused=False the
     stage QP of `prepare_qp(fused_condense=False)` solved by
     `solve_batched(fused=False)` (the split uncondensed sweeps) with the
     step's update `rti_update`."""
-    spec = default_ocp(N=N, dtype=torch.float64, device=device)
+    spec = default_ocp(N=N, sim_steps=sim_steps, dtype=torch.float64,
+                       device=device)
     yref, yref_e = hover_yref(spec, device=device)
     x0s = x0s.to(device)
     st = to_batch_last(init_rti(spec, x0s, device=device))
@@ -195,3 +227,68 @@ def test_solver_options_on_card_match_cpu(cuda_device, N, config, opts,
                 **{k: v * config.iters for k, v in per_iter.items()})
     assert counts == want
     _assert_close(card, cpu, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(fused_prep=False), dict(sim_steps=2)],
+                         ids=["fused_prep_false", "sim_steps2"])
+def test_xla_preparation_on_card_matches_cpu(cuda_device, opts):
+    """The XLA-style preparation on the card (plain PyTorch, jacfwd), then
+    condense2, the condensed sweeps and the stride-2 expand2: exactly those
+    kernels, and the CPU's answer."""
+    gen = torch.Generator().manual_seed(8)
+    x0s = torch.zeros(B, 13, dtype=torch.float64)
+    x0s[:, 3] = 1.0
+    x0s += 0.05 * torch.randn(B, 13, generator=gen, dtype=torch.float64)
+    x0s[:5, 0] += 1.5
+    config = IPMConfig(iters=8)
+    kc.reset_launch_counts()
+    card = _step(cuda_device, x0s, config, **opts)
+    counts = kc.launch_counts()
+    cpu = _step("cpu", x0s, config, **opts)
+    want = dict.fromkeys(kc.KERNELS, 0)
+    want.update(condense2=1, expand2=1, kkt_sweep_c2=config.iters,
+                corrector_sweep_c2=config.iters)
+    assert counts == want
+    _assert_close(card, cpu)
+
+
+@pytest.mark.cuda
+def test_single_rti_step_on_card_matches_cpu(cuda_device):
+    """solver.rti.rti_step on the card: with escalation off no host sync
+    (set_sync_debug_mode("error")), no hand-written kernel; two chained
+    ticks and a certified one match the CPU's."""
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig as Cfg
+    from crazyflie_nmpc_tpu_torch.solver import rti_step
+
+    def problem(device):
+        """spec, yref, yref_e, x0, warm start on `device` (made before the
+        sync check: a tensor made from host values is a copy)."""
+        spec = default_ocp(N=10, dtype=torch.float64, device=device)
+        yref, yref_e = hover_yref(spec, device=device)
+        x0 = torch.zeros(13, dtype=torch.float64)
+        x0[3], x0[0] = 1.0, 1.5
+        x0 = x0.to(device)
+        return spec, yref, yref_e, x0, init_rti(spec, x0, device=device)
+
+    def ticks(prob, config, n):
+        spec, yref, yref_e, x0, st = prob
+        outs = []
+        for _ in range(n):
+            st, out = rti_step(spec, st, x0, yref, yref_e, config)
+            outs.append(out)
+        return outs
+
+    card, cpu = problem(cuda_device), problem("cpu")
+    ticks(card, Cfg(iters=8), 1)                     # warm-up
+    kc.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ticks(card, Cfg(iters=8), 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
+    for g, w in zip(got, ticks(cpu, Cfg(iters=8), 2)):
+        _assert_close(g, w)
+    _assert_close(ticks(card, certified_config(), 1)[0],
+                  ticks(cpu, certified_config(), 1)[0])

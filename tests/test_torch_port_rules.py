@@ -1,6 +1,7 @@
-"""Rules the port keeps: no JAX, the card by default, no hidden fallback,
-unported options refused by name, ported ones run on CPU tensors through
-the plain versions, and the JAX package's ValueErrors kept."""
+"""Rules the port keeps: no JAX, the card by default (constructors and the
+roofline study take device=None as the card and raise without one), no
+hidden fallback, every option of the batched step run on CPU tensors
+through the plain versions, and the JAX package's ValueErrors kept."""
 
 import ast
 import dataclasses
@@ -11,11 +12,13 @@ import torch
 
 from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch import solver as ts
-from crazyflie_nmpc_tpu_torch.models import hover_state
+from crazyflie_nmpc_tpu_torch.models import hover_state, rotations
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops import ipm_fast
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol
+from crazyflie_nmpc_tpu_torch.solver import outputs
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,13 +52,45 @@ def test_port_imports_no_jax(path):
     lambda: ts.hover_yref(ts.default_ocp(device="cpu")),
     lambda: convert.state_from_numpy(torch.zeros(3, 13).numpy(),
                                      torch.zeros(2, 4).numpy()),
+    lambda: ts.policies.regulation_state(),
+    lambda: ts.policies.tracking_state(),
+    lambda: ts.policies.regulation_table(ts.default_ocp(device="cpu")),
+    lambda: convert.qp_from_numpy({}),
+    lambda: ipm_iter_sol.study(8),
 ], ids=["default_ocp", "hover_state", "init_rti", "hover_yref",
-        "state_from_numpy"])
+        "state_from_numpy", "regulation_state", "tracking_state",
+        "regulation_table", "qp_from_numpy", "roofline_study"])
 def test_constructors_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
                                                            make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+@pytest.mark.parametrize("run", [
+    lambda: rotations.quat_to_euler(torch.tensor([[1.0, 0.0, 0.0, 0.0]])),
+    lambda: outputs.to_cmd_vel(torch.full((4,), 15.0),
+                               torch.zeros(13)).thrust_pwm,
+    lambda: ts.policies.make_yref(
+        ts.default_ocp(N=4, device="cpu"),
+        ts.policies.regulation_state(device="cpu"),
+        ts.policies.regulation_table(ts.default_ocp(N=4, device="cpu"),
+                                     device="cpu"))[0],
+    lambda: ts.rti_step(*_single_cpu_problem(), IPMConfig(iters=2))[1].u0,
+], ids=["rotations", "to_cmd_vel", "make_yref", "rti_step"])
+def test_tensor_functions_run_where_their_inputs_are(monkeypatch, run):
+    """Functions on tensors take no device: with no GPU they run on CPU
+    inputs (and make their own tensors there)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = run()
+    assert out.device.type == "cpu" and bool(torch.isfinite(out).all())
+
+
+def _single_cpu_problem():
+    spec = ts.default_ocp(N=4, dtype=torch.float64, device="cpu")
+    yref, yref_e = ts.hover_yref(spec, device="cpu")
+    x0 = hover_state(spec.params, dtype=torch.float64, device="cpu")
+    return (spec, ts.init_rti(spec, x0, device="cpu"), x0, yref, yref_e)
 
 
 @pytest.fixture(scope="module")
@@ -126,15 +161,11 @@ def test_uncondensed_and_unfused_paths_run_on_cpu(small, change, kwargs):
     next(k for k, v in vars(kw["config"]).items()
          if v != getattr(IPMConfig(), k)))
 def test_unported_options_raise(small, kwargs):
-    """The step's options: the XLA-style preparation (fused_prep=False)
-    is refused by its ROADMAP item; Gondzio correctors, the bf16 streams
-    and the order-2 VDE run on CPU tensors through the plain versions
-    (escalation included) and launch no kernel."""
+    """The step's options, each ported: the XLA-style preparation
+    (fused_prep=False), Gondzio correctors, the bf16 streams and the
+    order-2 VDE run on CPU tensors through the plain versions (escalation
+    included) and launch no kernel."""
     spec, st, x0s, yref, yref_e = small
-    if "fused_prep" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rti_step_batched(spec, st, x0s, yref, yref_e, **kwargs)
-        return
     kw = dict(kwargs)
     cfg = dataclasses.replace(kw.pop("config", IPMConfig()), iters=3,
                               escalate_iters=2, escalate_capacity=2)
@@ -145,17 +176,28 @@ def test_unported_options_raise(small, kwargs):
 
 
 @pytest.mark.parametrize("change, error, match", [
-    (dict(sim_steps=2), NotImplementedError, "ROADMAP"),
+    (dict(sim_steps=2), None, None),
     (dict(f=lambda p, x, u: x), ValueError, "rti_step"),
 ], ids=["sim_steps", "custom_ode"])
 def test_unported_specs_raise(small, change, error, match):
-    """sim_steps > 1 needs the XLA-style preparation, not ported yet; a
-    custom model ODE is refused as in the JAX package (ValueError: such
-    specs use solver.rti.rti_step)."""
+    """sim_steps > 1 runs the XLA-style preparation on CPU tensors (plain
+    PyTorch, then the plain sweeps) and launches no kernel; a custom model
+    ODE is refused as in the JAX package (ValueError: such specs use
+    solver.rti.rti_step)."""
     spec, st, x0s, yref, yref_e = small
-    with pytest.raises(error, match=match):
-        rti_step_batched(dataclasses.replace(spec, **change), st, x0s, yref,
-                         yref_e)
+    spec = dataclasses.replace(spec, **change)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            rti_step_batched(spec, st, x0s, yref, yref_e)
+        return
+    st = ts.init_rti(spec, x0s, device="cpu")
+    kc.reset_launch_counts()
+    _, out = rti_step_batched(spec, st, x0s, yref, yref_e,
+                              IPMConfig(iters=3, escalate_iters=2,
+                                        escalate_capacity=2))
+    assert out.u_plan.shape == (3, spec.N, 4)
+    assert bool(torch.isfinite(out.u_plan).all())
+    assert kc.launch_counts() == dict.fromkeys(kc.KERNELS, 0)
 
 
 def test_solve_batched_runs_condense_1(small):

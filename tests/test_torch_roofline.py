@@ -1,0 +1,195 @@
+"""The speed-of-light probes' plain versions vs the JAX tool's kernels
+(float64, B=8, small reps), and the study's rules on the CPU.
+
+fma_chain is held on `probe_inputs(parity=True)`, whose output depends on
+every product (on the tool's own inputs the chain settles on its fixed
+point within a few products, so a wrong product count would not show).
+
+The JAX probes are closures inside `tools/ipm_iter_sol.py`, which has no
+interpret flag, so their bodies are recomposed here from the JAX
+package's own helpers (`riccati_kernels._mm`, `_mtm`, `_mv`, `_mtv`,
+`_add_diag`; `condensed_kernels._chol_n`, `_cho_solve_n`,
+`_cho_solve_n_vec`), line for line as the tool writes them, and jitted on
+the CPU.  Tolerance 1e-12 relative to max(1, max |JAX|): the same
+formulas, summed in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from crazyflie_nmpc_tpu.ops.pallas.condensed_kernels import (
+    NUC,
+    _chol_n,
+    _cho_solve_n,
+    _cho_solve_n_vec,
+)
+from crazyflie_nmpc_tpu.ops.pallas.riccati_kernels import (
+    NX,
+    _add_diag,
+    _mm,
+    _mtm,
+    _mtv,
+    _mv,
+)
+from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
+
+B = 8
+TOL = 1e-12
+
+
+def _close(got, want, name=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL * scale,
+                               err_msg=name)
+
+
+def _jax_fma_chain(a, b, reps):
+    """measure_fma_rate's kernel body: `reps` products (a multiple of its
+    unroll)."""
+    c = a
+    for _ in range(reps):
+        c = _mm(c, b, NX, NX, NX) * 7.6e-4 + b
+    return c
+
+
+def _jax_stage(carry, A, Bm, c, Q, S1T, R00, qx, ruu, ru):
+    """measure_stage_replay's `body`, as the tool writes it."""
+    P, p = carry
+    PA = _mm(P, A, NX, NX, NX)
+    PB = _mm(P, Bm, NX, NX, NUC)
+    Pc = _mv(P, c, NX, NX)
+    m = p + Pc
+    BtPB = _mtm(Bm, PB, NX, NUC, NUC)
+    z44 = jnp.zeros_like(R00)
+    R00p = jnp.concatenate([
+        jnp.concatenate([R00, z44], axis=1),
+        jnp.concatenate([z44, z44], axis=1)], axis=0)
+    Quu = _add_diag(BtPB + R00p, ruu, NUC)
+    SxT = jnp.concatenate([S1T, jnp.zeros_like(S1T)], axis=0)
+    Qux = SxT + _mtm(Bm, PA, NX, NUC, NX)
+    Qu = ru + _mtv(Bm, m, NX, NUC)
+    L = _chol_n(Quu, NUC)
+    K = -_cho_solve_n(L, Qux, NUC, NX)
+    _ = -_cho_solve_n_vec(L, Qu, NUC)
+    APA = _mtm(A, PA, NX, NX, NX)
+    QK = _mtm(Qux, K, NUC, NX, NX)
+    P_new = Q + APA + QK
+    P_new = 0.5 * (P_new + jnp.swapaxes(P_new, 0, 1))
+    p_new = qx + _mtv(A, m, NX, NX) + _mtv(K, Qu, NUC, NX)
+    return P_new, p_new
+
+
+def _jax_stage_replay(A, Bm, c, Q, S1T, R00, qx, ruu, ru, P0, p0, reps):
+    carry = (P0, p0)
+    for _ in range(reps):
+        carry = _jax_stage(carry, A, Bm, c, Q, S1T, R00, qx, ruu, ru)
+    return carry
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return sol.probe_inputs(B, torch.float64, "cpu", seed=3, parity=True)
+
+
+def _np(args):
+    return [t.numpy() for t in args]
+
+
+@pytest.mark.parametrize("reps", [16, 32])
+def test_fma_chain_plain_matches_jax(inputs, reps):
+    fma, _ = inputs
+    want = jax.jit(lambda a, b: _jax_fma_chain(a, b, reps))(*_np(fma))
+    kc.reset_launch_counts(kc.PROBES)
+    _close(sk.fma_chain(*fma, reps=reps), want, "fma_chain")
+    _close(sk.fma_chain_plain(*fma, reps=reps + 5), want, "reps rounding")
+    assert kc.launch_counts(kc.PROBES)["fma_chain"] == 0
+
+
+@pytest.mark.parametrize("reps", [1, 4])
+def test_stage_replay_plain_matches_jax(inputs, reps):
+    _, replay = inputs
+    want = jax.jit(lambda *a: _jax_stage_replay(*a, reps))(*_np(replay))
+    kc.reset_launch_counts(kc.PROBES)
+    got = sk.stage_replay(*replay, reps=reps)
+    for g, w, name in zip(got, want, ("P", "p")):
+        _close(g, w, name)
+    assert kc.launch_counts(kc.PROBES)["stage_replay"] == 0
+
+
+def _rel(got, want):
+    got, want = torch.cat([g.flatten() for g in got]), torch.cat(
+        [w.flatten() for w in want])
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("probe", ["fma_chain", "stage_replay"])
+def test_probe_checks_see_a_wrong_count(probe, dtype):
+    """On the parity inputs, at the study's reps, the answer one unrolled
+    group of products (fma_chain) or one stage (stage_replay) short
+    differs from the full answer by more than the card check's tolerance
+    (chip_smoke's TOL: 1e-10 float64, 1e-4 float32), so a kernel running
+    the wrong count fails that check; the plain float32 answer stays
+    within it of float64."""
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}[dtype]
+    fma, replay = sol.probe_inputs(B, torch.float64, "cpu", parity=True)
+    fn, args, reps, step = {
+        "fma_chain": (sk.fma_chain_plain, fma, sol.FMA_REPS, sk.UNROLL),
+        "stage_replay": (sk.stage_replay_plain, replay, sol.REPLAY_REPS,
+                         1)}[probe]
+    out = lambda a, r: fn(*[t.to(dtype) for t in a], reps=r)  # noqa: E731
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    full = as_tuple(out(args, reps))
+    exact = [t.double() for t in as_tuple(fn(*args, reps=reps))]
+    assert _rel([t.double() for t in full], exact) <= tol
+    assert _rel(full, as_tuple(out(args, reps - step))) > tol
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_probe_inputs_are_contiguous(parity):
+    """The kernels' wrappers refuse strided tensors on the card."""
+    fma, replay = sol.probe_inputs(B, torch.float32, "cpu", parity=parity)
+    assert all(t.is_contiguous() for t in fma + replay)
+
+
+@pytest.mark.parametrize("reps", [0, -1, 2**31])
+def test_probes_refuse_bad_reps(inputs, reps):
+    fma, replay = inputs
+    with pytest.raises(ValueError, match="reps"):
+        sk.fma_chain(*fma, reps=reps)
+    with pytest.raises(ValueError, match="reps"):
+        sk.stage_replay(*replay, reps=reps)
+
+
+def test_byte_counts_follow_the_port_kernels():
+    """Per stage and lane: K2 reads 552 and writes 161 values in its
+    backward phase, re-reads 398 and writes 21 in its rollout; K3 reads
+    447 and writes 8 in its vector pass, then as K2's rollout."""
+    assert sol.kkt_bytes(1, 1, 1) == 552 + 161 + 398 + 21 + 52
+    assert sol.corr_bytes(1, 1, 1) == 447 + 8 + 398 + 21 + 39
+    assert sol.kkt_bytes(25, 4096) == (25 * 1132 + 52) * 4096 * 4
+
+
+@pytest.mark.parametrize("B_, bps, waves", [(4096, 4, 1), (33792, 4, 1),
+                                            (33793, 4, 2), (4096, 1, 1)])
+def test_waves(B_, bps, waves):
+    assert sol.waves(B_, bps, 132) == waves
+
+
+def test_study_needs_the_card(monkeypatch):
+    """device=None is the card; the CPU is refused (the study measures the
+    card), and the command line exits 1 without one."""
+    with pytest.raises(RuntimeError, match="CUDA device only"):
+        sol.study(8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sol.study(8)
+    assert sol.main(["--batch", "8"]) == 1
