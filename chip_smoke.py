@@ -54,9 +54,10 @@ against the fused sweeps on the same QP, [throughput_mode]'s against the
 uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel with CUDA events at the shapes of the path that runs it,
-and traces a few steps of [main], [fused_iter], [uncondensed], [split],
-[gondzio], [throughput_mode] and [xla_prep] ([single] its own ticks) with
-torch.profiler.
+times K2 (the group kernel of csrc/kkt_sweep_c2.cu) at every B of [main]
+with its occupancy and waves, and traces a few steps of [main] (every B),
+[fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
+[xla_prep] ([single] its own ticks) with torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -126,7 +127,7 @@ KERNEL_INFO = {
         source="crazyflie_nmpc_tpu_torch/csrc/prep_condense2.cu",
         replaces=_PALLAS + "prep_kernel.py:384"),
     "kkt_sweep_c2": dict(
-        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        source="crazyflie_nmpc_tpu_torch/csrc/kkt_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:446"),
     "corrector_sweep_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
@@ -1453,7 +1454,41 @@ def phase_timing(device):
                   f"ms/launch, plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP)")
+        if n == N:
+            time_kkt_batches(device, inputs["kkt_sweep_c2"][2])
     return rows
+
+
+def time_kkt_batches(device, args):
+    """K2 at each B of B_MAIN in float32 (its B_TIME inputs cut or tiled
+    along the lane axis: no loop of the kernel depends on the data), with
+    its occupancy (blocks and lanes per SM from the occupancy API, both
+    dtypes) and the waves each B needs."""
+    import math
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    bps = {dt: ck.kkt_blocks_per_sm(dt) for dt in (torch.float32,
+                                                    torch.float64)}
+    for dt, blocks in bps.items():
+        geo = ck.kkt_launch_geometry(B_TIME, dt)
+        print(f"[timing] kkt_sweep_c2 occupancy {str(dt)[6:]}: {blocks} "
+              f"blocks of {ck.KKT_LANES} lanes x {ck.KKT_GROUP} threads "
+              f"per SM ({geo['smem']} B of shared memory a block) -> "
+              f"{blocks * ck.KKT_LANES} lanes per SM, "
+              f"{blocks * ck.KKT_LANES * sms} on {sms} SMs")
+    for B in B_MAIN:
+        reps = -(-B // B_TIME)
+        cut = tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
+                    for a in args)
+        ms = time_events(lambda: ck.kkt_sweep_c2(*cut), 20)
+        geo = ck.kkt_launch_geometry(B, torch.float32)
+        waves = math.ceil(geo["grid"] / (bps[torch.float32] * sms))
+        print(f"[timing] kkt_sweep_c2 N={N} B={B} float32: {ms:.4f} "
+              f"ms/launch, {geo['grid']} blocks, {waves} wave(s)")
 
 
 def probe_flops(name, B, reps):
@@ -1630,6 +1665,9 @@ def main(argv=None) -> int:
         phase_certified(device)
     if "timing" in phases:
         timing = phase_timing(device)
+        for B in B_MAIN:
+            if B != B_TIME and B in main_runs:
+                phase_profile("main", main_runs[B])
         for label, run in (("main", main_runs.get(B_TIME)),
                            ("fused_iter", fused_runs.get(B_TIME)),
                            ("uncondensed", unc_runs.get(B_TIME)),

@@ -4,10 +4,14 @@ The JAX package `crazyflie_nmpc_tpu` stays the reference; this package
 keeps its module layout so each module's counterpart is easy to find.
 It imports `torch` only, never JAX nor anything of the JAX package.
 
-Ported so far: the batched RTI step (`solver.rti_batched.rti_step_batched`)
-with block-2 condensing and the fused prep+condense launch, whose four
-Pallas kernels are hand-written CUDA C++ for sm_90a under `csrc/`
-(built at first use by `ops.cuda._build`).
+Ported so far: the model (`models`), the OCP data and both RTI steps: the
+batched `solver.rti_batched.rti_step_batched` with every option of its
+`ops.ipm_fast.solve_batched`, and the single-instance `solver.rti.rti_step`
+(with `sqp_solve` and AS-RTI) on `ops.{integrators, qp, riccati, ipm,
+condensing}`; and the speed-of-light study (`roofline`).  Every Pallas
+kernel of the JAX package is hand-written CUDA C++ for sm_90a under
+`csrc/` (built at first use by `ops.cuda._build`).  ROADMAP.md lists what
+is still to port.
 
 Entry points run on the card unless the caller asks for the CPU: every
 constructor takes `device=None`, which means `cuda`, and raises when no
@@ -16,3 +20,15 @@ PyTorch versions (that is how the CPU tests hold the port against JAX).
 """
 
 from crazyflie_nmpc_tpu_torch.device import resolve_device  # noqa: F401
+from crazyflie_nmpc_tpu_torch.models.quadrotor import (  # noqa: F401
+    NU,
+    NX,
+    NY,
+    NYN,
+    QuadrotorParams,
+    dynamics,
+    hover_control,
+    hover_state,
+)
+
+__version__ = "0.1.0"

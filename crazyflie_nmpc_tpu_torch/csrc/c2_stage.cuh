@@ -1,9 +1,9 @@
 // Stage bodies of the block-2 condensed sweeps, shared by the fused
-// sweeps (condensed_c2.cu: kkt_sweep_c2's rollout, corrector_sweep_c2),
-// their split long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2,
-// bwd_vec_c2) and the one-launch Mehrotra iteration (iter_c2.cu:
-// iter_sweep_c2).  kkt_sweep_c2 writes factor_sweep out in its own body
-// for speed (condensed_c2.cu).  The vector pass and the rollout take the
+// corrector sweep (condensed_c2.cu: corrector_sweep_c2), the split
+// long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2, bwd_vec_c2) and the
+// one-launch Mehrotra iteration (iter_c2.cu: iter_sweep_c2);
+// kkt_sweep_c2.cu takes chol and cho_solve from here and splits the rest
+// of its stage over a thread group.  The vector pass and the rollout take the
 // input width nu as a template argument (NUC by default), so that the
 // uncondensed sweeps (riccati.cu, nu = NU) run them too.
 //

@@ -3,272 +3,57 @@
 //
 // Replaces, in crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:
 //   condense2          (_condense2_kernel)      -> condense2_kernel
-//   kkt_sweep_c2       (_kkt_c2_kernel, _chol_n, _cho_solve_n,
-//                       _cho_solve_n_vec, _pk)  -> kkt_sweep_c2_kernel
 //   corrector_sweep_c2 (_corr_c2_kernel)        -> corrector_sweep_c2_kernel
-//   and their compressed-stream forms (gains_dtype=bfloat16: bf16 K/L/Pc;
-//   a_dev=True with bf16 Abar - I, Bbar, cbar; _ld, _ld_A) -> the same
-//   kernels instantiated on the stored types (the *_g, *_a, *_ga entries)
+//   and its compressed-stream forms (bf16 K/L/Pc; a_dev=True with bf16
+//   Abar - I, Bbar, cbar; _ld, _ld_A) -> the same kernel instantiated on
+//   the stored types (the *_g, *_a, *_ga entries)
 //   expand2            (_expand2_kernel, both forms: even_only=True is
 //                       stride 1, even_only=False stride 2) -> expand2_kernel
 //   kkt_sweep_c2_win / corrector_sweep_c2_win, the split long-horizon
 //   launches: _bwd_c2_kernel -> bwd_c2_kernel, _fwd_c2_kernel ->
 //   fwd_c2_kernel, _bwd_vec_c2_kernel -> bwd_vec_c2_kernel
 //
+// kkt_sweep_c2 (K2) has its own source, kkt_sweep_c2.cu: a group of
+// threads per lane with the stage state in shared memory.
+//
 // Design: one thread per batch lane, as the Pallas kernels make every
 // matrix entry a (B,)-lane vector.  The sweeps are sequential over the M
 // condensed stages, so the stage loop runs inside the thread in place of
 // the sequential Pallas grid, and the grid spans lanes only (64 threads a
 // block).  The stage bodies are c2_stage.cuh's, shared by the sweep
-// kernels, except that kkt_sweep_c2 writes its factorization loop out
-// (see there).  The whole-horizon K_all/kff_all VMEM scratch of the fused TPU
-// kernels becomes the K/kff outputs themselves: the backward phase writes
-// them to device memory and the forward phase reads them back (the same
-// thread, mostly from L2).  The corrector parks its kff in the du output
-// the same way.  So the fused kernels need no VMEM-sized envelope here,
-// and the split forms differ from them only by the launch boundary: the
-// split forward launch re-reads the gains its backward launch wrote.  The
-// expansion is parallel over (lane, pair).
+// kernels.  The whole-horizon K_all/kff_all VMEM scratch of the fused TPU
+// kernels becomes device memory: the factorization writes K and kff there
+// and the rollout reads them back (the same thread, mostly from L2).  The
+// corrector parks its kff in the du output the same way.  So the fused
+// kernels need no VMEM-sized envelope here, and the split forms differ
+// from them only by the launch boundary: the split forward launch re-reads
+// the gains its backward launch wrote.  The expansion is parallel over
+// (lane, pair).
 //
-// Bounds on the H100: per stage and lane K2 reads ~550 values (Abar, Bbar,
-// Qbar, ...) and writes ~180 (the gains and the rollout) for ~11k FMAs,
-// K3 reads ~460 and writes ~20 for ~800 FMAs: both are bytes-bound in
-// principle.  But at the main path's B (1024..8192 lanes) only B threads
-// run, a few percent of the card's resident-thread capacity, so they are
-// bound by the latency of one thread's dependent chain, not by bytes or
-// flops.
-// P, PA, Qux and K (~550 values per thread) exceed the register file and
-// live in local memory (L1); `ptxas -v` in the build log gives the spill
-// counts.  Splitting a lane's matrix work over several threads is later
-// work.  The compressed forms halve the bytes of the streams they store in
-// bf16, which moves the bound, not the latency that sets the time.
-// K4 is bound by bytes (it reads Ae/Be once).  K6, like the
+// Bounds on the H100: per stage and lane K3 reads ~460 values and writes
+// ~20 for ~800 FMAs, bwd_c2 (K2's factorization) reads ~550 and writes
+// ~160 for ~11k FMAs: both are bytes-bound in principle.  But at the main
+// path's B (1024..8192 lanes) only B threads run, a few percent of the
+// card's resident-thread capacity, so they are bound by the latency of one
+// thread's dependent chain, not by bytes or flops.  bwd_c2's P, PA, Qux and
+// K (~550 values per thread) exceed the register file and live in local
+// memory (L1); `ptxas -v` in the build log gives the spill counts.
+// kkt_sweep_c2.cu splits a lane's stage over a group of threads; K3, K5
+// and K10 keep one thread per lane until they get the same design
+// (ROADMAP).  The compressed forms halve the bytes of the streams they
+// store in bf16, which moves the bound, not the latency that sets the
+// time.  K4 is bound by bytes (it reads Ae/Be once).  K6, like the
 // expansion parallel over (lane, pair), is bound by bytes too: per pair and
 // lane it reads ~500 values and writes ~660 for ~6k FMAs; it holds A0/B0
 // (221 values) for the cost products as K1 does.
-#include <type_traits>
-
 #include "c2_stage.cuh"
 
 using namespace cfl;
 
 namespace {
 
-// The factorization loop is c2_stage.cuh's factor_sweep written out in the
-// kernel: the same source reached through an inlined device function
-// (factor_sweep, or the stage alone through factor_stage) comes out of
-// ptxas scheduled differently and runs measurably slower, with or without
-// __restrict__ and wherever the lane views are made (PERF.md, PR 2).  The
-// results are bitwise those of factor_sweep, which bwd_c2 runs.
-//
-// The compressed forms (IPMConfig.compress_gains / compress_ab) are other
-// instantiations of the same body.  TG = bf16 writes K, L and Pc in bf16
-// for the corrector to re-read, while the recursion, kff and this kernel's
-// own rollout stay in T: the rollout reads the full-precision K from Kf, a
-// device-memory scratch standing in for the Pallas kernel's K_all (with
-// TG = T it reads the K output, and Kf is unused).  TA = bf16 with DEV
-// reads the deviation-coded stage stream (Abar - I, Bbar, cbar in bf16)
-// and adds the identity back at load.
-template <typename T, typename TA = T, typename TG = T, bool DEV = false>
-__global__ void __launch_bounds__(64)
-kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
-                    const TA* __restrict__ cbar, const T* __restrict__ Qbar,
-                    const T* __restrict__ S1T, const T* __restrict__ R00,
-                    const T* __restrict__ qx, const T* __restrict__ ruu,
-                    const T* __restrict__ ru, const T* __restrict__ pT,
-                    const T* __restrict__ pterm, const T* __restrict__ dx0,
-                    TG* K, T* kff, TG* Lout, TG* Pcout, T* dx, T* du, T* Kf,
-                    int M, int B) {
-  constexpr bool kGainsT = std::is_same<TG, T>::value;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // terminal cost-to-go: P = diag(pT), p = p_term
-  T P[NX][NX], p[NX];
-  {
-    auto d = lane(pT, NX, 0, B, b);
-    auto pt = lane(pterm, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) P[i][j] = (i == j) ? d[i] : T(0);
-      p[i] = pt[i];
-    }
-  }
-
-#pragma unroll 1
-  for (int k = M - 1; k >= 0; --k) {
-    auto A = in_lane<T, DEV>(Abar, NX * NX, k, B, b);
-    auto Bm = in_lane<T>(Bbar, NX * NUC, k, B, b);
-
-    // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
-    T m[NX];
-    {
-      auto c = in_lane<T>(cbar, NX, k, B, b);
-      auto Pc = lane(Pcout, NX, k, B, b);
-      T cv[NX];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) cv[j] = c[j];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T s = P[i][0] * cv[0];
-#pragma unroll
-        for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
-        Pc[i] = cvt<TG>(s);
-        m[i] = p[i] + s;
-      }
-    }
-
-    // Quu = B'PB + [R00 0; 0 0] + diag(ruu_shift) (lower triangle)
-    T Quu[NUC][NUC];
-    {
-      T PB[NX][NUC];
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int a = 0; a < NUC; ++a) {
-          T s = P[i][0] * Bm[a];
-#pragma unroll
-          for (int j = 1; j < NX; ++j) s = s + P[i][j] * Bm[j * NUC + a];
-          PB[i][a] = s;
-        }
-      }
-      auto R = lane(R00, NU * NU, k, B, b);
-      auto rs = lane(ruu, NUC, k, B, b);
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-        for (int a2 = 0; a2 <= a; ++a2) {
-          T s = Bm[a] * PB[0][a2];
-#pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PB[i][a2];
-          if (a < NU) s = s + R[a * NU + a2];
-          if (a == a2) s = s + rs[a];
-          Quu[a][a2] = s;
-        }
-      }
-    }
-
-    // PA = P A;  Qux = [S1T; 0] + B' PA;  Qu = ru + B' m
-    T PA[NX][NX], Qux[NUC][NX], Qu[NUC];
-#pragma unroll 1
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        T s = P[i][0] * A[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + P[i][l] * A[l * NX + j];
-        PA[i][j] = s;
-      }
-    }
-    {
-      auto S = lane(S1T, NU * NX, k, B, b);
-      auto r = lane(ru, NUC, k, B, b);
-#pragma unroll 1
-      for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = Bm[a] * PA[0][j];
-#pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PA[i][j];
-          Qux[a][j] = (a < NU) ? S[a * NX + j] + s : s;
-        }
-        T s = Bm[a] * m[0];
-#pragma unroll
-        for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
-        Qu[a] = r[a] + s;
-      }
-    }
-
-    // L = chol(Quu); K = -Quu^{-1} Qux; kff = -Quu^{-1} Qu
-    T Lp[NLC], Kk[NUC][NX], kf[NUC];
-    chol<T, NUC>(Quu, Lp);
-#pragma unroll 1
-    for (int j = 0; j < NX; ++j) {
-      T y[NUC];
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) y[a] = Qux[a][j];
-      cho_solve<T, NUC>(Lp, y);
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) Kk[a][j] = -y[a];
-    }
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) kf[a] = Qu[a];
-    cho_solve<T, NUC>(Lp, kf);
-    {
-      auto Ko = lane(K, NUC * NX, k, B, b);
-      auto ko = lane(kff, NUC, k, B, b);
-      auto Lo = lane(Lout, NLC, k, B, b);
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) {
-        kf[a] = -kf[a];
-        ko[a] = kf[a];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) Ko[a * NX + j] = cvt<TG>(Kk[a][j]);
-      }
-      if constexpr (!kGainsT) {
-        auto Kfo = lane(Kf, NUC * NX, k, B, b);
-#pragma unroll
-        for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j) Kfo[a * NX + j] = Kk[a][j];
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < NLC; ++t) Lo[t] = cvt<TG>(Lp[t]);
-    }
-
-    // P <- sym(Qbar + A'PA + Qux'K);  p <- qx + A'm + K'Qu
-    {
-      auto Q = lane(Qbar, NX * NX, k, B, b);
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = A[i] * PA[0][j];
-#pragma unroll
-          for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * PA[l][j];
-          T t = Qux[0][i] * Kk[0][j];
-#pragma unroll
-          for (int a = 1; a < NUC; ++a) t = t + Qux[a][i] * Kk[a][j];
-          P[i][j] = Q[i * NX + j] + s + t;
-        }
-      }
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          if (j > i) {
-            const T v = T(0.5) * (P[i][j] + P[j][i]);
-            P[i][j] = v;
-            P[j][i] = v;
-          }
-        }
-      }
-      auto q = lane(qx, NX, k, B, b);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T s = A[i] * m[0];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
-        T t = Kk[0][i] * Qu[0];
-#pragma unroll
-        for (int a = 1; a < NUC; ++a) t = t + Kk[a][i] * Qu[a];
-        p[i] = q[i] + s + t;
-      }
-    }
-  }
-
-  if constexpr (kGainsT) {
-    rollout<T, NUC, DEV>(Abar, Bbar, cbar, static_cast<const T*>(K), kff,
-                         dx0, dx, du, M, B, b);
-  } else {
-    rollout<T, NUC, DEV>(Abar, Bbar, cbar, static_cast<const T*>(Kf), kff,
-                         dx0, dx, du, M, B, b);
-  }
-}
-
 // The compressed forms read K/L/Pc (TG) and the stage stream (TA, DEV) as
-// kkt_sweep_c2_kernel writes and takes them, upcast to T at load.
+// kkt_sweep_c2 writes and takes them, upcast to T at load.
 template <typename T, typename TA = T, typename TG = T, bool DEV = false>
 __global__ void __launch_bounds__(64)
 corrector_sweep_c2_kernel(const TA* __restrict__ Abar,
@@ -500,16 +285,6 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 }  // namespace
 
 #define C2_ENTRIES(SUFFIX, T)                                                 \
-  extern "C" int kkt_sweep_c2_##SUFFIX(                                       \
-      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
-      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
-      const T* pT, const T* pterm, const T* dx0, T* K, T* kff, T* L, T* Pc,   \
-      T* dx, T* du, int M, int B, void* stream) {                             \
-    kkt_sweep_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(      \
-        Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K,     \
-        kff, L, Pc, dx, du, nullptr, M, B);                                   \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
   extern "C" int corrector_sweep_c2_##SUFFIX(                                 \
       const T* Abar, const T* Bbar, const T* cbar, const T* qx, const T* ru,  \
       const T* K, const T* L, const T* Pc, const T* pterm, const T* dx0,      \
@@ -567,23 +342,10 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 C2_ENTRIES(f32, float)
 C2_ENTRIES(f64, double)
 
-// The compressed forms of kkt_sweep_c2 / corrector_sweep_c2, FORM in the
-// symbol: _g bf16 gains (K, L, Pc), _a the deviation-coded bf16 stage
-// stream (Abar - I, Bbar, cbar), _ga both.  kkt_sweep_c2's take Kf last,
-// the full-precision scratch its rollout reads with bf16 gains (unused
-// by _a, whose rollout reads K).
+// The compressed forms of corrector_sweep_c2, FORM in the symbol: _g bf16
+// gains (K, L, Pc), _a the deviation-coded bf16 stage stream (Abar - I,
+// Bbar, cbar), _ga both.
 #define C2_COMPRESSED_ENTRIES(FORM, SUFFIX, T, TA, TG, DEV)                   \
-  extern "C" int kkt_sweep_c2##FORM##_##SUFFIX(                               \
-      const TA* Abar, const TA* Bbar, const TA* cbar, const T* Qbar,          \
-      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
-      const T* pT, const T* pterm, const T* dx0, TG* K, T* kff, TG* L,        \
-      TG* Pc, T* dx, T* du, T* Kf, int M, int B, void* stream) {              \
-    kkt_sweep_c2_kernel<T, TA, TG, DEV>                                       \
-        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(                        \
-            Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K, \
-            kff, L, Pc, dx, du, Kf, M, B);                                    \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
   extern "C" int corrector_sweep_c2##FORM##_##SUFFIX(                         \
       const TA* Abar, const TA* Bbar, const TA* cbar, const T* qx,            \
       const T* ru, const TG* K, const TG* L, const TG* Pc, const T* pterm,    \

@@ -10,20 +10,20 @@
 //                                                           -> stage_replay
 //
 // Design: one thread per batch lane, 64 threads a block, the launch shape
-// of every sweep of the port, so a probe's time per lane and stage is what
-// a sweep's thread can reach at best.
+// of the port's one-thread-per-lane sweeps, so a probe's time per lane and
+// stage is what such a sweep's thread can reach at best.
 //
 // fma_chain computes c <- (c b) 7.6e-4 + b, `reps` times (rounded down to
 // a multiple of UNROLL), the UNROLL products of a loop step unrolled: the
-// products are written as kkt_sweep_c2 writes P A (rows in a loop the
+// products are written as the one-thread K2 wrote P A (rows in a loop the
 // compiler keeps, columns and the inner sum unrolled), so c and its
-// successor live in local memory (L1) as K2's P and PA do, and b in
+// successor live in local memory (L1) as that K2's P and PA did, and b in
 // registers.  `reps` is a runtime argument: no product is folded or
 // dropped, and the time must grow with it (roofline/ipm_iter_sol.py
 // checks that).  Bound: operations, 2 x 13^3 flops a product and lane.
 //
-// stage_replay runs `reps` backward stages of kkt_sweep_c2_kernel
-// (condensed_c2.cu), the factorization loop as written out there, on the
+// stage_replay runs `reps` backward stages of the one-thread-per-lane K2
+// (the factorization loop as that kernel wrote it out), on the
 // same stage data every stage: PA, PB, Pc, m, B'PB, Quu (R00 in its
 // top-left 4x4 block, the shift on its diagonal), Qux ([S1T; 0] + B'PA),
 // Qu, the packed 8x8 rsqrt Cholesky, K, kff, A'PA, Qux'K, P symmetrised,
@@ -32,7 +32,9 @@
 // the stage's ~11k multiply-adds).  The stage inputs are read through lane
 // views at fixed addresses every stage, so they stay in L1/L2: the card's
 // counterpart of the TPU's VMEM-resident data.  Per-stage time x stages x
-// waves is the issue floor of K2's backward phase.  It is not built on
+// waves is the issue floor of a one-thread-per-lane K2's backward phase
+// (kkt_sweep_c2.cu splits a lane's stage over a thread group and is not
+// bound by it).  It is not built on
 // c2_stage.cuh's factor_stage, the inlined form that bwd_c2 and
 // iter_sweep_c2 reach: ptxas schedules that one ~6% slower (PERF.md).
 #include "c2_stage.cuh"
@@ -97,14 +99,14 @@ fma_chain_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// kkt_sweep_c2_kernel's stage loop (condensed_c2.cu) without the stores of
-// K, kff, L and Pc.  Stage `rep` reads its inputs at stage rep * stride,
-// and the wrapper passes stride 0: every stage reads the same addresses,
-// but through an index the compiler cannot prove constant, so the loads
-// stay inside the loop as K2's do.  With a constant index ptxas gave the
-// kernel 32 registers and a 5.8 KB stack (the loop-invariant stage data
-// kept in local memory, by the look of it), and the replay ran 1.5x
-// slower than K2's whole stage (PERF.md).
+// The one-thread K2's stage loop without the stores of K, kff, L and Pc.
+// Stage `rep` reads its inputs at stage rep * stride, and the wrapper
+// passes stride 0: every stage reads the same addresses, but through an
+// index the compiler cannot prove constant, so the loads stay inside the
+// loop as that K2's did.  With a constant index ptxas gave the kernel 32
+// registers and a 5.8 KB stack (the loop-invariant stage data kept in
+// local memory, by the look of it), and the replay ran 1.5x slower than
+// that K2's whole stage (PERF.md).
 template <typename T>
 __global__ void __launch_bounds__(64)
 stage_replay_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,

@@ -7,8 +7,10 @@ Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
 long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
 kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
 iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
-`csrc/condensed_c2.cu` or `csrc/iter_c2.cu` for CUDA tensors and runs its
-`*_ref` plain PyTorch version for CPU tensors.
+`csrc/kkt_sweep_c2.cu` (K2, a group of threads per lane: its launch shape
+is `kkt_launch_geometry`'s), `csrc/condensed_c2.cu` or `csrc/iter_c2.cu`
+for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
+tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -27,6 +29,9 @@ PyTorch's casts.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
@@ -36,6 +41,17 @@ NU = 4
 NUC = 2 * NU
 NLC = NUC * (NUC + 1) // 2
 _SOURCE = "condensed_c2.cu"
+_KKT_SOURCE = "kkt_sweep_c2.cu"
+# K2's launch shape (csrc/kkt_sweep_c2.cu's kGroup, kThreads and kStride,
+# which its launch checks): KKT_GROUP threads per lane, KKT_LANES lanes a
+# block, KKT_LANE_VALUES values of the compute dtype in shared memory per
+# lane
+KKT_GROUP = 16
+KKT_THREADS = 128
+KKT_LANES = KKT_THREADS // KKT_GROUP
+KKT_LANE_VALUES = 1548
+# a block's shared memory on the H100 without the opt-in attribute
+SMEM_DEFAULT = 48 * 1024
 _ITER_SOURCE = "iter_c2.cu"
 # fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
 _BIG = 3.4e38
@@ -383,6 +399,32 @@ def _empty(like, *shape):
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
+def kkt_launch_geometry(B: int, dtype) -> dict:
+    """K2's launch at B lanes of `dtype` (float32 or float64): `grid`
+    blocks of `threads` threads, `lanes` consecutive lanes a block (block
+    i takes lanes [i lanes, (i + 1) lanes) below B), `smem` bytes of
+    dynamic shared memory a block, and `opt_in`: whether that exceeds
+    SMEM_DEFAULT, so the kernel's launch sets the opt-in attribute."""
+    smem = KKT_LANES * KKT_LANE_VALUES * torch.finfo(dtype).bits // 8
+    return dict(grid=math.ceil(B / KKT_LANES), threads=KKT_THREADS,
+                lanes=KKT_LANES, smem=smem, opt_in=smem > SMEM_DEFAULT)
+
+
+def kkt_blocks_per_sm(dtype=torch.float32) -> int:
+    """K2's resident blocks per SM (KKT_LANES lanes each), from the CUDA
+    occupancy API for its registers and shared memory (builds the kernel
+    first)."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(_build.load(_KKT_SOURCE), f"kkt_sweep_c2_occupancy_{sfx}")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"kkt_sweep_c2 occupancy: CUDA error {err}")
+    return blocks.value
+
+
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
                  p_term, dx0, gains_dtype=None, a_dev: bool = False):
     """Dense-cost Riccati factorization + forward rollout over the condensed
@@ -411,10 +453,13 @@ def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
     # the K output itself, which the kernel then ignores
     kf = ((new(M, NUC, NX, B) if gains_dtype is not None else outs[0],)
           if form else ())
-    _launch(kkt_sweep_c2, _SOURCE, dict(
+    geo = kkt_launch_geometry(B, Qbar.dtype)
+    _build.run(kkt_sweep_c2, _KKT_SOURCE, dict(
         Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00, qx=qx,
         ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term, dx0=dx0),
-        outs + kf, form=form, bf16=bf16)
+        outs + kf, _shapes(M, B),
+        [M, B, geo["grid"], geo["threads"], geo["smem"]], form=form,
+        bf16=bf16)
     return outs
 
 

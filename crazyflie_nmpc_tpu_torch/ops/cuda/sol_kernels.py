@@ -34,7 +34,7 @@ from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
 _SOURCE = "sol_probes.cu"
 UNROLL = 16
 FMA_SCALE = 7.6e-4
-# the launch shape of every sweep of the port
+# the launch shape of the port's one-thread-per-lane sweeps (all but K2)
 THREADS_PER_BLOCK = 64
 
 

@@ -19,8 +19,9 @@ of the problem's form:
     `prep_condense2` (the "c2*" keys) or condensed here by `condense2`;
     the expansion `expand2` recovers the eliminated states once per solve.
 
-All (B,) problems run in lockstep with per-lane step lengths; infinite
-bounds are masked.  Per-lane escalation re-solves the worst unconverged
+`solve_batched` consumes a batch-last QP dict; `from_qpdata` converts a
+batch-first QPData.  All (B,) problems run in lockstep with per-lane step
+lengths; infinite bounds are masked.  Per-lane escalation re-solves the worst unconverged
 lanes as a sub-batch (see `solve_batched`).
 """
 
@@ -35,6 +36,7 @@ import torch
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
 from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+from crazyflie_nmpc_tpu_torch.ops.qp import QPData
 
 _C2_KEYS = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar")
 
@@ -45,6 +47,24 @@ class BatchSolution(NamedTuple):
     lam_l: Any   # (N, nu, B)
     lam_u: Any   # (N, nu, B)
     stats: Any   # dict with (B,) entries
+
+
+def from_qpdata(qp: QPData) -> dict:
+    """Batch-first QPData (every field with a leading batch axis) ->
+    batch-last tensor dict, as `solve_batched` takes it.
+
+    The fused kernels exploit the reference cost structure: Qxx/Ruu/P
+    diagonal, S = 0 (LLS cost with selector Vx/Vu, generate_c_code.py:
+    86-107).  Only the diagonals are extracted — callers with genuinely
+    dense cost blocks must use `ops.ipm` instead.
+    """
+    bl = lambda x: torch.movedim(x, 0, -1).contiguous()  # noqa: E731
+    diag = lambda x: torch.diagonal(x, dim1=-2, dim2=-1)  # noqa: E731
+    return dict(A=bl(qp.A), B=bl(qp.B), c=bl(qp.c),
+                qxx=bl(diag(qp.Qxx)), qx=bl(qp.qx),
+                ruu=bl(diag(qp.Ruu)), ru=bl(qp.ru),
+                pT=bl(diag(qp.P)), p=bl(qp.p), lb=bl(qp.lb), ub=bl(qp.ub),
+                dx0=bl(qp.dx0))
 
 
 def _uses_iter(config: IPMConfig, condense: int, fused_iter) -> bool:

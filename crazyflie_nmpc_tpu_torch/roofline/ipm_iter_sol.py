@@ -21,7 +21,7 @@ section, at N=50 (M=25 condensed stages), float32:
      stage);
   6. the speed-of-light table of K2 and K3: bytes per launch, the bound at
      the measured bandwidth, the issue floor, SoL = max of the two, the
-     measured time and the gap.
+     measured time and the gap; and K2 against P2's one-thread floor.
 
 Runs on the CUDA device only: without one it exits 1.  Times are CUDA
 events around a chained window (median over rounds of its mean).  Not
@@ -30,17 +30,22 @@ the device itself), and the op-deletion ablation (the Pallas kernels'
 `ablate=` option is on the port's not-ported list, ROADMAP.md).
 
 How the TPU formulas carry over:
-  * issue floor of K2: the JAX tool multiplies the replay's per-stage time
-    on one 128-lane block by M and by B/128, the blocks a TensorCore runs
-    one after another.  On the card all lanes of one wave run at once, so
-    the floor is the replay's per-stage time at the sweep's launch shape
-    (64 threads a block, the wave's lanes) times M times the number of
-    waves B needs (1 at B=4096).  It covers the backward phase, the
-    replay's arithmetic, as in the JAX tool.
+  * the one-thread floor of K2: the JAX tool multiplies the replay's
+    per-stage time on one 128-lane block by M and by B/128, the blocks a
+    TensorCore runs one after another.  On the card all lanes of one wave
+    run at once, so the floor is the replay's per-stage time at the
+    one-thread launch shape (64 threads a block, the wave's lanes) times
+    M times the number of waves B needs (1 at B=4096).  It covers the
+    backward phase, the replay's arithmetic, as in the JAX tool.  P2 runs
+    one thread per lane, so this is the floor of a K2 that keeps one
+    thread per lane, not of csrc/kkt_sweep_c2.cu, which splits a lane's
+    stage over a group of threads: K2's SoL is its bytes bound, and the
+    study prints its time against the one-thread floor beside it (below
+    1: the group shortened the chain that bounds any one-thread K2).
   * issue floor of K3: CORR_MACS_PER_STAGE x M x B multiply-adds at P1's
     rate measured at the same B.
-  * bytes: what the port's kernels read and write (csrc/condensed_c2.cu),
-    not the TPU BlockSpecs: K2's rollout re-reads the stage stream and its
+  * bytes: what the port's kernels read and write (csrc/kkt_sweep_c2.cu,
+    csrc/condensed_c2.cu), not the TPU BlockSpecs: K2's rollout re-reads the stage stream and its
     own K and kff outputs (which stand in for the Pallas kernel's VMEM
     K_all), K3 reads the stage stream in both passes and parks kff in its
     du output.  The MAC counts are the JAX tool's: the arithmetic is the
@@ -74,7 +79,7 @@ ROUNDS = 5          # timing: median over ROUNDS windows of CUDA events
 
 def kkt_bytes(M, B, dtype_bytes=4):
     """Bytes one `kkt_sweep_c2` launch reads and writes (csrc/
-    condensed_c2.cu): per stage and lane the backward phase reads Abar,
+    kkt_sweep_c2.cu): per stage and lane the backward phase reads Abar,
     Bbar, cbar, Qbar, S1T, R00, qbar, the shifted R̄ diagonal and rbar and
     writes K, kff, L, Pc; the rollout re-reads Abar, Bbar, cbar, K and kff
     and writes dx, du; once per lane pT, p_term, dx0 in and the last dx
@@ -374,7 +379,7 @@ def study(batch=4096, device=None, log=print):
                                f"{scale:.2f}x the time")
 
     kb, cb = kkt_bytes(M, B), corr_bytes(M, B)
-    t_kkt_issue = rep["us_per_stage"] * M * nw / 1e3
+    t_one_thread = rep["us_per_stage"] * M * nw / 1e3
     t_corr_issue = CORR_MACS_PER_STAGE * M * B / fma[B]["mac_per_s"] * 1e3
     rows = {}
     log(f"=== speed-of-light table (M={M}, B={B}, float32; bandwidth "
@@ -382,18 +387,27 @@ def study(batch=4096, device=None, log=print):
     log(f"{'kernel':<20}{'bytes/launch':>14}{'BW bound':>11}"
         f"{'@3.35TB/s':>11}{'issue floor':>13}{'SoL=max':>10}"
         f"{'measured':>10}{'gap':>7}")
-    for name, nbytes, tis, tm in (("kkt_sweep_c2", kb, t_kkt_issue,
-                                   t["kkt"]),
+    # K2 runs a group of threads per lane: it has no measured issue floor
+    # (None), P2's is the one-thread floor beside it
+    for name, nbytes, tis, tm in (("kkt_sweep_c2", kb, None, t["kkt"]),
                                   ("corrector_sweep_c2", cb, t_corr_issue,
                                    t["corr"])):
         tbw = nbytes / (bw * 1e9) * 1e3
         sheet = nbytes / HBM_BYTES_PER_S * 1e3
-        sol = max(tbw, tis)
+        sol = max(tbw, tis or 0.0)
         rows[name] = dict(bytes=nbytes, bw_ms=tbw, sheet_ms=sheet,
                           issue_ms=tis, sol_ms=sol, ms=tm, gap=tm / sol)
+        floor = "not measured" if tis is None else f"{tis:.4f}ms"
         log(f"{name:<20}{nbytes / 1e6:>11.1f} MB{tbw:>9.4f}ms"
-            f"{sheet:>9.4f}ms{tis:>11.4f}ms{sol:>8.4f}ms{tm:>8.4f}ms"
+            f"{sheet:>9.4f}ms{floor:>13}{sol:>8.4f}ms{tm:>8.4f}ms"
             f"{tm / sol:>7.2f}")
+    rows["kkt_sweep_c2"].update(one_thread_ms=t_one_thread,
+                                vs_one_thread=t["kkt"] / t_one_thread)
+    log(f"kkt_sweep_c2 against the one-thread floor (P2 "
+        f"{rep['us_per_stage']:.2f} us/stage x M={M} x {nw} wave(s)): "
+        f"{t_one_thread:.4f} ms; measured / floor "
+        f"{t['kkt'] / t_one_thread:.3f} (below 1: shorter than any "
+        f"one-thread-per-lane K2)")
     return dict(B=B, sms=sms, sweeps=t, steps=steps, bandwidth_gbs=bw,
                 fma=fma, bmm=bmm, b_fill=b_fill, replay=rep, waves=nw,
                 table=rows)

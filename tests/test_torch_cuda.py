@@ -59,6 +59,43 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol, n):
         assert kc.launch_counts()[name] == before + 1, label
 
 
+K2_FORMS = ("kkt_sweep_c2", "kkt_sweep_c2 bf16 gains",
+            "kkt_sweep_c2 bf16 stream", "kkt_sweep_c2 bf16 gains+stream")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 25, 200])
+@pytest.mark.parametrize("lanes", [1, 7, 1000])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_kkt_sweep_c2_forms_on_card(cuda_device, dtype, tol, lanes, M):
+    """K2's group kernel, all four forms, against the plain version at a
+    partial lane tile (1, 7) and a partial last block (1000), over 1, 25
+    and 200 condensed stages.  At M=200 in float32 both evaluations drift
+    apart through the recursion, so each is held to the float64 answer
+    on the same inputs instead: the kernel's error there may be at most
+    3x the plain float32 version's (or the tolerance), chip_smoke's N=400
+    rule."""
+    import chip_smoke
+
+    inputs = chip_smoke.kernel_inputs(lanes, dtype, cuda_device, n=2 * M)
+    for label in K2_FORMS:
+        kern, ref, args = inputs[label]
+        before = kc.launch_counts()["kkt_sweep_c2"]
+        got = chip_smoke.flat(kern(*args))
+        assert kc.launch_counts()["kkt_sweep_c2"] == before + 1, label
+        want = chip_smoke.flat(ref(*args))
+        if M < 200 or dtype == torch.float64:
+            _, rel = chip_smoke.compare(got, want)
+            assert rel <= tol, (label, rel)
+            continue
+        exact = chip_smoke.flat(ref(*[
+            a.double() if a.dtype == torch.float32 else a for a in args]))
+        _, e_kern = chip_smoke.compare(got, exact)
+        _, e_plain = chip_smoke.compare(want, exact)
+        assert e_kern <= max(tol, 3 * e_plain), (label, e_kern, e_plain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
                                         (torch.float32, 1e-4)])

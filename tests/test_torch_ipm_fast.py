@@ -120,3 +120,62 @@ def test_max_step_lane_masks_nonbinding_entries():
     dv = torch.tensor([[[-2.0, 5.0], [0.0, -0.5]]])
     got = tfast._max_step_lane(v, dv, 0.9)
     np.testing.assert_allclose(got, [0.9 * 0.5, 1.0])
+
+
+def _qpdata_arrays(n_batch=4, horizon=10, seed=11):
+    """One seeded batch-first QP of the reference cost structure (Qxx, Ruu
+    and P diagonal, S = 0), as numpy float64 arrays keyed by QPData field:
+    A near the identity, bounds finite on most inputs, infinite on some."""
+    rng = np.random.default_rng(seed)
+    nb, n = n_batch, horizon
+    r = lambda *s: rng.standard_normal((nb, *s))  # noqa: E731
+    diag = lambda d: d[..., :, None] * np.eye(d.shape[-1])  # noqa: E731
+    lb = -rng.uniform(0.05, 0.3, (nb, n, 4))
+    ub = rng.uniform(0.05, 0.3, (nb, n, 4))
+    lb[:, ::3, 1] = -np.inf
+    ub[:, 1::4, 2] = np.inf
+    return dict(A=np.eye(13) + 0.05 * r(n, 13, 13), B=0.1 * r(n, 13, 4),
+                c=0.01 * r(n, 13),
+                Qxx=diag(rng.uniform(0.5, 2.0, (nb, n, 13))), qx=0.1 * r(n, 13),
+                Ruu=diag(rng.uniform(0.5, 2.0, (nb, n, 4))), ru=0.1 * r(n, 4),
+                S=np.zeros((nb, n, 4, 13)),
+                P=diag(rng.uniform(1.0, 5.0, (nb, 13))), p=0.1 * r(13),
+                lb=lb, ub=ub, dx0=0.1 * r(13))
+
+
+def test_from_qpdata_matches_jax():
+    """The port's from_qpdata gives JAX's dict: the same keys, shapes and
+    values (JAX's plain jnp function, no solver)."""
+    from crazyflie_nmpc_tpu.ops.qp import QPData as JQP
+    from crazyflie_nmpc_tpu_torch.ops.qp import QPData as TQP
+
+    arrs = _qpdata_arrays()
+    want = jfast.from_qpdata(JQP(**{k: jnp.asarray(v)
+                                    for k, v in arrs.items()}))
+    got = tfast.from_qpdata(TQP(**{k: torch.as_tensor(v)
+                                   for k, v in arrs.items()}))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == torch.float64 and got[k].is_contiguous(), k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=1e-12, err_msg=k)
+
+
+def test_solve_batched_from_qpdata_matches_ipm_solve():
+    """solve_batched on from_qpdata's dict solves each lane as the port's
+    single-instance ops.ipm.solve does on that lane's QPData."""
+    from crazyflie_nmpc_tpu_torch.ops import ipm as tipm
+    from crazyflie_nmpc_tpu_torch.ops.qp import QPData as TQP
+
+    arrs = {k: torch.as_tensor(v) for k, v in _qpdata_arrays().items()}
+    cfg = TCfg(iters=8)
+    fast = tfast.solve_batched(tfast.from_qpdata(TQP(**arrs)), cfg)
+    for i in range(arrs["A"].shape[0]):
+        ref = tipm.solve(TQP(**{k: v[i] for k, v in arrs.items()}), cfg)
+        for name in ("dx", "du", "lam_l", "lam_u"):
+            got = getattr(fast, name)[..., i]
+            want = getattr(ref, name)
+            scale = max(1.0, float(want[torch.isfinite(want)].abs().max()))
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-9 * scale,
+                                       err_msg=f"{name} lane {i}")

@@ -277,3 +277,49 @@ def test_build_hash_covers_sources_and_flags():
     for src, lib in libs.items():
         assert lib.parent == _build.BUILD_DIR
         assert lib.name.startswith(Path(src).stem + "-")
+
+
+@pytest.mark.parametrize("package", ["crazyflie_nmpc_tpu",
+                                     "crazyflie_nmpc_tpu.ops"])
+def test_package_exports_match_jax(package):
+    """Every public name the JAX package's `__init__` exports (its
+    `__version__` too; submodules aside) is exported by the port's
+    counterpart."""
+    import importlib
+    import inspect
+
+    jax_pkg = importlib.import_module(package)
+    port = importlib.import_module(package.replace(
+        "crazyflie_nmpc_tpu", "crazyflie_nmpc_tpu_torch", 1))
+    names = getattr(jax_pkg, "__all__", None) or [
+        n for n in dir(jax_pkg)
+        if (not n.startswith("_") or n == "__version__")
+        and not inspect.ismodule(getattr(jax_pkg, n))]
+    assert names
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, f"{port.__name__} lacks {missing}"
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_kkt_launch_geometry(B, dtype):
+    """K2's launch covers every lane exactly once, fits a block's shared
+    memory, opts in above 48 KB, and uses the source's constants."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    geo = ck.kkt_launch_geometry(B, dtype)
+    lanes = [blk * geo["lanes"] + i for blk in range(geo["grid"])
+             for i in range(geo["lanes"])]
+    assert sorted(b for b in lanes if b < B) == list(range(B))
+    assert (geo["grid"] - 1) * geo["lanes"] < B      # no empty block
+    assert geo["threads"] == geo["lanes"] * ck.KKT_GROUP
+    assert geo["smem"] <= 232_448          # a block's most on the H100
+    assert geo["smem"] <= 48 * 1024 or geo["opt_in"]
+    assert geo["opt_in"] == (geo["smem"] > 48 * 1024)
+    src = (_build.CSRC / "kkt_sweep_c2.cu").read_text()
+    for const, value in (("kGroup", ck.KKT_GROUP),
+                         ("kThreads", ck.KKT_THREADS),
+                         ("kStride", ck.KKT_LANE_VALUES)):
+        assert (f"constexpr int {const} = {value};" in src
+                or f"static_assert({const} == {value}," in src), const

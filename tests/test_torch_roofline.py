@@ -37,6 +37,7 @@ from crazyflie_nmpc_tpu.ops.pallas.riccati_kernels import (
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
 from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
+from crazyflie_nmpc_tpu_torch.roofline import kkt_variants
 
 B = 8
 TOL = 1e-12
@@ -193,3 +194,15 @@ def test_study_needs_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sol.study(8)
     assert sol.main(["--batch", "8"]) == 1
+
+
+def test_kkt_variants_edit_the_kernel_source(monkeypatch):
+    """Every K2 variant's edit applies to the kernel's source as it stands
+    and changes it (a moved marker fails here, not on the card); the tool
+    exits 1 without a card."""
+    texts = kkt_variants.sources()
+    assert set(texts) == set(kkt_variants.VARIANTS)
+    assert all(text != texts["kernel"] for name, text in texts.items()
+               if name != "kernel")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kkt_variants.main([]) == 1
