@@ -54,8 +54,9 @@ against the fused sweeps on the same QP, [throughput_mode]'s against the
 uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel with CUDA events at the shapes of the path that runs it,
-times K2 (the group kernel of csrc/kkt_sweep_c2.cu) at every B of [main]
-with its occupancy and waves, and traces a few steps of [main] (every B),
+times K2 and K3 (the group kernels of csrc/kkt_sweep_c2.cu and
+csrc/corrector_sweep_c2.cu, K3 in its four forms) at every B of [main]
+with their occupancy and waves, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
 [xla_prep] ([single] its own ticks) with torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
@@ -130,7 +131,7 @@ KERNEL_INFO = {
         source="crazyflie_nmpc_tpu_torch/csrc/kkt_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:446"),
     "corrector_sweep_c2": dict(
-        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        source="crazyflie_nmpc_tpu_torch/csrc/corrector_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:1206"),
     "expand2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
@@ -1455,40 +1456,60 @@ def phase_timing(device):
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP)")
         if n == N:
-            time_kkt_batches(device, inputs["kkt_sweep_c2"][2])
+            for name in GROUP_KERNELS:
+                time_group_batches(device, name, inputs)
     return rows
 
 
-def time_kkt_batches(device, args):
-    """K2 at each B of B_MAIN in float32 (its B_TIME inputs cut or tiled
-    along the lane axis: no loop of the kernel depends on the data), with
-    its occupancy (blocks and lanes per SM from the occupancy API, both
+# the group kernels (a thread group per lane), timed with their forms at
+# every B of B_MAIN
+GROUP_KERNELS = ("kkt_sweep_c2", "corrector_sweep_c2")
+
+
+def group_kernel(name):
+    """(forms, launch geometry, blocks per SM, group size, lanes a block)
+    of the group kernel `name` (GROUP_KERNELS)."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    forms = (name,) + tuple(k for k, v in FORMS.items() if v == name)
+    if name == "kkt_sweep_c2":
+        return (forms, ck.kkt_launch_geometry, ck.kkt_blocks_per_sm,
+                ck.KKT_GROUP, ck.KKT_LANES)
+    return (forms, ck.corr_launch_geometry, ck.corr_blocks_per_sm,
+            ck.CORR_GROUP, ck.CORR_LANES)
+
+
+def time_group_batches(device, name, inputs):
+    """A group kernel and its forms at each B of B_MAIN in float32 (their
+    B_TIME inputs cut or tiled along the lane axis: no loop of the kernels
+    depends on the data; the median of 3 windows of 20 launches), with its
+    occupancy (blocks and lanes per SM from the occupancy API, both
     dtypes) and the waves each B needs."""
     import math
 
     import torch
 
-    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
-
+    forms, geometry, blocks_per_sm, group, lanes = group_kernel(name)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    bps = {dt: ck.kkt_blocks_per_sm(dt) for dt in (torch.float32,
-                                                    torch.float64)}
+    bps = {dt: blocks_per_sm(dt) for dt in (torch.float32, torch.float64)}
     for dt, blocks in bps.items():
-        geo = ck.kkt_launch_geometry(B_TIME, dt)
-        print(f"[timing] kkt_sweep_c2 occupancy {str(dt)[6:]}: {blocks} "
-              f"blocks of {ck.KKT_LANES} lanes x {ck.KKT_GROUP} threads "
-              f"per SM ({geo['smem']} B of shared memory a block) -> "
-              f"{blocks * ck.KKT_LANES} lanes per SM, "
-              f"{blocks * ck.KKT_LANES * sms} on {sms} SMs")
+        geo = geometry(B_TIME, dt)
+        print(f"[timing] {name} occupancy {str(dt)[6:]}: {blocks} "
+              f"blocks of {lanes} lanes x {group} threads per SM "
+              f"({geo['smem']} B of shared memory a block) -> "
+              f"{blocks * lanes} lanes per SM, {blocks * lanes * sms} on "
+              f"{sms} SMs")
     for B in B_MAIN:
-        reps = -(-B // B_TIME)
-        cut = tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
-                    for a in args)
-        ms = time_events(lambda: ck.kkt_sweep_c2(*cut), 20)
-        geo = ck.kkt_launch_geometry(B, torch.float32)
+        geo = geometry(B, torch.float32)
         waves = math.ceil(geo["grid"] / (bps[torch.float32] * sms))
-        print(f"[timing] kkt_sweep_c2 N={N} B={B} float32: {ms:.4f} "
-              f"ms/launch, {geo['grid']} blocks, {waves} wave(s)")
+        reps = -(-B // B_TIME)
+        for label in forms:
+            kern, _, args = inputs[label]
+            cut = tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
+                        for a in args)
+            ms = time_events(lambda: kern(*cut), 20, rounds=3)
+            print(f"[timing] {label} N={N} B={B} float32: {ms:.4f} "
+                  f"ms/launch, {geo['grid']} blocks, {waves} wave(s)")
 
 
 def probe_flops(name, B, reps):

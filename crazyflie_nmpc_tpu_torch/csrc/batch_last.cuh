@@ -9,6 +9,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// CFL_ASM(card, cpu): the inline-asm statement `card` in the CUDA build, and
+// `cpu` in the CPU rehearsal (csrc/emu, which defines CFL_EMULATED).
+#ifdef CFL_EMULATED
+#define CFL_ASM(card, cpu) cpu
+#else
+#define CFL_ASM(card, cpu) card
+#endif
+
 namespace cfl {
 
 constexpr int NX = 13;            // states
@@ -62,34 +70,6 @@ __device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
 template <>
 __device__ __forceinline__ double cvt<double, __nv_bfloat16>(__nv_bfloat16 v) {
   return static_cast<double>(__bfloat162float(v));
-}
-
-// A lane's read-only view of a compressed stream in the compute type T:
-// entries stored as S are upcast at load, and DEV adds the identity back to
-// a deviation-coded 13x13 block (stored A - I; entry r = 13 i + j is on the
-// diagonal iff r % 14 == 0), as condensed_kernels._ld_A does.
-template <typename T, typename S, bool DEV>
-struct LaneLd {
-  const S* p;
-  int B;
-  __device__ __forceinline__ T operator[](int r) const {
-    const T v = cvt<T>(p[r * B]);
-    if constexpr (DEV) return (r % (NX + 1) == 0) ? v + T(1) : v;
-    return v;
-  }
-};
-
-template <typename T, typename S, bool DEV>
-struct InView { using type = LaneLd<T, S, DEV>; };
-template <typename T>
-struct InView<T, T, false> { using type = LaneRef<const T>; };
-
-// lane() for an input that may be stored compressed: an uncompressed one
-// (S = T, DEV false) gets the plain LaneRef, so its kernels are unchanged.
-template <typename T, bool DEV = false, typename S>
-__device__ __forceinline__ typename InView<T, S, DEV>::type in_lane(
-    const S* base, int stage_size, int k, int B, int b) {
-  return {base + (size_t)k * stage_size * B + b, B};
 }
 
 }  // namespace cfl

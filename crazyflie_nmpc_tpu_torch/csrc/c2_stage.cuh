@@ -1,9 +1,9 @@
-// Stage bodies of the block-2 condensed sweeps, shared by the fused
-// corrector sweep (condensed_c2.cu: corrector_sweep_c2), the split
+// Stage bodies of the block-2 condensed sweeps, shared by the split
 // long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2, bwd_vec_c2) and the
 // one-launch Mehrotra iteration (iter_c2.cu: iter_sweep_c2);
-// kkt_sweep_c2.cu takes chol and cho_solve from here and splits the rest
-// of its stage over a thread group.  The vector pass and the rollout take the
+// kkt_sweep_c2.cu and corrector_sweep_c2.cu take chol / cho_solve from here
+// and split the rest of their stages over a thread group, keeping these
+// bodies' order of operations.  The vector pass and the rollout take the
 // input width nu as a template argument (NUC by default), so that the
 // uncondensed sweeps (riccati.cu, nu = NU) run them too.
 //
@@ -42,10 +42,11 @@ __device__ __forceinline__ void chol(const T (&Q)[n][n], T* L) {
   }
 }
 
-// Solve (L L^T) x = y in place, packed L, reciprocal-diagonal
-// substitution (condensed_kernels._cho_solve_n_vec).
-template <typename T, int n>
-__device__ __forceinline__ void cho_solve(const T* L, T* y) {
+// Solve (L L^T) x = y in place, packed L (an array, or a view indexed the
+// same way), reciprocal-diagonal substitution
+// (condensed_kernels._cho_solve_n_vec).
+template <typename T, int n, typename VL>
+__device__ __forceinline__ void cho_solve(const VL& L, T* y) {
   T inv[n];
 #pragma unroll
   for (int i = 0; i < n; ++i) inv[i] = T(1) / L[pk(i, i, n)];
@@ -214,7 +215,7 @@ __device__ __forceinline__ void factor_stage(
 // One stage of the backward vector pass on the stored factorization
 // (K, L, Pc of stage k): m = p + Pc, Qu = r + B'm, kff = -Quu^{-1} Qu,
 // p <- q + A'm + K'Qu.  r as in factor_stage; A, B, K, Pc and L are lane
-// views (LaneRef, or LaneLd for the compressed streams).
+// views.
 template <typename T, int nu = NUC, typename VA, typename VB, typename VK,
           typename VP, typename VL, typename V>
 __device__ __forceinline__ void vec_stage(
@@ -309,17 +310,13 @@ __device__ __forceinline__ void factor_sweep(
   }
 }
 
-// The whole backward vector pass from p = pterm: kff of every stage
-// (corrector_sweep_c2 parks it in its du output).  The stage stream A/B
-// (type TA; DEV: A deviation-coded) and the factorization K/L/Pc (type TG)
-// may be stored bf16 (the compressed forms); they are read as T.
-template <typename T, int nu = NUC, bool DEV = false, typename TA,
-          typename TG>
+// The whole backward vector pass from p = pterm: kff of every stage.
+template <typename T, int nu = NUC>
 __device__ __forceinline__ void vec_sweep(
-    const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
+    const T* __restrict__ Abar, const T* __restrict__ Bbar,
     const T* __restrict__ qx, const T* __restrict__ ru,
-    const TG* __restrict__ K, const TG* __restrict__ L,
-    const TG* __restrict__ Pc, const T* __restrict__ pterm,
+    const T* __restrict__ K, const T* __restrict__ L,
+    const T* __restrict__ Pc, const T* __restrict__ pterm,
     T* __restrict__ kff, int M, int B, int b) {
   T p[NX];
   {
@@ -329,11 +326,10 @@ __device__ __forceinline__ void vec_sweep(
   }
 #pragma unroll 1
   for (int k = M - 1; k >= 0; --k)
-    vec_stage<T, nu>(in_lane<T, DEV>(Abar, NX * NX, k, B, b),
-                     in_lane<T>(Bbar, NX * nu, k, B, b),
-                     in_lane<T>(K, nu * NX, k, B, b),
-                     in_lane<T>(Pc, NX, k, B, b),
-                     in_lane<T>(L, nu * (nu + 1) / 2, k, B, b),
+    vec_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
+                     lane(Bbar, NX * nu, k, B, b),
+                     lane(K, nu * NX, k, B, b), lane(Pc, NX, k, B, b),
+                     lane(L, nu * (nu + 1) / 2, k, B, b),
                      lane(qx, NX, k, B, b), lane(ru, nu, k, B, b), p,
                      lane(kff, nu, k, B, b));
 }
@@ -341,13 +337,11 @@ __device__ __forceinline__ void vec_sweep(
 // Forward rollout over the horizon from dx0: du_k = K_k dx_k + kff_k,
 // dx_{k+1} = A dx + B du + c; dx holds M+1 states (the terminal last).
 // kff may alias du (each stage reads its kff before writing its du).
-// A/B/c (type TA, DEV) and K (type TK) may be stored bf16, as in vec_sweep.
-template <typename T, int nu = NUC, bool DEV = false, typename TA,
-          typename TK>
-__device__ __forceinline__ void rollout(const TA* __restrict__ Abar,
-                                        const TA* __restrict__ Bbar,
-                                        const TA* __restrict__ cbar,
-                                        const TK* __restrict__ K,
+template <typename T, int nu = NUC>
+__device__ __forceinline__ void rollout(const T* __restrict__ Abar,
+                                        const T* __restrict__ Bbar,
+                                        const T* __restrict__ cbar,
+                                        const T* __restrict__ K,
                                         const T* kff,
                                         const T* __restrict__ dx0,
                                         T* __restrict__ dx, T* du, int M,
@@ -359,10 +353,9 @@ __device__ __forceinline__ void rollout(const TA* __restrict__ Abar,
 #pragma unroll 1
   for (int k = 0; k < M; ++k) {
     T u[nu], xn[NX];
-    rollout_stage<T, nu>(in_lane<T, DEV>(Abar, NX * NX, k, B, b),
-                         in_lane<T>(Bbar, NX * nu, k, B, b),
-                         in_lane<T>(cbar, NX, k, B, b),
-                         in_lane<T>(K, nu * NX, k, B, b),
+    rollout_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
+                         lane(Bbar, NX * nu, k, B, b),
+                         lane(cbar, NX, k, B, b), lane(K, nu * NX, k, B, b),
                          lane(kff, nu, k, B, b), x, u, xn);
     auto dxk = lane(dx, NX, k, B, b);
     auto duk = lane(du, nu, k, B, b);

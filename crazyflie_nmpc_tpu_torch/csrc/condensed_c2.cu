@@ -3,18 +3,15 @@
 //
 // Replaces, in crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:
 //   condense2          (_condense2_kernel)      -> condense2_kernel
-//   corrector_sweep_c2 (_corr_c2_kernel)        -> corrector_sweep_c2_kernel
-//   and its compressed-stream forms (bf16 K/L/Pc; a_dev=True with bf16
-//   Abar - I, Bbar, cbar; _ld, _ld_A) -> the same kernel instantiated on
-//   the stored types (the *_g, *_a, *_ga entries)
 //   expand2            (_expand2_kernel, both forms: even_only=True is
 //                       stride 1, even_only=False stride 2) -> expand2_kernel
 //   kkt_sweep_c2_win / corrector_sweep_c2_win, the split long-horizon
 //   launches: _bwd_c2_kernel -> bwd_c2_kernel, _fwd_c2_kernel ->
 //   fwd_c2_kernel, _bwd_vec_c2_kernel -> bwd_vec_c2_kernel
 //
-// kkt_sweep_c2 (K2) has its own source, kkt_sweep_c2.cu: a group of
-// threads per lane with the stage state in shared memory.
+// kkt_sweep_c2 (K2) and corrector_sweep_c2 (K3) have their own sources,
+// kkt_sweep_c2.cu and corrector_sweep_c2.cu: a group of threads per lane
+// with the stage inputs in shared memory.
 //
 // Design: one thread per batch lane, as the Pallas kernels make every
 // matrix entry a (B,)-lane vector.  The sweeps are sequential over the M
@@ -23,54 +20,30 @@
 // block).  The stage bodies are c2_stage.cuh's, shared by the sweep
 // kernels.  The whole-horizon K_all/kff_all VMEM scratch of the fused TPU
 // kernels becomes device memory: the factorization writes K and kff there
-// and the rollout reads them back (the same thread, mostly from L2).  The
-// corrector parks its kff in the du output the same way.  So the fused
-// kernels need no VMEM-sized envelope here, and the split forms differ
-// from them only by the launch boundary: the split forward launch re-reads
-// the gains its backward launch wrote.  The expansion is parallel over
-// (lane, pair).
+// and the rollout reads them back (the same thread, mostly from L2).  So
+// the split forms need no VMEM-sized envelope here: the split forward
+// launch re-reads the gains its backward launch wrote.  The expansion is
+// parallel over (lane, pair).
 //
-// Bounds on the H100: per stage and lane K3 reads ~460 values and writes
-// ~20 for ~800 FMAs, bwd_c2 (K2's factorization) reads ~550 and writes
-// ~160 for ~11k FMAs: both are bytes-bound in principle.  But at the main
-// path's B (1024..8192 lanes) only B threads run, a few percent of the
-// card's resident-thread capacity, so they are bound by the latency of one
-// thread's dependent chain, not by bytes or flops.  bwd_c2's P, PA, Qux and
-// K (~550 values per thread) exceed the register file and live in local
-// memory (L1); `ptxas -v` in the build log gives the spill counts.
-// kkt_sweep_c2.cu splits a lane's stage over a group of threads; K3, K5
-// and K10 keep one thread per lane until they get the same design
-// (ROADMAP).  The compressed forms halve the bytes of the streams they
-// store in bf16, which moves the bound, not the latency that sets the
-// time.  K4 is bound by bytes (it reads Ae/Be once).  K6, like the
-// expansion parallel over (lane, pair), is bound by bytes too: per pair and
-// lane it reads ~500 values and writes ~660 for ~6k FMAs; it holds A0/B0
-// (221 values) for the cost products as K1 does.
+// Bounds on the H100: per stage and lane bwd_vec_c2 + fwd_c2 read ~850
+// values and write ~30 for ~800 FMAs, bwd_c2 (K2's factorization) reads
+// ~550 and writes ~160 for ~11k FMAs: both are bytes-bound in principle.
+// But at the main path's B (1024..8192 lanes) only B threads run, a few
+// percent of the card's resident-thread capacity, so they are bound by the
+// latency of one thread's dependent chain, not by bytes or flops.
+// bwd_c2's P, PA, Qux and K (~550 values per thread) exceed the register
+// file and live in local memory (L1); `ptxas -v` in the build log gives the
+// spill counts.  kkt_sweep_c2.cu and corrector_sweep_c2.cu split a lane's
+// stage over a group of threads; K5 and K10 keep one thread per lane until
+// they get the same design (ROADMAP).  K4 is bound by bytes (it reads Ae/Be
+// once).  K6, like the expansion parallel over (lane, pair), is bound by
+// bytes too: per pair and lane it reads ~500 values and writes ~660 for
+// ~6k FMAs; it holds A0/B0 (221 values) for the cost products as K1 does.
 #include "c2_stage.cuh"
 
 using namespace cfl;
 
 namespace {
-
-// The compressed forms read K/L/Pc (TG) and the stage stream (TA, DEV) as
-// kkt_sweep_c2 writes and takes them, upcast to T at load.
-template <typename T, typename TA = T, typename TG = T, bool DEV = false>
-__global__ void __launch_bounds__(64)
-corrector_sweep_c2_kernel(const TA* __restrict__ Abar,
-                          const TA* __restrict__ Bbar,
-                          const TA* __restrict__ cbar,
-                          const T* __restrict__ qx, const T* __restrict__ ru,
-                          const TG* __restrict__ K, const TG* __restrict__ L,
-                          const TG* __restrict__ Pc,
-                          const T* __restrict__ pterm,
-                          const T* __restrict__ dx0, T* dx, T* du, int M,
-                          int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // backward vector pass on the stored factorization; kff parks in du
-  vec_sweep<T, NUC, DEV>(Abar, Bbar, qx, ru, K, L, Pc, pterm, du, M, B, b);
-  rollout<T, NUC, DEV>(Abar, Bbar, cbar, K, du, dx0, dx, du, M, B, b);
-}
 
 // The split forms: the backward factorization, the vector pass and the
 // rollout, each its own launch; gains travel through device memory.
@@ -285,15 +258,6 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 }  // namespace
 
 #define C2_ENTRIES(SUFFIX, T)                                                 \
-  extern "C" int corrector_sweep_c2_##SUFFIX(                                 \
-      const T* Abar, const T* Bbar, const T* cbar, const T* qx, const T* ru,  \
-      const T* K, const T* L, const T* Pc, const T* pterm, const T* dx0,      \
-      T* dx, T* du, int M, int B, void* stream) {                             \
-    corrector_sweep_c2_kernel<T><<<lanes_grid(B), 64, 0,                      \
-                                   as_stream(stream)>>>(                      \
-        Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0, dx, du, M, B);        \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
   extern "C" int bwd_c2_##SUFFIX(                                             \
       const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
       const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
@@ -341,25 +305,3 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 
 C2_ENTRIES(f32, float)
 C2_ENTRIES(f64, double)
-
-// The compressed forms of corrector_sweep_c2, FORM in the symbol: _g bf16
-// gains (K, L, Pc), _a the deviation-coded bf16 stage stream (Abar - I,
-// Bbar, cbar), _ga both.
-#define C2_COMPRESSED_ENTRIES(FORM, SUFFIX, T, TA, TG, DEV)                   \
-  extern "C" int corrector_sweep_c2##FORM##_##SUFFIX(                         \
-      const TA* Abar, const TA* Bbar, const TA* cbar, const T* qx,            \
-      const T* ru, const TG* K, const TG* L, const TG* Pc, const T* pterm,    \
-      const T* dx0, T* dx, T* du, int M, int B, void* stream) {               \
-    corrector_sweep_c2_kernel<T, TA, TG, DEV>                                 \
-        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(                        \
-            Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0, dx, du, M, B);    \
-    return static_cast<int>(cudaGetLastError());                              \
-  }
-
-using bf16 = __nv_bfloat16;
-C2_COMPRESSED_ENTRIES(_g, f32, float, float, bf16, false)
-C2_COMPRESSED_ENTRIES(_g, f64, double, double, bf16, false)
-C2_COMPRESSED_ENTRIES(_a, f32, float, bf16, float, true)
-C2_COMPRESSED_ENTRIES(_a, f64, double, bf16, double, true)
-C2_COMPRESSED_ENTRIES(_ga, f32, float, bf16, bf16, true)
-C2_COMPRESSED_ENTRIES(_ga, f64, double, bf16, bf16, true)

@@ -28,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("prep_condense2.cu", "prep_sweep.cu", "kkt_sweep_c2.cu",
-           "condensed_c2.cu", "iter_c2.cu", "riccati.cu", "sol_probes.cu")
+           "corrector_sweep_c2.cu", "condensed_c2.cu", "iter_c2.cu",
+           "riccati.cu", "sol_probes.cu")
 HEADERS = ("batch_last.cuh", "c2_stage.cuh", "prep_stage.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -7,10 +7,11 @@ Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
 long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
 kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
 iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
-`csrc/kkt_sweep_c2.cu` (K2, a group of threads per lane: its launch shape
-is `kkt_launch_geometry`'s), `csrc/condensed_c2.cu` or `csrc/iter_c2.cu`
-for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
-tensors.
+`csrc/kkt_sweep_c2.cu` (K2) or `csrc/corrector_sweep_c2.cu` (K3), a group
+of threads per lane each (their launch shapes are `kkt_launch_geometry`'s
+and `corr_launch_geometry`'s), `csrc/condensed_c2.cu` or
+`csrc/iter_c2.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
+version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -50,6 +51,12 @@ KKT_GROUP = 16
 KKT_THREADS = 128
 KKT_LANES = KKT_THREADS // KKT_GROUP
 KKT_LANE_VALUES = 1548
+# K3's, from csrc/corrector_sweep_c2.cu in the same way
+_CORR_SOURCE = "corrector_sweep_c2.cu"
+CORR_GROUP = 16
+CORR_THREADS = 256
+CORR_LANES = CORR_THREADS // CORR_GROUP
+CORR_LANE_VALUES = 996
 # a block's shared memory on the H100 without the opt-in attribute
 SMEM_DEFAULT = 48 * 1024
 _ITER_SOURCE = "iter_c2.cu"
@@ -399,30 +406,53 @@ def _empty(like, *shape):
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
+def _group_geometry(B, dtype, lanes, threads, lane_values):
+    """The launch of a group kernel at B lanes of `dtype` (float32 or
+    float64): `grid` blocks of `threads` threads, `lanes` consecutive lanes
+    a block (block i takes lanes [i lanes, (i + 1) lanes) below B), `smem`
+    bytes of dynamic shared memory a block (`lane_values` values of the
+    dtype a lane), and `opt_in`: whether that exceeds SMEM_DEFAULT, so the
+    kernel's launch sets the opt-in attribute."""
+    smem = lanes * lane_values * torch.finfo(dtype).bits // 8
+    return dict(grid=math.ceil(B / lanes), threads=threads, lanes=lanes,
+                smem=smem, opt_in=smem > SMEM_DEFAULT)
+
+
 def kkt_launch_geometry(B: int, dtype) -> dict:
-    """K2's launch at B lanes of `dtype` (float32 or float64): `grid`
-    blocks of `threads` threads, `lanes` consecutive lanes a block (block
-    i takes lanes [i lanes, (i + 1) lanes) below B), `smem` bytes of
-    dynamic shared memory a block, and `opt_in`: whether that exceeds
-    SMEM_DEFAULT, so the kernel's launch sets the opt-in attribute."""
-    smem = KKT_LANES * KKT_LANE_VALUES * torch.finfo(dtype).bits // 8
-    return dict(grid=math.ceil(B / KKT_LANES), threads=KKT_THREADS,
-                lanes=KKT_LANES, smem=smem, opt_in=smem > SMEM_DEFAULT)
+    """K2's launch at B lanes of `dtype` (`_group_geometry`)."""
+    return _group_geometry(B, dtype, KKT_LANES, KKT_THREADS, KKT_LANE_VALUES)
 
 
-def kkt_blocks_per_sm(dtype=torch.float32) -> int:
-    """K2's resident blocks per SM (KKT_LANES lanes each), from the CUDA
-    occupancy API for its registers and shared memory (builds the kernel
-    first)."""
+def corr_launch_geometry(B: int, dtype) -> dict:
+    """K3's launch at B lanes of `dtype` (`_group_geometry`)."""
+    return _group_geometry(B, dtype, CORR_LANES, CORR_THREADS,
+                           CORR_LANE_VALUES)
+
+
+def _blocks_per_sm(source, symbol, dtype):
+    """Resident blocks per SM of the kernel behind `symbol`_f32/_f64 in
+    `source`, from the CUDA occupancy API for its registers and shared
+    memory (builds the kernel first)."""
     sfx = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(_build.load(_KKT_SOURCE), f"kkt_sweep_c2_occupancy_{sfx}")
+    fn = getattr(_build.load(source), f"{symbol}_{sfx}")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     err = fn(ctypes.byref(blocks))
     if err != 0:
-        raise RuntimeError(f"kkt_sweep_c2 occupancy: CUDA error {err}")
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
     return blocks.value
+
+
+def kkt_blocks_per_sm(dtype=torch.float32) -> int:
+    """K2's resident blocks per SM (KKT_LANES lanes each)."""
+    return _blocks_per_sm(_KKT_SOURCE, "kkt_sweep_c2_occupancy", dtype)
+
+
+def corr_blocks_per_sm(dtype=torch.float32) -> int:
+    """K3's resident blocks per SM (CORR_LANES lanes each)."""
+    return _blocks_per_sm(_CORR_SOURCE, "corrector_sweep_c2_occupancy",
+                          dtype)
 
 
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
@@ -478,9 +508,11 @@ def corrector_sweep_c2(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0,
                                       p_term, dx0, a_dev)
     M, B = Abar.shape[0], Abar.shape[-1]
     outs = (_empty(qx, M + 1, NX, B), _empty(qx, M, NUC, B))
-    _launch(corrector_sweep_c2, _SOURCE, dict(
+    geo = corr_launch_geometry(B, qx.dtype)
+    _build.run(corrector_sweep_c2, _CORR_SOURCE, dict(
         Abar=Abar, Bbar=Bbar, cbar=cbar, qx=qx, ru=ru, K=K, L=L, Pc=Pc,
-        p_term=p_term, dx0=dx0), outs, form=form,
+        p_term=p_term, dx0=dx0), outs, _shapes(M, B),
+        [M, B, geo["grid"], geo["threads"], geo["smem"]], form=form,
         bf16=bf16 + _GAINS * gains)
     return outs
 

@@ -20,8 +20,9 @@ section, at N=50 (M=25 condensed stages), float32:
      checked to grow with `reps` (the compiler kept every product and
      stage);
   6. the speed-of-light table of K2 and K3: bytes per launch, the bound at
-     the measured bandwidth, the issue floor, SoL = max of the two, the
-     measured time and the gap; and K2 against P2's one-thread floor.
+     the measured bandwidth (their SoL: both run a group of threads per
+     lane), the measured time and the gap; beside it the floor of a
+     one-thread-per-lane kernel (K2: P2's replay; K3: its issue floor).
 
 Runs on the CUDA device only: without one it exits 1.  Times are CUDA
 events around a chained window (median over rounds of its mean).  Not
@@ -43,13 +44,15 @@ How the TPU formulas carry over:
     study prints its time against the one-thread floor beside it (below
     1: the group shortened the chain that bounds any one-thread K2).
   * issue floor of K3: CORR_MACS_PER_STAGE x M x B multiply-adds at P1's
-    rate measured at the same B.
+    rate measured at the same B, the floor of a K3 with one thread per
+    lane (P1 runs one); csrc/corrector_sweep_c2.cu splits a lane's stage
+    over a group as K2 does, so its SoL is its bytes bound too.
   * bytes: what the port's kernels read and write (csrc/kkt_sweep_c2.cu,
-    csrc/condensed_c2.cu), not the TPU BlockSpecs: K2's rollout re-reads the stage stream and its
-    own K and kff outputs (which stand in for the Pallas kernel's VMEM
-    K_all), K3 reads the stage stream in both passes and parks kff in its
-    du output.  The MAC counts are the JAX tool's: the arithmetic is the
-    same.
+    csrc/corrector_sweep_c2.cu), not the TPU BlockSpecs: K2's rollout
+    re-reads the stage stream and its own K and kff outputs (which stand
+    in for the Pallas kernel's VMEM K_all), K3 reads the stage stream in
+    both passes and parks kff in its du output.  The MAC counts are the
+    JAX tool's: the arithmetic is the same.
 """
 
 from __future__ import annotations
@@ -385,29 +388,33 @@ def study(batch=4096, device=None, log=print):
     log(f"=== speed-of-light table (M={M}, B={B}, float32; bandwidth "
         f"{bw:.0f} GB/s measured) ===")
     log(f"{'kernel':<20}{'bytes/launch':>14}{'BW bound':>11}"
-        f"{'@3.35TB/s':>11}{'issue floor':>13}{'SoL=max':>10}"
+        f"{'@3.35TB/s':>11}{'1-thread floor':>16}{'SoL=BW':>10}"
         f"{'measured':>10}{'gap':>7}")
-    # K2 runs a group of threads per lane: it has no measured issue floor
-    # (None), P2's is the one-thread floor beside it
-    for name, nbytes, tis, tm in (("kkt_sweep_c2", kb, None, t["kkt"]),
-                                  ("corrector_sweep_c2", cb, t_corr_issue,
-                                   t["corr"])):
+    # both run a group of threads per lane: SoL is the bytes bound, and the
+    # floor of a one-thread-per-lane kernel stands beside it (K2: P2's
+    # replay; K3: its multiply-adds at P1's rate)
+    for name, nbytes, floor, tm in (("kkt_sweep_c2", kb, t_one_thread,
+                                     t["kkt"]),
+                                    ("corrector_sweep_c2", cb, t_corr_issue,
+                                     t["corr"])):
         tbw = nbytes / (bw * 1e9) * 1e3
         sheet = nbytes / HBM_BYTES_PER_S * 1e3
-        sol = max(tbw, tis or 0.0)
         rows[name] = dict(bytes=nbytes, bw_ms=tbw, sheet_ms=sheet,
-                          issue_ms=tis, sol_ms=sol, ms=tm, gap=tm / sol)
-        floor = "not measured" if tis is None else f"{tis:.4f}ms"
+                          one_thread_ms=floor, sol_ms=tbw, ms=tm,
+                          gap=tm / tbw, vs_one_thread=tm / floor)
         log(f"{name:<20}{nbytes / 1e6:>11.1f} MB{tbw:>9.4f}ms"
-            f"{sheet:>9.4f}ms{floor:>13}{sol:>8.4f}ms{tm:>8.4f}ms"
-            f"{tm / sol:>7.2f}")
-    rows["kkt_sweep_c2"].update(one_thread_ms=t_one_thread,
-                                vs_one_thread=t["kkt"] / t_one_thread)
+            f"{sheet:>9.4f}ms{floor:>14.4f}ms{tbw:>8.4f}ms{tm:>8.4f}ms"
+            f"{tm / tbw:>7.2f}")
     log(f"kkt_sweep_c2 against the one-thread floor (P2 "
         f"{rep['us_per_stage']:.2f} us/stage x M={M} x {nw} wave(s)): "
         f"{t_one_thread:.4f} ms; measured / floor "
         f"{t['kkt'] / t_one_thread:.3f} (below 1: shorter than any "
         f"one-thread-per-lane K2)")
+    log(f"corrector_sweep_c2 against the one-thread issue floor "
+        f"({CORR_MACS_PER_STAGE} multiply-adds a stage x M={M} x B={B} at "
+        f"P1's {fma[B]['mac_per_s'] / 1e12:.3f} T MAC/s): "
+        f"{t_corr_issue:.4f} ms; measured / floor "
+        f"{t['corr'] / t_corr_issue:.3f}")
     return dict(B=B, sms=sms, sweeps=t, steps=steps, bandwidth_gbs=bw,
                 fma=fma, bmm=bmm, b_fill=b_fill, replay=rep, waves=nw,
                 table=rows)

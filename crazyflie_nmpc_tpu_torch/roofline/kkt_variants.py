@@ -1,21 +1,31 @@
-"""K2 `kkt_sweep_c2` in variants on the card: its group size, its dot
-products, and the parts of its stage cut out one at a time.
+"""K2 `kkt_sweep_c2` or K3 `corrector_sweep_c2` in variants on the card:
+the group size, and the parts of a stage cut out one at a time.
 
-    python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants
+    python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
+        [--kernel kkt_sweep_c2|corrector_sweep_c2]
 
-Each variant is `csrc/kkt_sweep_c2.cu` with one edit (`VARIANTS`): G = 8
-or 32 threads per lane (128 threads a block, so 16 or 4 lanes), the dot
-products on two accumulators, or one part of the stage removed (the
-backward pass's loads, its phases A-D, its stores, the rollout).  Every
+Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`,
+`csrc/corrector_sweep_c2.cu`) with one edit (`VARIANTS`, `CORR_VARIANTS`).
+K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
+the dot products on two accumulators, or one part of the stage removed
+(the backward pass's loads, its phases A-D, its stores, the rollout). K3:
+G = 8, or one part removed (the vector pass's loads, Qu, the kff solve,
+the p update, the rollout), 128 threads a block (8 lanes), or
+`__launch_bounds__` asking float32 for the 3 blocks an SM its shared
+memory allows instead of 2 (80 registers a thread instead of 128). Every
 variant is built with the port's nvcc flags into
 `build/torch_kernels/variants/`, launched through its float32 entry point
 at its own launch shape, and timed with CUDA events at B = 1024, 4096 and
-8192 (N=50, the study's condensed data), all variants in turn and then in
-reverse order; the unedited kernel runs among them.  The variants that
-compute the whole stage are also held against the plain version at
-B=1024 (relative 1e-4, as `chip_smoke.py`); the cut ones compute garbage
-and are only timed.  What a part costs is the kernel's time less the time
-without it.  Runs on the CUDA device only: without one it exits 1.
+8192 (N=50, the study's condensed data; K3 on K2's factorization of it),
+all variants in turn and then in reverse order; the unedited kernel runs
+among them. The variants that compute the whole stage are also held
+against the plain version at B=1024 (relative 1e-4, as `chip_smoke.py`);
+the cut ones compute garbage and are only timed. What a part costs is the
+kernel's time less the time without it.
+`--baseline DIR` adds the kernel's source as it stands in another
+checkout's `csrc` (with that checkout's headers; say the parent commit,
+unpacked with `git archive`) as the variant "baseline", timed and checked
+among the others.  Runs on the CUDA device only: without one it exits 1.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -42,10 +53,11 @@ _LAUNCH = ("template <typename T, typename TA, typename TG, bool DEV>\n"
 
 
 def _cut(start, end, keep=""):
-    """An edit removing the source between the markers `start` (included)
-    and `end` (kept), leaving `keep` in its place."""
+    """An edit removing the source between the marker `start` (included)
+    and the first `end` after it (kept), leaving `keep` in its place."""
     def edit(src):
-        a, b = src.index(start), src.index(end)
+        a = src.index(start)
+        b = src.index(end, a)
         return src[:a] + keep + src[b:]
     return edit
 
@@ -68,50 +80,103 @@ _DOT2 = """  T s[2] = {x[0] * y[0], x[1] * y[1]};
   for (int i = 2; i < n; ++i) s[i % 2] = s[i % 2] + x[i] * y[i];
   return s[0] + s[1];"""
 
-# name: (threads per lane, edit of the source or None)
+def _then(*edits):
+    """The edits applied in turn."""
+    def edit(src):
+        for e in edits:
+            src = e(src)
+        return src
+    return edit
+
+
+_G8 = _replace("constexpr int kGroup = 16;", "constexpr int kGroup = 8;")
+
+# name: edit of the source, or None (the group size and block size of each
+# variant are its source's kGroup and kThreads)
 VARIANTS = {
-    "kernel": (16, None),
-    "G=8": (8, _replace("constexpr int kGroup = 16;",
-                        "constexpr int kGroup = 8;")),
-    "G=32": (32, _replace("constexpr int kGroup = 16;",
-                          "constexpr int kGroup = 32;")),
-    "two accumulators": (16, _replace(_DOT, _DOT2)),
-    "no backward loads": (16, _cut(
-        "    stage_in<T, DEV, NX, RW>(sh, AT, Abar", "    copy_wait();")),
-    "no phase A": (16, _cut("    // P [A | B | c]", "    // B' times",
-                            _BARRIER)),
-    "no phase B": (16, _cut("    // B' times", "    // L = chol(Quu)",
-                            _BARRIER)),
-    "no phase C": (16, _cut("    // L = chol(Quu)",
-                            "    // the stage's gains out", _BARRIER)),
-    "no stores": (16, _cut("    // the stage's gains out",
-                           "    // X = Qbar + A'PA")),
-    "no phase D": (16, _cut("    // X = Qbar + A'PA", "  }\n\n" + _ROLLOUT)),
-    "no rollout": (16, _cut(_ROLLOUT, _LAUNCH, "}\n\n")),
+    "kernel": None,
+    "G=8": _G8,
+    "G=32": _replace("constexpr int kGroup = 16;",
+                     "constexpr int kGroup = 32;"),
+    "two accumulators": _replace(_DOT, _DOT2),
+    "no backward loads": _cut("    stage_in<T, DEV, NX, RW>(sh, AT, Abar",
+                              "    copy_wait();"),
+    "no phase A": _cut("    // P [A | B | c]", "    // B' times", _BARRIER),
+    "no phase B": _cut("    // B' times", "    // L = chol(Quu)", _BARRIER),
+    "no phase C": _cut("    // L = chol(Quu)", "    // the stage's gains out",
+                       _BARRIER),
+    "no stores": _cut("    // the stage's gains out",
+                      "    // X = Qbar + A'PA"),
+    "no phase D": _cut("    // X = Qbar + A'PA", "  }\n\n" + _ROLLOUT),
+    "no rollout": _cut(_ROLLOUT, _LAUNCH, "}\n\n"),
+}
+
+# K3's, on csrc/corrector_sweep_c2.cu
+_CORR_TURN = "    cp_wait();         // stage k-1's inputs have landed"
+_BLOCKS = "  return std::min(2, (227 * 1024) / smem_bytes<T>());"
+CORR_VARIANTS = {
+    "kernel": None,
+    "G=8": _G8,
+    "128 threads": _replace("constexpr int kThreads = 256;",
+                            "constexpr int kThreads = 128;"),
+    "no vector-pass loads": _cut("    if (k > 0)\n      vec_in(k - 1);",
+                                 "    const TA* const As"),
+    "no Qu": _cut("      if (t < NUC) {\n        T m[NX];",
+                  "    }\n    __syncthreads();\n\n"
+                  "    // vector-pass p update"),
+    "no kff solve": _cut("    // vector-pass kff solve", _CORR_TURN),
+    "no p update": _cut("    // vector-pass p update",
+                        "    // vector-pass kff solve"),
+    "no rollout": _cut(_ROLLOUT, _LAUNCH, "}\n\n"),
+    "3 blocks an SM": _replace(_BLOCKS, _BLOCKS.replace("2,", "3,")),
+}
+
+# kernel: (source, variants, mangled name of its float32 exact form)
+KERNELS = {
+    "kkt_sweep_c2": (_SOURCE, VARIANTS, "kkt_sweep_c2_kernelIfffLb0E"),
+    "corrector_sweep_c2": ("corrector_sweep_c2.cu", CORR_VARIANTS,
+                           "corrector_sweep_c2_kernelIfffLb0E"),
 }
 
 
-def sources() -> dict:
-    """{variant name: its source text}."""
-    src = (_build.CSRC / _SOURCE).read_text()
+def sources(kernel="kkt_sweep_c2") -> dict:
+    """{variant name: its source text} of `kernel`."""
+    source, variants, _ = KERNELS[kernel]
+    src = (_build.CSRC / source).read_text()
     return {name: edit(src) if edit else src
-            for name, (_, edit) in VARIANTS.items()}
+            for name, edit in variants.items()}
 
 
-def _stem(name):
-    return "kkt_" + re.sub(r"\W+", "_", name).strip("_")
+def shape(text) -> tuple:
+    """(threads per lane, threads a block) of a variant's source text."""
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               text).group(1))
+                 for name in ("kGroup", "kThreads"))
 
 
-def build(texts) -> dict:
-    """Compile every variant at once; {name: (library, ptxas lines of its
-    float32 exact-form instance)}."""
+def _stem(kernel, name):
+    return f"{kernel}_" + re.sub(r"\W+", "_", name).strip("_")
+
+
+def build(texts, kernel="kkt_sweep_c2", baseline=None) -> dict:
+    """Compile every variant at once (and the kernel's source in the `csrc`
+    directory `baseline`, with its headers, as "baseline"); {name:
+    (library, ptxas lines of its float32 exact-form instance)}."""
+    source, _, mangled = KERNELS[kernel]
     out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for h in _build.HEADERS:
-        shutil.copy(_build.CSRC / h, out_dir / h)
+    dirs = {name: out_dir for name in texts}
+    if baseline is not None:
+        texts = dict(texts, baseline=(Path(baseline) / source).read_text())
+        dirs["baseline"] = out_dir / "baseline"
+    for d, csrc in ((out_dir, _build.CSRC),
+                    (out_dir / "baseline", baseline)):
+        if csrc is not None:
+            d.mkdir(parents=True, exist_ok=True)
+            for h in Path(csrc).glob("*.cuh"):
+                shutil.copy(h, d / h.name)
     jobs = {}
     for name, text in texts.items():
-        cu = out_dir / f"{_stem(name)}.cu"
+        cu = dirs[name] / f"{_stem(kernel, name)}.cu"
         cu.write_text(text)
         lib = cu.with_suffix(".so")
         jobs[name] = (lib, subprocess.Popen(
@@ -125,31 +190,37 @@ def build(texts) -> dict:
         lines, on = [], False
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                on = "kkt_sweep_c2_kernelIfffLb0E" in line
+                on = mangled in line
             elif on and ("spill" in line or "Used " in line):
                 lines.append(line.split(":", 1)[-1].strip())
         built[name] = (ctypes.CDLL(str(lib)), lines)
     return built
 
 
-def launcher(lib, group):
+def launcher(lib, group, threads, kernel="kkt_sweep_c2"):
     """f(args) -> outputs: the variant's float32 exact form on the sweep's
-    12 inputs, at its own launch shape."""
-    fn = lib.kkt_sweep_c2_f32
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
+    inputs (K2's 12, K3's 10), at its own launch shape (`group` threads a
+    lane, `threads` a block)."""
+    fn = getattr(lib, f"{kernel}_f32")
+    if kernel == "kkt_sweep_c2":
+        n_ptr, values = 18, ck.KKT_LANE_VALUES
+        shapes = lambda M, B: ((M, ck.NUC, ck.NX, B), (M, ck.NUC, B),  # noqa
+                               (M, ck.NLC, B), (M, ck.NX, B),
+                               (M + 1, ck.NX, B), (M, ck.NUC, B))
+    else:
+        n_ptr, values = 12, ck.CORR_LANE_VALUES
+        shapes = lambda M, B: ((M + 1, ck.NX, B), (M, ck.NUC, B))  # noqa
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lanes = ck.KKT_THREADS // group
+    lanes = threads // group
 
     def run(args):
         M, B = args[0].shape[0], args[0].shape[-1]
         outs = tuple(torch.empty(s, dtype=torch.float32, device=args[0].device)
-                     for s in ((M, ck.NUC, ck.NX, B), (M, ck.NUC, B),
-                               (M, ck.NLC, B), (M, ck.NX, B),
-                               (M + 1, ck.NX, B), (M, ck.NUC, B)))
+                     for s in shapes(M, B))
         err = fn(*[t.data_ptr() for t in (*args, *outs)], M, B,
-                 math.ceil(B / lanes), ck.KKT_THREADS,
-                 lanes * ck.KKT_LANE_VALUES * 4,
+                 math.ceil(B / lanes), threads, lanes * values * 4,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"kkt_variants: CUDA error {err}")
@@ -163,33 +234,48 @@ def rel_err(got, want):
                / max(1.0, float(w.abs().max())) for g, w in zip(got, want))
 
 
-def study(device=None, log=print) -> dict:
-    """Build, check and time every variant; returns {name: {B: [ms, ms]}}.
-    Raises RuntimeError when a whole-stage variant disagrees with the
-    plain version."""
+def study(device=None, log=print, kernel="kkt_sweep_c2",
+          baseline=None) -> dict:
+    """Build, check and time every variant of `kernel` (and `baseline`, as
+    `build`); returns {name: {B: [ms, ms]}}.  Raises RuntimeError when a
+    whole-stage variant disagrees with the plain version."""
     from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
 
     device = torch.device(device or "cuda")
-    built = build(sources())
+    texts = sources(kernel)
+    shapes = {name: shape(text) for name, text in texts.items()}
+    if baseline is not None:
+        shapes["baseline"] = shape(
+            (Path(baseline) / KERNELS[kernel][0]).read_text())
+    built = build(texts, kernel, baseline)
     for name, (_, lines) in built.items():
-        log(f"ptxas {name}: " + "; ".join(lines))
-    runs = {name: launcher(lib, VARIANTS[name][0])
+        log(f"ptxas {kernel} {name}: " + "; ".join(lines))
+    runs = {name: launcher(lib, *shapes[name], kernel)
             for name, (lib, _) in built.items()}
     data = {}
     for B in BATCHES:
         d = condensed_data(B, device)
         c = d["cnd"]
-        data[B] = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"],
-                   c["R00"], c["qbar"], d["ruu"], c["rbar"], d["pT"],
-                   d["p_term"], d["dx0"])
-    want = ck.kkt_sweep_c2_ref(*data[BATCHES[0]])
+        k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"],
+              c["R00"], c["qbar"], d["ruu"], c["rbar"], d["pT"],
+              d["p_term"], d["dx0"])
+        if kernel == "kkt_sweep_c2":
+            data[B] = k2
+        else:
+            K, _, L, Pc, _, _ = ck.kkt_sweep_c2_ref(*k2)
+            data[B] = (c["Abar"], c["Bbar"], c["cbar"], c["qbar"],
+                       c["rbar"], K, L, Pc, d["p_term"], d["dx0"])
+    ref = (ck.kkt_sweep_c2_ref if kernel == "kkt_sweep_c2"
+           else ck.corrector_sweep_c2_ref)
+    want = ref(*data[BATCHES[0]])
     for name, run in runs.items():
         if not name.startswith("no "):
             e = rel_err(run(data[BATCHES[0]]), want)
-            log(f"{name}: rel err {e:.3e} against the plain version at "
-                f"B={BATCHES[0]}")
+            log(f"{kernel} {name}: rel err {e:.3e} against the plain version "
+                f"at B={BATCHES[0]}")
             if not e <= 1e-4:
-                raise RuntimeError(f"kkt_variants: {name} disagrees ({e})")
+                raise RuntimeError(f"kkt_variants: {kernel} {name} "
+                                   f"disagrees ({e})")
     times = {name: {B: [] for B in BATCHES} for name in runs}
     order = list(runs) + list(runs)[::-1]
     for name in order:
@@ -197,21 +283,26 @@ def study(device=None, log=print) -> dict:
             times[name][B].append(time_events(
                 lambda: runs[name](data[B]), 20, rounds=3))
     for name, by_b in times.items():
-        log(f"{name}: " + ", ".join(
+        log(f"{kernel} {name}: " + ", ".join(
             f"B={B} " + " / ".join(f"{ms:.4f}" for ms in t) + " ms"
             for B, t in by_b.items()))
     return times
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=tuple(KERNELS),
+                    default="kkt_sweep_c2")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a csrc directory whose copy of the kernel's "
+                         "source runs as the variant 'baseline'")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kkt_variants: no CUDA device (the variants run on the card)",
               file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}")
-    study()
+    study(kernel=args.kernel, baseline=args.baseline)
     return 0
 
 

@@ -61,29 +61,26 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol, n):
 
 K2_FORMS = ("kkt_sweep_c2", "kkt_sweep_c2 bf16 gains",
             "kkt_sweep_c2 bf16 stream", "kkt_sweep_c2 bf16 gains+stream")
+K3_FORMS = ("corrector_sweep_c2", "corrector_sweep_c2 bf16 gains",
+            "corrector_sweep_c2 bf16 stream",
+            "corrector_sweep_c2 bf16 gains+stream")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 25, 200])
-@pytest.mark.parametrize("lanes", [1, 7, 1000])
-@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
-                                        (torch.float32, 1e-4)])
-def test_kkt_sweep_c2_forms_on_card(cuda_device, dtype, tol, lanes, M):
-    """K2's group kernel, all four forms, against the plain version at a
-    partial lane tile (1, 7) and a partial last block (1000), over 1, 25
-    and 200 condensed stages.  At M=200 in float32 both evaluations drift
-    apart through the recursion, so each is held to the float64 answer
-    on the same inputs instead: the kernel's error there may be at most
-    3x the plain float32 version's (or the tolerance), chip_smoke's N=400
+def _check_forms(device, dtype, tol, lanes, M, name, labels):
+    """Each form in `labels` of the group kernel `name` against the plain
+    version, one launch each.  At M=200 in float32 both evaluations drift
+    apart through the recursion, so each is held to the float64 answer on
+    the same inputs instead: the kernel's error there may be at most 3x
+    the plain float32 version's (or the tolerance), chip_smoke's N=400
     rule."""
     import chip_smoke
 
-    inputs = chip_smoke.kernel_inputs(lanes, dtype, cuda_device, n=2 * M)
-    for label in K2_FORMS:
+    inputs = chip_smoke.kernel_inputs(lanes, dtype, device, n=2 * M)
+    for label in labels:
         kern, ref, args = inputs[label]
-        before = kc.launch_counts()["kkt_sweep_c2"]
+        before = kc.launch_counts()[name]
         got = chip_smoke.flat(kern(*args))
-        assert kc.launch_counts()["kkt_sweep_c2"] == before + 1, label
+        assert kc.launch_counts()[name] == before + 1, label
         want = chip_smoke.flat(ref(*args))
         if M < 200 or dtype == torch.float64:
             _, rel = chip_smoke.compare(got, want)
@@ -94,6 +91,34 @@ def test_kkt_sweep_c2_forms_on_card(cuda_device, dtype, tol, lanes, M):
         _, e_kern = chip_smoke.compare(got, exact)
         _, e_plain = chip_smoke.compare(want, exact)
         assert e_kern <= max(tol, 3 * e_plain), (label, e_kern, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 25, 200])
+@pytest.mark.parametrize("lanes", [1, 7, 1000])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_kkt_sweep_c2_forms_on_card(cuda_device, dtype, tol, lanes, M):
+    """K2's group kernel, all four forms, against the plain version at a
+    partial lane tile (1, 7) and a partial last block (1000), over 1, 25
+    and 200 condensed stages (`_check_forms`)."""
+    _check_forms(cuda_device, dtype, tol, lanes, M, "kkt_sweep_c2",
+                 K2_FORMS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 25, 200])
+@pytest.mark.parametrize("lanes", [1, 7, 1000])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_corrector_sweep_c2_forms_on_card(cuda_device, dtype, tol, lanes, M):
+    """K3's group kernel, all four forms, against the plain version over
+    1, 25 and 200 condensed stages (`_check_forms`): at 1 and 7 lanes one
+    ragged tile (the value-by-value copies), at 1000 62 full tiles whose
+    rows are 16-byte aligned in every dtype (the 16-byte copies) and a
+    ragged one."""
+    _check_forms(cuda_device, dtype, tol, lanes, M, "corrector_sweep_c2",
+                 K3_FORMS)
 
 
 @pytest.mark.cuda

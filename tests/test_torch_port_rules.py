@@ -300,26 +300,51 @@ def test_package_exports_match_jax(package):
     assert not missing, f"{port.__name__} lacks {missing}"
 
 
-@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
-                         ids=["float32", "float64"])
-def test_kkt_launch_geometry(B, dtype):
-    """K2's launch covers every lane exactly once, fits a block's shared
-    memory, opts in above 48 KB, and uses the source's constants."""
-    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
-
-    geo = ck.kkt_launch_geometry(B, dtype)
+def _check_group_geometry(geo, B, group, source, consts):
+    """A group kernel's launch covers every lane exactly once, fits a
+    block's shared memory, opts in above 48 KB, and uses the source's
+    constants (`consts`: {name in the source: value})."""
     lanes = [blk * geo["lanes"] + i for blk in range(geo["grid"])
              for i in range(geo["lanes"])]
     assert sorted(b for b in lanes if b < B) == list(range(B))
     assert (geo["grid"] - 1) * geo["lanes"] < B      # no empty block
-    assert geo["threads"] == geo["lanes"] * ck.KKT_GROUP
+    assert geo["threads"] == geo["lanes"] * group
     assert geo["smem"] <= 232_448          # a block's most on the H100
     assert geo["smem"] <= 48 * 1024 or geo["opt_in"]
     assert geo["opt_in"] == (geo["smem"] > 48 * 1024)
-    src = (_build.CSRC / "kkt_sweep_c2.cu").read_text()
-    for const, value in (("kGroup", ck.KKT_GROUP),
-                         ("kThreads", ck.KKT_THREADS),
-                         ("kStride", ck.KKT_LANE_VALUES)):
+    src = (_build.CSRC / source).read_text()
+    for const, value in consts.items():
         assert (f"constexpr int {const} = {value};" in src
                 or f"static_assert({const} == {value}," in src), const
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_kkt_launch_geometry(B, dtype):
+    """K2's launch (`_check_group_geometry`)."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    _check_group_geometry(ck.kkt_launch_geometry(B, dtype), B, ck.KKT_GROUP,
+                          "kkt_sweep_c2.cu", {
+                              "kGroup": ck.KKT_GROUP,
+                              "kThreads": ck.KKT_THREADS,
+                              "kStride": ck.KKT_LANE_VALUES})
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_corr_launch_geometry(B, dtype):
+    """K3's launch (`_check_group_geometry`); its shared memory lets an SM
+    hold 3 blocks in float32 and 1 in float64 (with the 1 KB each block
+    reserves of the SM's 228 KB), and does not depend on M."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    geo = ck.corr_launch_geometry(B, dtype)
+    _check_group_geometry(geo, B, ck.CORR_GROUP, "corrector_sweep_c2.cu", {
+        "kGroup": ck.CORR_GROUP, "kThreads": ck.CORR_THREADS,
+        "kLaneValues": ck.CORR_LANE_VALUES})
+    blocks = {torch.float32: 3, torch.float64: 1}[dtype]
+    assert blocks * (geo["smem"] + 1024) <= 228 * 1024
+    assert 227 * 1024 // geo["smem"] == blocks

@@ -197,12 +197,15 @@ def test_study_needs_the_card(monkeypatch):
 
 
 def test_kkt_variants_edit_the_kernel_source(monkeypatch):
-    """Every K2 variant's edit applies to the kernel's source as it stands
-    and changes it (a moved marker fails here, not on the card); the tool
-    exits 1 without a card."""
-    texts = kkt_variants.sources()
-    assert set(texts) == set(kkt_variants.VARIANTS)
-    assert all(text != texts["kernel"] for name, text in texts.items()
-               if name != "kernel")
+    """Every K2 and K3 variant's edit applies to its kernel's source as it
+    stands and changes it (a moved marker fails here, not on the card);
+    the tool exits 1 without a card, for either kernel."""
+    for kernel, (_, variants, _) in kkt_variants.KERNELS.items():
+        texts = kkt_variants.sources(kernel)
+        assert set(texts) == set(variants), kernel
+        assert all(text != texts["kernel"] for name, text in texts.items()
+                   if name != "kernel"), kernel
+    assert kkt_variants.KERNELS["kkt_sweep_c2"][1] is kkt_variants.VARIANTS
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kkt_variants.main([]) == 1
+    assert kkt_variants.main(["--kernel", "corrector_sweep_c2"]) == 1
