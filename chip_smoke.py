@@ -53,10 +53,13 @@ sweeps of [long] against their plain versions at N=400 too; [split]'s
 against the fused sweeps on the same QP, [throughput_mode]'s against the
 uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
-times each kernel with CUDA events at the shapes of the path that runs it,
-times K2 and K3 (the group kernels of csrc/kkt_sweep_c2.cu and
-csrc/corrector_sweep_c2.cu, K3 in its four forms) at every B of [main]
-with their occupancy and waves, and traces a few steps of [main] (every B),
+times each kernel at the shapes of the path that runs it (its device time
+from a profiler trace of 20 launches, beside the CUDA-event window around
+them, which holds the host's issue too), times K1, K2 and K3 (the
+kernels that split a lane over several threads: csrc/prep_condense2.cu in
+both VDE orders, csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in
+their four forms) at every B of [main] with their occupancy, waves and
+bound, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
 [xla_prep] ([single] its own ticks) with torch.profiler.
 Exits non-zero if any phase fails, or when no CUDA device is present.
@@ -78,7 +81,8 @@ import time
 # the H100's published peaks and the CUDA-event timer, shared with the
 # speed-of-light study (fails outside the repo: the port is needed)
 from crazyflie_nmpc_tpu_torch.roofline import (HBM_BYTES_PER_S,
-                                               PEAK_FP32_FLOPS, time_events)
+                                               PEAK_FP32_FLOPS, device_ms,
+                                               time_events, traced_kernels)
 
 # main path: the reference OCP at full width
 N = 50
@@ -88,6 +92,8 @@ ITERS = 8
 STEPS = 20
 B_MAIN = (1024, 4096, 8192)
 B_CHECK = 1024        # kernel-vs-plain checks
+B_RAGGED = 1000       # K1's check on a ragged last tile (31 x 32 + 8)
+K1_FORMS = ("prep_condense2", "prep_condense2 vde_order=2")
 B_TIME = 4096         # per-kernel timing
 N_REF_LANES = 64      # lanes held against the CPU float64 run
 # long horizon (bench.py's N=400, tf=6.0 parity cell)
@@ -555,7 +561,8 @@ def check_bf16_rounding(outs, dn):
 
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; the uncondensed kernels (UNCONDENSED_KERNELS) at the odd
+    then float32; K1's two forms again on a ragged last tile (B_RAGGED);
+    the uncondensed kernels (UNCONDENSED_KERNELS) at the odd
     N=51 in both too; then the sweeps of the long-horizon path
     (LONG_CHECKED) at its N=400 in float64, where a fault in any of their
     200 stages shows far above rounding (phase_timing holds them in
@@ -569,13 +576,16 @@ def phase_kernels(device):
     kc.reset_launch_counts()
     errs = {}
     checked = tuple(KERNEL_INFO) + tuple(FORMS)
-    for n, dtype, labels in ((N, torch.float64, checked),
-                             (N, torch.float32, checked),
-                             (N_ODD, torch.float64, UNCONDENSED_KERNELS),
-                             (N_ODD, torch.float32, UNCONDENSED_KERNELS),
-                             (N_LONG, torch.float64, LONG_CHECKED)):
+    for n, dtype, labels, B in (
+            (N, torch.float64, checked, B_CHECK),
+            (N, torch.float32, checked, B_CHECK),
+            (N, torch.float64, K1_FORMS, B_RAGGED),
+            (N, torch.float32, K1_FORMS, B_RAGGED),
+            (N_ODD, torch.float64, UNCONDENSED_KERNELS, B_CHECK),
+            (N_ODD, torch.float32, UNCONDENSED_KERNELS, B_CHECK),
+            (N_LONG, torch.float64, LONG_CHECKED, B_CHECK)):
         dn = str(dtype).split(".")[1]
-        inputs = kernel_inputs(B_CHECK, dtype, device, n=n)
+        inputs = kernel_inputs(B, dtype, device, n=n)
         outs = {}
         for label in labels:
             name = FORMS.get(label, label)
@@ -588,17 +598,18 @@ def phase_kernels(device):
                 fail(f"{label} did not launch its kernel once")
             abs_err, rel_err = compare(got, want)
             ok = rel_err <= TOL[dn]
-            print(f"[kernel] {label} {dn} N={n} B={B_CHECK}: max abs err "
+            print(f"[kernel] {label} {dn} N={n} B={B}: max abs err "
                   f"{abs_err:.3e}, rel {rel_err:.3e} (tol {TOL[dn]:.0e}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{label} {dn} N={n} disagrees with its plain version")
             if n == N:
                 errs[(name, dn)] = max(errs.get((name, dn), 0.0), abs_err)
-        if n == N:
+        if labels is checked:
             check_bf16_rounding(outs, dn)
     print("[kernel] held against plain PyTorch in float64 and float32: "
-          + ", ".join(checked) + f"; at N={N_ODD}: "
+          + ", ".join(checked) + f"; at B={B_RAGGED}: "
+          + ", ".join(K1_FORMS) + f"; at N={N_ODD}: "
           + ", ".join(UNCONDENSED_KERNELS)
           + f"; at N={N_LONG} in float64: " + ", ".join(LONG_CHECKED))
     return errs
@@ -1249,28 +1260,13 @@ def phase_profile(label, run, steps=3):
     (the barrier algebra and layout glue, PyTorch's own), and the device
     idle time between them.  Profiling adds host overhead, so the idle
     share is an upper bound for the untraced run."""
-    import os
-    import tempfile
+    state = dict(st=run["st"])
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    st = run["st"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def steps_run():
         for _ in range(steps):
-            st, _ = run["step"](st)
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    finally:
-        os.remove(path)
-    kern = [e for e in trace.get("traceEvents", [])
-            if e.get("cat") == "kernel" and "dur" in e]
+            state["st"], _ = run["step"](state["st"])
+
+    kern = traced_kernels(steps_run)
     if not kern:
         print(f"[profile] {label}: torch.profiler recorded no device "
               f"kernels: device breakdown not measured")
@@ -1380,15 +1376,40 @@ def phase_certified(device):
           f"{ms['iters8']:.3f} ms at iters=8 without escalation")
 
 
+# the CUDA function each wrapper launches, where its name differs
+KERNEL_SYMBOLS = {"backward_sweep": "kkt_sweep"}
+
+
+def kernel_pattern(label):
+    """A regular expression that finds the CUDA function of the kernel (or
+    FORMS label) `label` in a trace's kernel names, mangled or not, and not
+    the tail of a longer name (condense2_kernel in prep_condense2_kernel)."""
+    name = FORMS.get(label, label)
+    return r"(?<![A-Za-z_])%s_kernel" % KERNEL_SYMBOLS.get(name, name)
+
+
 def time_kernel(name, kern, args, reps=20):
-    """ms per launch over `reps` launches.  iter_sweep_c2 updates its
-    carried inputs in place, so each of its launches gets a copy of its own,
-    made before the timed window: every launch starts from the same
-    iterate, as the first one does."""
-    if name != "iter_sweep_c2":
-        return time_events(lambda: kern(*args), reps)
-    copies = iter([fresh(args) for _ in range(reps + 1)])
-    return time_events(lambda: kern(*next(copies)), reps)
+    """(device ms, window ms) per launch over `reps` launches: the device
+    time of the kernel from a profiler trace (`device_ms` on the traced
+    kernels named as `kernel_pattern(name)`; None when the trace holds
+    none), and the CUDA-event window around the
+    launches, which holds the host's issue too (`time_events`).
+    iter_sweep_c2 updates its carried inputs in place, so each of its
+    launches gets a copy of its own, made before the timed window: every
+    launch starts from the same iterate, as the first one does."""
+    if name == "iter_sweep_c2":
+        def timed(timer):
+            copies = iter([fresh(args) for _ in range(reps + 1)])
+            return timer(lambda: kern(*next(copies)), reps)
+    else:
+        def timed(timer):
+            return timer(lambda: kern(*args), reps)
+    window = timed(time_events)
+    ms, per_call = timed(functools.partial(device_ms,
+                                           kernel=kernel_pattern(name)))
+    if ms is not None and per_call != 1:
+        fail(f"{name}: {per_call} device kernels a launch in the trace")
+    return ms, window
 
 
 def phase_timing(device):
@@ -1409,14 +1430,20 @@ def phase_timing(device):
                                finite=1.0)
         for name in names:
             kern, ref, args = inputs[name]
-            ms = time_kernel(name, kern, args)
+            ms, window = time_kernel(name, kern, args)
+            if ms is None:
+                print(f"[timing] {name}: the trace holds no device kernels: "
+                      f"device time not measured, the event window kept")
+                ms = window
             if name == "iter_sweep_c2":
                 mixed = kernel_inputs(B_TIME, torch.float32, device,
                                       seed=1)[name]
+                mixed_ms, mixed_window = time_kernel(name, mixed[0],
+                                                     mixed[2])
                 print(f"[timing] iter_sweep_c2 N={n} B={B_TIME} float32, "
                       f"10% of the bounds infinite (the [kernel] check's "
-                      f"inputs): {time_kernel(name, mixed[0], mixed[2]):.4f}"
-                      f" ms/launch")
+                      f"inputs): {mixed_ms} ms/launch on the device (event "
+                      f"window {mixed_window:.4f} ms)")
             want = ref(*args)
             plain_ms = time_events(lambda: ref(*args), 2)
             if n == N_LONG:
@@ -1452,7 +1479,8 @@ def phase_timing(device):
                 rows[name] = dict(ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
             print(f"[timing] {name} N={n} B={B_TIME} float32: {ms:.4f} "
-                  f"ms/launch, plain {plain_ms:.3f} ms, bound "
+                  f"ms/launch on the device (event window {window:.4f} ms),"
+                  f" plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP)")
         if n == N:
@@ -1461,55 +1489,77 @@ def phase_timing(device):
     return rows
 
 
-# the group kernels (a thread group per lane), timed with their forms at
-# every B of B_MAIN
-GROUP_KERNELS = ("kkt_sweep_c2", "corrector_sweep_c2")
+# the kernels that give each block a tile of lanes and several threads a
+# lane, timed with their forms at every B of B_MAIN
+GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2")
 
 
-def group_kernel(name):
-    """(forms, launch geometry, blocks per SM, group size, lanes a block)
-    of the group kernel `name` (GROUP_KERNELS)."""
+def group_kernel(label):
+    """(launch geometry (B, dtype) -> dict, blocks per SM (dtype) -> int,
+    threads a lane) of a GROUP_KERNELS kernel or one of its FORMS."""
     from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+    from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
 
-    forms = (name,) + tuple(k for k, v in FORMS.items() if v == name)
+    name = FORMS.get(label, label)
     if name == "kkt_sweep_c2":
-        return (forms, ck.kkt_launch_geometry, ck.kkt_blocks_per_sm,
-                ck.KKT_GROUP, ck.KKT_LANES)
-    return (forms, ck.corr_launch_geometry, ck.corr_blocks_per_sm,
-            ck.CORR_GROUP, ck.CORR_LANES)
+        return ck.kkt_launch_geometry, ck.kkt_blocks_per_sm, ck.KKT_GROUP
+    if name == "corrector_sweep_c2":
+        return ck.corr_launch_geometry, ck.corr_blocks_per_sm, ck.CORR_GROUP
+    order = 2 if label.endswith("vde_order=2") else 4
+    return (functools.partial(pk.prep_launch_geometry, vde_order=order),
+            functools.partial(pk.prep_blocks_per_sm, vde_order=order),
+            pk.PREP_THREADS // pk.PREP_LANES)
 
 
 def time_group_batches(device, name, inputs):
     """A group kernel and its forms at each B of B_MAIN in float32 (their
     B_TIME inputs cut or tiled along the lane axis: no loop of the kernels
-    depends on the data; the median of 3 windows of 20 launches), with its
-    occupancy (blocks and lanes per SM from the occupancy API, both
-    dtypes) and the waves each B needs."""
+    depends on the data): device time (the mean over 20 traced launches)
+    beside the median of 3 event windows of 20 launches, and the bound at
+    that B; with the occupancy of each distinct launch (blocks and lanes
+    per SM from the occupancy API, both dtypes) and the waves each B
+    needs."""
     import math
 
     import torch
 
-    forms, geometry, blocks_per_sm, group, lanes = group_kernel(name)
+    forms = (name,) + tuple(k for k, v in FORMS.items() if v == name)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    bps = {dt: blocks_per_sm(dt) for dt in (torch.float32, torch.float64)}
-    for dt, blocks in bps.items():
-        geo = geometry(B_TIME, dt)
-        print(f"[timing] {name} occupancy {str(dt)[6:]}: {blocks} "
-              f"blocks of {lanes} lanes x {group} threads per SM "
-              f"({geo['smem']} B of shared memory a block) -> "
-              f"{blocks * lanes} lanes per SM, {blocks * lanes * sms} on "
-              f"{sms} SMs")
+    shapes = {label: group_kernel(label) for label in forms}
+    bps = {}
+    for label, (geometry, blocks_per_sm, group) in shapes.items():
+        if name != "prep_condense2" and label != name:
+            bps[label] = bps[name]      # the forms share the exact form's
+            continue
+        bps[label] = {dt: blocks_per_sm(dt)
+                      for dt in (torch.float32, torch.float64)}
+        for dt, blocks in bps[label].items():
+            geo = geometry(B_TIME, dt)
+            print(f"[timing] {label} occupancy {str(dt)[6:]}: {blocks} "
+                  f"blocks of {geo['lanes']} lanes x {group} threads per "
+                  f"SM ({geo['smem']} B of shared memory a block) -> "
+                  f"{blocks * geo['lanes']} lanes per SM, "
+                  f"{blocks * geo['lanes'] * sms} on {sms} SMs")
     for B in B_MAIN:
-        geo = geometry(B, torch.float32)
-        waves = math.ceil(geo["grid"] / (bps[torch.float32] * sms))
         reps = -(-B // B_TIME)
         for label in forms:
+            geometry = shapes[label][0]
+            geo = geometry(B, torch.float32)
+            blocks = geo["grid"] * (N // 2 if name == "prep_condense2" else 1)
+            waves = math.ceil(blocks / (bps[label][torch.float32] * sms))
             kern, _, args = inputs[label]
             cut = tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
-                        for a in args)
-            ms = time_events(lambda: kern(*cut), 20, rounds=3)
-            print(f"[timing] {label} N={N} B={B} float32: {ms:.4f} "
-                  f"ms/launch, {geo['grid']} blocks, {waves} wave(s)")
+                        if isinstance(a, torch.Tensor) else a for a in args)
+            window = time_events(lambda: kern(*cut), 20, rounds=3)
+            ms, _ = device_ms(lambda: kern(*cut), 20,
+                              kernel=kernel_pattern(label))
+            ms = f"{ms:.4f}" if ms is not None else "not measured"
+            bound_ms = max(bytes_of(label, cut, kern(*cut))
+                           / HBM_BYTES_PER_S,
+                           flops_of(label, B) / PEAK_FP32_FLOPS) * 1e3
+            print(f"[timing] {label} N={N} B={B} float32: {ms} ms/launch on "
+                  f"the device (event window {window:.4f} ms), bound "
+                  f"{bound_ms:.4f} ms, {blocks} blocks, {waves} wave(s)")
 
 
 def probe_flops(name, B, reps):
@@ -1591,7 +1641,9 @@ def phase_roofline(device):
                                                        torch.float32,
                                                        device)):
         fn, plain = kern[name]
-        ms = time_events(lambda: fn(*args), 10)
+        window = time_events(lambda: fn(*args), 10)
+        ms, _ = device_ms(lambda: fn(*args), 10, kernel=kernel_pattern(name))
+        ms = window if ms is None else ms
         plain_ms = time_events(lambda: plain(*args), 2)
         nbytes = bytes_of(name, args, fn(*args))
         flops = probe_flops(name, B_TIME, reps[name])
@@ -1602,7 +1654,8 @@ def phase_roofline(device):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         print(f"[timing] {name} B={B_TIME} float32, reps {reps[name]}: "
-              f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+              f"{ms:.4f} ms/launch on the device (event window "
+              f"{window:.4f} ms), plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.2f} GFLOP)")
     return errs, totals, rows

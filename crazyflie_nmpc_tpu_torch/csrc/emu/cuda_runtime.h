@@ -128,5 +128,9 @@ template <typename T>
 T __ldcg(const T* p) {
   return *p;
 }
+template <typename T>
+void __stcs(T* p, T v) {
+  *p = v;
+}
 using std::max;
 using std::min;

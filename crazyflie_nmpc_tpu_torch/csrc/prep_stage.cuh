@@ -1,6 +1,7 @@
 // Stage math of the RTI preparation, shared by the fused prep + condense
 // launch (prep_condense2.cu, K1) and the preparation without condensing
-// (prep_sweep.cu, K7).
+// (prep_sweep.cu, K7).  K1 applies the Jacobian through jac_build /
+// jac_apply, K7 through jx_mul.
 //
 // Counterparts of crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py's
 // _dyn_rows, _jx_entries/_jx_mul, _ju_rows, _vde_stage and _vde_stage_o2,
@@ -109,6 +110,109 @@ __device__ __forceinline__ void jx_mul(const Par<T>& p, const T* x,
              + ((p.Izz - p.Ixx) * wx * p.iIyy) * v[12]);
   out[12] = (((p.Ixx - p.Iyy) * wy * p.iIzz) * v[10]
              + ((p.Ixx - p.Iyy) * wx * p.iIzz) * v[11]);
+}
+
+// K1's form of the same Jacobian: NJC entries built once at a state
+// (jac_build) and applied to many vectors (jac_apply); K7 keeps jx_mul.
+// Stored: JC_C the 12 attitude-velocity terms of rows 0-2 (row-major,
+// columns 3-6), JC_R the rotation R of rows 0-2 (columns 7-9), and the
+// state's q, w and body velocity; jac_apply forms the rest from these in
+// registers (q/2, w/2, 2 g0 q, the gyroscopic terms), each entry and each
+// row's sum as jx_mul evaluates them (the halves are exact, and -4 g0 q is
+// -2 times 2 g0 q exactly).
+enum : int { JC_C = 0, JC_R = 12, JC_Q = 21, JC_W = 25, JC_V = 28, NJC = 32 };
+
+template <typename T>
+__device__ __forceinline__ void jac_build(const T* x, T* c) {
+  const T q1 = x[3], q2 = x[4], q3 = x[5], q4 = x[6];
+  const T vbx = x[7], vby = x[8], vbz = x[9];
+  c[JC_C + 0] = 4 * q1 * vbx - 2 * q4 * vby + 2 * q3 * vbz;
+  c[JC_C + 1] = 4 * q2 * vbx + 2 * q3 * vby + 2 * q4 * vbz;
+  c[JC_C + 2] = 2 * q2 * vby + 2 * q1 * vbz;
+  c[JC_C + 3] = -2 * q1 * vby + 2 * q2 * vbz;
+  c[JC_C + 4] = 4 * q1 * vby + 2 * q4 * vbx - 2 * q2 * vbz;
+  c[JC_C + 5] = 2 * q3 * vbx - 2 * q1 * vbz;
+  c[JC_C + 6] = 4 * q3 * vby + 2 * q2 * vbx + 2 * q4 * vbz;
+  c[JC_C + 7] = 2 * q1 * vbx + 2 * q3 * vbz;
+  c[JC_C + 8] = 4 * q1 * vbz - 2 * q3 * vbx + 2 * q2 * vby;
+  c[JC_C + 9] = 2 * q4 * vbx + 2 * q1 * vby;
+  c[JC_C + 10] = -2 * q1 * vbx + 2 * q4 * vby;
+  c[JC_C + 11] = 4 * q4 * vbz + 2 * q2 * vbx + 2 * q3 * vby;
+  c[JC_R + 0] = 2 * q1 * q1 + 2 * q2 * q2 - 1;
+  c[JC_R + 1] = -(2 * q1 * q4 - 2 * q2 * q3);
+  c[JC_R + 2] = 2 * q1 * q3 + 2 * q2 * q4;
+  c[JC_R + 3] = 2 * q1 * q4 + 2 * q2 * q3;
+  c[JC_R + 4] = 2 * q1 * q1 + 2 * q3 * q3 - 1;
+  c[JC_R + 5] = -(2 * q1 * q2 - 2 * q3 * q4);
+  c[JC_R + 6] = -(2 * q1 * q3 - 2 * q2 * q4);
+  c[JC_R + 7] = 2 * q1 * q2 + 2 * q3 * q4;
+  c[JC_R + 8] = 2 * q1 * q1 + 2 * q4 * q4 - 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[JC_Q + i] = x[3 + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    c[JC_W + i] = x[10 + i];
+    c[JC_V + i] = x[7 + i];
+  }
+  c[NJC - 1] = T(0);  // pads the entries to whole 16-byte packs
+}
+
+// out = J v from jac_build's entries (rows summed as jx_mul sums them).
+template <typename T>
+__device__ __forceinline__ void jac_apply(const Par<T>& p, const T* c,
+                                          const T* v, T* out) {
+  const T* cc = c + JC_C;
+  const T* R = c + JC_R;
+  const T q1 = c[JC_Q], q2 = c[JC_Q + 1], q3 = c[JC_Q + 2],
+          q4 = c[JC_Q + 3];
+  const T wx = c[JC_W], wy = c[JC_W + 1], wz = c[JC_W + 2];
+  const T vbx = c[JC_V], vby = c[JC_V + 1], vbz = c[JC_V + 2];
+  const T p1 = q1 / 2, p2 = q2 / 2, p3 = q3 / 2, p4 = q4 / 2;
+  const T hx = wx / 2, hy = wy / 2, hz = wz / 2;
+  const T g0 = p.g0;
+  const T g1 = 2 * g0 * q1, g2 = 2 * g0 * q2, g3 = 2 * g0 * q3,
+          g4 = 2 * g0 * q4;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    out[r] = (cc[4 * r] * v[3] + cc[4 * r + 1] * v[4]
+              + cc[4 * r + 2] * v[5] + cc[4 * r + 3] * v[6]
+              + R[3 * r] * v[7] + R[3 * r + 1] * v[8] + R[3 * r + 2] * v[9]);
+  out[3] = ((-hx) * v[4] + (-hy) * v[5] + (-hz) * v[6]
+            + (-p2) * v[10] + (-p3) * v[11] + (-p4) * v[12]);
+  out[4] = (hx * v[3] + hz * v[5] + (-hy) * v[6]
+            + p1 * v[10] + (-p4) * v[11] + p3 * v[12]);
+  out[5] = (hy * v[3] + (-hz) * v[4] + hx * v[6]
+            + p4 * v[10] + p1 * v[11] + (-p2) * v[12]);
+  out[6] = (hz * v[3] + hy * v[4] + (-hx) * v[5]
+            + (-p3) * v[10] + p2 * v[11] + p1 * v[12]);
+  out[7] = (g3 * v[3] + (-g4) * v[4] + g1 * v[5] + (-g2) * v[6]
+            + wz * v[8] + (-wy) * v[9] + (-vbz) * v[11] + vby * v[12]);
+  out[8] = ((-g2) * v[3] + (-g1) * v[4] + (-g4) * v[5] + (-g3) * v[6]
+            + (-wz) * v[7] + wx * v[9] + vbz * v[10] + (-vbx) * v[12]);
+  out[9] = ((-2 * g1) * v[3] + (-2 * g4) * v[6]
+            + wy * v[7] + (-wx) * v[8] + (-vby) * v[10] + vbx * v[11]);
+  out[10] = (((p.Iyy - p.Izz) * wz * p.iIxx) * v[11]
+             + ((p.Iyy - p.Izz) * wy * p.iIxx) * v[12]);
+  out[11] = (((p.Izz - p.Ixx) * wz * p.iIyy) * v[10]
+             + ((p.Izz - p.Ixx) * wx * p.iIyy) * v[12]);
+  out[12] = (((p.Ixx - p.Iyy) * wy * p.iIzz) * v[10]
+             + ((p.Ixx - p.Iyy) * wx * p.iIzz) * v[11]);
+}
+
+// Column `col` of G = df/du (prep_kernel._ju_rows): rows 9..12 only; u
+// the input `col` of the interval.
+template <typename T>
+__device__ __forceinline__ void ju_col(const Par<T>& p, T u, int col, T* g) {
+  const T tcm = 2 * p.Ct * p.imq;
+  const T tlx = 2 * p.Ct * p.l * p.iIxx;
+  const T tly = 2 * p.Ct * p.l * p.iIyy;
+  const T tdz = 2 * p.Cd * p.iIzz;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) g[i] = T(0);
+  g[9] = tcm * u;
+  g[10] = (col < 2 ? -tlx : tlx) * u;
+  g[11] = (col == 0 || col == 3 ? -tly : tly) * u;
+  g[12] = (col % 2 == 0 ? -tdz : tdz) * u;
 }
 
 // RK4 stage states X1..X4 of one shooting interval and its end state.

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -33,6 +34,9 @@ SOURCES = ("prep_condense2.cu", "prep_sweep.cu", "kkt_sweep_c2.cu",
 HEADERS = ("batch_last.cuh", "c2_stage.cuh", "prep_stage.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# a block's shared memory on the H100 without the opt-in attribute
+SMEM_DEFAULT = 48 * 1024
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -164,3 +168,34 @@ def run(wrapper, source: str, ins: dict, outs, shapes: dict, ints,
     launch(source, f"{wrapper.__name__}{form}_{sfx}",
            list(ins.values()) + list(outs), ints, floats)
     wrapper.launches += 1
+
+
+def lane_geometry(B, dtype, lanes, threads, lane_values) -> dict:
+    """The launch of a kernel that gives each block `lanes` consecutive
+    lanes, at B lanes of `dtype` (float32 or float64): `grid` blocks of
+    `threads` threads (block i takes lanes [i lanes, (i + 1) lanes) below
+    B), `smem` bytes of dynamic shared memory a block (`lane_values` values
+    of the dtype a lane), and `opt_in`: whether that exceeds SMEM_DEFAULT,
+    so the kernel's launch sets the opt-in attribute."""
+    import torch
+
+    smem = lanes * lane_values * torch.finfo(dtype).bits // 8
+    return dict(grid=math.ceil(B / lanes), threads=threads, lanes=lanes,
+                smem=smem, opt_in=smem > SMEM_DEFAULT)
+
+
+def blocks_per_sm(source, symbol, dtype) -> int:
+    """Resident blocks per SM of the kernel behind `symbol`_f32/_f64 in
+    `source`, from the CUDA occupancy API for its registers and shared
+    memory (builds the kernel first)."""
+    import torch
+
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(load(source), f"{symbol}_{sfx}")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return blocks.value

@@ -30,9 +30,6 @@ PyTorch's casts.
 
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
@@ -57,8 +54,6 @@ CORR_GROUP = 16
 CORR_THREADS = 256
 CORR_LANES = CORR_THREADS // CORR_GROUP
 CORR_LANE_VALUES = 996
-# a block's shared memory on the H100 without the opt-in attribute
-SMEM_DEFAULT = 48 * 1024
 _ITER_SOURCE = "iter_c2.cu"
 # fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
 _BIG = 3.4e38
@@ -406,53 +401,28 @@ def _empty(like, *shape):
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
-def _group_geometry(B, dtype, lanes, threads, lane_values):
-    """The launch of a group kernel at B lanes of `dtype` (float32 or
-    float64): `grid` blocks of `threads` threads, `lanes` consecutive lanes
-    a block (block i takes lanes [i lanes, (i + 1) lanes) below B), `smem`
-    bytes of dynamic shared memory a block (`lane_values` values of the
-    dtype a lane), and `opt_in`: whether that exceeds SMEM_DEFAULT, so the
-    kernel's launch sets the opt-in attribute."""
-    smem = lanes * lane_values * torch.finfo(dtype).bits // 8
-    return dict(grid=math.ceil(B / lanes), threads=threads, lanes=lanes,
-                smem=smem, opt_in=smem > SMEM_DEFAULT)
-
-
 def kkt_launch_geometry(B: int, dtype) -> dict:
-    """K2's launch at B lanes of `dtype` (`_group_geometry`)."""
-    return _group_geometry(B, dtype, KKT_LANES, KKT_THREADS, KKT_LANE_VALUES)
+    """K2's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, KKT_LANES, KKT_THREADS,
+                                KKT_LANE_VALUES)
 
 
 def corr_launch_geometry(B: int, dtype) -> dict:
-    """K3's launch at B lanes of `dtype` (`_group_geometry`)."""
-    return _group_geometry(B, dtype, CORR_LANES, CORR_THREADS,
-                           CORR_LANE_VALUES)
-
-
-def _blocks_per_sm(source, symbol, dtype):
-    """Resident blocks per SM of the kernel behind `symbol`_f32/_f64 in
-    `source`, from the CUDA occupancy API for its registers and shared
-    memory (builds the kernel first)."""
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(_build.load(source), f"{symbol}_{sfx}")
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    blocks = ctypes.c_int(0)
-    err = fn(ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {err}")
-    return blocks.value
+    """K3's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, CORR_LANES, CORR_THREADS,
+                                CORR_LANE_VALUES)
 
 
 def kkt_blocks_per_sm(dtype=torch.float32) -> int:
     """K2's resident blocks per SM (KKT_LANES lanes each)."""
-    return _blocks_per_sm(_KKT_SOURCE, "kkt_sweep_c2_occupancy", dtype)
+    return _build.blocks_per_sm(_KKT_SOURCE, "kkt_sweep_c2_occupancy",
+                                dtype)
 
 
 def corr_blocks_per_sm(dtype=torch.float32) -> int:
     """K3's resident blocks per SM (CORR_LANES lanes each)."""
-    return _blocks_per_sm(_CORR_SOURCE, "corrector_sweep_c2_occupancy",
-                          dtype)
+    return _build.blocks_per_sm(_CORR_SOURCE, "corrector_sweep_c2_occupancy",
+                                dtype)
 
 
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,

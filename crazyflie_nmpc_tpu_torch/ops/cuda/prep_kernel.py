@@ -6,10 +6,12 @@ sensitivities (vde_order=2).
 Counterparts of `crazyflie_nmpc_tpu/ops/pallas/prep_kernel.py:
 prep_condense2` and `prep_sweep` (whose `batch_rows > 1` variant,
 `_prep_sweep_2d`, computes the same outputs in the same layout).
-`prep_condense2` launches `csrc/prep_condense2.cu` and `prep_sweep`
-`csrc/prep_sweep.cu` for CUDA tensors; CPU tensors run
-`prep_condense2_ref` / `prep_sweep_ref`, the CPU tests' path and the
-kernels' yardstick on the card.
+`prep_condense2` launches `csrc/prep_condense2.cu` (32 lanes of one
+stage pair a block, its tangent columns spread over 8 threads a lane; its
+launch shape is `prep_launch_geometry`'s) and `prep_sweep`
+`csrc/prep_sweep.cu` (one thread per lane and stage) for CUDA tensors;
+CPU tensors run `prep_condense2_ref` / `prep_sweep_ref`, the CPU tests'
+path and the kernels' yardstick on the card.
 
 Layout: batch-last, every input and output contiguous with B last:
   x (N+1, 13, B), u (N, 4, B), yref (N, 17, B), q_diag (13, B),
@@ -29,6 +31,14 @@ NY = NX + NU
 NPARAM = 9
 _SOURCE = "prep_condense2.cu"
 _SWEEP_SOURCE = "prep_sweep.cu"
+# K1's launch shape (csrc/prep_condense2.cu's kLanes, kThreads and
+# kLaneValues, which its launch checks): PREP_LANES consecutive lanes of one
+# stage pair a block, PREP_THREADS threads (PREP_THREADS / PREP_LANES a
+# lane), PREP_LANE_VALUES[vde_order] values of the compute dtype in shared
+# memory per lane
+PREP_LANES = 32
+PREP_THREADS = 256
+PREP_LANE_VALUES = {4: 589, 2: 397}
 
 _CND_KEYS = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar")
 
@@ -258,6 +268,20 @@ def _vde_form(vde_order):
     return "_o2" if vde_order == 2 else ""
 
 
+def prep_launch_geometry(B: int, dtype, vde_order: int = 4) -> dict:
+    """K1's launch at B lanes of `dtype` (`_build.lane_geometry`); the
+    grid's second dimension is the number of stage pairs."""
+    _vde_form(vde_order)
+    return _build.lane_geometry(B, dtype, PREP_LANES, PREP_THREADS,
+                                PREP_LANE_VALUES[vde_order])
+
+
+def prep_blocks_per_sm(dtype=torch.float32, vde_order: int = 4) -> int:
+    """K1's resident blocks per SM (PREP_LANES lanes each)."""
+    return _build.blocks_per_sm(
+        _SOURCE, f"prep_condense2_occupancy{_vde_form(vde_order)}", dtype)
+
+
 def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params,
                    vde_order=4):
     """One launch from (x, u, yref) to the condensed QP data, A and B
@@ -279,22 +303,19 @@ def prep_condense2(x_traj, u_traj, yref, q_diag, r_diag, lbu, ubu, params,
                                   lbu, ubu, params, vde_order)
     M = N // 2
     dev, dt = x_traj.device, x_traj.dtype
-    ins = dict(x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
-               lbu=lbu, ubu=ubu, params=params)
-    _build.check("prep_condense2", ins, dict(
-        x=(N + 1, NX, B), u=(N, NU, B), yref=(N, NY, B), q_diag=(NX, B),
-        r_diag=(NU, B), lbu=(NU, B), ubu=(NU, B), params=(NPARAM, B)),
-        dt, dev)
     new = lambda *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
     outs = (new(M, NX, NX, B), new(M, NX, 2 * NU, B), new(M, NX, B),
             new(M, NX, NX, B), new(M, NU, NX, B), new(M, NU, NU, B),
             new(M, NX, B), new(M, 2 * NU, B),
             new(M, NX, NX, B), new(M, NX, NU, B),
             new(N, NX, B), new(N, NU, B), new(N, NU, B))
-    sfx = "f32" if dt == torch.float32 else "f64"
-    _build.launch(_SOURCE, f"prep_condense2{form}_{sfx}",
-                  list(ins.values()) + list(outs), [M, B])
-    prep_condense2.launches += 1
+    geo = prep_launch_geometry(B, dt, vde_order)
+    _build.run(prep_condense2, _SOURCE, dict(
+        x=x_traj, u=u_traj, yref=yref, q_diag=q_diag, r_diag=r_diag,
+        lbu=lbu, ubu=ubu, params=params), outs, dict(
+        x=(N + 1, NX, B), u=(N, NU, B), yref=(N, NY, B), q_diag=(NX, B),
+        r_diag=(NU, B), lbu=(NU, B), ubu=(NU, B), params=(NPARAM, B)),
+        [M, B, geo["grid"], geo["threads"], geo["smem"]], form=form)
     return (dict(zip(_CND_KEYS, outs[:8])),) + outs[8:]
 
 

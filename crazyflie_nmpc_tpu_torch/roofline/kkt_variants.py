@@ -1,27 +1,37 @@
-"""K2 `kkt_sweep_c2` or K3 `corrector_sweep_c2` in variants on the card:
-the group size, and the parts of a stage cut out one at a time.
+"""K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2` or K1 `prep_condense2` in
+variants on the card: their launch shapes, and the parts of their work cut
+out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
-        [--kernel kkt_sweep_c2|corrector_sweep_c2]
+        [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`,
-`csrc/corrector_sweep_c2.cu`) with one edit (`VARIANTS`, `CORR_VARIANTS`).
+`csrc/corrector_sweep_c2.cu`, `csrc/prep_condense2.cu`) with one edit
+(`VARIANTS`, `CORR_VARIANTS`, `PREP_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
 G = 8, or one part removed (the vector pass's loads, Qu, the kff solve,
 the p update, the rollout), 128 threads a block (8 lanes), or
 `__launch_bounds__` asking float32 for the 3 blocks an SM its shared
-memory allows instead of 2 (80 registers a thread instead of 128). Every
+memory allows instead of 2 (80 registers a thread instead of 128). K1, in
+both VDE orders (the order-2 entry under the variant's name + ORDER2): one
+part removed (the even tangent chains, the odd ones, the Jacobian builds,
+the cost products, the stores: every stored value summed into one that is
+never stored), cached stores instead of evict-first ones, 8 or 16 lanes a
+warp (the workers of a lane sharing a warp), 64 lanes a block, 4 or 16
+workers a lane, or 3 blocks an SM (80 registers).  Every
 variant is built with the port's nvcc flags into
 `build/torch_kernels/variants/`, launched through its float32 entry point
-at its own launch shape, and timed with CUDA events at B = 1024, 4096 and
-8192 (N=50, the study's condensed data; K3 on K2's factorization of it),
-all variants in turn and then in reverse order; the unedited kernel runs
-among them. The variants that compute the whole stage are also held
-against the plain version at B=1024 (relative 1e-4, as `chip_smoke.py`);
-the cut ones compute garbage and are only timed. What a part costs is the
-kernel's time less the time without it.
+at its own launch shape, and timed at B = 1024, 4096 and 8192 (N=50, the
+study's condensed data; K3 on K2's factorization of it; K1 on the warm
+start the study condenses), all variants in turn and then in reverse
+order; the unedited kernel runs among them.  A time is the device time of
+a launch, the mean over 20 traced launches (`roofline.device_ms`).  The
+variants that compute the whole stage are also held against the plain
+version at B=1024 (relative 1e-4, as `chip_smoke.py`); the cut ones
+compute garbage and are only timed. What a part costs is the kernel's time
+less the time without it.
 `--baseline DIR` adds the kernel's source as it stands in another
 checkout's `csrc` (with that checkout's headers; say the parent commit,
 unpacked with `git archive`) as the variant "baseline", timed and checked
@@ -43,7 +53,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
-from crazyflie_nmpc_tpu_torch.roofline import time_events
+from crazyflie_nmpc_tpu_torch.roofline import device_ms
 
 BATCHES = (1024, 4096, 8192)
 _SOURCE = "kkt_sweep_c2.cu"
@@ -131,11 +141,66 @@ CORR_VARIANTS = {
     "3 blocks an SM": _replace(_BLOCKS, _BLOCKS.replace("2,", "3,")),
 }
 
+# K1's, on csrc/prep_condense2.cu; each variant runs in both VDE orders,
+# its order-2 entry (vde_order=2) under its name + ORDER2
+ORDER2 = " (order 2)"
+_EVEN_A = ("      chain_x<ORDER>(p, sh, 0, l, v, v);  "
+           "// the even chain of an A column\n")
+_CHAIN_U = "      chain_u<ORDER>(p, sh, even ? 0 : sets, l, uc, col, v);"
+_ODD = ("    if (job <= kJobC) chain_x<ORDER>(p, sh, sets, l, v, v);  "
+        "// odd chain")
+_ROW_LANES = "constexpr int kRowLanes = 32;"
+_PREP_LAUNCH = "template <typename T, int ORDER>\nint set_smem()"
+_PREP_END = "  }\n}\n\n" + _PREP_LAUNCH
+PREP_VARIANTS = {
+    "kernel": None,
+    "no even chains": _then(
+        _replace(_EVEN_A, ""),
+        _replace(_CHAIN_U, "      if (even) ju_col(p, uc, col, v);\n"
+                           "      else chain_u<ORDER>(p, sh, sets, l, uc, "
+                           "col, v);")),
+    "no odd chains": _then(
+        _replace(_ODD, ""),
+        _replace(_CHAIN_U, "      if (!even) ju_col(p, uc, col, v);\n"
+                           "      else chain_u<ORDER>(p, sh, 0, l, uc, col, "
+                           "v);")),
+    "no Jacobian builds": _cut("  // 2. each stage Jacobian built once",
+                               "  if (w == 2) {"),
+    "no cost products": _cut("  // 4. the cost jobs", _PREP_LAUNCH,
+                             "}\n\n"),
+    # every stored value summed into one that is never stored: the
+    # arithmetic stays, the stores go
+    "no stores": _then(
+        _replace("  const auto put = [&](T* base, int r, T v) {\n"
+                 "    if (valid) __stcs(base + (size_t)r * B + b, v);\n  };",
+                 "  T sink = T(0);\n"
+                 "  const auto put = [&](T*, int, T v) { sink = sink + v; };"),
+        _replace(_PREP_END, "  }\n  if (valid && B < 0) c[b] = sink;\n}\n\n"
+                 + _PREP_LAUNCH)),
+    "cached stores": _replace(
+        "    if (valid) __stcs(base + (size_t)r * B + b, v);",
+        "    if (valid) base[(size_t)r * B + b] = v;"),
+    "8-lane rows": _replace(_ROW_LANES, _ROW_LANES.replace("32", "8")),
+    "16-lane rows": _replace(_ROW_LANES, _ROW_LANES.replace("32", "16")),
+    "64 lanes": _then(_replace("constexpr int kLanes = 32;",
+                               "constexpr int kLanes = 64;"),
+                      _replace("constexpr int kThreads = 256;",
+                               "constexpr int kThreads = 512;")),
+    "4 warps": _replace("constexpr int kThreads = 256;",
+                        "constexpr int kThreads = 128;"),
+    "16 warps": _replace("constexpr int kThreads = 256;",
+                         "constexpr int kThreads = 512;"),
+    "3 blocks an SM": _replace("std::min(512 / kThreads,",
+                               "std::min(768 / kThreads,"),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form)
 KERNELS = {
     "kkt_sweep_c2": (_SOURCE, VARIANTS, "kkt_sweep_c2_kernelIfffLb0E"),
     "corrector_sweep_c2": ("corrector_sweep_c2.cu", CORR_VARIANTS,
                            "corrector_sweep_c2_kernelIfffLb0E"),
+    "prep_condense2": ("prep_condense2.cu", PREP_VARIANTS,
+                       "prep_condense2_kernelIfLi4E"),
 }
 
 
@@ -147,11 +212,25 @@ def sources(kernel="kkt_sweep_c2") -> dict:
             for name, edit in variants.items()}
 
 
+def prep_lane_values(text) -> dict:
+    """{vde_order: values a lane in shared memory} of a K1 source text
+    (its static_assert), {} for the one-thread source."""
+    m = re.search(r"kLaneValues<4> == (\d+) && kLaneValues<2> == (\d+)",
+                  text)
+    return {4: int(m.group(1)), 2: int(m.group(2))} if m else {}
+
+
 def shape(text) -> tuple:
-    """(threads per lane, threads a block) of a variant's source text."""
-    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
-                               text).group(1))
-                 for name in ("kGroup", "kThreads"))
+    """(threads per lane, threads a block) of a variant's source text (K1's:
+    kThreads / kLanes threads a lane; (1, 128) for the one-thread K1
+    source, which has neither)."""
+    const = {name: int(m.group(1)) for name in ("kGroup", "kLanes",
+                                                 "kThreads")
+             if (m := re.search(rf"constexpr int {name} = (\d+);", text))}
+    if "kThreads" not in const:
+        return 1, 128
+    group = const.get("kGroup") or const["kThreads"] // const["kLanes"]
+    return group, const["kThreads"]
 
 
 def _stem(kernel, name):
@@ -190,17 +269,64 @@ def build(texts, kernel="kkt_sweep_c2", baseline=None) -> dict:
         lines, on = [], False
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                on = mangled in line
+                on = any(m in line for m in mangled_forms(kernel))
+                form = "order 2: " if on and "Li2E" in line else ""
             elif on and ("spill" in line or "Used " in line):
-                lines.append(line.split(":", 1)[-1].strip())
+                lines.append(form + line.split(":", 1)[-1].strip())
         built[name] = (ctypes.CDLL(str(lib)), lines)
     return built
 
 
-def launcher(lib, group, threads, kernel="kkt_sweep_c2"):
+def mangled_forms(kernel):
+    """The mangled names whose `ptxas -v` lines `build` keeps: the float32
+    exact form's (K1's in both VDE orders)."""
+    mangled = KERNELS[kernel][2]
+    if kernel == "prep_condense2":
+        return mangled, mangled.replace("Li4E", "Li2E")
+    return (mangled,)
+
+
+def prep_launcher(lib, text, order=4):
+    """f(args) -> outputs: a K1 variant's float32 entry of VDE order `order`
+    on K1's 8 inputs, at the launch shape of its source `text`; the
+    one-thread source's entry takes no geometry."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
+
+    group, threads = shape(text)
+    values = prep_lane_values(text)
+    fn = getattr(lib, f"prep_condense2{'_o2' if order == 2 else ''}_f32")
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * (
+        5 if values else 2) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lanes = threads // group
+    nx, nu = pk.NX, pk.NU
+
+    def run(args):
+        N, B = args[1].shape[0], args[1].shape[-1]
+        M = N // 2
+        outs = tuple(torch.empty(s, dtype=torch.float32, device=args[0].device)
+                     for s in ((M, nx, nx, B), (M, nx, 2 * nu, B), (M, nx, B),
+                               (M, nx, nx, B), (M, nu, nx, B), (M, nu, nu, B),
+                               (M, nx, B), (M, 2 * nu, B), (M, nx, nx, B),
+                               (M, nx, nu, B), (N, nx, B), (N, nu, B),
+                               (N, nu, B)))
+        geo = [math.ceil(B / lanes), threads,
+               lanes * values[order] * 4] if values else []
+        err = fn(*[t.data_ptr() for t in (*args, *outs)], M, B, *geo,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"kkt_variants: CUDA error {err}")
+        return outs
+    return run
+
+
+def launcher(lib, text, kernel="kkt_sweep_c2"):
     """f(args) -> outputs: the variant's float32 exact form on the sweep's
-    inputs (K2's 12, K3's 10), at its own launch shape (`group` threads a
-    lane, `threads` a block)."""
+    inputs (K2's 12, K3's 10; K1's 8 through `prep_launcher`), at the
+    launch shape of its source `text`."""
+    if kernel == "prep_condense2":
+        return prep_launcher(lib, text)
+    group, threads = shape(text)
     fn = getattr(lib, f"{kernel}_f32")
     if kernel == "kkt_sweep_c2":
         n_ptr, values = 18, ck.KKT_LANE_VALUES
@@ -234,43 +360,68 @@ def rel_err(got, want):
                / max(1.0, float(w.abs().max())) for g, w in zip(got, want))
 
 
+def _plain(kernel, order=4):
+    """The plain version of `kernel`'s float32 exact form (of VDE order
+    `order` for K1), flattened to its list of outputs."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
+
+    if kernel == "prep_condense2":
+        def ref(*args):
+            cnd, *rest = pk.prep_condense2_ref(*args, vde_order=order)
+            return [*cnd.values(), *rest]
+        return ref
+    return (ck.kkt_sweep_c2_ref if kernel == "kkt_sweep_c2"
+            else ck.corrector_sweep_c2_ref)
+
+
+def inputs(kernel, B, device):
+    """`kernel`'s inputs at N=50 and B lanes: the study's condensed data
+    (K2's), K3's on K2's factorization of it, K1's from the same warm
+    start (the states before K7 and K6 condensed them)."""
+    from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
+
+    d = condensed_data(B, device)
+    if kernel == "prep_condense2":
+        st = d["states"]
+        yb = d["yref"][:, :, None].expand(*d["yref"].shape, B).contiguous()
+        return (st.x_traj.contiguous(), st.u_traj.contiguous(), yb,
+                *prep_tiles(d["spec"], B, torch.float32, device))
+    c = d["cnd"]
+    k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
+          c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"], d["dx0"])
+    if kernel == "kkt_sweep_c2":
+        return k2
+    K, _, L, Pc, _, _ = ck.kkt_sweep_c2_ref(*k2)
+    return (c["Abar"], c["Bbar"], c["cbar"], c["qbar"], c["rbar"], K, L, Pc,
+            d["p_term"], d["dx0"])
+
+
 def study(device=None, log=print, kernel="kkt_sweep_c2",
           baseline=None) -> dict:
     """Build, check and time every variant of `kernel` (and `baseline`, as
-    `build`); returns {name: {B: [ms, ms]}}.  Raises RuntimeError when a
-    whole-stage variant disagrees with the plain version."""
-    from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
-
+    `build`; K1's in both VDE orders); returns {name: {B: [ms, ms]}}, the
+    device time of a launch (`device_ms`) in each of two passes.  Raises
+    RuntimeError when a whole-stage variant disagrees with the plain
+    version."""
     device = torch.device(device or "cuda")
     texts = sources(kernel)
-    shapes = {name: shape(text) for name, text in texts.items()}
-    if baseline is not None:
-        shapes["baseline"] = shape(
-            (Path(baseline) / KERNELS[kernel][0]).read_text())
     built = build(texts, kernel, baseline)
+    if baseline is not None:
+        texts["baseline"] = (Path(baseline) / KERNELS[kernel][0]).read_text()
     for name, (_, lines) in built.items():
         log(f"ptxas {kernel} {name}: " + "; ".join(lines))
-    runs = {name: launcher(lib, *shapes[name], kernel)
+    runs = {name: launcher(lib, texts[name], kernel)
             for name, (lib, _) in built.items()}
-    data = {}
-    for B in BATCHES:
-        d = condensed_data(B, device)
-        c = d["cnd"]
-        k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"],
-              c["R00"], c["qbar"], d["ruu"], c["rbar"], d["pT"],
-              d["p_term"], d["dx0"])
-        if kernel == "kkt_sweep_c2":
-            data[B] = k2
-        else:
-            K, _, L, Pc, _, _ = ck.kkt_sweep_c2_ref(*k2)
-            data[B] = (c["Abar"], c["Bbar"], c["cbar"], c["qbar"],
-                       c["rbar"], K, L, Pc, d["p_term"], d["dx0"])
-    ref = (ck.kkt_sweep_c2_ref if kernel == "kkt_sweep_c2"
-           else ck.corrector_sweep_c2_ref)
-    want = ref(*data[BATCHES[0]])
+    refs = dict.fromkeys(runs, _plain(kernel))
+    if kernel == "prep_condense2":
+        for name, (lib, _) in built.items():
+            runs[name + ORDER2] = prep_launcher(lib, texts[name], order=2)
+            refs[name + ORDER2] = _plain(kernel, order=2)
+    data = {B: inputs(kernel, B, device) for B in BATCHES}
     for name, run in runs.items():
         if not name.startswith("no "):
-            e = rel_err(run(data[BATCHES[0]]), want)
+            e = rel_err(run(data[BATCHES[0]]), refs[name](*data[BATCHES[0]]))
             log(f"{kernel} {name}: rel err {e:.3e} against the plain version "
                 f"at B={BATCHES[0]}")
             if not e <= 1e-4:
@@ -280,11 +431,13 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
     order = list(runs) + list(runs)[::-1]
     for name in order:
         for B in BATCHES:
-            times[name][B].append(time_events(
-                lambda: runs[name](data[B]), 20, rounds=3))
+            times[name][B].append(device_ms(
+                lambda: runs[name](data[B]), 20,
+                kernel=rf"{kernel}_kernel")[0])
     for name, by_b in times.items():
         log(f"{kernel} {name}: " + ", ".join(
-            f"B={B} " + " / ".join(f"{ms:.4f}" for ms in t) + " ms"
+            f"B={B} " + " / ".join(f"{ms:.4f}" if ms is not None
+                                   else "not measured" for ms in t) + " ms"
             for B, t in by_b.items()))
     return times
 
