@@ -37,11 +37,24 @@ each, with launch counters proving which kernels ran:
                  step 1 too, and a sim_steps=2 spec at B=1024 (its bars
                  shown to catch faults planted in the preparation).
 
-and two paths of their own:
+and five paths of their own:
 
   [single]       the single-instance rti_step (plain PyTorch), N=50, 20
                  closed-loop ticks from a 1.5 m offset, and one certified
                  tick;
+  [swarm]        runtime.batch.monte_carlo_hover (the Monte-Carlo closed
+                 loop on rti_step_batched: K1-K4 every tick), N=50,
+                 B=4096, float32, 150 ticks, held to the JAX package's
+                 lane bar (every lane within 0.02 m of its set-point);
+  [closed_loop]  runtime.closed_loop's single-vehicle loops on the card
+                 (hover_regulation under both predictors,
+                 estimator_in_the_loop, cmd_vel_loop with the motvel
+                 predictor and lag gains), N=50, float64, 5 ticks each,
+                 held against the port's CPU run;
+  [flight]       flight_configuration (the paper's flown configuration:
+                 helix, estimator chain, 60 ms delay, cmd_vel predictor,
+                 onboard cascade), N=50, float64, 200 ticks, held to the
+                 JAX package's tracking bars;
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
                  depends on every product and stage), then the study of
@@ -71,6 +84,7 @@ The second-to-last line is the per-kernel JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import re
@@ -104,7 +118,8 @@ N_ODD = N + 1         # the odd horizon of [uncondensed]
 
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
           "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
-          "single", "roofline", "certified", "timing")
+          "single", "roofline", "certified", "timing", "swarm",
+          "closed_loop", "flight")
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -723,11 +738,7 @@ def check_chain(label, run, B, n, per_step):
     the run's times.  Returns the counts."""
     import torch
 
-    for name, got in run["counts"].items():
-        want = per_step.get(name, 0) * STEPS
-        if got != want:
-            fail(f"[{label}] B={B}: {name} launched {got} times in {STEPS} "
-                 f"steps, expected {want}")
+    check_tick_launches(f"[{label}] B={B}", run["counts"], STEPS, per_step)
     outputs = [(f"step 1 {k}", t) for k, t in run["first"]._asdict().items()]
     outputs += [(f"step {STEPS} {k}", t) for k, t in
                 run["last"]._asdict().items()]
@@ -748,6 +759,32 @@ def check_chain(label, run, B, n, per_step):
           + ", ".join(f"{k}={v // STEPS}" for k, v in run["counts"].items()
                       if v))
     return run["counts"]
+
+
+def check_tick_launches(label, counts, ticks, per_tick):
+    """Each kernel of `counts` (launches over `ticks` steps or ticks) was
+    launched exactly per_tick[name] times a tick, every other kernel
+    never.  Returns the launches per tick of the kernels that ran."""
+    for name, got in counts.items():
+        want = per_tick.get(name, 0) * ticks
+        if got != want:
+            fail(f"{label}: {name} launched {got} times in {ticks} "
+                 f"ticks, expected {want}")
+    return {k: v // ticks for k, v in counts.items() if v}
+
+
+def hold_close(label, got, want, tol):
+    """max |got - want| over every entry (float64, on the CPU) within
+    `tol`, or the run fails (a non-finite entry too).  Returns it."""
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    if got.shape != want.shape:
+        fail(f"{label}: shape {tuple(got.shape)}, expected "
+             f"{tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not err <= tol:
+        fail(f"{label}: max |diff| {err:.3e} above {tol:g}")
+    return err
 
 
 def step1_error(run, ref, lanes):
@@ -1196,6 +1233,278 @@ def phase_single(device):
     phase_profile("single", dict(st=st0, step=step, x0s=x0[None]), steps=2)
 
 
+# ---------------------------------------------------------------------------
+# closed loops: the Monte-Carlo swarm, the single-vehicle loops, the flight
+# ---------------------------------------------------------------------------
+
+SWARM_B = 4096
+SWARM_TICKS = 150
+SWARM_SEED = 0
+SWARM_REF_LANES = 8
+SWARM_SETPOINT = (0.0, 0.0, 0.5)
+# every lane within 0.02 m of its set-point after 150 ticks, all states
+# finite: the JAX package's bar (tests/test_runtime_extras.py:170-181)
+SWARM_BAR = 0.02
+# the kernels of one [main] step, launched once a [swarm] tick
+STEP_KERNELS = {"prep_condense2": 1, "kkt_sweep_c2": ITERS,
+                "corrector_sweep_c2": ITERS, "expand2": 1}
+LOOP_TICKS = 5
+LOOP_TOL = 1e-6       # card float64 against CPU float64: x, u, u_cmd
+# 200 ticks, not the JAX test's 400: 400 took 582.6 s on the H100 (1.46 s
+# a host-bound tick, PERF.md), past the 300 s this phase may take; the
+# two error bars are held over these ticks
+FLIGHT_TICKS = 200
+FLIGHT_REF_TICKS = 3
+# the JAX package's bars on the 400-tick helix
+# (tests/test_flight_configuration.py:49-64) and its recorded largest
+# error (docs/PERF.md "Full-helix evidence")
+FLIGHT_MAX_ERR = 0.03
+FLIGHT_MEAN_ERR = 0.015       # over ticks 100 on
+JAX_FLIGHT_MAX_CM = 2.303
+
+
+def swarm_lanes_off(x, setpoint, bar=SWARM_BAR):
+    """Lanes of a swarm run x (T, B, 13) whose last position is not within
+    `bar` of the set-point in every coordinate or whose states are not all
+    finite, and the largest final distance."""
+    import torch
+
+    sp = torch.as_tensor(setpoint, dtype=x.dtype, device=x.device)
+    dist = (x[-1, :, :3] - sp).abs().amax(dim=1)
+    finite = torch.isfinite(x).all(dim=2).all(dim=0)
+    off = ~(dist < bar) | ~finite
+    return off.nonzero().flatten().tolist(), float(dist.max())
+
+
+def check_swarm_bar(label, x, setpoint, bar=SWARM_BAR):
+    """The JAX package's swarm bar on x (T, B, 13): fails, naming the
+    lanes, where a lane missed it."""
+    lanes, worst = swarm_lanes_off(x, setpoint, bar)
+    if lanes:
+        x_last = x[-1, lanes[:16], :3].tolist()
+        fail(f"{label}: {len(lanes)} lanes off by more than {bar} m or not "
+             f"finite after {x.shape[0]} ticks: lanes {lanes[:16]}, final "
+             f"positions {x_last}, starts {x[0, lanes[:16], :3].tolist()}")
+    return worst
+
+
+def check_flight_bars(label, e, u, x):
+    """The JAX package's flight bars: tracking error e (per tick, metres)
+    max below FLIGHT_MAX_ERR and mean from tick 100 on below
+    FLIGHT_MEAN_ERR, rotor speeds in [0, 22] kRPM, states finite.
+    Returns (max, mean from tick 100)."""
+    import numpy as np
+
+    e = np.asarray(e)
+    e_max = float(e.max()) if e.size else float("nan")
+    e_mean = float(e[100:].mean()) if e.size > 100 else float("nan")
+    if not bool(x.isfinite().all()):
+        fail(f"{label}: non-finite plant states")
+    if not (float(u.min()) >= 0.0 and float(u.max()) <= 22.0):
+        fail(f"{label}: rotor speeds outside [0, 22] kRPM "
+             f"({float(u.min()):.4f} .. {float(u.max()):.4f})")
+    if not e_max < FLIGHT_MAX_ERR:
+        fail(f"{label}: largest tracking error {e_max:.5f} m, bar "
+             f"{FLIGHT_MAX_ERR}")
+    if not e_mean < FLIGHT_MEAN_ERR:
+        fail(f"{label}: mean tracking error from tick 100 {e_mean:.5f} m, "
+             f"bar {FLIGHT_MEAN_ERR}")
+    return e_max, e_mean
+
+
+def timed_call(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error") (a host sync
+    fails the run) with the launch counters set to 0: (its result, ms of
+    the CUDA-event window, ms the host spent issuing it, the port's
+    kernel launches)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        host = (time.perf_counter() - t0) * 1e3
+        counts = kc.launch_counts()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, ev0.elapsed_time(ev1), host, counts
+
+
+def phase_swarm(device):
+    """`runtime.batch.monte_carlo_hover` (the Monte-Carlo closed loop,
+    BASELINE config 3): N=50, B=SWARM_B, float32, IPMConfig(iters=8),
+    pos_scale=0.2 around SWARM_SETPOINT, SWARM_TICKS ticks under the sync
+    debug mode, the offsets from a seeded generator on the card.  Prints
+    ms/tick (CUDA events), solves/s, host issue per tick and the kernels
+    a tick launches (K1 once, K2 and K3 eight times, K4 once); holds
+    tick 1's u0 on SWARM_REF_LANES lanes against the port's float64 CPU
+    run to 1e-3 kRPM and every lane to the JAX package's bar.  Returns
+    the launch counts."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.batch import (monte_carlo_hover,
+                                                        swarm_hover)
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    cfg = IPMConfig(iters=ITERS)
+
+    def run(ticks):
+        gen = torch.Generator(device=device).manual_seed(SWARM_SEED)
+        return monte_carlo_hover(spec, gen, SWARM_B, ticks, pos_scale=0.2,
+                                 setpoint=SWARM_SETPOINT, config=cfg)
+
+    run(2)                                    # warm-up, not timed
+    res, ms, host, counts = timed_call(lambda: run(SWARM_TICKS))
+    per_tick = check_tick_launches("[swarm]", counts, SWARM_TICKS,
+                                   STEP_KERNELS)
+    ms_tick, host_tick = ms / SWARM_TICKS, host / SWARM_TICKS
+    print(f"[swarm] monte_carlo_hover N={N} B={SWARM_B} float32: "
+          f"{SWARM_TICKS} ticks, {ms_tick:.3f} ms/tick (window / "
+          f"{SWARM_TICKS}), {SWARM_B / ms_tick * 1e3:.0f} solves/s; host "
+          f"issue {host_tick:.3f} ms/tick; no host sync; kernels per tick "
+          + ", ".join(f"{k}={v}" for k, v in per_tick.items()))
+
+    lanes = slice(0, SWARM_REF_LANES)
+    spec64 = default_ocp(N=N, dtype=torch.float64, device="cpu")
+    x_ref = res.x[0, lanes].double().cpu()
+    ref = swarm_hover(spec64, x_ref, torch.tensor(SWARM_SETPOINT,
+                                                  dtype=torch.float64)
+                      .expand(SWARM_REF_LANES, 3), 1, config=cfg)
+    du0 = hold_close("[swarm] tick 1 u0 vs CPU float64", res.u[0, lanes],
+                     ref.u[0], 1e-3)
+    worst = check_swarm_bar("[swarm]", res.x, SWARM_SETPOINT)
+    print(f"[swarm] tick 1 u0 on {SWARM_REF_LANES} lanes vs CPU float64: "
+          f"max |du0| {du0:.3e} kRPM; after {SWARM_TICKS} ticks every lane "
+          f"within {worst:.5f} m of the set-point (bar {SWARM_BAR} m), all "
+          f"states finite")
+    trace_ticks("swarm", f"B={SWARM_B}", run, ms_tick)
+    return counts
+
+
+def closed_loop_cases():
+    """[closed_loop]'s loops: (label, fn(spec, x0, ticks) -> LoopResult),
+    each with IPMConfig(iters=8) (no host read in a tick)."""
+    from crazyflie_nmpc_tpu_torch.models.firmware import AttitudeGains
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime import closed_loop as cl
+
+    cfg = cl.LoopConfig(delay_steps=4, ipm=IPMConfig(iters=ITERS))
+    lag = AttitudeGains(kd_rate=0.002, tau_m=0.015)
+    return (
+        ("hover_regulation pending", lambda s, x, t: cl.hover_regulation(
+            s, x, steps=t, config=cfg)),
+        ("hover_regulation last_command",
+         lambda s, x, t: cl.hover_regulation(
+             s, x, steps=t, config=dataclasses.replace(
+                 cfg, predictor="last_command"))),
+        ("estimator_in_the_loop", lambda s, x, t: cl.estimator_in_the_loop(
+            s, x, steps=t, config=cfg)),
+        ("cmd_vel_loop motvel", lambda s, x, t: cl.cmd_vel_loop(
+            s, x, steps=t, delay_steps=2, meas_delay_steps=1,
+            predictor="motvel", gains=lag, config=cfg)),
+    )
+
+
+def phase_closed_loop(device):
+    """The single-vehicle closed loops of `runtime.closed_loop` on the
+    card (plain PyTorch: the single-instance rti_step, the plant, the
+    estimator, the cascade), N=50, float64, LOOP_TICKS ticks each from
+    hover 0.5 m below the set-point with seeded noise: ms/tick and host
+    issue, the hand-written kernels launched (none on this path), x, u
+    and u_cmd held against the same call on the port's CPU path to
+    LOOP_TOL; then one tick of each traced (`trace_ticks`: device
+    launches per tick, idle share)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    spec = default_ocp(N=N, dtype=torch.float64, device=device)
+    spec_cpu = default_ocp(N=N, dtype=torch.float64, device="cpu")
+    x0 = hover_batch(spec_cpu, 1, seed=11)[0]
+    xd = x0.to(device)
+    cases = closed_loop_cases()
+    cases[-1][1](spec, xd, 1)                 # warm-up, not timed
+    for label, loop in cases:
+        res, ms, host, counts = timed_call(
+            lambda: loop(spec, xd, LOOP_TICKS))
+        check_tick_launches(f"[closed_loop] {label}", counts, LOOP_TICKS,
+                            {})
+        ref = loop(spec_cpu, x0, LOOP_TICKS)
+        errs = [hold_close(f"[closed_loop] {label} {f} vs CPU float64",
+                           getattr(res, f), getattr(ref, f), LOOP_TOL)
+                for f in ("x", "u", "u_cmd")]
+        print(f"[closed_loop] {label} N={N} float64: {LOOP_TICKS} ticks, "
+              f"{ms / LOOP_TICKS:.3f} ms/tick, host issue "
+              f"{host / LOOP_TICKS:.3f} ms/tick; no host sync; hand-written "
+              f"kernels launched: none; vs CPU float64 max |dx| "
+              f"{errs[0]:.3e}, |du| {errs[1]:.3e}, |du_cmd| {errs[2]:.3e}")
+        trace_ticks("closed_loop", label, lambda t: loop(spec, xd, t),
+                    ms / LOOP_TICKS, hi=2)
+
+
+def phase_flight(device):
+    """`runtime.closed_loop.flight_configuration` (the paper's flown
+    configuration: helix tracking, estimator chain, 60 ms round trip, the
+    cmd_vel predictor, the onboard cascade) on the card: N=50, float64,
+    LoopConfig(ipm=IPMConfig(iters=8)), FLIGHT_TICKS ticks of
+    helix_trajectory under the sync debug mode; the JAX package's bars
+    (check_flight_bars) and its recorded 2.303 cm beside the measured
+    largest error; the first FLIGHT_REF_TICKS ticks' u_cmd held against
+    the port's CPU float64 run to LOOP_TOL; then one tick traced
+    (`trace_ticks`)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (
+        LoopConfig, flight_configuration, tracking_error)
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+    from crazyflie_nmpc_tpu_torch.utils import helix_trajectory
+
+    cfg = LoopConfig(ipm=IPMConfig(iters=ITERS))
+
+    def setup(dev):
+        spec = default_ocp(N=N, dtype=torch.float64, device=dev)
+        return spec, helix_trajectory(spec.params, device=dev)
+
+    def fly(spec, table, ticks):
+        return flight_configuration(spec, table, steps=ticks, delay_steps=4,
+                                    predictor="cmd_vel", config=cfg)
+
+    spec, table = setup(device)
+    fly(spec, table, 1)                       # warm-up, not timed
+    res, ms, host, counts = timed_call(
+        lambda: fly(spec, table, FLIGHT_TICKS))
+    check_tick_launches("[flight]", counts, FLIGHT_TICKS, {})
+    e = tracking_error(res, table)
+    e_max, e_mean = check_flight_bars("[flight]", e, res.u, res.x)
+    ref = fly(*setup("cpu"), FLIGHT_REF_TICKS)
+    du = hold_close("[flight] u_cmd of the first ticks vs CPU float64",
+                    res.u_cmd[:FLIGHT_REF_TICKS], ref.u_cmd, LOOP_TOL)
+    print(f"[flight] flight_configuration N={N} float64, helix, delay 4, "
+          f"cmd_vel predictor: {FLIGHT_TICKS} ticks ({len(e)} tracking) in "
+          f"{ms / 1e3:.1f} s, {ms / FLIGHT_TICKS:.3f} ms/tick, host issue "
+          f"{host / FLIGHT_TICKS:.3f} ms/tick; no host sync; largest "
+          f"tracking error {100 * e_max:.3f} cm (JAX package "
+          f"{JAX_FLIGHT_MAX_CM} cm, bar {100 * FLIGHT_MAX_ERR:g}), mean from "
+          f"tick 100 {100 * e_mean:.3f} cm (bar {100 * FLIGHT_MEAN_ERR:g}); "
+          f"rotor speeds {float(res.u.min()):.3f}..{float(res.u.max()):.3f} "
+          f"kRPM; u_cmd of ticks 1-{FLIGHT_REF_TICKS} vs CPU float64 "
+          f"{du:.3e}")
+    trace_ticks("flight", "B=1", lambda t: fly(spec, table, t),
+                ms / FLIGHT_TICKS, hi=2)
+
+
 def phase_long(device):
     """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
     windowed=None (the fused sweeps), 20 chained steps each; step 1 of
@@ -1266,39 +1575,81 @@ def phase_profile(label, run, steps=3):
         for _ in range(steps):
             state["st"], _ = run["step"](state["st"])
 
-    kern = traced_kernels(steps_run)
+    print_trace(label, f"B={run['x0s'].shape[0]}", trace_sums(steps_run),
+                steps, "steps")
+
+
+def trace_sums(fn):
+    """A torch.profiler trace of one call of fn: (window us from the first
+    kernel to the last, {port kernel: [busy us, launches]}, [busy us,
+    launches] of the other kernels), or None when the profiler recorded
+    no device kernel."""
+    kern = traced_kernels(fn)
     if not kern:
-        print(f"[profile] {label}: torch.profiler recorded no device "
-              f"kernels: device breakdown not measured")
-        return
-    ours = dict.fromkeys(KERNEL_INFO, 0.0)
-    n_ours = dict.fromkeys(KERNEL_INFO, 0)
-    other, n_other = 0.0, 0
+        return None
+    ours = {k: [0.0, 0] for k in KERNEL_INFO}
+    other = [0.0, 0]
     # a port kernel's name, mangled or not, not the tail of a longer one
     # (condense2_kernel inside prep_condense2_kernel)
     names = "|".join(sorted(KERNEL_INFO, key=len, reverse=True))
     pattern = re.compile(r"(?<![A-Za-z_])(%s)_kernel" % names)
     for e in kern:
         found = pattern.search(e["name"])
-        name = found.group(1) if found else None
-        if name:
-            ours[name] += e["dur"]
-            n_ours[name] += 1
-        else:
-            other += e["dur"]
-            n_other += 1
+        acc = ours[found.group(1)] if found else other
+        acc[0] += e["dur"]
+        acc[1] += 1
     t0 = min(e["ts"] for e in kern)
     t1 = max(e["ts"] + e["dur"] for e in kern)
-    window = (t1 - t0) / steps / 1e3
-    busy = (sum(ours.values()) + other) / steps / 1e3
-    parts = [f"{k} {v / steps / 1e3:.3f} ms ({n_ours[k] // steps} x "
-             f"{v / n_ours[k] / 1e3:.3f})" for k, v in ours.items() if v]
+    return t1 - t0, ours, other
+
+
+def print_trace(label, what, sums, steps, unit="ticks"):
+    """Per step or tick of a traced run (`trace_sums`) of `steps` of
+    them: the window, the busy time of the port's kernels (each by name)
+    and of the others, the idle share and the launches."""
+    if sums is None:
+        print(f"[profile] {label}: torch.profiler recorded no device "
+              f"kernels: device breakdown not measured")
+        return
+    window_us, ours, (other, n_other) = sums
+    window = window_us / steps / 1e3
+    busy = (sum(v for v, _ in ours.values()) + other) / steps / 1e3
+    parts = [f"{k} {v / steps / 1e3:.3f} ms ({n // steps} x "
+             f"{v / n / 1e3:.3f})" for k, (v, n) in ours.items() if n]
     parts.append(f"other kernels {other / steps / 1e3:.3f} ms "
                  f"({n_other // steps} launches)")
-    print(f"[profile] {label} B={run['x0s'].shape[0]}, {steps} traced "
-          f"steps, per step: window {window:.3f} ms, kernels busy "
-          f"{busy:.3f} ms (idle share {1 - busy / window:.3f}); "
-          + ", ".join(parts))
+    print(f"[profile] {label} {what}, {steps} traced {unit}, per "
+          f"{unit[:-1]}: window {window:.3f} ms, kernels busy {busy:.3f} ms "
+          f"(idle share {1 - busy / window:.3f}); " + ", ".join(parts))
+
+
+def trace_ticks(label, what, loop, ms_tick, lo=1, hi=3):
+    """Where a closed loop's tick goes, without the loop's set-up (the
+    warm start's rollout, the filters): a traced call of loop(hi) ticks
+    less a traced call of loop(lo), per tick: the launches and busy time
+    of the port's kernels (each by name) and of the others, and the idle
+    share against `ms_tick`, the untraced run's ms/tick (the traced
+    windows carry the profiler's host time, which moves between calls).
+    A host-bound loop leaves the card idle, so its clocks and the kernels'
+    times move too: the busy time is approximate, the launches exact."""
+    a, b = trace_sums(lambda: loop(lo)), trace_sums(lambda: loop(hi))
+    if a is None or b is None:
+        print_trace(label, what, None, hi - lo)
+        return
+    n = hi - lo
+    ours = {k: (b[1][k][0] - a[1][k][0], b[1][k][1] - a[1][k][1])
+            for k in KERNEL_INFO}
+    other = (b[2][0] - a[2][0], b[2][1] - a[2][1])
+    busy = (sum(v for v, _ in ours.values()) + other[0]) / n / 1e3
+    parts = [f"{k} {v / n / 1e3:.3f} ms ({c // n} x {v / c / 1e3:.3f})"
+             for k, (v, c) in ours.items() if c]
+    parts.append(f"other kernels {other[0] / n / 1e3:.3f} ms "
+                 f"({other[1] // n} launches)")
+    ticks = f"tick {hi}" if n == 1 else f"ticks {lo + 1}..{hi}"
+    print(f"[profile] {label} {what}, {ticks} traced (a {hi}-tick run "
+          f"less a {lo}-tick one), per tick: kernels busy "
+          f"{busy:.3f} ms of {ms_tick:.3f} (idle share "
+          f"{1 - busy / ms_tick:.3f}); " + ", ".join(parts))
 
 
 def phase_certified(device):
@@ -1751,6 +2102,15 @@ def main(argv=None) -> int:
                            ("xla_prep", xla_runs.get(B_TIME))):
             if run is not None:
                 phase_profile(label, run)
+    # the closed loops last: their traces (10^5 kernels each) left the
+    # profiler's later short traces empty in one run (PERF.md, PR 10)
+    if "swarm" in phases:
+        for name, v in phase_swarm(device).items():
+            totals[name] = totals.get(name, 0) + v
+    if "closed_loop" in phases:
+        phase_closed_loop(device)
+    if "flight" in phases:
+        phase_flight(device)
     timing.update(roofline_rows)
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -8,10 +8,14 @@ Ported so far: the model (`models`), the OCP data and both RTI steps: the
 batched `solver.rti_batched.rti_step_batched` with every option of its
 `ops.ipm_fast.solve_batched`, and the single-instance `solver.rti.rti_step`
 (with `sqp_solve` and AS-RTI) on `ops.{integrators, qp, riccati, ipm,
-condensing}`; and the speed-of-light study (`roofline`).  Every Pallas
-kernel of the JAX package is hand-written CUDA C++ for sm_90a under
-`csrc/` (built at first use by `ops.cuda._build`).  ROADMAP.md lists what
-is still to port.
+condensing}`; the closed loops (`runtime`: the single-vehicle loops up to
+the paper's flown configuration on `rti_step`, the swarm and Monte-Carlo
+loops on `rti_step_batched`) with the onboard cascade
+(`models.firmware`), the estimator chain (`estimator`) and the trajectory
+tools (`utils.trajectories`); and the speed-of-light study
+(`roofline`).  Every Pallas kernel of the JAX package is hand-written
+CUDA C++ for sm_90a under `csrc/` (built at first use by
+`ops.cuda._build`).  ROADMAP.md lists what is still to port.
 
 Entry points run on the card unless the caller asks for the CPU: every
 constructor takes `device=None`, which means `cuda`, and raises when no

@@ -1,9 +1,12 @@
-"""Carry a problem, a QP and a warm start across from numpy arrays.
+"""Carry a problem, a QP, a warm start and a closed loop's settings and
+state across from numpy arrays.
 
 The JAX package's `OCPSpec`, `QPData` and `RTIState` leaves (batched or
-single-instance), taken out with `np.asarray`, become the port's objects,
-so both packages solve the same problem.  This module imports nothing of
-the JAX package.
+single-instance), its `AttitudeGains`, `EstimatorState` and `LoopConfig`,
+taken out with `np.asarray` (or read by attribute), become the port's
+objects, so both packages solve the same problem; `loop_result_to_numpy`
+brings a closed loop's result back.  This module imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -14,14 +17,24 @@ import numpy as np
 import torch
 
 from crazyflie_nmpc_tpu_torch.device import resolve_device
+from crazyflie_nmpc_tpu_torch.estimator.lpf import VelocityLPFState
+from crazyflie_nmpc_tpu_torch.estimator.pipeline import EstimatorState
+from crazyflie_nmpc_tpu_torch.models.firmware import AttitudeGains
 from crazyflie_nmpc_tpu_torch.models.quadrotor import QuadrotorParams
+from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.ops.qp import QPData
+from crazyflie_nmpc_tpu_torch.runtime.closed_loop import LoopConfig, LoopResult
 from crazyflie_nmpc_tpu_torch.solver.ocp import CostSpec, OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIState
 
 PARAM_KEYS = ("g0", "mq", "Ixx", "Iyy", "Izz", "Cd", "Ct", "l")
 COST_KEYS = ("W", "Vx", "Vu", "W_e", "Vx_e")
 QP_KEYS = tuple(f.name for f in dataclasses.fields(QPData))
+GAIN_KEYS = tuple(f.name for f in dataclasses.fields(AttitudeGains))
+LPF_KEYS = tuple(f.name for f in dataclasses.fields(VelocityLPFState))
+IPM_KEYS = tuple(f.name for f in dataclasses.fields(IPMConfig))
+LOOP_KEYS = tuple(f.name for f in dataclasses.fields(LoopConfig)
+                  if f.name != "ipm")
 
 
 def _np(v):
@@ -78,3 +91,62 @@ def qp_from_numpy(leaves: dict, *, device=None,
     dev = resolve_device(device)
     return QPData(**{k: torch.as_tensor(np.array(leaves[k]), device=dev)
                      .to(dtype) for k in QP_KEYS})
+
+
+def _tensor(v, dev, dtype):
+    return torch.as_tensor(np.array(v), device=dev).to(dtype)
+
+
+def leaves_from_gains(gains) -> dict:
+    """An AttitudeGains-like object's four gains: Python numbers stay
+    numbers (a Python 0.0 `tau_m` means no motor lag), arrays become numpy
+    copies (an array selects the lag branch whatever it holds)."""
+    return {k: (v if isinstance(v, (int, float)) else _np(v))
+            for k, v in ((k, getattr(gains, k)) for k in GAIN_KEYS)}
+
+
+def gains_from_numpy(leaves: dict, *, device=None,
+                     dtype=torch.float32) -> AttitudeGains:
+    """`AttitudeGains` from `leaves_from_gains`: numbers kept, arrays as
+    tensors on the device."""
+    dev = resolve_device(device)
+    return AttitudeGains(**{
+        k: (v if isinstance(v, (int, float)) else _tensor(v, dev, dtype))
+        for k, v in leaves.items()})
+
+
+def leaves_from_estimator_state(state) -> dict:
+    """numpy copies of an EstimatorState-like object's leaves: the LPF's
+    p_prev, v_prev, v_prev2, elapsed and last_u."""
+    leaves = {k: _np(getattr(state.lpf, k)) for k in LPF_KEYS}
+    leaves["last_u"] = _np(state.last_u)
+    return leaves
+
+
+def estimator_state_from_numpy(leaves: dict, *, device=None,
+                               dtype=torch.float32) -> EstimatorState:
+    """`EstimatorState` (with its `VelocityLPFState`) from numpy leaves."""
+    dev = resolve_device(device)
+    lpf = VelocityLPFState(**{k: _tensor(leaves[k], dev, dtype)
+                              for k in LPF_KEYS})
+    return EstimatorState(lpf=lpf,
+                          last_u=_tensor(leaves["last_u"], dev, dtype))
+
+
+def leaves_from_loop_config(config) -> dict:
+    """A LoopConfig-like object's settings, its IPMConfig as a dict."""
+    leaves = {k: getattr(config, k) for k in LOOP_KEYS}
+    leaves["ipm"] = {k: getattr(config.ipm, k) for k in IPM_KEYS}
+    return leaves
+
+
+def loop_config_from_numpy(leaves: dict) -> LoopConfig:
+    """`LoopConfig` with its `IPMConfig` from `leaves_from_loop_config`."""
+    kw = {k: v for k, v in leaves.items() if k != "ipm"}
+    return LoopConfig(ipm=IPMConfig(**leaves["ipm"]), **kw)
+
+
+def loop_result_to_numpy(res) -> LoopResult:
+    """A LoopResult (this package's or the JAX package's) with numpy
+    arrays: x, u, u_cmd, kkt_res, policy_mode."""
+    return LoopResult(*(_np(getattr(res, k)) for k in LoopResult._fields))

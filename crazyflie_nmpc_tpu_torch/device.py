@@ -18,3 +18,14 @@ def resolve_device(device=None) -> torch.device:
                 "port's plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_tensor(values, dtype, device) -> torch.Tensor:
+    """A small 1-D tensor of Python numbers on `device`, each entry filled
+    there: unlike `torch.tensor(values, device=...)` it copies nothing
+    from the host, so it never waits for the card.  A tensor is moved and
+    cast instead."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=device, dtype=dtype)
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
+                        for v in values])

@@ -11,3 +11,10 @@ from crazyflie_nmpc_tpu_torch.models.quadrotor import (  # noqa: F401
     hover_control,
     hover_state,
 )
+from crazyflie_nmpc_tpu_torch.models import rotations  # noqa: F401
+from crazyflie_nmpc_tpu_torch.models.firmware import (  # noqa: F401
+    AttitudeGains,
+    attitude_plant_step,
+    init_motor_state,
+    mix_cmd_vel,
+)

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from crazyflie_nmpc_tpu_torch.device import resolve_device
+from crazyflie_nmpc_tpu_torch.device import device_tensor, resolve_device
 
 XQ, YQ, ZQ = 0, 1, 2
 QW, QX, QY, QZ = 3, 4, 5, 6
@@ -103,11 +103,11 @@ def dynamics(params: QuadrotorParams, x: torch.Tensor,
 
 def hover_state(params: QuadrotorParams, pos=(0.0, 0.0, 0.0),
                 dtype=torch.float32, device=None) -> torch.Tensor:
-    """Equilibrium state: identity attitude, zero velocity, at `pos`."""
-    x = torch.zeros(NX, dtype=dtype, device=resolve_device(device))
-    x[XQ], x[YQ], x[ZQ] = pos[0], pos[1], pos[2]
-    x[QW] = 1.0
-    return x
+    """Equilibrium state: identity attitude, zero velocity, at `pos`.
+    Made on the device without a host copy (`device_tensor`), so it does
+    not wait for the card."""
+    return device_tensor(tuple(pos[:3]) + (1.0,) + (0.0,) * (NX - 4), dtype,
+                         resolve_device(device))
 
 
 def hover_control(params: QuadrotorParams, dtype=torch.float32,

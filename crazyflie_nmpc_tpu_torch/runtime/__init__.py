@@ -1,0 +1,17 @@
+from crazyflie_nmpc_tpu_torch.runtime.batch import (  # noqa: F401
+    SwarmResult,
+    monte_carlo_hover,
+    swarm_hover,
+)
+from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (  # noqa: F401
+    LoopConfig,
+    LoopResult,
+    cmd_vel_loop,
+    estimator_in_the_loop,
+    estimator_measurement,
+    flight_configuration,
+    hover_regulation,
+    simulate,
+    tracking_error,
+    trajectory_tracking,
+)

@@ -22,7 +22,7 @@ from typing import Any
 
 import torch
 
-from crazyflie_nmpc_tpu_torch.device import resolve_device
+from crazyflie_nmpc_tpu_torch.device import device_tensor, resolve_device
 from crazyflie_nmpc_tpu_torch.models.quadrotor import NX
 from crazyflie_nmpc_tpu_torch.solver.ocp import OCPSpec
 
@@ -44,13 +44,14 @@ class PolicyState:
 
 
 def _state(mode, setpoint, device):
+    """Filled on the device (`device_tensor`): a closed loop that starts
+    under torch.cuda.set_sync_debug_mode("error") makes its policy state
+    without waiting for the card."""
     dev = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=dev)
-    return PolicyState(mode=torch.tensor(mode, **i32),
-                       playhead=torch.tensor(0, **i32),
-                       setpoint=torch.as_tensor(setpoint,
-                                                dtype=torch.float64,
-                                                device=dev))
+    return PolicyState(mode=torch.full((), mode, **i32),
+                       playhead=torch.zeros((), **i32),
+                       setpoint=device_tensor(setpoint, torch.float64, dev))
 
 
 def regulation_state(setpoint=(0.0, 0.0, 0.5), device=None) -> PolicyState:
