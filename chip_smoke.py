@@ -37,7 +37,7 @@ each, with launch counters proving which kernels ran:
                  step 1 too, and a sim_steps=2 spec at B=1024 (its bars
                  shown to catch faults planted in the preparation).
 
-and five paths of their own:
+and seven paths of their own:
 
   [single]       the single-instance rti_step (plain PyTorch), N=50, 20
                  closed-loop ticks from a 1.5 m offset, and one certified
@@ -55,6 +55,17 @@ and five paths of their own:
                  helix, estimator chain, 60 ms delay, cmd_vel predictor,
                  onboard cascade), N=50, float64, 200 ticks, held to the
                  JAX package's tracking bars;
+  [serving]      runtime.serving.ServingLoop (the default certified
+                 config) at 66.6 Hz, N=50, float32, a batched RK4 plant on
+                 the card: B=256 synchronous and pipelined (depth 2), B=1
+                 synchronous, 200 ticks each, held to the JAX package's
+                 lane bar (0.02 m) and tick 1 to the CPU float64 run;
+  [swarm_wire]   bringup.swarm_serving: 16 cascade-plant vehicles over
+                 the native UDP link in lockstep for 220 ticks (the JAX
+                 package's bars), 2 vehicles in real time at 20 Hz for
+                 80 ticks, and SwarmNMPC.step alone at 256 lanes; both
+                 serving phases under the sync debug mode with their
+                 host syncs counted (the emit and the escalation check);
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
                  depends on every product and stage), then the study of
@@ -119,7 +130,7 @@ N_ODD = N + 1         # the odd horizon of [uncondensed]
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
           "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
           "single", "roofline", "certified", "timing", "swarm",
-          "closed_loop", "flight")
+          "closed_loop", "flight", "serving", "swarm_wire")
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -1505,6 +1516,445 @@ def phase_flight(device):
                 ms / FLIGHT_TICKS, hi=2)
 
 
+# ---------------------------------------------------------------------------
+# the serving stack: ServingLoop, SwarmNMPC over the native link
+# ---------------------------------------------------------------------------
+
+SERVE_RATE = 66.6
+SERVE_TICKS = 200
+SERVE_B = 256         # BASELINE.json config 4's fleet
+SERVE_RUNS = ((SERVE_B, 0), (SERVE_B, 2), (1, 0))   # (B, pipeline depth)
+SERVE_SEED = 3
+SERVE_OFFSET = 0.15   # lanes start up to 0.15 m off the set-point
+SERVE_SETPOINT = (0.0, 0.0, 0.5)
+SERVE_REF_LANES = 16
+SERVE_U_TOL = 1e-3    # kRPM, tick 1 against the port's CPU float64 run
+# tests/test_serving.py:112-131: every lane within 0.02 m at the end
+SERVE_BAR = 0.02
+ESCALATE_ITERS = 32   # certified_config's re-solve
+WIRE_N = 16           # the JAX package's bench swarm row (BENCH_r05.json)
+WIRE_TICKS = 220
+# tests/test_swarm_serving.py:83-107
+WIRE_FINAL_ERR = 0.08
+WIRE_SLOT_GAP = 0.3
+WIRE_FRESH = 0.99
+RT_N, RT_RATE, RT_TICKS = 2, 20.0, 80     # test_swarm_serving.py:160-212
+RT_TARGETS = ((0.0, 0.0, 0.4), (0.6, 0.0, 0.4))
+STEP_B, STEP_TICKS, STEP_SEED = 256, 20, 7
+# JAX's own cross-path bar on a swarm step (test_swarm_serving.py:150-157)
+STEP_ANGLE_TOL, STEP_THRUST_RTOL = 0.02, 1e-3
+
+
+def check_step_launches(label, counts, steps, resolves, iters=ITERS):
+    """The launches of `steps` batched RTI steps: K1 once a step, K2 and
+    K3 `iters` times a step and K4 once, each certified re-solve
+    (`resolves` of them) ESCALATE_ITERS more K2 and K3 and one more K4,
+    every other kernel never.  Returns the launches per step of the
+    kernels that ran."""
+    sweeps = iters * steps + ESCALATE_ITERS * resolves
+    want = {"prep_condense2": steps, "kkt_sweep_c2": sweeps,
+            "corrector_sweep_c2": sweeps, "expand2": steps + resolves}
+    for name, got in counts.items():
+        if got != want.get(name, 0):
+            fail(f"{label}: {name} launched {got} times in {steps} steps "
+                 f"({resolves} escalation re-solves), expected "
+                 f"{want.get(name, 0)}")
+    return {k: v / steps for k, v in counts.items() if v}
+
+
+def check_host_syncs(label, syncs, want):
+    """The counted host syncs (`device.host_syncs`) are exactly `want`:
+    the emits and the escalation checks, nothing else."""
+    if syncs != want:
+        fail(f"{label}: host syncs {syncs}, expected {want}")
+
+
+def counted(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error") (any wait on
+    the card outside `device.host_sync` fails the run), with the launch,
+    host-sync and escalation counters set to 0 just before: (its result,
+    wall s, launches, host syncs, escalations)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+
+    torch.cuda.synchronize()
+    kc.reset_launch_counts()
+    dv.reset_host_syncs()
+    ipm_fast.reset_escalation_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        counts, syncs = kc.launch_counts(), dv.host_syncs()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, wall, counts, syncs, ipm_fast.escalation_counts()
+
+
+def serving_lanes(spec, B):
+    """B hover states at SERVE_SETPOINT, each position off by a seeded
+    uniform draw in [-SERVE_OFFSET, SERVE_OFFSET] (on the card)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+
+    dev = spec.lbu.device
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    x0 = hover_state(spec.params, pos=SERVE_SETPOINT, dtype=spec.lbu.dtype,
+                     device=dev).expand(B, 13).clone()
+    off = torch.rand((B, 3), generator=gen, device=dev, dtype=x0.dtype)
+    x0[:, :3] += SERVE_OFFSET * (2.0 * off - 1.0)
+    return x0
+
+
+def serve_plant(spec, B, depth, ticks, x0, device, count=True):
+    """`ServingLoop` (the default certified config) at SERVE_RATE with a
+    batched RK4 plant on `device` in the sink, from x0 (B, 13): (report,
+    final plant states, the first emitted u_apply, and with `count` the
+    run's wall time and counters (`counted`) as a dict)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.device import from_host
+    from crazyflie_nmpc_tpu_torch.models import dynamics
+    from crazyflie_nmpc_tpu_torch.ops.integrators import integrate
+    from crazyflie_nmpc_tpu_torch.runtime.serving import (ServeConfig,
+                                                          ServingLoop)
+    from crazyflie_nmpc_tpu_torch.solver import hover_yref
+
+    loop = ServingLoop(spec, serve=ServeConfig(rate_hz=SERVE_RATE,
+                                               pipeline_depth=depth),
+                       batch=B, device=device)
+    yref, yref_e = hover_yref(spec, pos=SERVE_SETPOINT, device=device)
+    plant = dict(x=x0.clone(), first=None)
+
+    def source(k):
+        return plant["x"]
+
+    def sink(k, cmd, u_apply):
+        if plant["first"] is None:
+            plant["first"] = u_apply.copy()
+        u = from_host(u_apply, plant["x"].dtype, plant["x"].device)
+        plant["x"] = integrate(dynamics, spec.params, plant["x"], u, spec.dt)
+
+    loop.warmup(x0, yref, yref_e)
+    loop.reset(x0)
+    run = lambda: loop.run(ticks, source, sink, yref, yref_e)  # noqa: E731
+    if not count:
+        return run(), plant["x"], plant["first"], None
+    rep, wall, counts, syncs, esc = counted(run)
+    plant.update(wall=wall, counts=counts, syncs=syncs, esc=esc)
+    return rep, plant["x"], plant["first"], plant
+
+
+def serving_bars(label, rep, x):
+    """[serving]'s bars on a run's report and final plant states x
+    (B, 13): every lane within SERVE_BAR of SERVE_SETPOINT in every
+    coordinate and finite; at depth d every latency at least d periods
+    (less 1 ms).  Returns the largest final distance."""
+    lanes, worst = swarm_lanes_off(x[None], SERVE_SETPOINT, SERVE_BAR)
+    if lanes:
+        fail(f"{label}: {len(lanes)} lanes off by more than {SERVE_BAR} m "
+             f"or not finite after {rep.ticks} ticks: {lanes[:16]}")
+    depth = rep.config.pipeline_depth
+    if depth and not (rep.latency_s.min()
+                      >= depth * rep.config.period_s - 1e-3):
+        fail(f"{label}: latency {1e3 * rep.latency_s.min():.3f} ms below "
+             f"{depth} periods")
+    return worst
+
+
+def phase_serving(device):
+    """`runtime.serving.ServingLoop` on the card: N=50, float32, the
+    default certified config (escalation capacity min(128, B)), 66.6 Hz,
+    SERVE_TICKS ticks at B=256 synchronous and at depth 2, and B=1
+    synchronous, a batched RK4 plant on the card in the sink, lanes from
+    hover plus seeded offsets of up to 0.15 m.  Each run under the sync
+    debug mode, its host syncs counted (the emit and the escalation
+    check, one each a tick); prints latency p50/p99/max, deadline misses,
+    schedule slips, host issue, solves/s, K1-K4 launches and escalated
+    lanes per tick.  Bars: every lane within SERVE_BAR of the set-point
+    at the end, tick 1's u_apply on SERVE_REF_LANES lanes within
+    SERVE_U_TOL of the port's float64 CPU run, depth-2 latency at least
+    2 periods; a few depth-0 ticks traced (`trace_ticks`).  Then
+    `measure_transport_floor` on the card.  Returns the launch totals."""
+    import numpy as np
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.runtime.serving import (
+        measure_transport_floor)
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    spec64 = default_ocp(N=N, dtype=torch.float64, device="cpu")
+    totals = {}
+    for B, depth in SERVE_RUNS:
+        label = f"[serving] B={B} depth {depth}"
+        x0 = serving_lanes(spec, B)
+        rep, x, first, run = serve_plant(spec, B, depth, SERVE_TICKS, x0,
+                                         device)
+        esc = run["esc"]
+        per_tick = check_step_launches(label, run["counts"], SERVE_TICKS,
+                                       esc["resolves"])
+        check_host_syncs(label, run["syncs"], {"emit": SERVE_TICKS,
+                                               "escalation": SERVE_TICKS})
+        for k, v in run["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+        s = rep.summary()
+        print(f"{label} N={N} float32 certified, {SERVE_RATE} Hz: "
+              f"{SERVE_TICKS} ticks in {run['wall']:.3f} s, latency p50 "
+              f"{s['p50_ms']:.3f} / p99 {s['p99_ms']:.3f} / max "
+              f"{s['max_ms']:.3f} ms (budget {s['budget_ms']:.3f}, "
+              f"deadline {s['budget_ms'] * (1 + depth):.3f}); "
+              f"deadline misses {s['deadline_misses']}, schedule slips "
+              f"{s['schedule_slips']}; host issue {s['issue_ms']:.3f} "
+              f"ms/tick (p99 {1e3 * np.percentile(rep.issue_s, 99):.3f}); "
+              f"{B * SERVE_TICKS / run['wall']:.0f} solves/s; host syncs "
+              f"per tick emit 1, escalation 1, none other; escalation "
+              f"re-solves {esc['resolves']} in {SERVE_TICKS} ticks, "
+              f"{esc['lanes']} lanes ({esc['lanes'] / SERVE_TICKS:.2f} a "
+              f"tick); launches per tick "
+              + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+        worst = serving_bars(label, rep, x)
+        ref_lanes = min(B, SERVE_REF_LANES)
+        _, _, ref_first, _ = serve_plant(spec64, ref_lanes, depth, 1,
+                                         x0[:ref_lanes].double().cpu(),
+                                         "cpu", count=False)
+        du = hold_close(f"{label} tick 1 u_apply vs CPU float64",
+                        torch.as_tensor(first[:ref_lanes]),
+                        torch.as_tensor(ref_first), SERVE_U_TOL)
+        print(f"{label}: every lane within {worst:.3e} m of the set-point "
+              f"(bar {SERVE_BAR} m); tick 1 u_apply on {ref_lanes} lanes "
+              f"vs CPU float64 max |du| {du:.3e} kRPM (bar {SERVE_U_TOL}); "
+              f"smallest latency {1e3 * rep.latency_s.min():.3f} ms")
+        if depth == 0:
+            trace_ticks("serving", f"B={B} depth 0", lambda t: serve_plant(
+                spec, B, 0, t, x0, device, count=False),
+                1e3 * run["wall"] / SERVE_TICKS)
+    floor = measure_transport_floor(batch=SERVE_B, device=device)
+    print(f"[serving] transport floor (put (256, 13), trivial op, fetch "
+          f"(256, 4)) on {floor['platform']}: p50 {floor['p50_ms']:.4f} ms, "
+          f"p99 {floor['p99_ms']:.4f} ms")
+    return totals
+
+
+def wire_bars(label, rep, n):
+    """The JAX package's lockstep bars (test_swarm_serving.py:83-107):
+    final error below WIRE_FINAL_ERR, slots more than WIRE_SLOT_GAP
+    apart, fresh rows on more than WIRE_FRESH of the ticks after 5,
+    finite latencies."""
+    import numpy as np
+
+    if not np.isfinite(rep.latency_s).all() or rep.latency_s.shape != (
+            rep.ticks, n):
+        fail(f"{label}: latency accounting {rep.latency_s.shape}")
+    if not rep.final_err_m.max() < WIRE_FINAL_ERR:
+        fail(f"{label}: final errors {rep.final_err_m.round(4).tolist()} "
+             f"m, bar {WIRE_FINAL_ERR}")
+    pos = rep.positions[-1]
+    gap = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)[
+        np.triu_indices(n, 1)].min()
+    if not gap > WIRE_SLOT_GAP:
+        fail(f"{label}: two vehicles {gap:.4f} m apart, bar "
+             f"{WIRE_SLOT_GAP}")
+    fresh = float((rep.staleness[5:] <= 1).mean())
+    if not fresh > WIRE_FRESH:
+        fail(f"{label}: fresh rows on {fresh:.4f} of the ticks, bar "
+             f"{WIRE_FRESH}")
+    return gap, fresh
+
+
+def realtime_bars(label, rep, n):
+    """The JAX package's realtime bars (test_swarm_serving.py:198-212)."""
+    import numpy as np
+
+    if not np.isfinite(rep.latency_s).all():
+        fail(f"{label}: non-finite latencies")
+    zmax = rep.positions[:, :, 2].max(axis=0)
+    if not (zmax > 0.2).all():
+        fail(f"{label}: vehicles did not fly (max z {zmax.tolist()})")
+    live = float((rep.staleness[-20:] <= 3).mean())
+    if not live > 0.8:
+        fail(f"{label}: telemetry live on {live:.3f} of the last 20 ticks")
+    if not rep.schedule_slips < 40:
+        fail(f"{label}: {rep.schedule_slips} schedule slips")
+    return zmax, live
+
+
+def step_telemetry(B):
+    """Seeded telemetry of B vehicles near their slots (as
+    tests/test_torch_swarm.py): (targets, x0s, mocap, euler, gyro)."""
+    import numpy as np
+
+    from crazyflie_nmpc_tpu_torch.runtime.swarm import grid_targets
+
+    targets = grid_targets(B, spacing=0.6, z=0.4)
+    rng = np.random.default_rng(STEP_SEED)
+    x0s = 0.05 * rng.standard_normal((B, 13))
+    x0s[:, :3] += targets * np.array([1.0, 1.0, 0.2])
+    x0s[:, 3] = 1.0
+    return (targets, x0s, x0s[:, :3].copy(), 5.0 * rng.standard_normal(
+        (B, 3)), 10.0 * rng.standard_normal((B, 3)))
+
+
+def phase_swarm_wire(device):
+    """`bringup.swarm_serving` and `runtime.swarm` on the card (N=50
+    unless named, float32, the default certified config), each under the
+    sync debug mode with its host syncs counted: the lockstep run of
+    WIRE_N vehicles over the native link for WIRE_TICKS ticks at 66.6 Hz
+    (the JAX bars: final error, distinct slots, fresh rows); the realtime
+    run of RT_N vehicles at RT_RATE Hz for RT_TICKS ticks with the JAX
+    test's settings (N=20, tf=0.3, IPMConfig(iters=4)) and bars; then
+    `SwarmNMPC.step` alone at STEP_B lanes on seeded telemetry,
+    STEP_TICKS timed ticks, tick 1 on SERVE_REF_LANES lanes held against
+    the port's float64 CPU run (u_apply to SERVE_U_TOL, cmd to JAX's
+    cross-path bar).  Prints the plant's host ms per vehicle period.
+    Returns the launch totals."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import bringup, native
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.swarm import (SwarmNMPC,
+                                                        serve_swarm)
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    out, wall, counts, syncs, esc = counted(lambda: bringup.swarm_serving(
+        n=WIRE_N, ticks=WIRE_TICKS, base_port=0, device=device, spec=spec))
+    steps = WIRE_TICKS + 1                     # and the warm-up step
+    label = f"[swarm_wire] lockstep {WIRE_N} vehicles"
+    per_tick = check_step_launches(label, counts, steps, esc["resolves"])
+    # the predictor's CUDA graph is captured at the first step
+    check_host_syncs(label, syncs, {"emit": steps, "escalation": steps,
+                                    "graph capture": 1})
+    add(counts)
+    rep = out["report"]
+    s = rep.summary()
+    print(f"{label}, N={N} float32 certified, {SERVE_RATE} Hz: "
+          f"{WIRE_TICKS} ticks in {wall:.3f} s ({1e3 * wall / steps:.3f} "
+          f"ms a tick, the vehicles' physics and the wire included); emit "
+          f"latency p50 {s['p50_ms']:.3f} / p99 {s['p99_ms']:.3f} ms, "
+          f"deadline misses {s['total_misses']} of {WIRE_TICKS * WIRE_N} "
+          f"(worst vehicle {s['worst_vehicle_miss']}); final error max "
+          f"{s['final_err_max_m']:.3e} m (bar {WIRE_FINAL_ERR}); plant "
+          f"{out['plant_ms_per_period']:.4f} host ms a vehicle period; "
+          f"host syncs per tick emit 1, escalation 1, and one graph "
+          f"capture; escalation re-solves {esc['resolves']}, "
+          f"{esc['lanes']} lanes; launches per tick "
+          + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+    gap, fresh = wire_bars(label, rep, WIRE_N)
+    print(f"{label}: slots >= {gap:.3f} m apart (bar {WIRE_SLOT_GAP}), "
+          f"fresh rows on {fresh:.4f} of ticks 5+ (bar {WIRE_FRESH})")
+
+    rt_spec = default_ocp(N=20, tf=0.3, dtype=torch.float32, device=device)
+    targets = np.asarray(RT_TARGETS)
+    swarm = SwarmNMPC(rt_spec, targets, tick_dt=1.0 / RT_RATE,
+                      ipm_config=IPMConfig(iters=4), device=device)
+
+    def realtime():
+        with contextlib.ExitStack() as stack:
+            fws = []
+            for i in range(RT_N):
+                fw = stack.enter_context(native.CascadeFirmwareSim(
+                    0, x0=(targets[i, 0], targets[i, 1], 0.03)))
+                fw.serve()
+                fws.append(fw)
+            server = stack.enter_context(native.LinkServer())
+            for i, fw in enumerate(fws):
+                server.add_vehicle(i + 1, "127.0.0.1", fw.port, 0)
+            rep = serve_swarm(rt_spec, server, list(range(1, RT_N + 1)),
+                              fws, swarm, RT_TICKS, rate_hz=RT_RATE,
+                              lockstep=False)
+            return rep, sum(fw.plant_s for fw in fws) / max(
+                1, sum(fw.plant_periods for fw in fws))
+
+    (rep, plant_s), wall, counts, syncs, esc = counted(realtime)
+    label = f"[swarm_wire] realtime {RT_N} vehicles {RT_RATE:g} Hz"
+    steps = RT_TICKS + 1
+    s = rep.summary()
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"{label}, N=20 tf=0.3 float32 IPMConfig(iters=4): {RT_TICKS} "
+          f"ticks in {wall:.3f} s; emit latency p50 {s['p50_ms']:.3f} / "
+          f"p99 {s['p99_ms']:.3f} / max {1e3 * rep.latency_s.max():.3f} "
+          f"ms, deadline misses {s['total_misses']}, schedule slips "
+          f"{s['schedule_slips']} (bar < 40); max z "
+          f"{np.round(rep.positions[:, :, 2].max(axis=0), 4).tolist()} m "
+          f"(bar > 0.2); final error {s['final_err_max_m']:.4f} m; plant "
+          f"{1e3 * plant_s:.4f} host ms a vehicle period (beside the serve "
+          f"threads); host syncs {syncs}; launches {ran}")
+    per_tick = check_step_launches(label, counts, steps, 0, iters=4)
+    check_host_syncs(label, syncs, {"emit": steps, "graph capture": 1})
+    add(counts)
+    zmax, live = realtime_bars(label, rep, RT_N)
+    print(f"{label}: telemetry live on {live:.3f} of the last 20 ticks; "
+          f"launches per tick "
+          + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+
+    targets, x0s, mocap, euler, gyro = step_telemetry(STEP_B)
+    sw = SwarmNMPC(spec, targets, device=device)
+    sw.reset(x0s)
+    sw.step(mocap, euler, gyro)                # warm-up, not counted
+    sw.reset(x0s)
+
+    def ticks():
+        outs, ts = [], []
+        for _ in range(STEP_TICKS):
+            t0 = time.perf_counter()
+            outs.append(sw.step(mocap, euler, gyro))
+            ts.append(time.perf_counter() - t0)
+        return outs, ts
+
+    (outs, ts), wall, counts, syncs, esc = counted(ticks)
+    label = f"[swarm_wire] SwarmNMPC.step B={STEP_B}"
+    per_tick = check_step_launches(label, counts, STEP_TICKS,
+                                   esc["resolves"])
+    check_host_syncs(label, syncs, {"emit": STEP_TICKS,
+                                    "escalation": STEP_TICKS})
+    add(counts)
+    lanes = SERVE_REF_LANES
+    spec64 = default_ocp(N=N, dtype=torch.float64, device="cpu")
+    ref = SwarmNMPC(spec64, targets[:lanes], device="cpu")
+    ref.reset(x0s[:lanes])
+    rcmd, ru = ref.step(mocap[:lanes], euler[:lanes], gyro[:lanes])
+    cmd, u = outs[0]
+    du = hold_close(f"{label} tick 1 u_apply vs CPU float64",
+                    torch.as_tensor(u[:lanes]), torch.as_tensor(ru),
+                    SERVE_U_TOL)
+    dang = hold_close(f"{label} tick 1 cmd angles vs CPU float64",
+                      torch.as_tensor(cmd[:lanes, :3]),
+                      torch.as_tensor(rcmd[:, :3]), STEP_ANGLE_TOL)
+    dthr = float(np.abs(cmd[:lanes, 3] / rcmd[:, 3] - 1.0).max())
+    if not dthr <= STEP_THRUST_RTOL:
+        fail(f"{label}: tick 1 thrust {dthr:.3e} relative from the CPU "
+             f"float64 run")
+    if not all(np.isfinite(c).all() and np.isfinite(v).all()
+               for c, v in outs):
+        fail(f"{label}: non-finite commands")
+    ts = np.asarray(ts) * 1e3
+    print(f"{label} N={N} float32 certified, seeded telemetry: "
+          f"{STEP_TICKS} ticks, {ts.mean():.3f} ms a tick (p50 "
+          f"{np.percentile(ts, 50):.3f}, max {ts.max():.3f}; estimator, "
+          f"predictor, solve and emit), {STEP_B / ts.mean() * 1e3:.0f} "
+          f"solves/s; escalation re-solves {esc['resolves']}, "
+          f"{esc['lanes']} lanes; tick 1 on {lanes} lanes vs CPU float64: "
+          f"max |du| {du:.3e} kRPM, angles {dang:.3e} deg, thrust "
+          f"{dthr:.3e} relative; launches per tick "
+          + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+    return totals
+
+
 def phase_long(device):
     """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
     windowed=None (the fused sweeps), 20 chained steps each; step 1 of
@@ -2111,6 +2561,11 @@ def main(argv=None) -> int:
         phase_closed_loop(device)
     if "flight" in phases:
         phase_flight(device)
+    for phase, run in (("serving", phase_serving),
+                       ("swarm_wire", phase_swarm_wire)):
+        if phase in phases:
+            for name, v in run(device).items():
+                totals[name] = totals.get(name, 0) + v
     timing.update(roofline_rows)
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s")

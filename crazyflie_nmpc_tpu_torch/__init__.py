@@ -12,8 +12,10 @@ condensing}`; the closed loops (`runtime`: the single-vehicle loops up to
 the paper's flown configuration on `rti_step`, the swarm and Monte-Carlo
 loops on `rti_step_batched`) with the onboard cascade
 (`models.firmware`), the estimator chain (`estimator`) and the trajectory
-tools (`utils.trajectories`); and the speed-of-light study
-(`roofline`).  Every Pallas kernel of the JAX package is hand-written
+tools (`utils.trajectories`); the serving stack (`runtime.serving`,
+`runtime.swarm`, `runtime.bag`, `runtime.telemetry`, the native UDP link
+and vehicle endpoints in `native`, `bringup.swarm_serving`); and the
+speed-of-light study (`roofline`).  Every Pallas kernel of the JAX package is hand-written
 CUDA C++ for sm_90a under `csrc/` (built at first use by
 `ops.cuda._build`).  ROADMAP.md lists what is still to port.
 

@@ -136,7 +136,7 @@ def attitude_plant_step(params: QuadrotorParams, x: torch.Tensor,
 
     with_lag = _nonzero(gains.tau_m)
     if with_lag:
-        lag = torch.exp(torch.as_tensor(-sub_dt / gains.tau_m))
+        lag = _lag_factor(-sub_dt / gains.tau_m, x)
 
     xc, (w_act, omega_prev) = x, motor
     for _ in range(substeps):
@@ -151,6 +151,16 @@ def attitude_plant_step(params: QuadrotorParams, x: torch.Tensor,
         x_next = rk4_step(dynamics, params, xc, u_eff, sub_dt)
         xc, w_act, omega_prev = x_next, w_next, xc[..., 10:13]
     return xc, u_eff, (w_act, omega_prev)
+
+
+def _lag_factor(ratio, x: torch.Tensor) -> torch.Tensor:
+    """exp(ratio) in x's dtype on x's device.  A Python number is filled
+    there (a tensor of it would round to the default dtype, float32, and
+    a copy from the host would wait for the card); a tensor keeps its
+    own precision for the exponential, as in the JAX package."""
+    if isinstance(ratio, torch.Tensor):
+        return torch.exp(ratio).to(device=x.device, dtype=x.dtype)
+    return torch.exp(torch.full((), ratio, dtype=x.dtype, device=x.device))
 
 
 def _nonzero(v) -> bool:

@@ -35,6 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from crazyflie_nmpc_tpu_torch.device import host_sync
 from crazyflie_nmpc_tpu_torch.ops import riccati
 from crazyflie_nmpc_tpu_torch.ops.qp import QPData
 
@@ -277,7 +278,9 @@ def solve(qp: QPData, config: IPMConfig = IPMConfig(),
     if config.escalate_iters <= 0:
         return sol
     stats = dict(sol.stats)
-    if not bool(sol.stats["mu"] > config.escalate_mu_tol):   # host sync
+    with host_sync("escalation"):
+        converged = not bool(sol.stats["mu"] > config.escalate_mu_tol)
+    if converged:
         stats["escalated"] = torch.zeros((), dtype=torch.int32,
                                          device=qp.c.device)
         return sol._replace(stats=stats)

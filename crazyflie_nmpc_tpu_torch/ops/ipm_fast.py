@@ -33,6 +33,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from crazyflie_nmpc_tpu_torch.device import host_sync
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
 from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
@@ -178,6 +179,24 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
                          lam0_l, lam0_u, fused)
 
 
+# Escalation accounting (kin of the kernels' launch counters): re-solves
+# run, and lanes re-solved, summed on the device so counting never waits
+# for the card.
+_ESCALATIONS = {"resolves": 0, "lanes": None}
+
+
+def escalation_counts() -> dict:
+    """Re-solves and re-solved lanes since the last reset (reading the
+    lanes waits for the card)."""
+    lanes = _ESCALATIONS["lanes"]
+    return dict(resolves=_ESCALATIONS["resolves"],
+                lanes=0 if lanes is None else int(lanes))
+
+
+def reset_escalation_counts() -> None:
+    _ESCALATIONS.update(resolves=0, lanes=None)
+
+
 def solve_checked(qp: dict, config: IPMConfig, condense: int,
                   windowed: bool | None = None, fused_iter: bool = False,
                   lam0_l=None, lam0_u=None,
@@ -197,7 +216,9 @@ def solve_checked(qp: dict, config: IPMConfig, condense: int,
     score = sol.stats["mu"]
     bad = score > config.escalate_mu_tol
     stats = dict(sol.stats)
-    if not bool(bad.any()):                       # host sync
+    with host_sync("escalation"):
+        any_bad = bool(bad.any())
+    if not any_bad:
         stats["escalated"] = torch.zeros((), dtype=torch.int32,
                                          device=score.device)
         stats["escalated_lanes"] = torch.zeros_like(bad)
@@ -218,6 +239,10 @@ def solve_checked(qp: dict, config: IPMConfig, condense: int,
     for k in ("mu", "res_stat", "res_eq"):
         stats[k] = scat(stats[k], sub.stats[k])
     stats["escalated"] = valid.sum(dtype=torch.int32)
+    _ESCALATIONS["resolves"] += 1
+    lanes = _ESCALATIONS["lanes"]
+    _ESCALATIONS["lanes"] = (stats["escalated"] if lanes is None
+                             else lanes + stats["escalated"])
     stats["escalated_lanes"] = scat(torch.zeros_like(bad), valid)
     return BatchSolution(dx=scat(sol.dx, sub.dx), du=scat(sol.du, sub.du),
                          lam_l=scat(sol.lam_l, sub.lam_l),

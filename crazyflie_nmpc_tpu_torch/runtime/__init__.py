@@ -1,3 +1,8 @@
+from crazyflie_nmpc_tpu_torch.runtime.bag import (  # noqa: F401
+    Bag,
+    BagWriter,
+    record_loop_result,
+)
 from crazyflie_nmpc_tpu_torch.runtime.batch import (  # noqa: F401
     SwarmResult,
     monte_carlo_hover,

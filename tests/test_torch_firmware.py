@@ -144,3 +144,25 @@ def test_tensor_zero_lag_is_the_lag_branch(setup):
     # the lag branch's motor state after one call is the mixer's command
     # (lag 0), but the applied speed is the segment's midpoint
     assert not torch.equal(outs[1][1], outs[1][2][0])
+
+
+def test_python_float_lag_keeps_float64(setup):
+    """Python-float `dt` and `tau_m` in a float64 run (as a vehicle
+    endpoint passes them): the motor-lag factor is built in x's dtype, so
+    state and rotor speeds match JAX's float64 plant to 1e-12.  Built as
+    a default-dtype tensor it was float32, 5.5e-8 kRPM and 6.4e-9 in the
+    state away."""
+    js, tspec, xs, cmds = setup
+    jg = jf.AttitudeGains(kd_rate=0.002, tau_m=0.015)
+    tg = tf.AttitudeGains(kd_rate=0.002, tau_m=0.015)
+    jx, ju, jm = jf.attitude_plant_step(js.params, jnp.asarray(xs[3]),
+                                        jnp.asarray(cmds[3]), 0.015,
+                                        gains=jg)
+    tx, tu, tm = tf.attitude_plant_step(tspec.params,
+                                        torch.as_tensor(xs[3]),
+                                        torch.as_tensor(cmds[3]), 0.015,
+                                        gains=tg)
+    assert tx.dtype == tu.dtype == tm[0].dtype == torch.float64
+    _close(tx, jx, "x")
+    _close(tu, ju, "u")
+    _close(tm[0], jm[0], "w_act")

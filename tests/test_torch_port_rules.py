@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from crazyflie_nmpc_tpu_torch import convert, estimator
+from crazyflie_nmpc_tpu_torch import bringup, convert, estimator
 from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.models import (QuadrotorParams, firmware,
                                              hover_state, rotations)
@@ -19,7 +19,8 @@ from crazyflie_nmpc_tpu_torch.ops import ipm_fast
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol
-from crazyflie_nmpc_tpu_torch.runtime import batch, closed_loop
+from crazyflie_nmpc_tpu_torch.runtime import (batch, closed_loop, serving,
+                                              swarm)
 from crazyflie_nmpc_tpu_torch.solver import outputs
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
 from crazyflie_nmpc_tpu_torch.utils import trajectories
@@ -50,16 +51,21 @@ def test_port_imports_no_jax(path):
 
 def test_no_jax_rule_covers_every_subpackage():
     """Every module of the port is among the files the rule reads, the
-    closed loop's subpackages (estimator, runtime, utils) included."""
+    closed loop's subpackages (estimator, runtime, utils) and the serving
+    stack (runtime's serving and swarm, native, bringup) included."""
     for sub in ("estimator", "runtime", "utils", "models", "ops", "solver",
-                "roofline"):
+                "roofline", "native"):
         files = [p for p in PORT_FILES
                  if p.startswith(f"crazyflie_nmpc_tpu_torch/{sub}/")]
         assert f"crazyflie_nmpc_tpu_torch/{sub}/__init__.py" in files
     for mod in ("models/firmware.py", "estimator/lpf.py",
                 "estimator/pipeline.py", "estimator/sysid.py",
                 "utils/trajectories.py", "runtime/closed_loop.py",
-                "runtime/batch.py"):
+                "runtime/batch.py", "runtime/serving.py", "runtime/swarm.py",
+                "runtime/bag.py", "runtime/telemetry.py", "bringup.py",
+                "native/__init__.py", "native/bindings.py",
+                "native/channels.py", "native/firmware_sim.py",
+                "native/hl_executor.py"):
         assert f"crazyflie_nmpc_tpu_torch/{mod}" in PORT_FILES
 
 
@@ -81,12 +87,18 @@ def test_no_jax_rule_covers_every_subpackage():
                                                 QuadrotorParams()),
     lambda: convert.gains_from_numpy({"kp_att": 10.0}),
     lambda: convert.estimator_state_from_numpy({}),
+    lambda: serving.ServingLoop(ts.default_ocp(N=6, device="cpu")),
+    lambda: serving.measure_transport_floor(n=1),
+    lambda: swarm.SwarmNMPC(ts.default_ocp(N=6, device="cpu"),
+                            [[0.0, 0.0, 0.4]]),
+    lambda: bringup.swarm_serving(n=1, ticks=1, base_port=0),
 ], ids=["default_ocp", "hover_state", "init_rti", "hover_yref",
         "state_from_numpy", "regulation_state", "tracking_state",
         "regulation_table", "qp_from_numpy", "roofline_study",
         "helix_trajectory", "smooth_step_trajectory",
         "sample_poly_trajectory", "gains_from_numpy",
-        "estimator_state_from_numpy"])
+        "estimator_state_from_numpy", "ServingLoop",
+        "measure_transport_floor", "SwarmNMPC", "swarm_serving"])
 def test_constructors_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
                                                            make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -323,7 +335,8 @@ def test_build_hash_covers_sources_and_flags():
 
 @pytest.mark.parametrize("package", ["crazyflie_nmpc_tpu",
                                      "crazyflie_nmpc_tpu.ops",
-                                     "crazyflie_nmpc_tpu.estimator"])
+                                     "crazyflie_nmpc_tpu.estimator",
+                                     "crazyflie_nmpc_tpu.native"])
 def test_package_exports_match_jax(package):
     """Every public name the JAX package's `__init__` exports (its
     `__version__` too; submodules aside) is exported by the port's
@@ -347,7 +360,6 @@ def test_package_exports_match_jax(package):
 # yet, each with its ROADMAP Queue 1 item.
 UNPORTED_EXPORTS = {
     "crazyflie_nmpc_tpu.runtime": {
-        "Bag": 10, "BagWriter": 10, "record_loop_result": 10,
         "TuneResult": 11, "hover_objective": 11, "spec_with_diag_cost": 11,
         "tune_diagonal_cost": 11},
     "crazyflie_nmpc_tpu.utils": {"profiling": 14},

@@ -17,6 +17,16 @@ from crazyflie_nmpc_tpu_torch.solver import default_ocp
 N = 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These problems are too small for intra-op threads: one thread per
+    worker keeps the suite's other workers from waiting on idle spins."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def spec64():
     return default_ocp(N=N, tf=0.015 * N, dtype=torch.float64, device="cpu")
@@ -140,3 +150,153 @@ def test_flight_bars_see_a_planted_fault(plant, match):
         x[-1, 4] = float("inf")
     with pytest.raises(SystemExit, match=match):
         cs.check_flight_bars("[flight]", e, u, x)
+
+
+# ---- [serving] and [swarm_wire] -------------------------------------------
+
+def test_serving_phases_are_in_the_run():
+    for phase in ("serving", "swarm_wire"):
+        assert phase in cs.PHASES
+
+
+def _step_counts(steps, resolves, **changes):
+    sweeps = cs.ITERS * steps + cs.ESCALATE_ITERS * resolves
+    counts = dict.fromkeys(kc.KERNELS, 0)
+    counts.update(prep_condense2=steps, kkt_sweep_c2=sweeps,
+                  corrector_sweep_c2=sweeps, expand2=steps + resolves)
+    counts.update(changes)
+    return counts
+
+
+def test_step_launch_check_counts_escalation_resolves():
+    got = cs.check_step_launches("[serving]", _step_counts(200, 3), 200, 3)
+    assert got == {"prep_condense2": 1, "kkt_sweep_c2": 8.48,
+                   "corrector_sweep_c2": 8.48, "expand2": 1.015}
+
+
+@pytest.mark.parametrize("change", [
+    dict(kkt_sweep_c2=0), dict(corrector_sweep_c2=8 * 200 + 32 * 3 - 1),
+    dict(expand2=200), dict(iter_sweep_c2=1),
+    dict(kkt_sweep_c2=8 * 200 + 32 * 4, corrector_sweep_c2=8 * 200 + 32 * 4)],
+    ids=["no_K2", "one_K3_short", "one_K4_short", "stray_kernel",
+         "uncounted_resolve"])
+def test_step_launch_check_sees_a_planted_fault(change):
+    with pytest.raises(SystemExit, match="launched"):
+        cs.check_step_launches("[serving]", _step_counts(200, 3, **change),
+                               200, 3)
+
+
+def test_host_sync_check():
+    want = {"emit": 200, "escalation": 200}
+    cs.check_host_syncs("[serving]", dict(want), want)
+    for got in ({"emit": 200, "escalation": 200, "other": 1},
+                {"emit": 199, "escalation": 200}, {"escalation": 200}):
+        with pytest.raises(SystemExit, match="host syncs"):
+            cs.check_host_syncs("[serving]", got, want)
+
+
+def _serve_report(depth, ticks=200, latency=0.02):
+    from crazyflie_nmpc_tpu_torch.runtime.serving import (ServeConfig,
+                                                          ServeReport)
+
+    cfg = ServeConfig(rate_hz=cs.SERVE_RATE, pipeline_depth=depth)
+    lat = np.full(ticks, latency + depth * cfg.period_s)
+    return ServeReport(config=cfg, latency_s=lat, service_s=lat,
+                       schedule_slips=0, ticks=ticks,
+                       issue_s=np.full(ticks, 0.01))
+
+
+def _served_lanes(B=8):
+    x = torch.zeros((B, 13))
+    x[:, :3] = torch.tensor(cs.SERVE_SETPOINT)
+    x[:, :3] += 0.005 * torch.randn((B, 3),
+                                    generator=torch.Generator().manual_seed(0))
+    x[:, 3] = 1.0
+    return x
+
+
+def test_serving_bars_pass():
+    for depth in (0, 2):
+        worst = cs.serving_bars("[serving]", _serve_report(depth),
+                                _served_lanes())
+        assert worst < cs.SERVE_BAR
+
+
+@pytest.mark.parametrize("plant, match", [
+    ("lane_off", r"lanes off"), ("nan_lane", r"lanes off"),
+    ("depth_latency", "below 2 periods")])
+def test_serving_bars_see_a_planted_fault(plant, match):
+    x, rep = _served_lanes(), _serve_report(2)
+    if plant == "lane_off":
+        x[5, 1] += 1.2 * cs.SERVE_BAR
+    elif plant == "nan_lane":
+        x[3, 9] = float("nan")
+    else:
+        rep.latency_s[7] = 1.5 * rep.config.period_s
+    with pytest.raises(SystemExit, match=match):
+        cs.serving_bars("[serving]", rep, x)
+
+
+def test_serving_plant_loop_runs_on_cpu():
+    """[serving]'s loop and plant wiring (`serve_plant`, uncounted) on
+    CPU tensors at N=10: every tick emitted, the first command kept."""
+    spec = default_ocp(N=N, tf=0.015 * N, dtype=torch.float32, device="cpu")
+    x0 = cs.serving_lanes(spec, 3)
+    assert float((x0[:, :3] - torch.tensor(cs.SERVE_SETPOINT)).abs().max()
+                 ) <= cs.SERVE_OFFSET
+    rep, x, first, none = cs.serve_plant(spec, 3, 2, 3, x0, "cpu",
+                                         count=False)
+    assert none is None and rep.latency_s.shape == (3,)
+    assert first.shape == (3, 4) and np.isfinite(first).all()
+    assert x.shape == (3, 13) and bool(torch.isfinite(x).all())
+
+
+def _wire_report(n=4, ticks=30):
+    from crazyflie_nmpc_tpu_torch.runtime.swarm import (SwarmReport,
+                                                        grid_targets)
+
+    pos = np.broadcast_to(grid_targets(n, spacing=0.6), (ticks, n, 3)).copy()
+    return SwarmReport(n_vehicles=n, ticks=ticks, period_s=1 / 66.6,
+                       latency_s=np.full((ticks, n), 0.03),
+                       staleness=np.zeros((ticks, n), np.int64),
+                       final_err_m=np.full(n, 0.01), positions=pos)
+
+
+def test_wire_bars_pass():
+    gap, fresh = cs.wire_bars("[swarm_wire]", _wire_report(), 4)
+    assert gap == pytest.approx(0.6) and fresh == 1.0
+
+
+@pytest.mark.parametrize("plant, match", [
+    ("stale_row", "fresh rows"), ("never_updated", "fresh rows"),
+    ("off_slot", "final errors"), ("collided", "apart"),
+    ("nan_latency", "latency")])
+def test_wire_bars_see_a_planted_fault(plant, match):
+    rep = _wire_report()
+    if plant == "stale_row":
+        rep.staleness[10, 2] = 2
+    elif plant == "never_updated":
+        rep.staleness[:, 3] = np.arange(1, rep.ticks + 1)
+    elif plant == "off_slot":
+        rep.final_err_m[1] = cs.WIRE_FINAL_ERR + 1e-3
+    elif plant == "collided":
+        rep.positions[-1, 1] = rep.positions[-1, 0] + 0.1
+    else:
+        rep.latency_s[4, 0] = float("nan")
+    with pytest.raises(SystemExit, match=match):
+        cs.wire_bars("[swarm_wire]", rep, 4)
+
+
+def test_realtime_bars():
+    rep = _wire_report(n=2, ticks=80)
+    cs.realtime_bars("[swarm_wire]", rep, 2)
+    grounded = _wire_report(n=2, ticks=80)
+    grounded.positions[:, 1, 2] = 0.03
+    slipped = _wire_report(n=2, ticks=80)
+    slipped.schedule_slips = 40
+    dead = _wire_report(n=2, ticks=80)
+    dead.staleness[-20:] = 4
+    for bad, match in ((grounded, "did not fly"), (slipped, "slips"),
+                       (dead, "live")):
+        with pytest.raises(SystemExit, match=match):
+            cs.realtime_bars("[swarm_wire]", bad, 2)
