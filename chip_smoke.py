@@ -37,7 +37,7 @@ each, with launch counters proving which kernels ran:
                  step 1 too, and a sim_steps=2 spec at B=1024 (its bars
                  shown to catch faults planted in the preparation).
 
-and seven paths of their own:
+and twelve paths of their own:
 
   [single]       the single-instance rti_step (plain PyTorch), N=50, 20
                  closed-loop ticks from a 1.5 m offset, and one certified
@@ -66,6 +66,19 @@ and seven paths of their own:
                  80 ticks, and SwarmNMPC.step alone at 256 lanes; both
                  serving phases under the sync debug mode with their
                  host syncs counted (the emit and the escalation check);
+  [tuning]       differentiable MPC (runtime.tuning, float64, the detuned
+                 OCP of tests/test_tuning.py): the gradient through 20
+                 hover ticks at N=15 (the JAX bars, and against the CPU)
+                 and remat against stored gradients (12 ticks);
+  [tuning_adam]  tune_diagonal_cost (8 Adam steps of 30 ticks, the JAX
+                 bars);
+  [tuning_wide]  one value and gradient at N=20, 45 ticks, stored and
+                 remat: ms, launches a tick, host syncs, peak memory;
+  [cartpole]     the custom-ODE path: sqp_solve's swing-up plan at N=40
+                 (the JAX bars, f_max=40 too, 3 iterates against the CPU),
+                 20 closed-loop swing-up ticks, simulate with delay 2;
+  [client]       MissionClient.takeoff flown on rti_step, N=50, 160 ticks
+                 (the JAX bars);
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
                  depends on every product and stage), then the study of
@@ -85,7 +98,9 @@ both VDE orders, csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in
 their four forms) at every B of [main] with their occupancy, waves and
 bound, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
-[xla_prep] ([single] its own ticks) with torch.profiler.
+[xla_prep] ([single] its own ticks) with torch.profiler.  The
+host-bound loops ([tuning] to [client], [closed_loop], [flight]) run
+last, at once, each group in a child process of its own (CONCURRENT).
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -130,7 +145,15 @@ N_ODD = N + 1         # the odd horizon of [uncondensed]
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
           "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
           "single", "roofline", "certified", "timing", "swarm",
-          "closed_loop", "flight", "serving", "swarm_wire")
+          "closed_loop", "flight", "serving", "swarm_wire", "tuning",
+          "tuning_adam", "tuning_wide", "cartpole", "client")
+# Host-bound plain-PyTorch phases run last, each group of them in a child
+# process of its own and the groups at once (the card idles > 0.9 of each
+# one's time): in sequence they took ~1200 s of a slow host's run, the
+# limit; five groups at once took 334.8 s, the longest group's time
+# (PERF.md §6)
+CONCURRENT = (("tuning", "client"), ("tuning_adam",), ("tuning_wide",),
+              ("cartpole",), ("closed_loop",), ("flight",))
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -1261,10 +1284,11 @@ STEP_KERNELS = {"prep_condense2": 1, "kkt_sweep_c2": ITERS,
                 "corrector_sweep_c2": ITERS, "expand2": 1}
 LOOP_TICKS = 5
 LOOP_TOL = 1e-6       # card float64 against CPU float64: x, u, u_cmd
-# 200 ticks, not the JAX test's 400: 400 took 582.6 s on the H100 (1.46 s
-# a host-bound tick, PERF.md), past the 300 s this phase may take; the
-# two error bars are held over these ticks
-FLIGHT_TICKS = 200
+# 150 ticks, not the JAX test's 400: 400 took 582.6 s on the H100 (1.46 s
+# a host-bound tick) and 200 took 320.4 s on a slow host (1.60 s a tick,
+# PERF.md §4); the two error bars are held over these ticks (the mean
+# over ticks 100-149)
+FLIGHT_TICKS = 150
 FLIGHT_REF_TICKS = 3
 # the JAX package's bars on the 400-tick helix
 # (tests/test_flight_configuration.py:49-64) and its recorded largest
@@ -1955,6 +1979,465 @@ def phase_swarm_wire(device):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# differentiable MPC, the model-generic path, the mission client
+# ---------------------------------------------------------------------------
+
+# tests/test_tuning.py's detuned weights: position 100x too small
+Q_DETUNED = (1.2, 1.0, 1.0, 1e-3, 1e-3, 1e-3, 1e-3, 0.7, 1.0, 4.0, 1e-5,
+             1e-5, 10.0)
+GRAD_TICKS, GRAD_ITERS = 20, 5          # tests/test_tuning.py:72
+REMAT_TICKS, REMAT_ITERS = 12, 4        # tests/test_tuning.py:109
+TUNE_TICKS, TUNE_STEPS, TUNE_LR = 30, 8, 0.15   # tests/test_tuning.py:93
+# examples/weight_tuning.py's width: N=20, tf=0.3, 45 ticks, 6 iterations
+WIDE_N, WIDE_TF, WIDE_TICKS, WIDE_ITERS = 20, 0.3, 45, 6
+CP_SQP_ITERS, CP_IPM_ITERS = 60, 12     # tests/test_cartpole.py:88-123
+CP_REF_ITERATES = 3
+CP_TICKS = 20                           # of the JAX test's 140 (PERF.md)
+CP_TICK_SQP = 3
+CP_SIM_TICKS = 2                        # simulate, delay 2, vs the CPU
+CLIENT_TICKS = 160                      # tests/test_runtime_extras.py:34
+CLIENT_BAR = 0.02
+
+
+def detuned_spec(n, tf, dev):
+    """The reference OCP at N=n with tests/test_tuning.py's detuned
+    weights, float64 on dev."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.runtime.tuning import spec_with_diag_cost
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    spec = default_ocp(N=n, tf=tf, dtype=torch.float64, device=dev)
+    q = torch.tensor(Q_DETUNED, dtype=torch.float64, device=dev)
+    w = torch.cat([q, torch.full((4,), 0.06, dtype=torch.float64,
+                                 device=dev)])
+    return spec_with_diag_cost(spec, w, 50.0 * q)
+
+
+def tuning_loss(spec, x0, ticks, iters, remat=False):
+    """(log W diag leaf, fn() -> hover_objective of `ticks` hover ticks
+    from x0 with W = exp(leaf), W_e fixed): the JAX test's loss."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (
+        LoopConfig, hover_regulation)
+    from crazyflie_nmpc_tpu_torch.runtime.tuning import (hover_objective,
+                                                         spec_with_diag_cost)
+
+    cfg = LoopConfig(ipm=IPMConfig(iters=iters), remat=remat)
+    obj = hover_objective()
+    logw = torch.log(torch.diagonal(spec.cost.W)).detach().requires_grad_()
+
+    def loss():
+        s = spec_with_diag_cost(spec, torch.exp(logw),
+                                torch.diagonal(spec.cost.W_e))
+        return obj(hover_regulation(s, x0, steps=ticks, config=cfg))
+
+    return logw, loss
+
+
+def value_and_grad(spec, x0, ticks, iters, remat=False):
+    """(loss, d loss / d log W diag, forward ms, backward ms, peak MB,
+    host syncs): each pass timed on the host clock to a synchronize, the
+    peak of device memory allocated over both, and the waits on the card
+    the sync debug mode saw (counted from its warnings)."""
+    import warnings
+
+    import torch
+
+    logw, loss = tuning_loss(spec, x0, ticks, iters, remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            val = loss()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g, = torch.autograd.grad(val, logw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    return (val.detach(), g, (t1 - t0) * 1e3, (t2 - t1) * 1e3, peak,
+            syncs)
+
+
+def launches(fn):
+    """Device kernels one call of fn ran (a torch.profiler trace), or
+    None when the profiler recorded none."""
+    sums = trace_sums(fn)
+    if sums is None:
+        return None
+    _, ours, (_, n_other) = sums
+    return n_other + sum(n for _, n in ours.values())
+
+
+def launches_per_tick(spec, x0, iters, remat):
+    """Forward and backward device launches a tick of value_and_grad: a
+    traced 2-tick run less a 1-tick one, forward alone and both passes."""
+    import torch
+
+    def fwd(t):
+        _, loss = tuning_loss(spec, x0, t, iters, remat)
+        with torch.no_grad():
+            loss()
+
+    def both(t):
+        logw, loss = tuning_loss(spec, x0, t, iters, remat)
+        torch.autograd.grad(loss(), logw)
+
+    n = {k: [launches(lambda: f(t)) for t in (1, 2)]
+         for k, f in (("fwd", fwd), ("both", both))}
+    if any(v is None for pair in n.values() for v in pair):
+        return None
+    f = n["fwd"][1] - n["fwd"][0]
+    return f, n["both"][1] - n["both"][0] - f
+
+
+def phase_tuning(device):
+    """Differentiable MPC on the card (`runtime.tuning`, float64, the
+    detuned reference OCP of tests/test_tuning.py, hover from x = 0.4 m,
+    no escalation):
+
+      (a) d hover_objective / d log W diag at N=15, tf=0.225, 20 ticks,
+          IPMConfig(iters=5): the JAX bars (finite, max |g| > 1e-6,
+          g[0] < 0) and its largest gap to the port's CPU float64
+          gradient, relative to its largest entry;
+      (b) LoopConfig(remat=True) against the stored gradient, 12 ticks,
+          iters=4, to the JAX test's rtol 1e-9 / atol 1e-12, with each
+          one's peak device memory;
+      (c) is phase_tuning_adam, (d) phase_tuning_wide.
+
+    No hand-written kernel runs here (the launch counters are checked at
+    0 over the whole phase)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+
+    kc.reset_launch_counts()
+    spec = detuned_spec(15, 0.225, device)
+
+    def x_start(dev):
+        return hover_state(spec.params, pos=(0.4, 0.0, 0.0),
+                           dtype=torch.float64, device=dev)
+
+    value_and_grad(spec, x_start(device), 1, GRAD_ITERS)   # warm-up
+    # (a) the gradient, against the port's CPU float64 run
+    val, g, ms_f, ms_b, _, _ = value_and_grad(spec, x_start(device),
+                                              GRAD_TICKS, GRAD_ITERS)
+    g = g.cpu()
+    logw, loss = tuning_loss(detuned_spec(15, 0.225, "cpu"), x_start("cpu"),
+                             GRAD_TICKS, GRAD_ITERS)
+    g_cpu, = torch.autograd.grad(loss(), logw)
+    gap = float((g - g_cpu).abs().max() / g_cpu.abs().max())
+    if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 1e-6
+            and float(g[0]) < 0.0):
+        fail(f"[tuning] (a) gradient misses the JAX bars: {g.tolist()}")
+    if not gap <= 1e-6:
+        fail(f"[tuning] (a) gradient {gap:.3e} (relative to its largest "
+             f"entry) from the CPU float64 one")
+    print(f"[tuning] (a) N=15 float64, {GRAD_TICKS} ticks, iters="
+          f"{GRAD_ITERS}: loss {float(val):.10f}, forward {ms_f:.1f} ms, "
+          f"backward {ms_b:.1f} ms; max |g| {float(g.abs().max()):.4e}, "
+          f"g[0] {float(g[0]):.4e} (< 0: the JAX bar); largest gap to the "
+          f"CPU float64 gradient {gap:.3e} of its largest entry")
+
+    # (b) remat against stored
+    runs = {r: value_and_grad(spec, x_start(device), REMAT_TICKS,
+                              REMAT_ITERS, remat=r) for r in (False, True)}
+    gs, gr = runs[False][1], runs[True][1]
+    if not bool(torch.allclose(gr, gs, rtol=1e-9, atol=1e-12)):
+        fail(f"[tuning] (b) remat gradient differs: max |diff| "
+             f"{float((gr - gs).abs().max()):.3e}")
+    print(f"[tuning] (b) {REMAT_TICKS} ticks, iters={REMAT_ITERS}: remat "
+          f"gradient vs stored max |diff| {float((gr - gs).abs().max()):.3e}"
+          f" (rtol 1e-9, atol 1e-12); peak device memory stored "
+          f"{runs[False][4]:.1f} MB, remat {runs[True][4]:.1f} MB")
+
+    check_tick_launches("[tuning]", kc.launch_counts(), 1, {})
+    print("[tuning] hand-written kernels launched: none (plain PyTorch)")
+
+
+def phase_tuning_adam(device):
+    """(c) of [tuning]: tune_diagonal_cost on the detuned OCP (N=15,
+    float64), 30 hover ticks from (0.4, -0.3), IPMConfig(iters=5), 8 Adam
+    steps, lr 0.15: the JAX bars (best < 0.6 of the first loss, w[0] >
+    1.2, all weights positive), the wall time and the host syncs (one
+    loss read a step).  No hand-written kernel runs here."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (
+        LoopConfig, hover_regulation)
+    from crazyflie_nmpc_tpu_torch.runtime.tuning import (hover_objective,
+                                                         tune_diagonal_cost)
+
+    kc.reset_launch_counts()
+    spec = detuned_spec(15, 0.225, device)
+    cfg = LoopConfig(ipm=IPMConfig(iters=GRAD_ITERS))
+    x0 = hover_state(spec.params, pos=(0.4, -0.3, 0.0), dtype=torch.float64,
+                     device=device)
+    obj = hover_objective()
+
+    def roll(s):
+        return hover_regulation(s, x0, steps=TUNE_TICKS, config=cfg)
+
+    dv.reset_host_syncs()
+    t0 = time.perf_counter()
+    res = tune_diagonal_cost(spec, roll, obj, iters=TUNE_STEPS, lr=TUNE_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = dv.host_syncs()
+    with torch.no_grad():
+        first, best = float(res.losses[0]), float(obj(roll(res.spec)))
+    w = res.w_diag.cpu()
+    if not (best < 0.6 * first and float(w[0]) > 1.2
+            and bool((w > 0).all())):
+        fail(f"[tuning] (c) misses the JAX bars: first {first}, best "
+             f"{best}, w {w.tolist()}")
+    print(f"[tuning] (c) tune_diagonal_cost {TUNE_STEPS} Adam steps of "
+          f"{TUNE_TICKS} ticks, lr {TUNE_LR}: {wall:.1f} s "
+          f"({wall / TUNE_STEPS * 1e3:.0f} ms a step); losses "
+          f"{[round(float(v), 6) for v in res.losses]}; best {best:.6f} = "
+          f"{best / first:.3f} of the first (bar 0.6); w[0] "
+          f"{float(w[0]):.4f} (bar 1.2), all > 0; host syncs {syncs}")
+    check_tick_launches("[tuning] (c)", kc.launch_counts(), 1, {})
+
+
+def phase_tuning_wide(device):
+    """(d) of [tuning]: one value and gradient at examples/weight_tuning.py's
+    width (N=20, tf=0.3, 45 ticks, iters=6, float64, the detuned weights,
+    hover from x = 0.4 m), stored and remat: ms of each pass, device
+    launches a tick of each (traced: a 2-tick run less a 1-tick one), host
+    syncs (the sync debug mode's warnings) and peak device memory.  No
+    hand-written kernel runs here."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+
+    kc.reset_launch_counts()
+    wide = detuned_spec(WIDE_N, WIDE_TF, device)
+
+    def x_start(dev):
+        return hover_state(wide.params, pos=(0.4, 0.0, 0.0),
+                           dtype=torch.float64, device=dev)
+
+    value_and_grad(wide, x_start(device), 1, WIDE_ITERS)   # warm-up
+    for remat in (False, True):
+        val, g, ms_f, ms_b, peak, nsync = value_and_grad(
+            wide, x_start(device), WIDE_TICKS, WIDE_ITERS, remat)
+        if not (bool(torch.isfinite(g).all()) and float(g[0]) < 0.0):
+            fail(f"[tuning] (d) remat={remat}: gradient not finite or "
+                 f"g[0] >= 0: {g.tolist()}")
+        per = launches_per_tick(wide, x_start(device), WIDE_ITERS, remat)
+        per = ("not measured (no device kernels traced)" if per is None
+               else f"{per[0]} forward / {per[1]} backward")
+        print(f"[tuning] (d) N={WIDE_N} tf={WIDE_TF} float64, "
+              f"{WIDE_TICKS} ticks, iters={WIDE_ITERS}, remat={remat}: "
+              f"forward {ms_f:.1f} ms ({ms_f / WIDE_TICKS:.2f} ms/tick), "
+              f"backward {ms_b:.1f} ms ({ms_b / WIDE_TICKS:.2f} ms/tick); "
+              f"device launches a tick {per}; host syncs {nsync}; peak "
+              f"device memory {peak:.1f} MB; loss {float(val):.8f}")
+    check_tick_launches("[tuning] (d)", kc.launch_counts(), 1, {})
+
+
+def phase_cartpole(device):
+    """The model-generic path on the card (`models.cartpole`, a custom ODE
+    linearised by jacfwd under vmap), float64, cartpole_ocp() (N=40,
+    0.05 s stages):
+
+      * sqp_solve from hanging, 60 iterations, IPMConfig(iters=12): the
+        JAX bars (last KKT < 1e-8, |theta_N| < 0.05); its first 3
+        iterates against the port's CPU float64 run (to LOOP_TOL);
+      * the same with f_max=40: |F| <= 40 + 1e-6 and max F > 39;
+      * CP_TICKS closed-loop swing-up ticks from the converged plan, 3
+        SQP iterations a tick (ms/tick; launches a tick traced);
+      * runtime.simulate of the spec with a 2-tick delay, its first 2
+        ticks against the CPU.
+
+    No hand-written kernel runs here."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.device import device_tensor
+    from crazyflie_nmpc_tpu_torch.models.cartpole import (cartpole_dynamics,
+                                                          cartpole_ocp,
+                                                          downward_state)
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.integrators import rk4_step
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (LoopConfig,
+                                                              simulate)
+    from crazyflie_nmpc_tpu_torch.solver import policies
+    from crazyflie_nmpc_tpu_torch.solver.rti import init_rti, sqp_solve
+
+    cfg = IPMConfig(iters=CP_IPM_ITERS)
+    f64 = torch.float64
+
+    def refs(spec, dev):
+        return (torch.zeros((spec.N, 5), dtype=f64, device=dev),
+                torch.zeros((4,), dtype=f64, device=dev))
+
+    def swing_plan(dev, iterates=0, **kw):
+        """sqp_solve from hanging, the first `iterates` iterations one at
+        a time (their states kept), then the rest."""
+        spec = cartpole_ocp(device=dev, **kw)
+        x = downward_state(f64, device=dev)
+        st, (yref, yref_e) = init_rti(spec, x, device=dev), refs(spec, dev)
+        kept = []
+        for _ in range(iterates):
+            st, _ = sqp_solve(spec, st, x, yref, yref_e, iters=1,
+                              config=cfg)
+            kept.append(st)
+        st, kkts = sqp_solve(spec, st, x, yref, yref_e,
+                             iters=CP_SQP_ITERS - iterates, config=cfg)
+        return spec, st, kkts, kept
+
+    kc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, st, kkts, kept = swing_plan(device, CP_REF_ITERATES)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) * 1e3 / CP_SQP_ITERS
+    kkt, theta_n = float(kkts[-1]), float(st.x_traj[-1, 1])
+    if not (kkt < 1e-8 and abs(theta_n) < 0.05):
+        fail(f"[cartpole] swing-up plan misses the JAX bars: KKT {kkt:.3e}"
+             f" (1e-8), theta_N {theta_n:.4f} (0.05)")
+    _, _, _, ref = swing_plan("cpu", CP_REF_ITERATES)
+    errs = [max(hold_close(f"[cartpole] SQP iterate {k + 1} {f} vs CPU "
+                           "float64", getattr(a, f), getattr(b, f),
+                           LOOP_TOL) for f in ("x_traj", "u_traj"))
+            for k, (a, b) in enumerate(zip(kept, ref))]
+    print(f"[cartpole] cartpole_ocp() N={spec.N} float64: sqp_solve from "
+          f"hanging, {CP_SQP_ITERS} iterations (iters={CP_IPM_ITERS}) in "
+          f"{ms_iter:.1f} ms an iteration; last KKT {kkt:.3e} (bar 1e-8), "
+          f"theta_N {theta_n:.2e} (bar 0.05); iterates 1-{CP_REF_ITERATES} "
+          f"vs CPU float64 max |diff| "
+          + ", ".join(f"{e:.3e}" for e in errs))
+
+    _, st40, _, _ = swing_plan(device, f_max=40.0)
+    u = st40.u_traj
+    if not (float(u.abs().max()) <= 40.0 + 1e-6 and float(u.max()) > 39.0):
+        fail(f"[cartpole] f_max=40: force {float(u.min()):.4f}.."
+             f"{float(u.max()):.4f} (box 40, must reach 39)")
+    print(f"[cartpole] f_max=40: force {float(u.min()):.6f}.."
+          f"{float(u.max()):.6f} N (|F| <= 40 + 1e-6, max > 39)")
+
+    yref, yref_e = refs(spec, device)
+
+    def swing(ticks, st=st):
+        x = downward_state(f64, device=device)
+        for _ in range(ticks):
+            st, _ = sqp_solve(spec, st, x, yref, yref_e, iters=CP_TICK_SQP,
+                              config=cfg)
+            x = rk4_step(cartpole_dynamics, spec.params, x, st.u_traj[0],
+                         spec.dt)
+        return x, st
+
+    (x, st2), ms, host, counts = timed_call(lambda: swing(CP_TICKS))
+    check_tick_launches("[cartpole]", counts, CP_TICKS, {})
+    if not (bool(torch.isfinite(x).all())
+            and float(st2.u_traj.abs().max()) <= 80.0 + 1e-6):
+        fail(f"[cartpole] swing-up ticks: state {x.tolist()}, force max "
+             f"{float(st2.u_traj.abs().max())}")
+    print(f"[cartpole] {CP_TICKS} closed-loop swing-up ticks of "
+          f"{CP_TICK_SQP} SQP iterations: {ms / CP_TICKS:.1f} ms/tick, host "
+          f"issue {host / CP_TICKS:.1f} ms/tick; no host sync; state after "
+          f"{CP_TICKS} ticks {[round(float(v), 4) for v in x]}; "
+          f"hand-written kernels launched: none")
+    trace_ticks("cartpole", "swing-up", lambda t: swing(t), ms / CP_TICKS,
+                hi=2)
+
+    def sim(dev):
+        """simulate's arguments on dev (made before the timed call: the
+        spec's weights come from the host) and the call."""
+        args = (cartpole_ocp(device=dev),
+                device_tensor((0.2, 0.1, 0.0, 0.0), f64, dev),
+                policies.regulation_state(torch.zeros(5, dtype=f64,
+                                                      device=dev),
+                                          device=dev),
+                torch.zeros((1, 5), dtype=f64, device=dev), CP_SIM_TICKS,
+                LoopConfig(delay_steps=2, ipm=IPMConfig(iters=10)))
+        return lambda: simulate(*args)
+
+    res, ms, host, counts = timed_call(sim(device))
+    check_tick_launches("[cartpole] simulate", counts, CP_SIM_TICKS, {})
+    ref = sim("cpu")()
+    errs = [hold_close(f"[cartpole] simulate {f} vs CPU float64",
+                       getattr(res, f), getattr(ref, f), LOOP_TOL)
+            for f in ("x", "u", "u_cmd")]
+    print(f"[cartpole] simulate delay 2, iters=10: {CP_SIM_TICKS} ticks, "
+          f"{ms / CP_SIM_TICKS:.1f} ms/tick; vs CPU float64 max |dx| "
+          f"{errs[0]:.3e}, |du| {errs[1]:.3e}, |du_cmd| {errs[2]:.3e}")
+
+
+def phase_client(device):
+    """`runtime.client.MissionClient` on the card: takeoff(0.5 m, 1.5 s)
+    flown closed loop on rti_step at the reference N=50, float32,
+    IPMConfig(iters=8), CLIENT_TICKS ticks with the RK4 plant on the card,
+    under the sync debug mode with host syncs counted (a tick makes
+    none); the JAX bars (|z - 0.5| < 0.02 and `done`), ms/tick and host
+    syncs a tick by reason.  No hand-written kernel runs here."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.models import dynamics, hover_state
+    from crazyflie_nmpc_tpu_torch.ops.integrators import rk4_step
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.runtime.client import MissionClient
+    from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
+                                                 init_rti, policies,
+                                                 rti_step)
+
+    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    cfg = IPMConfig(iters=ITERS)
+    client = MissionClient(spec)
+    client.takeoff(height=0.5, duration=1.5, at=(0.0, 0.0, 0.0))
+    if client.mode != policies.TRACKING:
+        fail("[client] takeoff did not start tracking")
+    x = hover_state(spec.params, pos=(0.0, 0.0, 0.04), device=device)
+    state = init_rti(spec, x, device=device)
+    rti_step(spec, state, x, *hover_yref(spec, device=device), cfg)  # warm-up
+
+    def fly():
+        xs, st = x, state
+        for _ in range(CLIENT_TICKS):
+            yref, yref_e = client.tick()
+            st, out = rti_step(spec, st, xs, yref, yref_e, cfg)
+            xs = rk4_step(dynamics, spec.params, xs, out.u0, spec.dt)
+        return xs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, _, counts, syncs, _ = counted(fly)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_tick_launches("[client]", counts, CLIENT_TICKS, {})
+    check_host_syncs("[client]", syncs, {})
+    z = float(xs[2])
+    done = client.done
+    if not (abs(z - 0.5) < CLIENT_BAR and done):
+        fail(f"[client] takeoff ends at z {z:.4f} (bar 0.5 +- "
+             f"{CLIENT_BAR}), done {done}")
+    print(f"[client] MissionClient.takeoff(0.5 m, 1.5 s) on rti_step N={N} "
+          f"float32 iters={ITERS}: {CLIENT_TICKS} ticks, "
+          f"{wall / CLIENT_TICKS * 1e3:.1f} ms/tick (host clock to a "
+          f"synchronize), z after {CLIENT_TICKS} ticks {z:.5f} (bar 0.5 +- "
+          f"{CLIENT_BAR}), done {done}; host syncs a tick: none (mode and "
+          f"done read once after the flight); hand-written kernels "
+          f"launched: none")
+
+
 def phase_long(device):
     """N=400 (tf=6.0), B=4096: windowed=True (the split sweeps) and
     windowed=None (the fused sweeps), 20 chained steps each; step 1 of
@@ -2462,10 +2945,46 @@ def phase_roofline(device):
     return errs, totals, rows
 
 
+def run_concurrent(groups):
+    """Each group of phases in a child process of this script (`--phases
+    a,b --child`), the groups all started together, their output (to
+    temporary files) printed group by group once every child has ended;
+    fails if a child failed.  Every child is ended before this returns."""
+    import tempfile
+
+    procs = []
+    try:
+        for group in groups:
+            out = tempfile.TemporaryFile(mode="w+")
+            procs.append((group, out, subprocess.Popen(
+                [sys.executable, __file__, "--phases", ",".join(group),
+                 "--child"], stdout=out, stderr=subprocess.STDOUT,
+                text=True)))
+        for _, _, proc in procs:
+            proc.wait()
+    finally:
+        for _, out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = []
+    for group, out, proc in procs:
+        out.seek(0)
+        print(out.read(), end="", flush=True)
+        out.close()
+        if proc.returncode != 0:
+            failed.append(f"{','.join(group)} (exit {proc.returncode})")
+    if failed:
+        fail(f"concurrent phases failed: {'; '.join(failed)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset (the ok line needs all)")
+    ap.add_argument("--child", action="store_true",
+                    help="run the phases here, in sequence, and print no "
+                         "summary (run_concurrent's children)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -2486,59 +3005,78 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f"[phase] {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     errs, totals, timing = {}, {}, {}
     main_runs, fused_runs, unc_runs = {}, {}, {}
     split_runs, gondzio_runs, thr_runs = {}, {}, {}
     roofline_rows, xla_runs = {}, {}
     if "build" in phases:
+        mark("build")
         phase_build()
     if "kernels" in phases:
+        mark("kernels")
         errs = phase_kernels(device)
     if "main" in phases:
+        mark("main")
         main_totals, main_runs = phase_main(device)
         totals.update({k: v for k, v in main_totals.items()
                        if k in ("prep_condense2", "kkt_sweep_c2",
                                 "corrector_sweep_c2", "expand2")})
     if "fused_iter" in phases:
+        mark("fused_iter")
         fused_totals, fused_runs = phase_fused_iter(device, main_runs)
         totals["iter_sweep_c2"] = fused_totals["iter_sweep_c2"]
     if "long" in phases:
+        mark("long")
         long_totals = phase_long(device)
         totals.update({k: long_totals[k] for k in LONG_KERNELS})
     if "uncondensed" in phases:
+        mark("uncondensed")
         unc_totals, unc_runs = phase_uncondensed(device, main_runs)
         totals.update({k: unc_totals[k] for k in UNCONDENSED_KERNELS
                        if k not in SPLIT_KERNELS})
     if "unfused_prep" in phases:
+        mark("unfused_prep")
         unf_totals, _ = phase_unfused_prep(device)
         totals["prep_sweep"] = (totals.get("prep_sweep", 0)
                                 + unf_totals["prep_sweep"])
         totals["condense2"] = unf_totals["condense2"]
     if "split" in phases:
+        mark("split")
         split_totals, split_runs = phase_split(device, unc_runs)
         totals.update({k: split_totals[k] for k in SPLIT_KERNELS})
     if "gondzio" in phases:
+        mark("gondzio")
         _, gondzio_runs = phase_gondzio(device)
         compare_paths("gondzio", gondzio_runs[N], main_runs.get(B_TIME),
                       "[main]")
         compare_paths("gondzio", gondzio_runs[N_ODD], unc_runs.get(B_TIME),
                       "[uncondensed] N=50")
     if "throughput_mode" in phases:
+        mark("throughput_mode")
         _, thr_runs = phase_throughput_mode(device)
         compare_paths("throughput_mode", thr_runs[B_TIME],
                       main_runs.get(B_TIME), "[main]")
     if "xla_prep" in phases:
+        mark("xla_prep")
         _, xla_runs = phase_xla_prep(device, main_runs)
     if "single" in phases:
+        mark("single")
         phase_single(device)
     if "roofline" in phases:
+        mark("roofline")
         r_errs, r_totals, r_rows = phase_roofline(device)
         errs.update(r_errs)
         totals.update(r_totals)
         roofline_rows = r_rows
     if "certified" in phases:
+        mark("certified")
         phase_certified(device)
     if "timing" in phases:
+        mark("timing")
         timing = phase_timing(device)
         for B in B_MAIN:
             if B != B_TIME and B in main_runs:
@@ -2555,17 +3093,31 @@ def main(argv=None) -> int:
     # the closed loops last: their traces (10^5 kernels each) left the
     # profiler's later short traces empty in one run (PERF.md, PR 10)
     if "swarm" in phases:
+        mark("swarm")
         for name, v in phase_swarm(device).items():
             totals[name] = totals.get(name, 0) + v
-    if "closed_loop" in phases:
-        phase_closed_loop(device)
-    if "flight" in phases:
-        phase_flight(device)
     for phase, run in (("serving", phase_serving),
                        ("swarm_wire", phase_swarm_wire)):
         if phase in phases:
+            mark(phase)
             for name, v in run(device).items():
                 totals[name] = totals.get(name, 0) + v
+    tail = {"tuning": phase_tuning, "tuning_adam": phase_tuning_adam,
+            "tuning_wide": phase_tuning_wide,
+            "cartpole": phase_cartpole, "client": phase_client,
+            "closed_loop": phase_closed_loop, "flight": phase_flight}
+    if args.child:
+        for phase in phases:
+            t0 = time.perf_counter()
+            tail[phase](device)
+            print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
+        return 0
+    groups = [[p for p in g if p in phases] for g in CONCURRENT]
+    if any(groups):
+        t0 = time.perf_counter()
+        run_concurrent([g for g in groups if g])
+        print(f"[phase] {','.join(p for g in groups for p in g)} at once: "
+              f"{time.perf_counter() - t0:.1f} s")
     timing.update(roofline_rows)
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s")

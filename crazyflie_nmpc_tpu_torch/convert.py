@@ -1,8 +1,9 @@
 """Carry a problem, a QP, a warm start and a closed loop's settings and
 state across from numpy arrays.
 
-The JAX package's `OCPSpec`, `QPData` and `RTIState` leaves (batched or
-single-instance), its `AttitudeGains`, `EstimatorState` and `LoopConfig`,
+The JAX package's `OCPSpec` (the quadrotor's, or the cart-pole's custom
+ODE), `QPData` and `RTIState` leaves (batched or single-instance), its
+`AttitudeGains`, `EstimatorState` and `LoopConfig`,
 taken out with `np.asarray` (or read by attribute), become the port's
 objects, so both packages solve the same problem; `loop_result_to_numpy`
 brings a closed loop's result back.  This module imports nothing of the
@@ -19,6 +20,8 @@ import torch
 from crazyflie_nmpc_tpu_torch.device import resolve_device
 from crazyflie_nmpc_tpu_torch.estimator.lpf import VelocityLPFState
 from crazyflie_nmpc_tpu_torch.estimator.pipeline import EstimatorState
+from crazyflie_nmpc_tpu_torch.models.cartpole import (CartpoleParams,
+                                                      cartpole_dynamics)
 from crazyflie_nmpc_tpu_torch.models.firmware import AttitudeGains
 from crazyflie_nmpc_tpu_torch.models.quadrotor import QuadrotorParams
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
@@ -28,6 +31,13 @@ from crazyflie_nmpc_tpu_torch.solver.ocp import CostSpec, OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIState
 
 PARAM_KEYS = ("g0", "mq", "Ixx", "Iyy", "Izz", "Cd", "Ct", "l")
+# the models a spec may carry, by the name of their parameter class:
+# (parameter class, its fields, the custom ODE `spec.f` or None)
+MODELS = {
+    "QuadrotorParams": (QuadrotorParams, PARAM_KEYS, None),
+    "CartpoleParams": (CartpoleParams, ("g0", "M", "m", "l"),
+                       cartpole_dynamics),
+}
 COST_KEYS = ("W", "Vx", "Vu", "W_e", "Vx_e")
 QP_KEYS = tuple(f.name for f in dataclasses.fields(QPData))
 GAIN_KEYS = tuple(f.name for f in dataclasses.fields(AttitudeGains))
@@ -46,27 +56,47 @@ def _np(v):
 def leaves_from_spec(spec) -> dict:
     """numpy copies of the leaves `spec_from_numpy` takes, read by
     attribute from any OCPSpec-like object (this package's or the JAX
-    package's, whose arrays convert with `np.asarray`)."""
-    leaves = {k: _np(getattr(spec.params, k)) for k in PARAM_KEYS}
+    package's, whose arrays convert with `np.asarray`): the model's
+    physical parameters (`MODELS`), the cost, the bounds, tf and u_ss
+    where set.  A custom ODE is carried as its model's: it must be the
+    model's own (`cartpole_dynamics`), else ValueError."""
+    model = type(spec.params).__name__
+    if model not in MODELS:
+        raise ValueError(f"leaves_from_spec: unknown model {model!r}; "
+                         f"have {sorted(MODELS)}")
+    _, keys, f = MODELS[model]
+    f_name = getattr(spec.f, "__name__", None)
+    if f_name != getattr(f, "__name__", None):
+        raise ValueError(f"leaves_from_spec: cannot carry the ODE "
+                         f"{f_name!r} of a {model} spec")
+    leaves = {k: _np(getattr(spec.params, k)) for k in keys}
     leaves.update({k: _np(getattr(spec.cost, k)) for k in COST_KEYS})
     leaves.update(lbu=_np(spec.lbu), ubu=_np(spec.ubu), tf=_np(spec.tf))
+    if spec.u_ss is not None:
+        leaves["u_ss"] = _np(spec.u_ss)
     return leaves
 
 
 def spec_from_numpy(leaves: dict, N: int, *, device=None,
                     dtype=torch.float32, sim_steps: int = 1) -> OCPSpec:
-    """`OCPSpec` from numpy leaves: the eight physical parameters (scalars),
-    W, Vx, Vu, W_e, Vx_e, lbu, ubu and tf."""
+    """`OCPSpec` from numpy leaves: a model's physical parameters
+    (scalars: the quadrotor's eight, or the first model of `MODELS` whose
+    fields are all there, with its ODE), W, Vx, Vu, W_e, Vx_e, lbu, ubu,
+    tf and, if given, u_ss."""
     dev = resolve_device(device)
     t = lambda a: torch.as_tensor(np.array(a), device=dev).to(dtype)  # noqa: E731
-    missing = set(PARAM_KEYS + COST_KEYS + ("lbu", "ubu", "tf")) - set(leaves)
+    cls, keys, f = next((m for m in MODELS.values()
+                         if set(m[1]) <= set(leaves)),
+                        MODELS["QuadrotorParams"])
+    missing = set(keys + COST_KEYS + ("lbu", "ubu", "tf")) - set(leaves)
     if missing:
         raise KeyError(f"spec_from_numpy: missing leaves {sorted(missing)}")
-    params = QuadrotorParams(**{k: float(leaves[k]) for k in PARAM_KEYS})
+    params = cls(**{k: float(leaves[k]) for k in keys})
     cost = CostSpec(**{k: t(leaves[k]) for k in COST_KEYS})
+    u_ss = t(leaves["u_ss"]) if "u_ss" in leaves else None
     return OCPSpec(params=params, cost=cost, lbu=t(leaves["lbu"]),
                    ubu=t(leaves["ubu"]), tf=t(leaves["tf"]).reshape(()),
-                   N=N, sim_steps=sim_steps)
+                   N=N, sim_steps=sim_steps, f=f, u_ss=u_ss)
 
 
 def state_from_numpy(x_traj, u_traj, *, device=None,

@@ -18,3 +18,13 @@ from crazyflie_nmpc_tpu_torch.models.firmware import (  # noqa: F401
     init_motor_state,
     mix_cmd_vel,
 )
+from crazyflie_nmpc_tpu_torch.models.cartpole import (  # noqa: F401
+    CP_NU,
+    CP_NX,
+    CP_NY,
+    CartpoleParams,
+    cartpole_dynamics,
+    cartpole_ocp,
+    downward_state,
+    upright_state,
+)

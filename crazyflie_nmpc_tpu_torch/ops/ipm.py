@@ -30,6 +30,8 @@ escalate_iters re-solve as a select would.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, NamedTuple
 
@@ -78,6 +80,50 @@ class IPMConfig:
     compress_ab: bool = False
 
 
+# The BranchLog that records or checks the escalation branches `solve`
+# takes, where a caller has set one (`BranchLog.record`).
+_BRANCH_LOG: contextvars.ContextVar = contextvars.ContextVar(
+    "ipm_branch_log", default=None)
+
+
+class BranchLog:
+    """The escalation branches of the solves in one recomputed region
+    (a tick under `LoopConfig(remat=True)`): recorded on the forward pass
+    and checked when the region is recomputed for the backward pass,
+    where another branch would silently give another gradient."""
+
+    def __init__(self):
+        self.taken: list[bool] = []
+        self._replay = None
+
+    def see(self, escalated: bool):
+        if self._replay is None:
+            self.taken.append(escalated)
+            return
+        k, self._replay = self._replay, self._replay + 1
+        if k >= len(self.taken) or self.taken[k] != escalated:
+            raise RuntimeError(
+                f"recomputed solve {k} took another escalation branch "
+                f"(escalated={escalated}) than on the forward pass "
+                f"({self.taken[k] if k < len(self.taken) else 'none'})")
+
+    @contextlib.contextmanager
+    def record(self, replay: bool = False):
+        """Record the branches taken inside (replay=False), or check them
+        against the record (replay=True)."""
+        self._replay = 0 if replay else None
+        token = _BRANCH_LOG.set(self)
+        try:
+            yield
+        finally:
+            _BRANCH_LOG.reset(token)
+
+    def contexts(self):
+        """(forward, recomputation) context managers, the pair
+        `torch.utils.checkpoint`'s `context_fn` returns."""
+        return self.record(), self.record(replay=True)
+
+
 def certified_config(capacity: int = 0) -> IPMConfig:
     """The serving default: 8 Mehrotra iterations + escalation to 32,
     certified against the exact active-set oracle in the JAX package
@@ -93,7 +139,21 @@ def _max_step(v, dv, tau):
     non-negative dv never bind."""
     ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
                         torch.inf)
-    return torch.clamp(tau * torch.amin(ratio), max=1.0)
+    return _min(tau * torch.amin(ratio), 1.0)
+
+
+def _min(x, bound):
+    """min(x, bound) with the JAX package's gradient at a tie
+    (`jnp.minimum`: half to each side; `torch.clamp` passes all of it).
+    The bound is filled on x's device: no copy from the host."""
+    return torch.minimum(x, torch.full((), bound, dtype=x.dtype,
+                                       device=x.device))
+
+
+def _max(x, bound):
+    """max(x, bound), `jnp.maximum`'s gradient at a tie (`_min`)."""
+    return torch.maximum(x, torch.full((), bound, dtype=x.dtype,
+                                       device=x.device))
 
 
 def _min4(a, b, c, d):
@@ -117,15 +177,15 @@ def init_state(qp: QPData, config: IPMConfig = IPMConfig(),
 
     z_du = torch.zeros((N, nu), dtype=dtype, device=dev)
     z_dx = torch.zeros((N + 1, nx), dtype=dtype, device=dev)
-    s_l = torch.where(finite_l, torch.clamp(-lb, min=config.s_min_init), 1.0)
-    s_u = torch.where(finite_u, torch.clamp(ub, min=config.s_min_init), 1.0)
+    s_l = torch.where(finite_l, _max(-lb, config.s_min_init), 1.0)
+    s_u = torch.where(finite_u, _max(ub, config.s_min_init), 1.0)
     lam_l = torch.where(finite_l, config.mu0_init / s_l, 0.0)
     lam_u = torch.where(finite_u, config.mu0_init / s_u, 0.0)
     lam_min = 1e-4
     if lam0_l is not None:
-        lam_l = torch.where(finite_l, torch.clamp(lam0_l, min=lam_min), 0.0)
+        lam_l = torch.where(finite_l, _max(lam0_l, lam_min), 0.0)
     if lam0_u is not None:
-        lam_u = torch.where(finite_u, torch.clamp(lam0_u, min=lam_min), 0.0)
+        lam_u = torch.where(finite_u, _max(lam0_u, lam_min), 0.0)
 
     # affine residuals at the initial point (equality duals nu = 0)
     r1x = torch.cat([qp.qx, qp.p[None]], dim=0)
@@ -192,7 +252,7 @@ def iterate(qp: QPData, config: IPMConfig, carry):
               + ((lam_u + alpha_aff * dlam_u_a)
                  * (s_u + alpha_aff * ds_u_a) * fu).sum()) / n_ineq
     tiny = torch.finfo(dtype).tiny
-    sigma = torch.clamp((mu_aff / torch.clamp(mu, min=tiny)) ** 3, 0.0, 1.0)
+    sigma = _min(_max((mu_aff / _max(mu, tiny)) ** 3, 0.0), 1.0)
 
     # ---- corrector (centering + Mehrotra second-order term)
     r5l_c = r5l - sigma * mu + ds_l_a * dlam_l_a
@@ -211,7 +271,7 @@ def iterate(qp: QPData, config: IPMConfig, carry):
     # right-hand side, so the (1 - alpha) contraction below holds
     for _ in range(config.gondzio_correctors):
         mu_t = sigma * mu
-        a_hat = torch.clamp(alpha + 0.1, max=1.0)
+        a_hat = _min(alpha + 0.1, 1.0)
         v_l = (s_l + a_hat * ds_l) * (lam_l + a_hat * dlam_l)
         v_u = (s_u + a_hat * ds_u) * (lam_u + a_hat * dlam_u)
         t_l = masked(finite_l, torch.minimum(torch.maximum(v_l, 0.1 * mu_t),
@@ -270,7 +330,8 @@ def solve(qp: QPData, config: IPMConfig = IPMConfig(),
     With `config.escalate_iters > 0` a problem whose final mu exceeds
     `config.escalate_mu_tol` is re-solved from scratch at the larger
     iteration budget, without Gondzio correctors; whether it does is one
-    host read of that comparison (the module note).  stats gains an
+    host read of that comparison (the module note), recorded in the
+    caller's `BranchLog` where one is set.  stats gains an
     `escalated` flag (int32, 0 or 1); `alphas`/`mus` stay those of the
     primary solve.
     """
@@ -280,6 +341,9 @@ def solve(qp: QPData, config: IPMConfig = IPMConfig(),
     stats = dict(sol.stats)
     with host_sync("escalation"):
         converged = not bool(sol.stats["mu"] > config.escalate_mu_tol)
+    log = _BRANCH_LOG.get()
+    if log is not None:
+        log.see(not converged)
     if converged:
         stats["escalated"] = torch.zeros((), dtype=torch.int32,
                                          device=qp.c.device)

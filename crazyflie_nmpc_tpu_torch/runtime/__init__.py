@@ -20,3 +20,9 @@ from crazyflie_nmpc_tpu_torch.runtime.closed_loop import (  # noqa: F401
     tracking_error,
     trajectory_tracking,
 )
+from crazyflie_nmpc_tpu_torch.runtime.tuning import (  # noqa: F401
+    TuneResult,
+    hover_objective,
+    spec_with_diag_cost,
+    tune_diagonal_cost,
+)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from crazyflie_nmpc_tpu_torch.ops import ipm
 from crazyflie_nmpc_tpu_torch.ops.integrators import integrate
@@ -45,10 +46,14 @@ class LoopConfig:
     guard_failures: hold-last-action on solver failure: a non-finite solve
       publishes the previous command and keeps the previous iterate
       (acados_mpc.cpp:714-717).
-    remat: the JAX package's `jax.checkpoint` of each tick for
-      differentiating through a flight; not ported yet (ROADMAP Queue 1
-      item 11, `torch.utils.checkpoint`), so True raises
-      NotImplementedError.
+    remat: recompute each tick in the backward pass
+      (`torch.utils.checkpoint`, non-reentrant; the JAX package's
+      `jax.checkpoint` of the tick) instead of keeping its activations:
+      differentiating through a long flight then holds one tick's
+      activations at a time.  The recomputation must take the forward's
+      escalation branches (`ops.ipm.BranchLog`): it reads the same values,
+      and a tick that took another branch raises RuntimeError rather than
+      give another gradient.
     ipm: the solver configuration; the default is the certified one (8
       iterations + escalation to 32; escalation reads one comparison on
       the host per tick, `ops.ipm.solve`).
@@ -61,12 +66,6 @@ class LoopConfig:
     remat: bool = False
     ipm: ipm.IPMConfig = dataclasses.field(
         default_factory=ipm.certified_config)
-
-    def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError(
-                "LoopConfig(remat=True) is not ported yet: ROADMAP Queue 1 "
-                "item 11 (differentiable MPC, torch.utils.checkpoint)")
 
 
 class LoopResult(NamedTuple):
@@ -105,13 +104,11 @@ def simulate(spec: OCPSpec, x_init: torch.Tensor,
     f = spec.ode()
     uss = spec.steady_input(x_init.dtype).to(x_init.device)
 
-    rti_state = init_rti(spec, x_init, device=x_init.device)
     mstate, measure_fn = measure if measure is not None else (None, None)
     # pending command pipeline: commands in flight (oldest first)
     u_pipe = uss.expand((max(d, 1),) + uss.shape)
-    x_plant, pol_state, u_prev = x_init, policy_state, uss
 
-    def predict(x):
+    def predict(x, u_pipe, u_prev):
         if d == 0:
             return x
         if config.predictor == "last_command":
@@ -122,15 +119,14 @@ def simulate(spec: OCPSpec, x_init: torch.Tensor,
                           spec.sim_steps)
         return x
 
-    outs = []
-    for _ in range(steps):
+    def tick(x_plant, rti_state, pol_state, u_pipe, u_prev, mstate):
         yref, yref_e, pol_next = policies_mod.make_yref(
             spec, pol_state, traj_table)
         if measure_fn is None:
             x_meas = x_plant
         else:
             mstate, x_meas = measure_fn(mstate, x_plant)
-        x_pred = predict(x_meas)
+        x_pred = predict(x_meas, u_pipe, u_prev)
 
         rti_new, out = rti_step(spec, rti_state, x_pred, yref, yref_e,
                                 config.ipm)
@@ -154,8 +150,20 @@ def simulate(spec: OCPSpec, x_init: torch.Tensor,
 
         x_next = integrate(f, spec.params, x_plant, u_apply, spec.dt,
                            config.plant_substeps)
-        outs.append((x_plant, u_apply, u_cmd, out.kkt_res, pol_state.mode))
-        x_plant, pol_state, u_prev = x_next, pol_next, u_cmd
+        return ((x_next, rti_state, pol_next, u_pipe, u_cmd, mstate),
+                (x_plant, u_apply, u_cmd, out.kkt_res, pol_state.mode))
+
+    carry = (x_init, init_rti(spec, x_init, device=x_init.device),
+             policy_state, u_pipe, uss, mstate)
+    outs = []
+    for _ in range(steps):
+        if config.remat:
+            carry, out = checkpoint(
+                tick, *carry, use_reentrant=False,
+                context_fn=lambda: ipm.BranchLog().contexts())
+        else:
+            carry, out = tick(*carry)
+        outs.append(out)
     return _stack(outs)
 
 

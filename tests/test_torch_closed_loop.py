@@ -11,7 +11,7 @@ x, u, u_cmd, kkt_res and policy_mode are held to 1e-8 relative to
 max(1, max |JAX|).  Each JAX loop is jitted once and compiled at XLA's
 optimization level 0, in this process.  Also: tracking_error, the
 hold-last-action guard (the JAX package's own test on the port), the
-ValueErrors and the unported remat option.
+ValueErrors and the remat option's forward pass.
 """
 
 import dataclasses
@@ -178,9 +178,18 @@ def test_bad_loop_settings_raise(setup, call, match):
         call(setup["tspec"], x0)
 
 
-def test_remat_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcl.LoopConfig(remat=True)
+def test_remat_is_not_ported(setup):
+    """remat was the unported option; it is ported now (ROADMAP Queue 1
+    item 11): LoopConfig(remat=True) builds, and its forward pass is the
+    stored loop's, value for value (its gradients:
+    test_torch_tuning.py)."""
+    x0 = torch.as_tensor(setup["x0"])
+    cfg = dataclasses.replace(setup["tcfg"], remat=True)
+    got = tcl.hover_regulation(setup["tspec"], x0, steps=2, config=cfg)
+    want = tcl.hover_regulation(setup["tspec"], x0, steps=2,
+                                config=setup["tcfg"])
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_loop_config_carries_across(setup):

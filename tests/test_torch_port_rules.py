@@ -336,7 +336,9 @@ def test_build_hash_covers_sources_and_flags():
 @pytest.mark.parametrize("package", ["crazyflie_nmpc_tpu",
                                      "crazyflie_nmpc_tpu.ops",
                                      "crazyflie_nmpc_tpu.estimator",
-                                     "crazyflie_nmpc_tpu.native"])
+                                     "crazyflie_nmpc_tpu.native",
+                                     "crazyflie_nmpc_tpu.runtime",
+                                     "crazyflie_nmpc_tpu.models"])
 def test_package_exports_match_jax(package):
     """Every public name the JAX package's `__init__` exports (its
     `__version__` too; submodules aside) is exported by the port's
@@ -359,14 +361,9 @@ def test_package_exports_match_jax(package):
 # Names the JAX package's `__init__`s export that the port does not have
 # yet, each with its ROADMAP Queue 1 item.
 UNPORTED_EXPORTS = {
-    "crazyflie_nmpc_tpu.runtime": {
-        "TuneResult": 11, "hover_objective": 11, "spec_with_diag_cost": 11,
-        "tune_diagonal_cost": 11},
+    "crazyflie_nmpc_tpu.runtime": {},
     "crazyflie_nmpc_tpu.utils": {"profiling": 14},
-    "crazyflie_nmpc_tpu.models": {
-        "CP_NU": 12, "CP_NX": 12, "CP_NY": 12, "CartpoleParams": 12,
-        "cartpole_dynamics": 12, "cartpole_ocp": 12, "downward_state": 12,
-        "upright_state": 12},
+    "crazyflie_nmpc_tpu.models": {},
 }
 
 

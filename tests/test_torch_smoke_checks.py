@@ -300,3 +300,21 @@ def test_realtime_bars():
                        (dead, "live")):
         with pytest.raises(SystemExit, match=match):
             cs.realtime_bars("[swarm_wire]", bad, 2)
+
+
+def test_tail_phases_run_at_once():
+    """The host-bound loops ([tuning], [tuning_adam], [tuning_wide],
+    [cartpole], [client], [closed_loop], [flight]) are in the run, each in
+    exactly one concurrent group."""
+    tail = [p for g in cs.CONCURRENT for p in g]
+    assert sorted(tail) == sorted(("tuning", "tuning_adam", "tuning_wide",
+                                   "cartpole", "client", "closed_loop",
+                                   "flight"))
+    assert set(tail) <= set(cs.PHASES)
+
+
+def test_a_failed_child_fails_the_run():
+    """run_concurrent ends every child and fails when one of them failed
+    (here: no CUDA device, the children exit 1 at once)."""
+    with pytest.raises(SystemExit, match=r"client \(exit 1\); cartpole"):
+        cs.run_concurrent([("client",), ("cartpole",)])
