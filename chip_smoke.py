@@ -37,7 +37,7 @@ each, with launch counters proving which kernels ran:
                  step 1 too, and a sim_steps=2 spec at B=1024 (its bars
                  shown to catch faults planted in the preparation).
 
-and twelve paths of their own:
+and fifteen paths of their own:
 
   [single]       the single-instance rti_step (plain PyTorch), N=50, 20
                  closed-loop ticks from a 1.5 m offset, and one certified
@@ -79,6 +79,20 @@ and twelve paths of their own:
                  20 closed-loop swing-up ticks, simulate with delay 2;
   [client]       MissionClient.takeoff flown on rti_step, N=50, 160 ticks
                  (the JAX bars);
+  [pod]          parallel.pod_rti_step on a one-rank NCCL group, N=50,
+                 B=4096, float32, 20 chained steps beside the unsharded
+                 step (equal to 1e-6, bitwise in practice), K1-K4 in its
+                 counts and trace, fleet_metrics over the group;
+  [pod_ranks]    the multi-rank pod path: 4 gloo ranks (processes)
+                 sharing the card: pod_rti_step on 2 ranks x 2048 lanes
+                 against the unsharded step; stage_sharded_rti_step at
+                 N=50 (2 ranks) and N=400 (4 ranks), float64, against
+                 rti_step, and at N=800, float32, against the windowed
+                 rti_step_batched (K5a/b/c);
+  [certified_loops] tests/test_certification.py's loops (hover from 0.3
+                 m saturating, 24 ticks; the helix, 96 ticks; the batched
+                 path, 5 ticks at B=3), float64, N=50, every tick's plan
+                 within 1e-4 of the numpy oracle tests/_reference_rti.py;
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
                  depends on every product and stage), then the study of
@@ -98,9 +112,11 @@ both VDE orders, csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in
 their four forms) at every B of [main] with their occupancy, waves and
 bound, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
-[xla_prep] ([single] its own ticks) with torch.profiler.  The
-host-bound loops ([tuning] to [client], [closed_loop], [flight]) run
-last, at once, each group in a child process of its own (CONCURRENT).
+[xla_prep] ([single] its own ticks) with torch.profiler.  [pod] runs
+in a child process of its own after [swarm_wire]; the host-bound loops
+([tuning] to [client], [closed_loop], [flight]), [pod_ranks] and
+[certified_loops] run last, at once, each group in a child process of
+its own (CONCURRENT).
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -145,15 +161,17 @@ N_ODD = N + 1         # the odd horizon of [uncondensed]
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
           "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
           "single", "roofline", "certified", "timing", "swarm",
-          "closed_loop", "flight", "serving", "swarm_wire", "tuning",
-          "tuning_adam", "tuning_wide", "cartpole", "client")
+          "closed_loop", "flight", "serving", "swarm_wire", "pod", "tuning",
+          "tuning_adam", "tuning_wide", "cartpole", "client", "pod_ranks",
+          "certified_loops")
 # Host-bound plain-PyTorch phases run last, each group of them in a child
 # process of its own and the groups at once (the card idles > 0.9 of each
 # one's time): in sequence they took ~1200 s of a slow host's run, the
 # limit; five groups at once took 334.8 s, the longest group's time
 # (PERF.md §6)
 CONCURRENT = (("tuning", "client"), ("tuning_adam",), ("tuning_wide",),
-              ("cartpole",), ("closed_loop",), ("flight",))
+              ("cartpole",), ("closed_loop",), ("flight",), ("pod_ranks",),
+              ("certified_loops",))
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -700,7 +718,6 @@ def run_chain(B, device, n=N, cfg=None, fused=True, sim_steps=1, **opts):
     to ms, the host's launch loop sets the step time."""
     import torch
 
-    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
     from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
     from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
                                                  init_rti)
@@ -713,6 +730,16 @@ def run_chain(B, device, n=N, cfg=None, fused=True, sim_steps=1, **opts):
     st0 = to_batch_last(init_rti(spec, x0s, device=device))
     step = make_step(spec, x0s, yref, yref_e, cfg or IPMConfig(iters=ITERS),
                      fused, **opts)
+    return dict(x0s=x0s, st0=st0, **chain_steps(step, st0))
+
+
+def chain_steps(step, st0):
+    """2 warm-up steps, then STEPS chained steps of `step` from st0 timed
+    by CUDA events under the sync debug mode (run_chain), and the host's
+    issue time of one step (median of 5)."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 
     for _ in range(2):                        # warm-up, not timed
         step(st0)
@@ -740,7 +767,7 @@ def run_chain(B, device, n=N, cfg=None, fused=True, sim_steps=1, **opts):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     gaps = sorted(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
-    return dict(x0s=x0s, st0=st0, first=first, last=out, st=st,
+    return dict(first=first, last=out, st=st,
                 ms=evs[0].elapsed_time(evs[-1]) / STEPS,
                 ms_median=gaps[STEPS // 2], ms_max=gaps[-1],
                 host_ms=sorted(host)[2], counts=counts, step=step)
@@ -1569,13 +1596,14 @@ STEP_B, STEP_TICKS, STEP_SEED = 256, 20, 7
 STEP_ANGLE_TOL, STEP_THRUST_RTOL = 0.02, 1e-3
 
 
-def check_step_launches(label, counts, steps, resolves, iters=ITERS):
+def check_step_launches(label, counts, steps, resolves, iters=ITERS,
+                        escalate=ESCALATE_ITERS):
     """The launches of `steps` batched RTI steps: K1 once a step, K2 and
-    K3 `iters` times a step and K4 once, each certified re-solve
-    (`resolves` of them) ESCALATE_ITERS more K2 and K3 and one more K4,
+    K3 `iters` times a step and K4 once, each escalation re-solve
+    (`resolves` of them) `escalate` more K2 and K3 and one more K4,
     every other kernel never.  Returns the launches per step of the
     kernels that ran."""
-    sweeps = iters * steps + ESCALATE_ITERS * resolves
+    sweeps = iters * steps + escalate * resolves
     want = {"prep_condense2": steps, "kkt_sweep_c2": sweeps,
             "corrector_sweep_c2": sweeps, "expand2": steps + resolves}
     for name, got in counts.items():
@@ -2501,15 +2529,17 @@ def phase_profile(label, run, steps=3):
     few chained steps, split into the port's kernels, the other kernels
     (the barrier algebra and layout glue, PyTorch's own), and the device
     idle time between them.  Profiling adds host overhead, so the idle
-    share is an upper bound for the untraced run."""
+    share is an upper bound for the untraced run.  Returns the trace's
+    sums (trace_sums)."""
     state = dict(st=run["st"])
 
     def steps_run():
         for _ in range(steps):
             state["st"], _ = run["step"](state["st"])
 
-    print_trace(label, f"B={run['x0s'].shape[0]}", trace_sums(steps_run),
-                steps, "steps")
+    sums = trace_sums(steps_run)
+    print_trace(label, f"B={run['x0s'].shape[0]}", sums, steps, "steps")
+    return sums
 
 
 def trace_sums(fn):
@@ -2945,11 +2975,557 @@ def phase_roofline(device):
     return errs, totals, rows
 
 
+# ---------------------------------------------------------------------------
+# the pod path (parallel/) and the certified loops
+# ---------------------------------------------------------------------------
+
+POD_B = 4096          # [pod]: [main]'s lanes at B=B_TIME
+POD_TOL = 1e-6        # sharded against unsharded, the same inputs
+POD_RANKS = 2         # [pod_ranks] (a): 2 ranks x 2048 lanes
+# [pod_ranks] (b)-(d), tests/test_sharding.py's stage-sharded runs:
+# (N, tf, dtype, ranks, block, IPM iterations, x0 position, rtol, atol);
+# (d) is held against rti_step_batched(windowed=True) at B=1 (K5a/b/c)
+STAGE_RUNS = {
+    "b": (50, 0.75, "float64", 2, 5, 10, (0.1, -0.05, 0.3), 1e-8, 1e-9),
+    "c": (400, 6.0, "float64", 4, 10, 10, (0.2, -0.1, 0.4), 1e-7, 1e-8),
+    "d": (800, 12.0, "float32", 4, 10, 2, (0.2, -0.1, 0.4), 0.0, 5e-4),
+}
+STAGE_TIMED = 2       # timed steps of each stage-sharded run, after one
+CERT_TOL = 1e-4       # every tick's u-plan against the oracle (BASELINE)
+CERT_PLAIN = 1e-2     # the plain 8-iteration solve is off by more
+CERT_HOVER_TICKS = 24
+CERT_HELIX_TICKS = 96
+CERT_BATCHED_TICKS = 5
+CERT_PLAIN_TICKS = 3  # the plain solve on the hover loop's first ticks
+CERT_ESCALATE = 16    # tests/test_certification.py's escalation budget
+ORACLE_WORKERS = 3    # processes solving the oracle's QPs meanwhile
+
+
+def check_shards(label, shards, whole, tol):
+    """The ranks' shards, in rank order, put together along the lane
+    (last, batch-last) axis equal the unsharded result within `tol`
+    (hold_close).  Returns the largest |diff|."""
+    import torch
+
+    got = torch.cat([s.detach().double().cpu() for s in shards], dim=-1)
+    return hold_close(label, got, whole, tol)
+
+
+def check_replicated(label, by_rank, want, rtol, atol):
+    """Every rank's copy of a replicated result within atol + rtol |want|
+    of the reference, or the run fails.  Returns the largest |diff|."""
+    want = want.detach().double().cpu()
+    worst = 0.0
+    for rank, got in enumerate(by_rank):
+        got = got.detach().double().cpu()
+        if got.shape != want.shape:
+            fail(f"{label}: rank {rank} shape {tuple(got.shape)}, "
+                 f"expected {tuple(want.shape)}")
+        diff = (got - want).abs()
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+            fail(f"{label}: rank {rank} off by {float(diff.max()):.3e} "
+                 f"(rtol {rtol:g}, atol {atol:g})")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_fleet(label, got, kkt, mu, rel=POD_TOL):
+    """fleet_metrics' (max kkt_res, mean qp_mu) against amax / mean of the
+    whole batch's, to `rel` relative."""
+    want = (float(kkt.double().amax()), float(mu.double().mean()))
+    for name, g, w in zip(("kkt_res max", "qp_mu mean"), got, want):
+        if not abs(float(g) - w) <= rel * abs(w):
+            fail(f"{label}: fleet {name} {float(g):.9e}, the whole batch's "
+                 f"{w:.9e}")
+    return want
+
+
+def check_certified(label, errs, tol=CERT_TOL):
+    """Every tick's max |u-plan - oracle's| below `tol` (a NaN fails);
+    returns the worst."""
+    bad = [(t, e) for t, e in enumerate(errs) if not e < tol]
+    if bad or not errs:
+        fail(f"{label}: {len(bad)} of {len(errs)} ticks not within {tol:g} "
+             f"of the oracle: " + ", ".join(f"tick {t} {e:.3e}"
+                                            for t, e in bad[:5]))
+    return max(errs)
+
+
+def phase_pod(device):
+    """`parallel.pod_rti_step` on a one-rank NCCL group: N=50, B=POD_B,
+    float32, IPMConfig(iters=8), [main]'s lanes, 20 chained steps
+    (chain_steps, under the sync debug mode) against the unsharded
+    `rti_step_batched` chain on the same inputs in this process (lanes are
+    independent: equal to POD_TOL, bitwise expected), K1-K4 in its launch
+    counts and in a profiler trace, and `fleet_metrics` over the group
+    against amax / mean.  Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.parallel import (fleet_metrics,
+                                                   init_distributed,
+                                                   make_mesh, pod_rti_step)
+    from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
+                                                 init_rti)
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
+
+    with tempfile.TemporaryDirectory() as tmp:
+        world, _ = init_distributed(f"file://{tmp}/rendezvous", 1, 0,
+                                    device=device)
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = make_mesh()
+            spec = default_ocp(N=N, dtype=torch.float32, device=device)
+            yref, yref_e = hover_yref(spec, device=device)
+            x0s = hover_batch(spec, POD_B, seed=POD_B)
+            st0 = to_batch_last(init_rti(spec, x0s, device=device))
+            pod = pod_rti_step(spec, mesh, IPMConfig(iters=ITERS),
+                               layout="batch_last")
+            dv.reset_host_syncs()
+            run = dict(x0s=x0s, st0=st0, **chain_steps(
+                lambda st: pod(st, x0s, yref, yref_e), st0))
+            syncs = dv.host_syncs()
+            counts = check_chain("pod", run, POD_B, N, STEP_KERNELS)
+            first = run["first"]
+            fleet = fleet_metrics(mesh)(first.kkt_res, first.qp_mu)
+            want = check_fleet("[pod]", fleet, first.kkt_res, first.qp_mu)
+            sums = phase_profile("pod", run)
+            missing = [k for k in STEP_KERNELS
+                       if sums is None or not sums[1][k][1]]
+            if missing:
+                fail(f"[pod]: {missing} not in the profiler trace")
+            ref = run_chain(POD_B, device)
+            du = hold_close("[pod] step 1 u_plan vs unsharded", first.u_plan,
+                            ref["first"].u_plan, POD_TOL)
+            dx = hold_close("[pod] step 1 x_plan vs unsharded", first.x_plan,
+                            ref["first"].x_plan, POD_TOL)
+            dst = hold_close(f"[pod] u_traj after {STEPS} steps vs "
+                             "unsharded", run["st"].u_traj,
+                             ref["st"].u_traj, POD_TOL)
+        finally:
+            torch.distributed.destroy_process_group()
+    print(f"[pod] pod_rti_step on a {world}-rank {backend} group, N={N} "
+          f"B={POD_B} float32: {run['ms']:.3f} ms/step, host issue "
+          f"{run['host_ms']:.3f} ms/step; the unsharded rti_step_batched "
+          f"([main]'s path) in this process {ref['ms']:.3f} ms/step, host "
+          f"issue {ref['host_ms']:.3f}; max |diff| vs unsharded: step 1 "
+          f"u_plan {du:.3e}, x_plan {dx:.3e}, u_traj after {STEPS} steps "
+          f"{dst:.3e} (bar {POD_TOL:g}); fleet_metrics over the group: "
+          f"kkt_res max {float(fleet[0]):.6e} ({want[0]:.6e}), qp_mu mean "
+          f"{float(fleet[1]):.6e} ({want[1]:.6e}); host syncs in the "
+          f"chain {syncs or 'none'}")
+    return counts
+
+
+def pod_rank(rank, world, init, out):
+    """One rank of [pod_ranks]' gloo group (every rank on the one card):
+    (a) pod_rti_step on its 2048 of [pod]'s lanes (ranks 0-1), then the
+    stage-sharded steps of STAGE_RUNS on their ranks; its results, times,
+    launches and host syncs by reason go to `out`/rank<r>.pt."""
+    import os
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.parallel import (fleet_metrics,
+                                                   init_distributed,
+                                                   make_mesh, pod_rti_step,
+                                                   stage_sharded_rti_step)
+    from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
+                                                 init_rti)
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import to_batch_last
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(init, world, rank, backend="gloo")
+    res = {}
+    try:
+        # every rank makes every mesh (new_group is collective)
+        mesh_a = make_mesh(batch=POD_RANKS, devices=range(POD_RANKS))
+        meshes = {k: make_mesh(stage=v[3], devices=range(v[3]))
+                  for k, v in STAGE_RUNS.items()}
+        if rank < POD_RANKS:
+            spec = default_ocp(N=N, dtype=torch.float32, device=device)
+            yref, yref_e = hover_yref(spec, device=device)
+            x0s = mesh_a.shard(hover_batch(spec, POD_B, seed=POD_B))
+            st0 = to_batch_last(init_rti(spec, x0s, device=device))
+            pod = pod_rti_step(spec, mesh_a, IPMConfig(iters=ITERS),
+                               layout="batch_last")
+            dv.reset_host_syncs()
+            run = chain_steps(lambda st: pod(st, x0s, yref, yref_e), st0)
+            syncs = dv.host_syncs()
+            first = run["first"]
+            fleet = fleet_metrics(mesh_a)(first.kkt_res, first.qp_mu)
+            res["a"] = dict(u_plan=first.u_plan.cpu(),
+                            u_traj=run["st"].u_traj.cpu(),
+                            fleet=[float(f) for f in fleet], ms=run["ms"],
+                            host_ms=run["host_ms"], counts=run["counts"],
+                            syncs=syncs,
+                            fleet_syncs=dv.host_syncs())
+        for key, (n, tf, dt, ranks, block, iters, pos, _,
+                  _) in STAGE_RUNS.items():
+            if rank >= ranks:
+                continue
+            dtype = getattr(torch, dt)
+            spec = default_ocp(N=n, tf=tf, dtype=dtype, device=device)
+            x0 = hover_state(spec.params, pos=pos, dtype=dtype,
+                             device=device)
+            yref, yref_e = hover_yref(spec, device=device)
+            st = init_rti(spec, x0, device=device)
+            cfg = IPMConfig(iters=iters)
+            new, o = stage_sharded_rti_step(spec, meshes[key], block, st,
+                                            x0, yref, yref_e, cfg)
+            torch.cuda.synchronize()
+            dv.reset_host_syncs()
+            kc.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(STAGE_TIMED):
+                stage_sharded_rti_step(spec, meshes[key], block, st, x0,
+                                       yref, yref_e, cfg)
+            torch.cuda.synchronize()
+            res[key] = dict(u=new.u_traj.cpu(), x=new.x_traj.cpu(),
+                            kkt=float(o.kkt_res),
+                            ms=(time.perf_counter() - t0) * 1e3 / STAGE_TIMED,
+                            syncs=dv.host_syncs(),
+                            counts=kc.launch_counts())
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def phase_pod_ranks(device):
+    """The multi-rank pod path on the one card: a gloo group of 4 ranks
+    (processes) whose tensors all lie on it (NCCL refuses two ranks on
+    one GPU; gloo's collectives go through pinned host buffers, each a
+    counted "collective" host sync).  (a) pod_rti_step, 2 ranks x 2048
+    lanes, each shard and fleet_metrics against the unsharded step on
+    the whole batch; (b)-(d) stage_sharded_rti_step (STAGE_RUNS) against
+    rti_step, and (d) against rti_step_batched(windowed=True) at B=1,
+    which launches K5a/b/c.  Returns (a)'s launch counts."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.solver import (default_ocp, hover_yref,
+                                                 init_rti, rti_step)
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+
+    world = max(v[3] for v in STAGE_RUNS.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(pod_rank, nprocs=world, start_method="spawn",
+                           args=(world, f"file://{tmp}/rendezvous", tmp))
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(world)]
+    print(f"[pod_ranks] {world} gloo ranks on one card: {wall:.1f} s "
+          f"(process start, CUDA and the runs)")
+
+    # (a) against the unsharded step on the whole batch
+    a = [r["a"] for r in res[:POD_RANKS]]
+    ref = run_chain(POD_B, device)
+    du = check_shards("[pod_ranks] (a) step 1 u_plan", [r["u_plan"] for r in a],
+                      ref["first"].u_plan, POD_TOL)
+    dst = check_shards(f"[pod_ranks] (a) u_traj after {STEPS} steps",
+                       [r["u_traj"] for r in a], ref["st"].u_traj, POD_TOL)
+    for rank, r in enumerate(a):
+        check_fleet(f"[pod_ranks] (a) rank {rank}", r["fleet"],
+                    ref["first"].kkt_res, ref["first"].qp_mu)
+    counts = {}
+    for rank, r in enumerate(a):
+        per_step = check_tick_launches(f"[pod_ranks] (a) rank {rank}",
+                                       r["counts"], STEPS, STEP_KERNELS)
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    print(f"[pod_ranks] (a) pod_rti_step, {POD_RANKS} ranks x "
+          f"{POD_B // POD_RANKS} lanes, N={N} float32: ms/step "
+          + " / ".join(f"{r['ms']:.3f}" for r in a) + ", host issue "
+          + " / ".join(f"{r['host_ms']:.3f}" for r in a)
+          + f" (the unsharded B={POD_B} step here {ref['ms']:.3f}); launches "
+          f"a step a rank {per_step}; max |diff| vs unsharded: step 1 u_plan "
+          f"{du:.3e}, u_traj after {STEPS} steps {dst:.3e} (bar "
+          f"{POD_TOL:g}); fleet kkt_res max {a[0]['fleet'][0]:.6e}, qp_mu "
+          f"mean {a[0]['fleet'][1]:.6e} on each rank; host syncs in the "
+          f"chain {a[0]['syncs'] or 'none'}, with fleet_metrics "
+          f"{a[0]['fleet_syncs']}")
+
+    # (b)-(d) against the unsharded steps
+    for key, (n, tf, dt, ranks, block, iters, pos, rtol,
+              atol) in STAGE_RUNS.items():
+        dtype = getattr(torch, dt)
+        spec = default_ocp(N=n, tf=tf, dtype=dtype, device=device)
+        x0 = hover_state(spec.params, pos=pos, dtype=dtype, device=device)
+        yref, yref_e = hover_yref(spec, device=device)
+        st = init_rti(spec, x0, device=device)
+        cfg = IPMConfig(iters=iters)
+        if key == "d":
+            what = "rti_step_batched(windowed=True) at B=1"
+
+            def reference():
+                new, _ = rti_step_batched(
+                    spec, init_rti(spec, x0[None], device=device), x0[None],
+                    yref[None], yref_e[None], cfg, condense=2, windowed=True)
+                return new.u_traj[0], new.x_traj[0]
+        else:
+            what = "rti_step"
+
+            def reference():
+                new, _ = rti_step(spec, st, x0, yref, yref_e, cfg)
+                return new.u_traj, new.x_traj
+        reference()                            # the first call, not timed
+        torch.cuda.synchronize()
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        want_u, want_x = reference()
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        ref_counts = {k: v for k, v in kc.launch_counts().items() if v}
+        if key == "d" and not all(ref_counts.get(k) for k in LONG_KERNELS):
+            fail(f"[pod_ranks] ({key}): the windowed step launched "
+                 f"{ref_counts}, not K5a/b/c {LONG_KERNELS}")
+        r = [x[key] for x in res[:ranks]]
+        eu = check_replicated(f"[pod_ranks] ({key}) u_traj",
+                              [x["u"] for x in r], want_u, rtol, atol)
+        ex = check_replicated(f"[pod_ranks] ({key}) x_traj",
+                              [x["x"] for x in r], want_x, rtol, atol)
+        print(f"[pod_ranks] ({key}) stage_sharded_rti_step N={n} tf={tf} "
+              f"{dt} iters={iters}, {ranks} stage ranks, block {block}: "
+              f"ms/step " + " / ".join(f"{x['ms']:.1f}" for x in r)
+              + f" (mean of {STAGE_TIMED}, after one); {what} here "
+              f"{ref_ms:.1f} ms (its second call) with launches "
+              f"{ref_counts if key == 'd' else 'not counted'}; max |diff| "
+              f"u_traj {eu:.3e}, x_traj {ex:.3e} (rtol {rtol:g}, atol "
+              f"{atol:g}); host syncs by reason over {STAGE_TIMED} steps, "
+              f"rank 0: {r[0]['syncs']}; no port kernel launched: "
+              f"{not any(r[0]['counts'].values())}")
+    return counts
+
+
+_ORACLE = {}
+
+
+def oracle_plan(args):
+    """The post-step u-plan of one RTI subproblem (x_traj, u_traj, x0,
+    yref, yref_e as numpy, dt) by the numpy oracle
+    tests/_reference_rti.py of this checkout (loaded once a process)."""
+    if "mod" not in _ORACLE:
+        import importlib.util
+        import os
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "_reference_rti.py")
+        spec = importlib.util.spec_from_file_location("_reference_rti", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _ORACLE["mod"] = mod
+    return _ORACLE["mod"].rti_step_ref(*args)[1]
+
+
+def _host(*tensors):
+    return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def certified_loop(spec, x_init, yref_fn, ticks, cfg, submit,
+                   plain_ticks=0):
+    """The single-vehicle production loop on `rti_step` (the spec's
+    device) with the RK4 plant: each tick's subproblem (the same warm
+    start, x0 and yref) goes to `submit` (the oracle: a value or a
+    future), beside the step's post-step u-plan; on the first
+    `plain_ticks` ticks the plain 8-iteration solve's plan too.  Returns
+    ([(u_plan, oracle)], [(plain u_plan, oracle)], ms per tick of the
+    step, the wait for its plan included)."""
+    from crazyflie_nmpc_tpu_torch.models import dynamics
+    from crazyflie_nmpc_tpu_torch.ops.integrators import integrate
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.solver import init_rti, rti_step
+
+    state = init_rti(spec, x_init, device=x_init.device)
+    x = x_init
+    plans, plain, wall = [], [], 0.0
+    for t in range(ticks):
+        yref, yref_e = yref_fn(t)
+        prev = state
+        t0 = time.perf_counter()
+        state, out = rti_step(spec, prev, x, yref, yref_e, cfg)
+        u_plan = out.u_plan.cpu()
+        wall += time.perf_counter() - t0
+        ref = submit(_host(prev.x_traj, prev.u_traj, x, yref, yref_e)
+                     + (float(spec.dt),))
+        plans.append((u_plan, ref))
+        if t < plain_ticks:
+            _, p = rti_step(spec, prev, x, yref, yref_e,
+                            IPMConfig(iters=ITERS))
+            plain.append((p.u_plan.cpu(), ref))
+        x = integrate(dynamics, spec.params, x, out.u0, spec.dt,
+                      spec.sim_steps)
+    return plans, plain, wall / ticks * 1e3
+
+
+def certified_batched_loop(spec, x0s, ticks, cfg, submit):
+    """The batched production path (`rti_step_batched`, batch-first) in
+    closed loop from x0s (B, 13): each lane's subproblem to `submit` every
+    tick.  Returns ([(u_plan, oracle)], ms per tick, launch counts,
+    escalation re-solves)."""
+    from crazyflie_nmpc_tpu_torch.models import dynamics
+    from crazyflie_nmpc_tpu_torch.ops import cuda as kc
+    from crazyflie_nmpc_tpu_torch.ops import ipm_fast
+    from crazyflie_nmpc_tpu_torch.ops.integrators import integrate
+    from crazyflie_nmpc_tpu_torch.solver import hover_yref, init_rti
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+
+    yref, yref_e = hover_yref(spec, device=x0s.device)
+    states = init_rti(spec, x0s, device=x0s.device)
+    x = x0s
+    plans, wall = [], 0.0
+    kc.reset_launch_counts()
+    ipm_fast.reset_escalation_counts()
+    for _ in range(ticks):
+        prev = states
+        t0 = time.perf_counter()
+        states, out = rti_step_batched(spec, prev, x, yref, yref_e, cfg)
+        u_plan = out.u_plan.cpu()
+        wall += time.perf_counter() - t0
+        for b in range(x.shape[0]):
+            plans.append((u_plan[b], submit(
+                _host(prev.x_traj[b], prev.u_traj[b], x[b], yref, yref_e)
+                + (float(spec.dt),))))
+        x = integrate(dynamics, spec.params, x, out.u0, spec.dt,
+                      spec.sim_steps)
+    return (plans, wall / ticks * 1e3, kc.launch_counts(),
+            ipm_fast.escalation_counts()["resolves"])
+
+
+def plan_errors(plans):
+    """max |u_plan - oracle's| of each (u_plan, oracle value or future)."""
+    import numpy as np
+
+    return [float(np.abs(u.double().numpy() - np.asarray(
+        r.result() if hasattr(r, "result") else r)).max()) for u, r in plans]
+
+
+def phase_certified_loops(device):
+    """tests/test_certification.py's loops on the card, float64, N=50,
+    every tick's post-step u-plan against the numpy oracle
+    (tests/_reference_rti.py, in ORACLE_WORKERS processes while the loops
+    run) to CERT_TOL: hover from 0.3 m (saturating, 24 ticks,
+    IPMConfig(iters=8, escalate_iters=16)), the helix (96 ticks,
+    IPMConfig(iters=8)), the batched path (5 ticks, B=3, offsets 0.3 /
+    0.02 / -0.25 m, escalate_capacity=4: K1-K4); the plain 8-iteration
+    solve must miss the oracle by more than CERT_PLAIN on one of the hover
+    loop's first ticks.  Returns the batched loop's launch counts."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp, hover_yref
+    from crazyflie_nmpc_tpu_torch.utils.trajectories import helix_trajectory
+
+    # the oracle's dense solves run fastest on one BLAS thread a process
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
+    t_start = time.perf_counter()
+    spec = default_ocp(dtype=torch.float64, device=device)
+    yref, yref_e = hover_yref(spec, device=device)
+    hover = hover_state(spec.params, dtype=torch.float64, device=device)
+    table = helix_trajectory(spec.params, device=device)
+    rows = torch.arange(spec.N + 1, device=device)
+
+    def helix_window(t):
+        win = table[torch.clamp(t + rows, 0, table.shape[0] - 1)]
+        return win[:-1], win[-1, :13]
+
+    x_hover = hover.clone()
+    x_hover[0].fill_(0.3)
+    x_batch = hover.repeat(3, 1)
+    x_batch[:, 0].copy_(torch.tensor([0.3, 0.02, -0.25],
+                                     dtype=torch.float64))
+    ctx = multiprocessing.get_context("spawn")
+    dv.reset_host_syncs()
+    with concurrent.futures.ProcessPoolExecutor(ORACLE_WORKERS,
+                                                mp_context=ctx) as pool:
+        def submit(args):
+            return pool.submit(oracle_plan, args)
+        hov, plain, hov_ms = certified_loop(
+            spec, x_hover, lambda t: (yref, yref_e), CERT_HOVER_TICKS,
+            IPMConfig(iters=ITERS, escalate_iters=CERT_ESCALATE), submit,
+            plain_ticks=CERT_PLAIN_TICKS)
+        hel, _, hel_ms = certified_loop(spec, table[0, :13], helix_window,
+                                        CERT_HELIX_TICKS,
+                                        IPMConfig(iters=ITERS), submit)
+        syncs = dv.host_syncs()
+        bat, bat_ms, counts, resolves = certified_batched_loop(
+            spec, x_batch, CERT_BATCHED_TICKS,
+            IPMConfig(iters=ITERS, escalate_iters=CERT_ESCALATE,
+                      escalate_capacity=4), submit)
+        loops_s = time.perf_counter() - t_start
+        errs = {"hover": plan_errors(hov), "helix": plan_errors(hel),
+                "batched": plan_errors(bat)}
+        plain_errs = plan_errors(plain)
+    per_tick = check_step_launches("[certified_loops] batched", counts,
+                                   CERT_BATCHED_TICKS, resolves,
+                                   escalate=CERT_ESCALATE)
+    worst = {k: check_certified(f"[certified_loops] {k}", v)
+             for k, v in errs.items()}
+    if not max(plain_errs) > CERT_PLAIN:
+        fail(f"[certified_loops] the plain {ITERS}-iteration solve is within "
+             f"{CERT_PLAIN:g} of the oracle on the hover loop's first "
+             f"{CERT_PLAIN_TICKS} ticks ({plain_errs}): the bar would not "
+             f"see a wrong plan")
+    t_plain = plain_errs.index(max(plain_errs))
+    print(f"[certified_loops] float64 N={N}, every tick's post-step u-plan "
+          f"vs the numpy oracle (bar {CERT_TOL:g} kRPM): hover from 0.3 m "
+          f"{CERT_HOVER_TICKS} ticks worst {worst['hover']:.3e} "
+          f"({hov_ms:.1f} ms/tick, iters={ITERS} + escalation to "
+          f"{CERT_ESCALATE}); helix {CERT_HELIX_TICKS} ticks worst "
+          f"{worst['helix']:.3e} ({hel_ms:.1f} ms/tick); batched B=3 "
+          f"{CERT_BATCHED_TICKS} ticks worst {worst['batched']:.3e} "
+          f"({bat_ms:.1f} ms/tick, {resolves} escalation re-solves, "
+          f"launches a tick {per_tick}); the plain {ITERS}-iteration solve "
+          f"off by {max(plain_errs):.3e} on hover tick {t_plain} (of "
+          f"{['%.1e' % e for e in plain_errs]}); host syncs of the two "
+          f"single loops {syncs}; {loops_s:.1f} s with the oracle in "
+          f"{ORACLE_WORKERS} processes")
+    return counts
+
+
+COUNTS = "[counts] "    # a child's launch counts, one JSON line a phase
+
+
+def child_counts(text):
+    """The launch counts a child's output reports (its COUNTS lines),
+    summed."""
+    totals = {}
+    for line in text.splitlines():
+        if line.startswith(COUNTS):
+            for name, v in json.loads(line[len(COUNTS):]).items():
+                totals[name] = totals.get(name, 0) + v
+    return totals
+
+
 def run_concurrent(groups):
     """Each group of phases in a child process of this script (`--phases
     a,b --child`), the groups all started together, their output (to
     temporary files) printed group by group once every child has ended;
-    fails if a child failed.  Every child is ended before this returns."""
+    fails if a child failed.  Every child is ended before this returns.
+    Returns the kernel launches the children's paths counted (their
+    `[counts]` lines), summed."""
     import tempfile
 
     procs = []
@@ -2967,15 +3543,19 @@ def run_concurrent(groups):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    failed = []
+    failed, totals = [], {}
     for group, out, proc in procs:
         out.seek(0)
-        print(out.read(), end="", flush=True)
+        text = out.read()
+        print(text, end="", flush=True)
         out.close()
         if proc.returncode != 0:
             failed.append(f"{','.join(group)} (exit {proc.returncode})")
+        for name, v in child_counts(text).items():
+            totals[name] = totals.get(name, 0) + v
     if failed:
         fail(f"concurrent phases failed: {'; '.join(failed)}")
+    return totals
 
 
 def main(argv=None) -> int:
@@ -3105,17 +3685,27 @@ def main(argv=None) -> int:
     tail = {"tuning": phase_tuning, "tuning_adam": phase_tuning_adam,
             "tuning_wide": phase_tuning_wide,
             "cartpole": phase_cartpole, "client": phase_client,
-            "closed_loop": phase_closed_loop, "flight": phase_flight}
+            "closed_loop": phase_closed_loop, "flight": phase_flight,
+            "pod": phase_pod, "pod_ranks": phase_pod_ranks,
+            "certified_loops": phase_certified_loops}
     if args.child:
         for phase in phases:
             t0 = time.perf_counter()
-            tail[phase](device)
+            counts = tail[phase](device)
+            if isinstance(counts, dict):
+                print(COUNTS + json.dumps(counts))
             print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
         return 0
+    # the pod path in a process of its own: its NCCL group ends with it
+    if "pod" in phases:
+        mark("pod")
+        for name, v in run_concurrent([("pod",)]).items():
+            totals[name] = totals.get(name, 0) + v
     groups = [[p for p in g if p in phases] for g in CONCURRENT]
     if any(groups):
         t0 = time.perf_counter()
-        run_concurrent([g for g in groups if g])
+        for name, v in run_concurrent([g for g in groups if g]).items():
+            totals[name] = totals.get(name, 0) + v
         print(f"[phase] {','.join(p for g in groups for p in g)} at once: "
               f"{time.perf_counter() - t0:.1f} s")
     timing.update(roofline_rows)

@@ -14,8 +14,11 @@ loops on `rti_step_batched`) with the onboard cascade
 (`models.firmware`), the estimator chain (`estimator`) and the trajectory
 tools (`utils.trajectories`); the serving stack (`runtime.serving`,
 `runtime.swarm`, `runtime.bag`, `runtime.telemetry`, the native UDP link
-and vehicle endpoints in `native`, `bringup.swarm_serving`); and the
-speed-of-light study (`roofline`).  Every Pallas kernel of the JAX package is hand-written
+and vehicle endpoints in `native`, `bringup.swarm_serving`); the pod path
+on `torch.distributed` (`parallel`: the rank mesh, the batch-sharded and
+stage-sharded steps, `pod_rti_step`, `fleet_metrics`); the `utils`
+planes (`profiling`, `checkpoint`, `config`, `debug`, `coherence`); and
+the speed-of-light study (`roofline`).  Every Pallas kernel of the JAX package is hand-written
 CUDA C++ for sm_90a under `csrc/` (built at first use by
 `ops.cuda._build`).  ROADMAP.md lists what is still to port.
 

@@ -10,3 +10,4 @@ from crazyflie_nmpc_tpu_torch.utils.trajectories import (  # noqa: F401
     save_traj_txt,
     smooth_step_trajectory,
 )
+from crazyflie_nmpc_tpu_torch.utils import profiling  # noqa: F401

@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from crazyflie_nmpc_tpu_torch import bringup, convert, estimator
+from crazyflie_nmpc_tpu_torch import bringup, convert, estimator, parallel
 from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.models import (QuadrotorParams, firmware,
                                              hover_state, rotations)
@@ -54,7 +54,7 @@ def test_no_jax_rule_covers_every_subpackage():
     closed loop's subpackages (estimator, runtime, utils) and the serving
     stack (runtime's serving and swarm, native, bringup) included."""
     for sub in ("estimator", "runtime", "utils", "models", "ops", "solver",
-                "roofline", "native"):
+                "roofline", "native", "parallel"):
         files = [p for p in PORT_FILES
                  if p.startswith(f"crazyflie_nmpc_tpu_torch/{sub}/")]
         assert f"crazyflie_nmpc_tpu_torch/{sub}/__init__.py" in files
@@ -65,7 +65,11 @@ def test_no_jax_rule_covers_every_subpackage():
                 "runtime/bag.py", "runtime/telemetry.py", "bringup.py",
                 "native/__init__.py", "native/bindings.py",
                 "native/channels.py", "native/firmware_sim.py",
-                "native/hl_executor.py"):
+                "native/hl_executor.py", "parallel/mesh.py",
+                "parallel/pod.py", "parallel/sharded.py",
+                "utils/profiling.py", "utils/checkpoint.py",
+                "utils/config.py", "utils/debug.py", "utils/coherence.py",
+                "utils/tree.py"):
         assert f"crazyflie_nmpc_tpu_torch/{mod}" in PORT_FILES
 
 
@@ -92,13 +96,19 @@ def test_no_jax_rule_covers_every_subpackage():
     lambda: swarm.SwarmNMPC(ts.default_ocp(N=6, device="cpu"),
                             [[0.0, 0.0, 0.4]]),
     lambda: bringup.swarm_serving(n=1, ticks=1, base_port=0),
+    lambda: parallel.init_distributed(),
+    lambda: parallel.pod_rti_step(ts.default_ocp(N=6, device="cpu"),
+                                  parallel.make_mesh()),
+    lambda: parallel.batch_sharded_rti(ts.default_ocp(N=6, device="cpu"),
+                                       parallel.make_mesh()),
 ], ids=["default_ocp", "hover_state", "init_rti", "hover_yref",
         "state_from_numpy", "regulation_state", "tracking_state",
         "regulation_table", "qp_from_numpy", "roofline_study",
         "helix_trajectory", "smooth_step_trajectory",
         "sample_poly_trajectory", "gains_from_numpy",
         "estimator_state_from_numpy", "ServingLoop",
-        "measure_transport_floor", "SwarmNMPC", "swarm_serving"])
+        "measure_transport_floor", "SwarmNMPC", "swarm_serving",
+        "init_distributed", "pod_rti_step", "batch_sharded_rti"])
 def test_constructors_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
                                                            make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -338,7 +348,9 @@ def test_build_hash_covers_sources_and_flags():
                                      "crazyflie_nmpc_tpu.estimator",
                                      "crazyflie_nmpc_tpu.native",
                                      "crazyflie_nmpc_tpu.runtime",
-                                     "crazyflie_nmpc_tpu.models"])
+                                     "crazyflie_nmpc_tpu.models",
+                                     "crazyflie_nmpc_tpu.parallel",
+                                     "crazyflie_nmpc_tpu.utils"])
 def test_package_exports_match_jax(package):
     """Every public name the JAX package's `__init__` exports (its
     `__version__` too; submodules aside) is exported by the port's
@@ -362,7 +374,7 @@ def test_package_exports_match_jax(package):
 # yet, each with its ROADMAP Queue 1 item.
 UNPORTED_EXPORTS = {
     "crazyflie_nmpc_tpu.runtime": {},
-    "crazyflie_nmpc_tpu.utils": {"profiling": 14},
+    "crazyflie_nmpc_tpu.utils": {},
     "crazyflie_nmpc_tpu.models": {},
 }
 
@@ -396,6 +408,29 @@ def test_subpackage_exports_match_jax_but_the_unported(package):
     present = sorted(n for n in unported if n in _init_exports(
         port.__name__))
     assert not present, f"{present} are ported: drop them from the list"
+
+
+@pytest.mark.parametrize("option", [dict(block_b=128),
+                                    dict(stages_per_step=25),
+                                    dict(interpret=True)],
+                         ids=["block_b", "stages_per_step", "interpret"])
+def test_pod_step_refuses_the_tpu_blocking_arguments(option):
+    """`parallel/pod.py:72-76` of the JAX package passes them to its
+    `rti_step_batched`; the port's has no counterpart (ROADMAP)."""
+    with pytest.raises(TypeError, match=list(option)[0]):
+        parallel.pod_rti_step(ts.default_ocp(N=6, device="cpu"),
+                              parallel.make_mesh(), device="cpu", **option)
+
+
+@pytest.mark.parametrize("batch,stage", [(2, 1), (1, 2), (2, 2)])
+def test_make_mesh_raises_on_a_small_world(batch, stage):
+    """One process (no torch.distributed) is a world of one rank, as one
+    device is for JAX's `make_mesh` (`parallel/mesh.py:24-25`)."""
+    with pytest.raises(ValueError, match=f"need {batch * stage} devices, "
+                                         "have 1"):
+        parallel.make_mesh(batch=batch, stage=stage)
+    with pytest.raises(ValueError, match="have 3"):
+        parallel.make_mesh(batch=2, stage=2, devices=[0, 1, 2])
 
 
 def _check_group_geometry(geo, B, group, source, consts):

@@ -304,13 +304,16 @@ def test_realtime_bars():
 
 def test_tail_phases_run_at_once():
     """The host-bound loops ([tuning], [tuning_adam], [tuning_wide],
-    [cartpole], [client], [closed_loop], [flight]) are in the run, each in
-    exactly one concurrent group."""
+    [cartpole], [client], [closed_loop], [flight]), the multi-rank pod
+    runs ([pod_ranks]) and the certified loops ([certified_loops]) are in
+    the run, each in exactly one concurrent group, the last two alone."""
     tail = [p for g in cs.CONCURRENT for p in g]
     assert sorted(tail) == sorted(("tuning", "tuning_adam", "tuning_wide",
                                    "cartpole", "client", "closed_loop",
-                                   "flight"))
+                                   "flight", "pod_ranks", "certified_loops"))
     assert set(tail) <= set(cs.PHASES)
+    assert ("pod_ranks",) in cs.CONCURRENT
+    assert ("certified_loops",) in cs.CONCURRENT
 
 
 def test_a_failed_child_fails_the_run():
@@ -318,3 +321,140 @@ def test_a_failed_child_fails_the_run():
     (here: no CUDA device, the children exit 1 at once)."""
     with pytest.raises(SystemExit, match=r"client \(exit 1\); cartpole"):
         cs.run_concurrent([("client",), ("cartpole",)])
+
+
+# ---- [pod], [pod_ranks], [certified_loops] (the pod path and the
+# certified loops)
+
+
+def test_pod_runs_alone_before_the_tail():
+    """[pod] runs in a child process of its own in sequence (its one-rank
+    NCCL group ends with the process), after [swarm_wire], not in the
+    concurrent tail."""
+    assert "pod" in cs.PHASES
+    assert all("pod" not in g for g in cs.CONCURRENT)
+    assert cs.PHASES.index("pod") > cs.PHASES.index("swarm_wire")
+
+
+def test_child_counts_sum_every_counts_line():
+    text = ("[pod] something\n" + cs.COUNTS + '{"expand2": 20, "kkt_sweep_c2": 160}\n'
+            "[phase] pod: 1.0 s\n" + cs.COUNTS + '{"expand2": 5}\n')
+    assert cs.child_counts(text) == {"expand2": 25, "kkt_sweep_c2": 160}
+    assert cs.child_counts("no counts here") == {}
+
+
+@pytest.fixture(scope="module")
+def pod_outputs(spec64):
+    """A batch-last step's u-plan on 4 lanes (the unsharded one) and its
+    two 2-lane shards, computed apart as two ranks would."""
+    from crazyflie_nmpc_tpu_torch.solver import hover_yref, init_rti
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
+        rti_step_batched, to_batch_last)
+
+    x0s = cs.hover_batch(spec64, 4, seed=4)
+    yref, yref_e = hover_yref(spec64, device="cpu")
+
+    def step(x):
+        st = to_batch_last(init_rti(spec64, x, device="cpu"))
+        return rti_step_batched(spec64, st, x, yref, yref_e,
+                                IPMConfig(iters=8), layout="batch_last")[1]
+    whole = step(x0s)
+    return whole, [step(x0s[:2]), step(x0s[2:])]
+
+
+def test_shard_check_passes_on_real_shards(pod_outputs):
+    whole, shards = pod_outputs
+    err = cs.check_shards("[pod]", [o.u_plan for o in shards], whole.u_plan,
+                          cs.POD_TOL)
+    assert err <= 1e-12
+
+
+@pytest.mark.parametrize("plant", ["swapped", "one_lane_off", "short"])
+def test_shard_check_sees_a_wrong_shard(pod_outputs, plant):
+    whole, shards = pod_outputs
+    got = [o.u_plan.clone() for o in shards]
+    if plant == "swapped":
+        got = got[::-1]
+    elif plant == "one_lane_off":
+        got[1][3, 2, 0] += 2e-6
+    else:
+        got[1] = got[1][..., :1]
+    with pytest.raises(SystemExit, match="pod"):
+        cs.check_shards("[pod]", got, whole.u_plan, cs.POD_TOL)
+
+
+def test_fleet_check(pod_outputs):
+    whole, shards = pod_outputs
+    kkt, mu = whole.kkt_res, whole.qp_mu
+    right = (kkt.amax(), mu.mean())
+    cs.check_fleet("[pod]", right, kkt, mu)
+    for wrong in ((shards[0].kkt_res.amax(), mu.mean()),
+                  (kkt.amax(), shards[0].qp_mu.mean())):
+        if float(wrong[0]) != float(right[0]) or float(
+                wrong[1]) != float(right[1]):
+            with pytest.raises(SystemExit, match="fleet"):
+                cs.check_fleet("[pod]", wrong, kkt, mu)
+
+
+def test_replicated_check_sees_a_wrong_gather_order(spec64):
+    """A stage-sharded result whose chunks were gathered in the wrong
+    order (or one rank's copy that differs) fails [pod_ranks]' check."""
+    from crazyflie_nmpc_tpu_torch.solver import hover_yref, init_rti, rti_step
+
+    x0 = cs.hover_batch(spec64, 1, seed=2)[0]
+    yref, yref_e = hover_yref(spec64, device="cpu")
+    new, _ = rti_step(spec64, init_rti(spec64, x0, device="cpu"), x0, yref,
+                      yref_e, IPMConfig(iters=10))
+    u = new.u_traj
+    assert cs.check_replicated("[pod_ranks] (b)", [u, u.clone()], u, 1e-8,
+                               1e-9) == 0.0
+    swapped = torch.cat([u[N // 2:], u[:N // 2]])
+    off = u.clone()
+    off[3, 1] += 1e-6
+    for bad in ([u, swapped], [off, u]):
+        with pytest.raises(SystemExit, match="rank"):
+            cs.check_replicated("[pod_ranks] (b)", bad, u, 1e-8, 1e-9)
+
+
+@pytest.fixture(scope="module")
+def certified_run(spec64):
+    """[certified_loops]' loops at N=10 on the CPU (2 hover ticks from 0.3
+    m, certified; 2 batched ticks at B=3) with the oracle inline."""
+    from crazyflie_nmpc_tpu_torch.models import hover_state
+    from crazyflie_nmpc_tpu_torch.solver import hover_yref
+
+    yref, yref_e = hover_yref(spec64, device="cpu")
+    x = hover_state(spec64.params, dtype=torch.float64, device="cpu").clone()
+    x[0] = 0.3
+    hov, plain, _ = cs.certified_loop(
+        spec64, x, lambda t: (yref, yref_e), 2,
+        IPMConfig(iters=8, escalate_iters=16), cs.oracle_plan,
+        plain_ticks=2)
+    xb = x.repeat(3, 1)
+    xb[:, 0] = torch.tensor([0.3, 0.02, -0.25], dtype=torch.float64)
+    bat, _, _, _ = cs.certified_batched_loop(
+        spec64, xb, 2, IPMConfig(iters=8, escalate_iters=16,
+                                 escalate_capacity=4), cs.oracle_plan)
+    return hov, plain, bat
+
+
+def test_certified_check_passes_on_the_port(certified_run):
+    hov, _, bat = certified_run
+    assert len(bat) == 6
+    for plans in (hov, bat):
+        assert cs.check_certified("[certified_loops]",
+                                  cs.plan_errors(plans)) < cs.CERT_TOL
+
+
+@pytest.mark.parametrize("plant", ["plan_off", "nan", "empty"])
+def test_certified_check_sees_a_wrong_oracle_plan(certified_run, plant):
+    hov, _, _ = certified_run
+    (u, ref), rest = hov[0], hov[1:]
+    if plant == "plan_off":
+        ref = ref.copy()
+        ref[4, 1] += 2 * cs.CERT_TOL
+    elif plant == "nan":
+        ref = np.full_like(ref, np.nan)
+    plans = [] if plant == "empty" else [(u, ref)] + rest
+    with pytest.raises(SystemExit, match="oracle"):
+        cs.check_certified("[certified_loops]", cs.plan_errors(plans))
