@@ -37,7 +37,7 @@ each, with launch counters proving which kernels ran:
                  step 1 too, and a sim_steps=2 spec at B=1024 (its bars
                  shown to catch faults planted in the preparation).
 
-and fifteen paths of their own:
+and seventeen paths of their own:
 
   [single]       the single-instance rti_step (plain PyTorch), N=50, 20
                  closed-loop ticks from a 1.5 m offset, and one certified
@@ -66,6 +66,8 @@ and fifteen paths of their own:
                  80 ticks, and SwarmNMPC.step alone at 256 lanes; both
                  serving phases under the sync debug mode with their
                  host syncs counted (the emit and the escalation check);
+                 the swarm's IPM algebra replayed from CUDA graphs
+                 against the op-by-op steps, bit for bit;
   [tuning]       differentiable MPC (runtime.tuning, float64, the detuned
                  OCP of tests/test_tuning.py): the gradient through 20
                  hover ticks at N=15 (the JAX bars, and against the CPU)
@@ -93,6 +95,23 @@ and fifteen paths of their own:
                  m saturating, 24 ticks; the helix, 96 ticks; the batched
                  path, 5 ticks at B=3), float64, N=50, every tick's plan
                  within 1e-4 of the numpy oracle tests/_reference_rti.py;
+  [pscan]        ops/riccati_pscan.py (the associative-scan Riccati):
+                 float64 at N=50 and 200 against the sequential
+                 ops.riccati on the card and against its own CPU run
+                 (tests/test_riccati.py's bars), with no host sync; then
+                 the B=1 float32 crossover against the sequential sweep
+                 at N = 50 / 200 / 800 / 3200 (ms, host issue, launches,
+                 accuracy: reported, no bar);
+  [bringup]      the launch layer (bringup, tools), every UDP port 0:
+                 nmpc_predictor (30 ticks, both actuations) and
+                 nmpc_attitude_bench (60 ticks, its bag replayed) held
+                 against the port's CPU runs, pid_waypoints (its steps
+                 equal to the CPU run's), the host-side compositions at
+                 tests/test_bringup.py's bars, a session with a
+                 swarm_serving pane (4 vehicles, 60 ticks: K1-K4 every
+                 tick) beside telemetry and teleop panes and one with a
+                 crashing pane, the CLI tools and `python -m
+                 crazyflie_nmpc_tpu_torch.bringup teleop`;
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
                  depends on every product and stage), then the study of
@@ -115,8 +134,8 @@ bound, and traces a few steps of [main] (every B),
 [xla_prep] ([single] its own ticks) with torch.profiler.  [pod] runs
 in a child process of its own after [swarm_wire]; the host-bound loops
 ([tuning] to [client], [closed_loop], [flight]), [pod_ranks] and
-[certified_loops] run last, at once, each group in a child process of
-its own (CONCURRENT).
+[certified_loops] and [bringup] run last, at once, each group in a
+child process of its own (CONCURRENT).
 Exits non-zero if any phase fails, or when no CUDA device is present.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -160,10 +179,10 @@ N_ODD = N + 1         # the odd horizon of [uncondensed]
 
 PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
           "unfused_prep", "split", "gondzio", "throughput_mode", "xla_prep",
-          "single", "roofline", "certified", "timing", "swarm",
+          "single", "roofline", "certified", "timing", "pscan", "swarm",
           "closed_loop", "flight", "serving", "swarm_wire", "pod", "tuning",
           "tuning_adam", "tuning_wide", "cartpole", "client", "pod_ranks",
-          "certified_loops")
+          "certified_loops", "bringup")
 # Host-bound plain-PyTorch phases run last, each group of them in a child
 # process of its own and the groups at once (the card idles > 0.9 of each
 # one's time): in sequence they took ~1200 s of a slow host's run, the
@@ -171,7 +190,7 @@ PHASES = ("build", "kernels", "main", "fused_iter", "long", "uncondensed",
 # (PERF.md §6)
 CONCURRENT = (("tuning", "client"), ("tuning_adam",), ("tuning_wide",),
               ("cartpole",), ("closed_loop",), ("flight",), ("pod_ranks",),
-              ("certified_loops",))
+              ("certified_loops",), ("bringup",))
 B_THROUGHPUT = (2048, 4096)   # bench.py's throughput-mode operating point
 GONDZIO = dict(iters=6, gondzio_correctors=1)     # bench.py's 6+1 point
 THROUGHPUT = dict(iters=8, compress_gains=True, compress_ab=True)
@@ -1592,6 +1611,7 @@ WIRE_FRESH = 0.99
 RT_N, RT_RATE, RT_TICKS = 2, 20.0, 80     # test_swarm_serving.py:160-212
 RT_TARGETS = ((0.0, 0.0, 0.4), (0.6, 0.0, 0.4))
 STEP_B, STEP_TICKS, STEP_SEED = 256, 20, 7
+LOOP_GRAPH_STEPS = 3  # graphed vs op-by-op IPM algebra (check_loop_graphs)
 # JAX's own cross-path bar on a swarm step (test_swarm_serving.py:150-157)
 STEP_ANGLE_TOL, STEP_THRUST_RTOL = 0.02, 1e-3
 
@@ -1852,6 +1872,74 @@ def step_telemetry(B):
         (B, 3)), 10.0 * rng.standard_normal((B, 3)))
 
 
+def graphs_agree(label, got, want):
+    """Fail unless every output of the run with the IPM algebra replayed
+    from CUDA graphs equals the op-by-op run's bit for bit: both issue
+    the same kernels and operations in the same order.  Returns how many
+    outputs agreed."""
+    import torch
+
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a, b)]
+    if len(got) != len(want) or bad:
+        fail(f"{label}: outputs {bad} of {len(want)} differ from the "
+             f"op-by-op run")
+    return len(got)
+
+
+def check_loop_graphs(device):
+    """`rti_step_batched` with the IPM iteration's algebra replayed from
+    CUDA graphs (`ops.ipm_fast.LoopGraphs`, as `SwarmNMPC` runs it)
+    against the same steps issued operation by operation, from seeded
+    states near their slots: the realtime run's settings (N=20, tf=0.3,
+    IPMConfig(iters=4), RT_N lanes) and the certified default (N, STEP_B
+    lanes, escalation on), LOOP_GRAPH_STEPS steps each, every plan,
+    residual and mu equal bit for bit (`graphs_agree`)."""
+    import numpy as np
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.device import from_host, host_sync
+    from crazyflie_nmpc_tpu_torch.models.quadrotor import NX, NY
+    from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
+    from crazyflie_nmpc_tpu_torch.ops.ipm_fast import LoopGraphs
+    from crazyflie_nmpc_tpu_torch.runtime.serving import ESCALATION_CAPACITY
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+    from crazyflie_nmpc_tpu_torch.solver.rti import init_rti
+    from crazyflie_nmpc_tpu_torch.solver.rti_batched import (rti_step_batched,
+                                                             to_batch_last)
+
+    for n, tf, cfg, B in (
+            (20, 0.3, IPMConfig(iters=4), RT_N),
+            (N, TF, certified_config(min(ESCALATION_CAPACITY, STEP_B)),
+             STEP_B)):
+        spec = default_ocp(N=n, tf=tf, dtype=torch.float32, device=device)
+        targets, x0s, *_ = step_telemetry(B)
+        y = np.zeros((B, NY))
+        y[:, :3] = targets
+        y[:, 3] = 1.0
+        y[:, NX:] = spec.params.hover_speed()
+        y = from_host(y, torch.float32, device)
+        x = from_host(x0s, torch.float32, device)
+        runs = []
+        for graphs in (LoopGraphs(), None):
+            st = to_batch_last(init_rti(spec, x, device=device))
+            outs = []
+            # the first graphed solve captures (torch waits for the card)
+            with host_sync("graph capture"):
+                for _ in range(LOOP_GRAPH_STEPS):
+                    st, out = rti_step_batched(
+                        spec, st, x, y[:, None].expand(B, n, NY),
+                        y[:, :NX], cfg, layout="batch_last", graphs=graphs)
+                    outs += [out.u_plan, out.x_plan, out.qp_mu,
+                             out.kkt_res]
+            runs.append(outs)
+        k = graphs_agree(f"[swarm_wire] LoopGraphs N={n} B={B}", *runs)
+        print(f"[swarm_wire] LoopGraphs N={n} B={B} {cfg}: "
+              f"{LOOP_GRAPH_STEPS} steps with the IPM algebra replayed "
+              f"from CUDA graphs equal the op-by-op steps bit for bit "
+              f"({k} outputs)")
+
+
 def phase_swarm_wire(device):
     """`bringup.swarm_serving` and `runtime.swarm` on the card (N=50
     unless named, float32, the default certified config), each under the
@@ -2004,6 +2092,7 @@ def phase_swarm_wire(device):
           f"max |du| {du:.3e} kRPM, angles {dang:.3e} deg, thrust "
           f"{dthr:.3e} relative; launches per tick "
           + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+    check_loop_graphs(device)
     return totals
 
 
@@ -3505,6 +3594,556 @@ def phase_certified_loops(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the associative-scan Riccati, the launch layer and the last modules
+# ---------------------------------------------------------------------------
+
+PSCAN_PARITY_N = (50, 200)
+PSCAN_N = (50, 200, 800, 3200)      # tools/pscan_crossover.py's horizons
+PSCAN_REPS = 5
+# tests/test_riccati.py's bars: the solve to rtol 1e-8 / atol 1e-9, the
+# factors' P to 1e-9 and K to rtol 1e-8 / atol 1e-9
+PSCAN_BARS = {"dx": (1e-8, 1e-9), "du": (1e-8, 1e-9), "P": (0.0, 1e-9),
+              "K": (1e-8, 1e-9)}
+SYNC_MESSAGE = "synchroniz"         # in the error the sync debug mode raises
+
+
+def pscan_lq(N, dtype, device, nx=13, nu=4, seed=0):
+    """tools/pscan_crossover.py's LQ at horizon N (nx=13, nu=4: A near
+    0.5 I, diagonal positive costs, S = 0, p_term = 0), drawn in float64
+    on the CPU from a seeded torch.Generator, then cast and moved."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, dtype=torch.float64)
+
+    lq = dict(A=0.9 * n(N, nx, nx) / math.sqrt(nx)
+              + 0.5 * torch.eye(nx, dtype=torch.float64),
+              B=n(N, nx, nu), c=0.1 * n(N, nx),
+              Qxx=torch.diag_embed(0.2 + u(N, nx)), qx=n(N, nx),
+              Ruu=torch.diag_embed(0.2 + u(N, nu)), ru=n(N, nu),
+              S=torch.zeros(N, nu, nx, dtype=torch.float64),
+              P_term=torch.diag(0.2 + u(nx)),
+              p_term=torch.zeros(nx, dtype=torch.float64), dx0=n(nx))
+    return {k: v.to(device=device, dtype=dtype) for k, v in lq.items()}
+
+
+def check_pscan(label, got, want):
+    """Each named output within its bar of PSCAN_BARS (|got - want| <=
+    atol + rtol |want|, as numpy's allclose), or the run fails.  Returns
+    the max |diff| of each."""
+    import torch
+
+    errs = {}
+    for name, g in got.items():
+        w = want[name].detach().double().cpu()
+        g = g.detach().double().cpu()
+        rtol, atol = PSCAN_BARS[name]
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{label}: {name} shape {tuple(g.shape)} (expected "
+                 f"{tuple(w.shape)}) or non-finite")
+        excess = float(((g - w).abs() - rtol * w.abs()).max())
+        errs[name] = float((g - w).abs().max())
+        if not excess <= atol:
+            fail(f"{label}: {name} off by {errs[name]:.3e}, above "
+                 f"{atol:g} + {rtol:g} |ref|")
+    return errs
+
+
+def run_without_sync(label, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a wait on the
+    card inside it fails the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        if SYNC_MESSAGE in str(e):
+            fail(f"{label}: waits on the card ({e})")
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def pscan_parity(N, device):
+    """The float64 parity of [pscan] at horizon N: (solve_lq_pscan on the
+    card vs the port's sequential solve_lq on the card, vs its own CPU
+    run; factors_pscan vs factorize on the card), the pscan calls under
+    the sync debug mode.  Returns {what: max |diff| by output}."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import riccati
+    from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as rp
+
+    label = f"[pscan] N={N} float64"
+    lq = pscan_lq(N, torch.float64, device)
+    cpu = {k: v.cpu() for k, v in lq.items()}
+    fac = [lq[k] for k in ("A", "B", "Qxx", "Ruu", "S", "P_term")]
+    dx, du = run_without_sync(label, lambda: rp.solve_lq_pscan(**lq))
+    fr = run_without_sync(label, lambda: rp.factors_pscan(*fac))
+    dx_seq, du_seq = riccati.solve_lq(**lq)
+    dx_cpu, du_cpu = rp.solve_lq_pscan(**cpu)
+    fr_seq = riccati.factorize(*fac)
+    return {
+        "vs sequential": check_pscan(f"{label} vs sequential",
+                                     dict(dx=dx, du=du),
+                                     dict(dx=dx_seq, du=du_seq)),
+        "vs CPU": check_pscan(f"{label} vs its CPU run", dict(dx=dx, du=du),
+                              dict(dx=dx_cpu, du=du_cpu)),
+        "factors": check_pscan(f"{label} factors_pscan vs factorize",
+                               dict(P=fr.P, K=fr.K),
+                               dict(P=fr_seq.P, K=fr_seq.K)),
+    }
+
+
+def time_calls(fn, reps=PSCAN_REPS):
+    """(median CUDA-event ms, median host issue ms) of `reps` single
+    calls of fn after one untimed call, each call timed alone on an idle
+    card."""
+    import statistics
+
+    import torch
+
+    fn()
+    ms, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        fn()
+        ev1.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+    return statistics.median(ms), statistics.median(host)
+
+
+def phase_pscan(device):
+    """ops/riccati_pscan.py on the card: the float64 parity at N=50 and
+    200 (pscan_parity, tests/test_riccati.py's bars, no host sync), then
+    the crossover at B=1 in float32, N = 50 / 200 / 800 / 3200: pscan's
+    solve_lq_pscan against the sequential solve_lq, each call's
+    CUDA-event ms and host issue ms (median of 5), its launches (a
+    torch.profiler trace of one call) and its max |du| from the float64
+    sequential answer.  No bar on the times: they are reported."""
+    import math
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops import riccati
+    from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as rp
+
+    for N in PSCAN_PARITY_N:
+        errs = pscan_parity(N, device)
+        print(f"[pscan] N={N} float64, nx=13 nu=4, no host sync: "
+              + "; ".join(f"{k} " + ", ".join(f"max |d{n}| {v:.3e}"
+                                              for n, v in e.items())
+                          for k, e in errs.items()))
+    rows = []
+    for N in PSCAN_N:
+        lq = pscan_lq(N, torch.float32, device)
+        _, du64 = riccati.solve_lq(**pscan_lq(N, torch.float64, device))
+        row = {"N": N}
+        for name, fn in (("seq", riccati.solve_lq),
+                         ("pscan", rp.solve_lq_pscan)):
+            ms, host = time_calls(lambda: fn(**lq))
+            out = {}
+
+            def traced():
+                out["du"] = fn(**lq)[1]
+
+            launches = len(traced_kernels(traced))
+            gap = float((out["du"].double() - du64).abs().max())
+            if not math.isfinite(gap):
+                fail(f"[pscan] N={N} float32 {name}: non-finite du")
+            row[name] = dict(ms=ms, host=host, launches=launches, gap=gap)
+        rows.append(row)
+    print("[pscan] crossover, B=1 float32 (CUDA-event ms and host issue ms "
+          "of one call, median of 5; launches a call; max |du| from the "
+          "float64 sequential solve):")
+    print("[pscan]      N | seq ms | seq host | seq launches | seq |du| "
+          "| pscan ms | pscan host | pscan launches | pscan |du| | "
+          "seq/pscan")
+    for r in rows:
+        s, p = r["seq"], r["pscan"]
+        print(f"[pscan] {r['N']:6d} | {s['ms']:.3f} | {s['host']:.3f} | "
+              f"{s['launches']} | {s['gap']:.3e} | {p['ms']:.3f} | "
+              f"{p['host']:.3f} | {p['launches']} | {p['gap']:.3e} | "
+              f"{s['ms'] / p['ms']:.2f}x")
+    return rows
+
+
+BRINGUP_PREDICTOR_TICKS = 30
+BRINGUP_PREDICTOR_TOL = 1e-6     # m, x of the card's float64 vs the CPU's
+BRINGUP_BENCH_TICKS = 60
+BRINGUP_ANGLE_TOL = 1e-3         # deg, the card's cmd_vel vs the CPU's
+BRINGUP_PWM_TOL = 1
+BRINGUP_SWARM_N = 4
+BRINGUP_SWARM_TICKS = 60
+BRINGUP_FLY_STEPS = 20
+BAG_RATE_HZ = 1 / 0.015          # the bench's bag: one event a 15 ms stage
+
+
+def check_session(label, out, healthy, crashed=()):
+    """Every pane of `healthy` returned a result and every pane of
+    `crashed` an exception (a crashed pane isolated, tmux semantics), or
+    the run fails."""
+    if set(out) != set(healthy) | set(crashed):
+        fail(f"{label}: panes {sorted(out)}, expected "
+             f"{sorted(set(healthy) | set(crashed))}")
+    for pane in healthy:
+        if isinstance(out[pane], BaseException):
+            fail(f"{label}: pane {pane} crashed: {out[pane]!r}")
+    for pane in crashed:
+        if not isinstance(out[pane], BaseException):
+            fail(f"{label}: pane {pane} should have crashed and reported "
+                 f"{type(out[pane]).__name__}")
+
+
+def check_bars(label, bars):
+    """bars: {what: passed}; the run fails on the first that did not."""
+    for what, ok in bars.items():
+        if not ok:
+            fail(f"{label}: {what}")
+
+
+def bench_bars(out, steps):
+    """tests/test_bringup.py's bars of the attitude bench and its bag."""
+    import numpy as np
+
+    cmd = out["cmd_vel"]
+    return {f"cmd_vel shape {cmd.shape}": cmd.shape == (steps, 4),
+            f"mocap published {out['mocap_published']} of {steps}":
+                out["mocap_published"] == steps,
+            "no setpoint reached the vehicle":
+                out["device_setpoint"] is not None,
+            f"final roll/pitch {cmd[-1, :2]} deg (bar 1)":
+                bool(np.abs(cmd[-1, :2]).max() < 1.0),
+            f"final PWM {cmd[-1, 3]} (bar 30000-60000)":
+                30000 < cmd[-1, 3] < 60000}
+
+
+def wire_composition_bars(name, out):
+    """tests/test_bringup.py's bars of a host-side composition."""
+    import numpy as np
+
+    if name == "system_identification":
+        meas = out["measurements"]
+        return {f"rows {out['rows']} (bar 60)": out["rows"] >= 60,
+                f"measurements {meas.shape}": meas.shape[1:] == (13,),
+                "qw off 1": abs(meas[-1, 3] - 1.0) < 0.05,
+                "non-finite measurements": bool(np.isfinite(meas).all())}
+    if name == "thrust_identification":
+        want = (12000 * 0.2685 + 4070.3) / 1000.0
+        return {f"rows {out['rows']} (bar 10)": out["rows"] >= 10,
+                "motor PWM echo not 12000":
+                    bool(np.allclose(out["motor_pwm"], 12000.0)),
+                f"implied kRPM {out['implied_krpm']}":
+                    abs(out["implied_krpm"] / want - 1) < 1e-6}
+    if name == "high_level_mission":
+        cmds = [c["cmd"] for c in out["hl_commands"]]
+        err = out["max_tracking_err_m"]
+        pos = out["final_pos"]
+        return {f"commands {cmds}": cmds[:1] == ["define_trajectory"] and [
+                    c for c in cmds if c != "define_trajectory"][:4] == [
+                    "takeoff", "start_trajectory", "land", "stop"],
+                "wire": out["wire_ok"],
+                f"params {out['params']}": out["params"] == {
+                    "commander/enHighLevel": 1, "stabilizer/estimator": 2,
+                    "stabilizer/controller": 2,
+                    "kalman/resetEstimation": 1},
+                f"flown ticks {out['flown_ticks']}":
+                    out["flown_ticks"] > 400,
+                f"tracking error {err} m (bar 0.15)":
+                    err is not None and err < 0.15,
+                f"landed {out['landed']} at {pos}": out["landed"]
+                    and abs(pos[2]) < 0.08 and abs(pos[0]) < 0.1
+                    and abs(pos[1]) < 0.1}
+    if name in ("hover_demo", "position_demo"):
+        sp = out["final_setpoint"]
+        bars = {f"final setpoint {sp}": bool(sp) and sp["type"] == "stop"}
+        if name == "position_demo":
+            bars[f"setpoints sent {out['setpoints_sent']}"] = \
+                out["setpoints_sent"] > 30
+        return bars
+    if name == "multi_hover":
+        return {"not landed": out["vehicles"] == 2 and out["landed"],
+                "a vehicle got nothing":
+                    all(s["sent"] > 0 for s in out["stats"])}
+    if name == "teleop":
+        sp = out["device_setpoint"]
+        return {f"device setpoint {sp}": sp is not None
+                and abs(sp[0] - 3.0) < 1e-5 and abs(sp[1] + 3.0) < 1e-5
+                and sp[3] == 36000}
+    if name == "telemetry":
+        return {f"records {out['records']}": bool(out["records"])}
+    raise ValueError(name)
+
+
+WIRE_COMPOSITIONS = (
+    ("system_identification", dict(steps=60, port=0)),
+    ("thrust_identification", dict(steps=30, port=0, thrust_pwm=12000)),
+    ("high_level_mission", dict(port=0)),
+    ("hover_demo", dict(port=0)),
+    ("position_demo", dict(port=0)),
+    ("multi_hover", dict(n=2, base_port=0)),
+    ("teleop", dict(ticks=30, port=0)),
+    ("telemetry", dict(seconds=1.2, port=0)),
+)
+
+
+def cpu_reference(job):
+    """One [bringup] composition (name, kwargs) run on the CPU, in a
+    worker process while the card runs it: what the card's run is held
+    against, as numpy arrays and numbers."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import bringup
+
+    torch.set_num_threads(1)        # small problems: one thread is fastest
+    name, kw = job
+    out = bringup.BRINGUPS[name](device="cpu", **kw)
+    if name == "nmpc_predictor":
+        return {"x": out["result"].x.numpy(),
+                "tracking_err_max": out["tracking_err_max"]}
+    if name == "nmpc_attitude_bench":
+        return {"cmd_vel": out["cmd_vel"]}
+    return {"steps": out["steps"], "final_z": out["final_z"]}
+
+
+def captured(fn):
+    """(fn()'s return value, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    return rc, buf.getvalue()
+
+
+def phase_bringup(device):
+    """The launch layer on the card (`bringup`, `tools`), every UDP port
+    0: nmpc_predictor under both actuations (BRINGUP_PREDICTOR_TICKS
+    ticks, N=50, float64) and nmpc_attitude_bench (BRINGUP_BENCH_TICKS
+    ticks, float32, its bag replayed by bag_play), each held against the
+    port's CPU run of the same call; pid_waypoints at its 4000-tick cap
+    (its steps equal to the CPU run's); the host-side compositions
+    (WIRE_COMPOSITIONS) at test_bringup.py's bars; a session of a
+    swarm_serving pane (BRINGUP_SWARM_N vehicles, BRINGUP_SWARM_TICKS
+    ticks on the card, the JAX lane bars; its launches counted under the
+    sync debug mode) beside telemetry and teleop panes, then a session
+    whose crashing bag_play pane is isolated; the tools (fly on the card,
+    toc / imu / scan against a simulator, bag info / plot on the bench's
+    bag) and `python -m crazyflie_nmpc_tpu_torch.bringup teleop` as a
+    subprocess.  Returns the swarm pane's launch counts."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    # the CPU runs the card's runs are held against, in one worker process
+    # while the card runs (after the card's runs they would lengthen the
+    # group, the tail's longest, by their own time)
+    jobs = {act: ("nmpc_predictor", dict(steps=BRINGUP_PREDICTOR_TICKS,
+                                         actuation=act))
+            for act in ("cmd_vel", "rotor")}
+    jobs["bench"] = ("nmpc_attitude_bench",
+                     dict(steps=BRINGUP_BENCH_TICKS, port=0))
+    jobs["pid"] = ("pid_waypoints", {})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        refs = {k: pool.submit(cpu_reference, job) for k, job in jobs.items()}
+        counts = bringup_on_card(device, tmp, refs)
+    print(f"[bringup] took {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
+def bringup_on_card(device, tmp, refs):
+    """phase_bringup's runs on the card, each held against its CPU run
+    (refs: futures of cpu_reference) where it has one."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from crazyflie_nmpc_tpu_torch import bringup, native, tools
+    from crazyflie_nmpc_tpu_torch import device as dv
+    from crazyflie_nmpc_tpu_torch.solver import default_ocp
+
+    for act in ("cmd_vel", "rotor"):
+        label = f"[bringup] nmpc_predictor {act}"
+        t0 = time.perf_counter()
+        out = bringup.nmpc_predictor(steps=BRINGUP_PREDICTOR_TICKS,
+                                     actuation=act, device=device)
+        wall = time.perf_counter() - t0
+        ref = refs[act].result()
+        dx = hold_close(f"{label} x vs CPU float64", out["result"].x,
+                        torch.as_tensor(ref["x"]), BRINGUP_PREDICTOR_TOL)
+        print(f"{label}: {BRINGUP_PREDICTOR_TICKS} ticks N={N} float64 in "
+              f"{wall:.1f} s ({1e3 * wall / BRINGUP_PREDICTOR_TICKS:.1f} "
+              f"ms/tick); tracking error max "
+              f"{out['tracking_err_max']:.4e} m (CPU "
+              f"{ref['tracking_err_max']:.4e}); max |dx| vs the CPU run "
+              f"{dx:.3e} m (bar {BRINGUP_PREDICTOR_TOL:g})")
+
+    label = "[bringup] nmpc_attitude_bench"
+    bag = os.path.join(tmp, "afl.bag")
+    dv.reset_host_syncs()
+    t0 = time.perf_counter()
+    out = bringup.nmpc_attitude_bench(steps=BRINGUP_BENCH_TICKS, port=0,
+                                      bag_path=bag, device=device)
+    wall = time.perf_counter() - t0
+    syncs = dv.host_syncs()
+    ref = refs["bench"].result()
+    check_bars(label, bench_bars(out, BRINGUP_BENCH_TICKS))
+    check_host_syncs(label, syncs, {"emit": BRINGUP_BENCH_TICKS})
+    got, want = (torch.as_tensor(o["cmd_vel"]) for o in (out, ref))
+    dang = hold_close(f"{label} cmd_vel angles vs CPU", got[:, :3],
+                      want[:, :3], BRINGUP_ANGLE_TOL)
+    dpwm = hold_close(f"{label} PWM vs CPU", got[:, 3], want[:, 3],
+                      BRINGUP_PWM_TOL)
+    played = bringup.bag_play(bag)
+    rate = played["summary"]["cmd_vel"]["rate_hz"]
+    check_bars(f"{label} bag_play", {
+        f"events replayed {played['events_replayed']}":
+            played["events_replayed"] == BRINGUP_BENCH_TICKS,
+        f"rate {rate} Hz": abs(rate - BAG_RATE_HZ) < 1.0})
+    print(f"{label}: {BRINGUP_BENCH_TICKS} ticks N={N} float32 in "
+          f"{wall:.1f} s ({1e3 * wall / BRINGUP_BENCH_TICKS:.1f} ms/tick, "
+          f"the wire included); final cmd_vel {out['cmd_vel'][-1].tolist()}"
+          f"; vs the CPU run: angles {dang:.3e} deg (bar "
+          f"{BRINGUP_ANGLE_TOL:g}), PWM {dpwm:g} (bar {BRINGUP_PWM_TOL}); "
+          f"host syncs {syncs}; bag_play replayed "
+          f"{played['events_replayed']} events at {rate:.2f} Hz")
+
+    label = "[bringup] pid_waypoints"
+    dv.reset_host_syncs()
+    t0 = time.perf_counter()
+    out = bringup.pid_waypoints(device=device)
+    wall = time.perf_counter() - t0
+    syncs = dv.host_syncs()
+    ref = refs["pid"].result()
+    check_bars(label, {
+        f"not completed: {out}": out["completed"],
+        f"reached {out['waypoints_reached']} of {out['n_goals']}":
+            out["waypoints_reached"] == out["n_goals"],
+        f"final z {out['final_z']}": out["final_z"] > 0.4,
+        f"{out['steps']} steps, the CPU run {ref['steps']}":
+            out["steps"] == ref["steps"]})
+    check_host_syncs(label, syncs, {"pose": out["steps"] + 1})
+    print(f"{label}: {out['steps']} ticks float32 in {wall:.2f} s "
+          f"({1e3 * wall / out['steps']:.3f} ms/tick, one pose read back a "
+          f"tick), final z {out['final_z']:.4f} m (CPU "
+          f"{ref['final_z']:.4f}); host syncs {syncs}")
+
+    for name, kw in WIRE_COMPOSITIONS:
+        t0 = time.perf_counter()
+        if name == "system_identification":
+            kw = dict(kw, device=device)
+        out = bringup.BRINGUPS[name](**kw)
+        check_bars(f"[bringup] {name}", wire_composition_bars(name, out))
+        print(f"[bringup] {name}: bars met in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    label = "[bringup] session"
+    # the spec is made before the sync debug mode is set: its weights
+    # are copied from the host
+    spec = default_ocp(N=N, dtype=torch.float32, device=device)
+    panes = {"swarm": ("swarm_serving", BRINGUP_SWARM_N,
+                       BRINGUP_SWARM_TICKS, 0, SERVE_RATE, 0.6, 0.4, True,
+                       None, device, spec),
+             "telemetry": ("telemetry", 2.0, 0),
+             "teleop": ("teleop", 50, 0)}
+    out, wall, counts, syncs, esc = counted(lambda: bringup.session(panes))
+    check_session(label, out, healthy=panes)
+    steps = BRINGUP_SWARM_TICKS + 1             # and the warm-up step
+    per_tick = check_step_launches(f"{label} swarm pane", counts, steps,
+                                   esc["resolves"])
+    check_host_syncs(f"{label} swarm pane", syncs, {
+        "emit": steps, "escalation": steps, "graph capture": 1})
+    rep = out["swarm"]["report"]
+    gap, fresh = wire_bars(f"{label} swarm pane", rep, BRINGUP_SWARM_N)
+    s = rep.summary()
+    print(f"{label}: swarm_serving {BRINGUP_SWARM_N} vehicles "
+          f"{BRINGUP_SWARM_TICKS} ticks beside telemetry "
+          f"({sum(out['telemetry']['records'].values())} records) and "
+          f"teleop, {wall:.1f} s; final error max {s['final_err_max_m']:.3e}"
+          f" m (bar {WIRE_FINAL_ERR}), slots >= {gap:.3f} m apart, fresh "
+          f"rows on {fresh:.4f}; escalation re-solves {esc['resolves']}; "
+          f"launches per tick "
+          + ", ".join(f"{k}={v:g}" for k, v in per_tick.items()))
+    crash = bringup.session({"bad": ("bag_play", "/nonexistent/no.bag"),
+                             "ok": ("teleop", 10, 0)})
+    check_session(f"{label} with a crashing pane", crash, healthy=("ok",),
+                  crashed=("bad",))
+    check_bars(f"{label} with a crashing pane", {
+        "the teleop pane set nothing":
+            crash["ok"]["device_setpoint"] is not None})
+    print(f"{label}: the crashing bag_play pane isolated "
+          f"({type(crash['bad']).__name__}), the teleop pane's setpoint "
+          f"{crash['ok']['device_setpoint']}")
+
+    label = "[bringup] tools"
+    flight = os.path.join(tmp, "flight.txt")
+    t0 = time.perf_counter()
+    rc, text = captured(lambda: tools.main([
+        "fly", "--traj", "hover", "--steps", str(BRINGUP_FLY_STEPS),
+        "--device", str(device), "--out", flight]))
+    wall = time.perf_counter() - t0
+    table = np.loadtxt(flight)
+    check_bars(f"{label} fly", {
+        f"exit {rc}": rc == 0,
+        f"flight file {table.shape}": table.shape == (BRINGUP_FLY_STEPS,
+                                                      17),
+        "non-finite flight": bool(np.isfinite(table).all()),
+        f"not on the card: {text}": f"on {device}" in text})
+    state = {"gyro.x": 1.0, "gyro.y": 2.0, "gyro.z": 3.0, "acc.z": 1.0}
+    with native.FirmwareSim(0, state_provider=lambda n: state.get(
+            n, 0.0)).serve() as fw:
+        peer = ["--peer-port", str(fw.port), "--local-port", "0"]
+        _, toc = captured(lambda: tools.main(["toc"] + peer))
+        _, imu = captured(lambda: tools.main(["imu"] + peer + [
+            "--duration", "0.5"]))
+        _, scan = captured(lambda: tools.main([
+            "scan", "--ports", f"{fw.port}-{fw.port}"]))
+    _, info = captured(lambda: tools.main(["bag", "info", bag]))
+    _, plot = captured(lambda: tools.main(["bag", "plot", bag, "--channel",
+                                           "cmd_vel", "--col", "3"]))
+    sub = subprocess.run(
+        [sys.executable, "-m", "crazyflie_nmpc_tpu_torch.bringup", "teleop"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check_bars(label, {
+        "toc lists no commander/enHighLevel": "commander/enHighLevel" in toc,
+        "imu printed no gyro": "gyro [deg/s]" in imu and "+3.000" in imu,
+        "scan found no vehicle": f"udp://127.0.0.1:{fw.port}" in scan,
+        "bag info lists no cmd_vel": "cmd_vel" in info,
+        "bag plot drew nothing": plot.startswith("cmd_vel"),
+        f"bringup teleop subprocess exit {sub.returncode}: "
+        f"{sub.stderr[-300:]}": sub.returncode == 0
+        and "device_setpoint: (" in sub.stdout})
+    print(f"{label}: fly --traj hover --steps {BRINGUP_FLY_STEPS} on "
+          f"{device} in {wall:.1f} s ({table.shape[1]}-column file); toc "
+          f"{toc.count(chr(10))} lines, imu {imu.count('gyro')} samples, "
+          f"scan, bag info / plot; `python -m "
+          f"crazyflie_nmpc_tpu_torch.bringup teleop` exit 0")
+    return counts
+
+
 COUNTS = "[counts] "    # a child's launch counts, one JSON line a phase
 
 
@@ -3670,6 +4309,9 @@ def main(argv=None) -> int:
                            ("xla_prep", xla_runs.get(B_TIME))):
             if run is not None:
                 phase_profile(label, run)
+    if "pscan" in phases:
+        mark("pscan")
+        phase_pscan(device)
     # the closed loops last: their traces (10^5 kernels each) left the
     # profiler's later short traces empty in one run (PERF.md, PR 10)
     if "swarm" in phases:
@@ -3687,7 +4329,8 @@ def main(argv=None) -> int:
             "cartpole": phase_cartpole, "client": phase_client,
             "closed_loop": phase_closed_loop, "flight": phase_flight,
             "pod": phase_pod, "pod_ranks": phase_pod_ranks,
-            "certified_loops": phase_certified_loops}
+            "certified_loops": phase_certified_loops,
+            "bringup": phase_bringup}
     if args.child:
         for phase in phases:
             t0 = time.perf_counter()

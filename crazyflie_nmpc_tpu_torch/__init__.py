@@ -17,10 +17,14 @@ tools (`utils.trajectories`); the serving stack (`runtime.serving`,
 and vehicle endpoints in `native`, `bringup.swarm_serving`); the pod path
 on `torch.distributed` (`parallel`: the rank mesh, the batch-sharded and
 stage-sharded steps, `pod_rti_step`, `fleet_metrics`); the `utils`
-planes (`profiling`, `checkpoint`, `config`, `debug`, `coherence`); and
-the speed-of-light study (`roofline`).  Every Pallas kernel of the JAX package is hand-written
-CUDA C++ for sm_90a under `csrc/` (built at first use by
-`ops.cuda._build`).  ROADMAP.md lists what is still to port.
+planes (`profiling`, `checkpoint`, `config`, `debug`, `coherence`); the
+launch layer (`bringup`'s compositions, `session` and `python -m
+crazyflie_nmpc_tpu_torch.bringup`, the `tools` CLI) with the PID
+controller (`pid`), the link demos (`demo`) and the associative-scan
+Riccati (`ops.riccati_pscan`); and the speed-of-light study
+(`roofline`).  Every module of the JAX package has its counterpart, and
+every Pallas kernel is hand-written CUDA C++ for sm_90a under `csrc/`
+(built at first use by `ops.cuda._build`).
 
 Entry points run on the card unless the caller asks for the CPU: every
 constructor takes `device=None`, which means `cuda`, and raises when no

@@ -3,8 +3,8 @@ state across from numpy arrays.
 
 The JAX package's `OCPSpec` (the quadrotor's, or the cart-pole's custom
 ODE), `QPData` and `RTIState` leaves (batched or single-instance), its
-`AttitudeGains`, `EstimatorState` and `LoopConfig`,
-taken out with `np.asarray` (or read by attribute), become the port's
+`AttitudeGains`, `EstimatorState`, `LoopConfig` and the PID
+controller's `PIDGains` and `PIDState`, taken out with `np.asarray` (or read by attribute), become the port's
 objects, so both packages solve the same problem; `loop_result_to_numpy`
 brings a closed loop's result back.  This module imports nothing of the
 JAX package.
@@ -26,6 +26,7 @@ from crazyflie_nmpc_tpu_torch.models.firmware import AttitudeGains
 from crazyflie_nmpc_tpu_torch.models.quadrotor import QuadrotorParams
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.ops.qp import QPData
+from crazyflie_nmpc_tpu_torch.pid import PIDGains, PIDState
 from crazyflie_nmpc_tpu_torch.runtime.closed_loop import LoopConfig, LoopResult
 from crazyflie_nmpc_tpu_torch.solver.ocp import CostSpec, OCPSpec
 from crazyflie_nmpc_tpu_torch.solver.rti import RTIState
@@ -43,6 +44,8 @@ QP_KEYS = tuple(f.name for f in dataclasses.fields(QPData))
 GAIN_KEYS = tuple(f.name for f in dataclasses.fields(AttitudeGains))
 LPF_KEYS = tuple(f.name for f in dataclasses.fields(VelocityLPFState))
 IPM_KEYS = tuple(f.name for f in dataclasses.fields(IPMConfig))
+PID_GAIN_KEYS = tuple(f.name for f in dataclasses.fields(PIDGains))
+PID_STATE_KEYS = tuple(f.name for f in dataclasses.fields(PIDState))
 LOOP_KEYS = tuple(f.name for f in dataclasses.fields(LoopConfig)
                   if f.name != "ipm")
 
@@ -180,3 +183,26 @@ def loop_result_to_numpy(res) -> LoopResult:
     """A LoopResult (this package's or the JAX package's) with numpy
     arrays: x, u, u_cmd, kkt_res, policy_mode."""
     return LoopResult(*(_np(getattr(res, k)) for k in LoopResult._fields))
+
+
+def pid_gains(gains, *, device=None, dtype=None) -> PIDGains:
+    """The port's `PIDGains` from a PIDGains-like object (the JAX
+    package's, its arrays read with `np.asarray`), in `dtype` (None: the
+    arrays' own) on `device` (None: the card)."""
+    dev = resolve_device(device)
+    return PIDGains(**{k: torch.as_tensor(_np(getattr(gains, k)),
+                                          dtype=dtype, device=dev)
+                       for k in PID_GAIN_KEYS})
+
+
+def pid_state(state, *, device=None, dtype=None) -> PIDState:
+    """The port's `PIDState` from a PIDState-like object (read by
+    attribute): the float leaves in `dtype` (None: their own), `mode` a
+    0-d int32 tensor, all on `device` (None: the card)."""
+    dev = resolve_device(device)
+    leaves = {k: _np(getattr(state, k)) for k in PID_STATE_KEYS}
+    out = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+           for k, v in leaves.items()}
+    out["mode"] = torch.as_tensor(leaves["mode"], dtype=torch.int32,
+                                  device=dev).reshape(())
+    return PIDState(**out)

@@ -22,7 +22,9 @@ of the problem's form:
 `solve_batched` consumes a batch-last QP dict; `from_qpdata` converts a
 batch-first QPData.  All (B,) problems run in lockstep with per-lane step
 lengths; infinite bounds are masked.  Per-lane escalation re-solves the worst unconverged
-lanes as a sub-batch (see `solve_batched`).
+lanes as a sub-batch (see `solve_batched`).  A serving loop passes
+`LoopGraphs` (through `solve_checked`) to replay the barrier algebra
+between the sweeps from CUDA graphs.
 """
 
 from __future__ import annotations
@@ -105,10 +107,227 @@ def _clip(v, lo, hi):
 
 
 def _max_step_lane(v, dv, tau):
-    """Per-lane fraction-to-boundary over the (N, nu) axes -> (B,)."""
-    ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
-                        torch.inf)
-    return torch.clamp(tau * torch.amin(ratio, dim=(0, 1)), max=1.0)
+    """Per-lane fraction-to-boundary over every axis but the last -> (B,).
+    One call on the four stacked (slack, dual) pairs gives the minimum of
+    the four separate steps exactly: tau * x and the clamp are monotone."""
+    neg = dv < 0
+    ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0), torch.inf)
+    return torch.clamp(
+        tau * torch.amin(ratio, dim=tuple(range(ratio.dim() - 1))), max=1.0)
+
+
+def _compl(lam, s, fin, n_ineq):
+    """Mean complementarity per lane over the finite bounds, from the
+    stacked (lower, upper) duals and slacks -> (B,)."""
+    p = (lam * s * fin).sum(dim=(1, 2))
+    return (p[0] + p[1]) / n_ineq
+
+
+# The Mehrotra iteration's barrier algebra in segments, each a function
+# from the loop's state (a dict) to the entries it sets.  The lower and
+# upper bounds' slacks `s`, duals `lam`, masks `fin` and residuals `r34`
+# (-lb - s_l, ub - s_u) are stacked on a leading axis of 2, so each step
+# is one operation on both; `sgn` (+1, -1) maps du onto each side's slack
+# step (du + r3, r4 - du).  `_solve_core` runs them eagerly between the
+# sweeps, or replays them from CUDA graphs (`LoopGraphs`).
+
+def _init(inp, s_min_init, mu0_init):
+    """The initial point (cf. ipm.init_state) and residuals from the QP
+    data: lb0/ub0 (N, nu, B), ruu, qx, ru, cs, p_T, dx0 and optional
+    warm-start duals lam0_l/lam0_u (clipped interior)."""
+    lb0, ub0, cs = inp["lb0"], inp["ub0"], inp["cs"]
+    dtype, dev = cs.dtype, cs.device
+    N, nu, B = lb0.shape
+    fin = torch.isfinite(torch.stack([lb0, ub0]))
+    bnd = torch.stack([-torch.where(fin[0], lb0, 0.0),
+                       torch.where(fin[1], ub0, 0.0)])
+    n_fin = fin.sum(dim=(0, 1, 2))
+    s = torch.where(fin, torch.clamp(bnd, min=s_min_init), 1.0)
+    # scalars are filled on the device: a host-to-device copy of a fresh
+    # tensor would block the host until the card's queue drains
+    mu0 = torch.full((), mu0_init, dtype=dtype, device=dev)
+    lam = torch.where(fin, mu0 / s, 0.0)
+    warm = (inp.get("lam0_l"), inp.get("lam0_u"))
+    if any(w is not None for w in warm):
+        lam = torch.stack([lam[i] if w is None else torch.where(
+            fin[i], torch.clamp(w, min=1e-4), 0.0)
+            for i, w in enumerate(warm)])
+    sgn = torch.ones((2, 1, 1, 1), dtype=dtype, device=dev)
+    sgn[1] = -1.0
+    return dict(
+        fin=fin, s=s, lam=lam, sgn=sgn, ruu=inp["ruu"],
+        n_ineq=torch.clamp(n_fin, min=1), has_ineq=n_fin > 0,
+        tiny=torch.full((), torch.finfo(dtype).tiny, dtype=dtype,
+                        device=dev),
+        z_du=torch.zeros((N, nu, B), dtype=dtype, device=dev),
+        z_dx=torch.zeros((N + 1,) + cs.shape[1:], dtype=dtype, device=dev),
+        r1x=torch.cat([inp["qx"], inp["p_T"][None]], dim=0),
+        r1u=inp["ru"] - lam[0] + lam[1],
+        r2=torch.cat([-inp["dx0"][None], -cs], dim=0),
+        r34=torch.where(fin, bnd - s, 0.0))
+
+
+def _iter_pre(st):
+    """Before the factorization: mu, the barrier-shifted input Hessian
+    and the predictor's right-hand side."""
+    fin, lam, s = st["fin"], st["lam"], st["s"]
+    sig = torch.where(fin, lam / s, 0.0)
+    r5 = lam * s
+    rt = torch.where(fin, (r5 + lam * st["r34"]) / s, 0.0)
+    return dict(mu=_compl(lam, s, fin, st["n_ineq"]),
+                ruu_shift=st["ruu"] + sig[0] + sig[1], r5=r5,
+                rt1u=st["r1u"] + rt[0] - rt[1], c_res=-st["r2"][1:],
+                dx0_res=-st["r2"][0])
+
+
+def _iter_mid(st):
+    """Between the sweeps: the affine step's length and complementarity,
+    the centring parameter and the corrector's right-hand side.  `ones`
+    holds the (slack, dual) pairs with the masked entries at 1, the
+    fraction-to-boundary operands of every step of this iteration."""
+    fin, lam, s, r34, mu = st["fin"], st["lam"], st["s"], st["r34"], st["mu"]
+    ds_a = torch.where(fin, st["sgn"] * st["ddu_a"] + r34, 0.0)
+    dlam_a = torch.where(fin, -(st["r5"] + lam * ds_a) / s, 0.0)
+    ones = torch.cat([torch.where(fin, s, 1.0), torch.where(fin, lam, 1.0)])
+    alpha_aff = _max_step_lane(ones, torch.cat([ds_a, dlam_a]), 1.0)
+    mu_aff = _compl(lam + alpha_aff * dlam_a, s + alpha_aff * ds_a, fin,
+                    st["n_ineq"])
+    sigma = torch.clamp((mu_aff / torch.maximum(mu, st["tiny"])) ** 3,
+                        0.0, 1.0)
+    r5_c = st["r5"] - sigma * mu + ds_a * dlam_a
+    rt_c = torch.where(fin, (r5_c + lam * r34) / s, 0.0)
+    return dict(ones=ones, sigma=sigma, r5_c=r5_c,
+                rt1u_c=st["r1u"] + rt_c[0] - rt_c[1])
+
+
+def _iter_step(st, tau):
+    """After the corrector sweep: the slack and dual steps and the step
+    length."""
+    fin, s = st["fin"], st["s"]
+    ds = torch.where(fin, st["sgn"] * st["ddu"] + st["r34"], 0.0)
+    dlam = torch.where(fin, -(st["r5_c"] + st["lam"] * ds) / s, 0.0)
+    return dict(ds=ds, dlam=dlam, alpha=_max_step_lane(
+        st["ones"], torch.cat([ds, dlam]), tau))
+
+
+def _iter_update(st, mu_floor):
+    """The step taken, the residuals shrunk by (1 - alpha)."""
+    fin = st["fin"]
+    alpha = torch.where(st["has_ineq"] & (st["mu"] <= mu_floor), 0.0,
+                        st["alpha"])
+    shrink = 1.0 - alpha
+    return dict(z_dx=st["z_dx"] + alpha * st["ddx"],
+                z_du=st["z_du"] + alpha * st["ddu"],
+                s=torch.where(fin, st["s"] + alpha * st["ds"], 1.0),
+                lam=torch.where(fin, st["lam"] + alpha * st["dlam"], 0.0),
+                r1x=shrink * st["r1x"], r1u=shrink * st["r1u"],
+                r2=shrink * st["r2"], r34=shrink * st["r34"])
+
+
+def _iter_post(st, tau, mu_floor):
+    """`_iter_step` then `_iter_update` (no Gondzio corrector between)."""
+    out = _iter_step(st, tau)
+    return {**out, **_iter_update({**st, **out}, mu_floor)}
+
+
+def _gondzio(st, corr, factors, cstream, tau):
+    """One Gondzio centrality corrector: one more corrector sweep on the
+    same factorization (K, L, Pc), right-hand side the pure
+    complementarity outlier correction, kept per lane where the step
+    lengthens.  The stored Pc = P_{k+1} c_k carries the original dynamics
+    residual into the vector pass, and this solve has none, so Pc is
+    zeroed (K and L do not depend on the right-hand side)."""
+    K, L, Pc = factors
+    fin, s, lam, sgn = st["fin"], st["s"], st["lam"], st["sgn"]
+    ds, dlam, alpha = st["ds"], st["dlam"], st["alpha"]
+    mu_t = st["sigma"] * st["mu"]                               # (B,)
+    a_hat = torch.clamp(alpha + 0.1, max=1.0)
+    v = (s + a_hat * ds) * (lam + a_hat * dlam)
+    t = torch.where(fin, _clip(v, 0.1 * mu_t, 10.0 * mu_t) - v, 0.0)
+    tg = torch.where(fin, (-sgn * t) / s, 0.0)
+    r1x, r2 = st["r1x"], st["r2"]
+    ddx_g, ddu_g = corr(
+        cstream(torch.zeros_like(r2[1:])), torch.zeros_like(r1x[:-1]),
+        tg[0] + tg[1], K, L, torch.zeros_like(Pc),
+        torch.zeros_like(r1x[-1]), torch.zeros_like(r2[0]))
+    ds_g = torch.where(fin, sgn * ddu_g, 0.0)
+    dlam_g = torch.where(fin, (t - lam * ds_g) / s, 0.0)
+    ds2, dlam2 = ds + ds_g, dlam + dlam_g
+    alpha2 = _max_step_lane(st["ones"], torch.cat([ds2, dlam2]), tau)
+    keep = alpha2 > alpha                                       # (B,)
+    return dict(ddx=torch.where(keep, st["ddx"] + ddx_g, st["ddx"]),
+                ddu=torch.where(keep, st["ddu"] + ddu_g, st["ddu"]),
+                ds=torch.where(keep, ds2, ds),
+                dlam=torch.where(keep, dlam2, dlam),
+                alpha=torch.maximum(alpha, alpha2))
+
+
+class _Arena:
+    """The loop state of one problem shape at fixed addresses, and the
+    segments captured on it: `replay(name, fn)` captures fn's writes into
+    the state as a CUDA graph at its first call (after one eager run on a
+    side stream that sizes its outputs), then replays it."""
+
+    def __init__(self, inputs: dict):
+        self.state = {k: torch.empty_like(v) for k, v in inputs.items()}
+        self.graphs = {}
+
+    def __getitem__(self, key):
+        return self.state[key]
+
+    def put(self, key, value):
+        if key not in self.state:
+            self.state[key] = torch.empty_like(value)
+        self.state[key].copy_(value)
+
+    def replay(self, name, fn):
+        graph = self.graphs.get(name)
+        if graph is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = fn(self.state)
+            torch.cuda.current_stream().wait_stream(side)
+            for k, v in out.items():
+                if k not in self.state:
+                    self.state[k] = torch.empty_like(v)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for k, v in fn(self.state).items():
+                    self.state[k].copy_(v)
+            self.graphs[name] = graph
+        graph.replay()
+
+
+class LoopGraphs:
+    """CUDA graphs of the two-launch Mehrotra iteration's barrier algebra
+    for a caller that solves the same shapes every tick (a serving loop):
+    `solve_batched`'s state lives in one arena per shape, the initial
+    point and each of the three segments between the sweeps is one graph
+    replay, and the sweeps themselves launch as always, between them.
+    Issued one by one the algebra is ~120 small operations an iteration,
+    each issued by the host; a replay is one.
+
+    A shape's first solve captures its graphs, and torch waits for the
+    card to capture: the caller marks that solve as an intended wait
+    (`device.host_sync("graph capture")`).  Used on the card only, and
+    not with Gondzio correctors, the bfloat16 A/B streams or warm-start
+    duals, which run eagerly; so does an escalation re-solve."""
+
+    def __init__(self):
+        self._arenas = {}
+
+    def arena(self, inputs: dict, *settings) -> _Arena:
+        """The arena of the inputs' shapes and the `settings` the graphs
+        bake in, holding a copy of `inputs`."""
+        key = tuple((k, tuple(v.shape), v.dtype, str(v.device))
+                    for k, v in inputs.items()) + settings
+        arena = self._arenas.get(key)
+        if arena is None:
+            arena = self._arenas[key] = _Arena(inputs)
+        for k, v in inputs.items():
+            arena.state[k].copy_(v)
+        return arena
 
 
 def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
@@ -199,11 +418,12 @@ def reset_escalation_counts() -> None:
 
 def solve_checked(qp: dict, config: IPMConfig, condense: int,
                   windowed: bool | None = None, fused_iter: bool = False,
-                  lam0_l=None, lam0_u=None,
-                  fused: bool = True) -> BatchSolution:
-    """`solve_batched` for a caller that has run `check_supported`."""
+                  lam0_l=None, lam0_u=None, fused: bool = True,
+                  graphs: LoopGraphs | None = None) -> BatchSolution:
+    """`solve_batched` for a caller that has run `check_supported`;
+    `graphs` replays the iteration's barrier algebra (`LoopGraphs`)."""
     sol = _solve_core(qp, config, condense, windowed, fused_iter, lam0_l,
-                      lam0_u, fused)
+                      lam0_u, fused, graphs)
     cap = config.escalate_capacity
     if config.escalate_iters <= 0 or cap <= 0:
         return sol
@@ -251,8 +471,8 @@ def solve_checked(qp: dict, config: IPMConfig, condense: int,
 
 def _solve_core(qp: dict, config: IPMConfig, condense: int,
                 windowed: bool | None = None, fused_iter: bool = False,
-                lam0_l=None, lam0_u=None,
-                fused: bool = True) -> BatchSolution:
+                lam0_l=None, lam0_u=None, fused: bool = True,
+                graphs: LoopGraphs | None = None) -> BatchSolution:
     c = qp["c"]
     ruu = qp["ruu"]
     pT_diag, p_T = qp["pT"], qp["p"]
@@ -341,47 +561,24 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
     cstream = ((lambda z: z.to(torch.bfloat16)) if comp_ab
                else (lambda z: z))
 
-    finite_l = torch.isfinite(lb0)
-    finite_u = torch.isfinite(ub0)
-    lb = torch.where(finite_l, lb0, 0.0)
-    ub = torch.where(finite_u, ub0, 0.0)
-    n_fin = finite_l.sum(dim=(0, 1)) + finite_u.sum(dim=(0, 1))
-    n_ineq = torch.clamp(n_fin, min=1)
-    has_ineq = n_fin > 0
-
-    # initial point (cf. ipm.init_state)
-    z_du = torch.zeros((N, nu, B), dtype=dtype, device=c.device)
-    z_dx = torch.zeros((N + 1, nx, B), dtype=dtype, device=c.device)
-    s_l = torch.where(finite_l, torch.clamp(-lb, min=config.s_min_init), 1.0)
-    s_u = torch.where(finite_u, torch.clamp(ub, min=config.s_min_init), 1.0)
-    # scalars are filled on the device: a host-to-device copy of a fresh
-    # tensor would block the host until the card's queue drains
-    mu0 = torch.full((), config.mu0_init, dtype=dtype, device=c.device)
-    lam_l = torch.where(finite_l, mu0 / s_l, 0.0)
-    lam_u = torch.where(finite_u, mu0 / s_u, 0.0)
-    # warm-started bound duals (cf. ipm.init_state): clipped interior
-    if lam0_l is not None:
-        lam_l = torch.where(finite_l, torch.clamp(lam0_l, min=1e-4), 0.0)
-    if lam0_u is not None:
-        lam_u = torch.where(finite_u, torch.clamp(lam0_u, min=1e-4), 0.0)
-
-    r1x = torch.cat([qx, p_T[None]], dim=0)               # (N+1, nx, B)
-    r1u = ru - lam_l + lam_u
-    r2 = torch.cat([-qp["dx0"][None], -cs], dim=0)        # (N+1, nx, B)
-    r3 = torch.where(finite_l, -lb - s_l, 0.0)
-    r4 = torch.where(finite_u, ub - s_u, 0.0)
-
-    def compl(a, b):
-        return ((a[0] * b[0] * finite_l).sum(dim=(0, 1))
-                + (a[1] * b[1] * finite_u).sum(dim=(0, 1))) / n_ineq
-
+    inputs = dict(lb0=lb0, ub0=ub0, ruu=ruu, qx=qx, ru=ru, cs=cs, p_T=p_T,
+                  dx0=qp["dx0"])
+    warm = dict(lam0_l=lam0_l, lam0_u=lam0_u)
+    init = functools.partial(_init, s_min_init=config.s_min_init,
+                             mu0_init=config.mu0_init)
     if use_iter:
         # one launch per iteration (the JAX package's `iteration2`); the
         # kernel updates its carries in place, and they are views of
-        # z_dx, r1x and cd, so nothing is reassembled afterwards
-        cd = -r2                                # rows dx0_res, c_res
-        m_l, m_u = finite_l.to(dtype), finite_u.to(dtype)
-        nin, has = n_ineq.to(dtype)[None], has_ineq.to(dtype)[None]
+        # z_dx, r1x, cd and the stacked bounds' rows, so nothing is
+        # reassembled afterwards
+        st = init({**inputs, **warm})
+        z_dx, z_du, r1x, r1u = st["z_dx"], st["z_du"], st["r1x"], st["r1u"]
+        cd = -st["r2"]                          # rows dx0_res, c_res
+        (s_l, s_u), (lam_l, lam_u) = st["s"], st["lam"]
+        m_l, m_u = st["fin"].to(dtype)
+        r3, r4 = st["r34"]
+        nin = st["n_ineq"].to(dtype)[None]
+        has = st["has_ineq"].to(dtype)[None]
         scratch = ck.iter_scratch(N, B, dtype, c.device)
         for _ in range(config.iters):
             ck.iter_sweep_c2(
@@ -389,132 +586,63 @@ def _solve_core(qp: dict, config: IPMConfig, condense: int,
                 s_l, s_u, lam_l, lam_u, r3, r4, m_l, m_u, z_dx[:-1], z_du,
                 pT_diag, r1x[-1], cd[0], z_dx[-1], nin, has, config.tau,
                 scratch=scratch)
-        r2 = -cd
+        st["r2"] = -cd
     else:
-        # mu_floor = 100 eps^2 and tiny, both rounded to the working dtype
-        finfo = torch.finfo(dtype)
-        mu_floor = float(100.0 * torch.tensor(finfo.eps, dtype=dtype) ** 2)
-        tiny = torch.full((), finfo.tiny, dtype=dtype, device=c.device)
-        for _ in range(config.iters):
-            mu = compl((lam_l, lam_u), (s_l, s_u))
-            sig_l = torch.where(finite_l, lam_l / s_l, 0.0)
-            sig_u = torch.where(finite_u, lam_u / s_u, 0.0)
-            ruu_shift = ruu + sig_l + sig_u                    # (N, nu, B)
-
-            r5l = lam_l * s_l
-            r5u = lam_u * s_u
-            rt1u = (r1u + torch.where(finite_l, (r5l + lam_l * r3) / s_l, 0.0)
-                    - torch.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
-
-            # predictor: factorization + affine backward + forward rollout
-            c_res = cstream(-r2[1:])
-            dx0_res = -r2[0]
-            K, _, L, Pc, ddx_a, ddu_a = kkt(c_res, r1x[:-1], ruu_shift,
-                                            rt1u, r1x[-1], dx0_res)
-
-            ds_l_a = torch.where(finite_l, ddu_a + r3, 0.0)
-            ds_u_a = torch.where(finite_u, r4 - ddu_a, 0.0)
-            dlam_l_a = torch.where(finite_l,
-                                   -(r5l + lam_l * ds_l_a) / s_l, 0.0)
-            dlam_u_a = torch.where(finite_u,
-                                   -(r5u + lam_u * ds_u_a) / s_u, 0.0)
-
-            one_l = torch.where(finite_l, s_l, 1.0)
-            one_u = torch.where(finite_u, s_u, 1.0)
-            lam1_l = torch.where(finite_l, lam_l, 1.0)
-            lam1_u = torch.where(finite_u, lam_u, 1.0)
-            alpha_aff = torch.minimum(
-                torch.minimum(_max_step_lane(one_l, ds_l_a, 1.0),
-                              _max_step_lane(one_u, ds_u_a, 1.0)),
-                torch.minimum(_max_step_lane(lam1_l, dlam_l_a, 1.0),
-                              _max_step_lane(lam1_u, dlam_u_a, 1.0)))
-            mu_aff = compl((lam_l + alpha_aff * dlam_l_a,
-                            lam_u + alpha_aff * dlam_u_a),
-                           (s_l + alpha_aff * ds_l_a,
-                            s_u + alpha_aff * ds_u_a))
-            sigma = torch.clamp((mu_aff / torch.maximum(mu, tiny)) ** 3,
-                                0.0, 1.0)
-
-            # corrector: reuse the factorization, new right-hand side
-            r5l_c = r5l - sigma * mu + ds_l_a * dlam_l_a
-            r5u_c = r5u - sigma * mu + ds_u_a * dlam_u_a
-            rt1u_c = (r1u
-                      + torch.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
-                      - torch.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
-            ddx, ddu = corr(c_res, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
-                            dx0_res)
-
-            ds_l = torch.where(finite_l, ddu + r3, 0.0)
-            ds_u = torch.where(finite_u, r4 - ddu, 0.0)
-            dlam_l = torch.where(finite_l, -(r5l_c + lam_l * ds_l) / s_l, 0.0)
-            dlam_u = torch.where(finite_u, -(r5u_c + lam_u * ds_u) / s_u, 0.0)
-
-            alpha = torch.minimum(
-                torch.minimum(_max_step_lane(one_l, ds_l, config.tau),
-                              _max_step_lane(one_u, ds_u, config.tau)),
-                torch.minimum(_max_step_lane(lam1_l, dlam_l, config.tau),
-                              _max_step_lane(lam1_u, dlam_u, config.tau)))
-            # Gondzio centrality correctors: one more corrector sweep each
-            # on the same factorization, right-hand side the pure
-            # complementarity outlier correction, kept per lane where the
-            # step lengthens.  The stored Pc = P_{k+1} c_k carries the
-            # original dynamics residual into the vector pass, and this
-            # solve has none, so Pc is zeroed (K and L do not depend on
-            # the right-hand side).
-            for _ in range(config.gondzio_correctors):
-                mu_t = sigma * mu                                   # (B,)
-                a_hat = torch.clamp(alpha + 0.1, max=1.0)
-                v_l = (s_l + a_hat * ds_l) * (lam_l + a_hat * dlam_l)
-                v_u = (s_u + a_hat * ds_u) * (lam_u + a_hat * dlam_u)
-                t_l = torch.where(finite_l, _clip(v_l, 0.1 * mu_t,
-                                                  10.0 * mu_t) - v_l, 0.0)
-                t_u = torch.where(finite_u, _clip(v_u, 0.1 * mu_t,
-                                                  10.0 * mu_t) - v_u, 0.0)
-                rt1u_g = (torch.where(finite_l, -t_l / s_l, 0.0)
-                          + torch.where(finite_u, t_u / s_u, 0.0))
-                ddx_g, ddu_g = corr(
-                    cstream(torch.zeros_like(r2[1:])),
-                    torch.zeros_like(r1x[:-1]), rt1u_g, K, L,
-                    torch.zeros_like(Pc), torch.zeros_like(r1x[-1]),
-                    torch.zeros_like(r2[0]))
-                ds_l_g = torch.where(finite_l, ddu_g, 0.0)
-                ds_u_g = torch.where(finite_u, -ddu_g, 0.0)
-                dlam_l_g = torch.where(finite_l,
-                                       (t_l - lam_l * ds_l_g) / s_l, 0.0)
-                dlam_u_g = torch.where(finite_u,
-                                       (t_u - lam_u * ds_u_g) / s_u, 0.0)
-                ds_l2, ds_u2 = ds_l + ds_l_g, ds_u + ds_u_g
-                dlam_l2, dlam_u2 = dlam_l + dlam_l_g, dlam_u + dlam_u_g
-                alpha2 = torch.minimum(
-                    torch.minimum(_max_step_lane(one_l, ds_l2, config.tau),
-                                  _max_step_lane(one_u, ds_u2, config.tau)),
-                    torch.minimum(
-                        _max_step_lane(lam1_l, dlam_l2, config.tau),
-                        _max_step_lane(lam1_u, dlam_u2, config.tau)))
-                keep = alpha2 > alpha                               # (B,)
-                ddx = torch.where(keep, ddx + ddx_g, ddx)
-                ddu = torch.where(keep, ddu + ddu_g, ddu)
-                ds_l = torch.where(keep, ds_l2, ds_l)
-                ds_u = torch.where(keep, ds_u2, ds_u)
-                dlam_l = torch.where(keep, dlam_l2, dlam_l)
-                dlam_u = torch.where(keep, dlam_u2, dlam_u)
-                alpha = torch.maximum(alpha, alpha2)
-
-            alpha = torch.where(has_ineq & (mu <= mu_floor), 0.0, alpha)
-
-            z_dx = z_dx + alpha * ddx
-            z_du = z_du + alpha * ddu
-            s_l = torch.where(finite_l, s_l + alpha * ds_l, 1.0)
-            s_u = torch.where(finite_u, s_u + alpha * ds_u, 1.0)
-            lam_l = torch.where(finite_l, lam_l + alpha * dlam_l, 0.0)
-            lam_u = torch.where(finite_u, lam_u + alpha * dlam_u, 0.0)
-
-            shrink = 1.0 - alpha
-            r1x, r1u, r2 = shrink * r1x, shrink * r1u, shrink * r2
-            r3, r4 = shrink * r3, shrink * r4
+        # mu_floor = 100 eps^2, rounded to the working dtype
+        mu_floor = float(100.0 * torch.tensor(torch.finfo(dtype).eps,
+                                              dtype=dtype) ** 2)
+        pre, mid = _iter_pre, _iter_mid
+        post = functools.partial(_iter_post, tau=config.tau,
+                                 mu_floor=mu_floor)
+        if (graphs is not None and c.device.type == "cuda"
+                and config.gondzio_correctors == 0 and not comp_ab
+                and lam0_l is None and lam0_u is None):
+            # the same segments replayed from CUDA graphs, the sweeps
+            # launched between them as always
+            st = graphs.arena(inputs, config.tau, config.s_min_init,
+                              config.mu0_init)
+            st.replay("init", init)
+            for _ in range(config.iters):
+                st.replay("pre", pre)
+                K, _, L, Pc, _, ddu_a = kkt(
+                    st["c_res"], st["r1x"][:-1], st["ruu_shift"],
+                    st["rt1u"], st["r1x"][-1], st["dx0_res"])
+                st.put("ddu_a", ddu_a)
+                st.replay("mid", mid)
+                ddx, ddu = corr(st["c_res"], st["r1x"][:-1], st["rt1u_c"],
+                                K, L, Pc, st["r1x"][-1], st["dx0_res"])
+                st.put("ddx", ddx)
+                st.put("ddu", ddu)
+                st.replay("post", post)
+            # the next solve overwrites the arena: copy out what the
+            # solution returns (the stats below are new tensors)
+            st = dict(st.state)
+            st.update({k: st[k].clone() for k in ("z_dx", "z_du", "lam")})
+        else:
+            st = init({**inputs, **warm})
+            step = functools.partial(_iter_step, tau=config.tau)
+            update = functools.partial(_iter_update, mu_floor=mu_floor)
+            for _ in range(config.iters):
+                st.update(pre(st))
+                c_res = cstream(st["c_res"])
+                K, _, L, Pc, _, st["ddu_a"] = kkt(
+                    c_res, st["r1x"][:-1], st["ruu_shift"], st["rt1u"],
+                    st["r1x"][-1], st["dx0_res"])
+                st.update(mid(st))
+                st["ddx"], st["ddu"] = corr(
+                    c_res, st["r1x"][:-1], st["rt1u_c"], K, L, Pc,
+                    st["r1x"][-1], st["dx0_res"])
+                st.update(step(st))
+                for _ in range(config.gondzio_correctors):
+                    st.update(_gondzio(st, corr, (K, L, Pc), cstream,
+                                       config.tau))
+                st.update(update(st))
+    z_dx, z_du, r1x, r1u, r2 = (st[k] for k in ("z_dx", "z_du", "r1x",
+                                                "r1u", "r2"))
+    lam_l, lam_u = st["lam"]
 
     stats = dict(
-        mu=compl((lam_l, lam_u), (s_l, s_u)),
+        mu=_compl(st["lam"], st["s"], st["fin"], st["n_ineq"]),
         res_stat=torch.maximum(torch.amax(r1x.abs(), dim=(0, 1)),
                                torch.amax(r1u.abs(), dim=(0, 1))),
         res_eq=torch.amax(r2.abs(), dim=(0, 1)),

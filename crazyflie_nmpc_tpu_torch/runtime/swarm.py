@@ -23,7 +23,12 @@ One tick on the device:
                            619-625,644-670)
 
 Only the (B, 4) commands and the (B, nu) rotor commands cross back to the
-host, through pinned memory (`serving._Fetch`).
+host, through pinned memory (`serving._Fetch`).  On the card the fuse and
+the predictor replay one CUDA graph, and so does each segment of the IPM
+iteration's barrier algebra (`ops.ipm_fast.LoopGraphs`), the kernels
+launching between them as always: a tick issues ~260 operations from the
+host.  The interpreter is then free for the vehicles' threads, which
+share it in a realtime loop (`roofline.realtime_tick`).
 
 `SwarmNMPC` owns the step; `serve_swarm` binds it to a `LinkServer` and N
 `CascadeFirmwareSim` endpoints with per-vehicle deadline accounting
@@ -45,6 +50,7 @@ tick drains each vehicle's socket before its setpoints go out.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import struct
 import time
@@ -55,6 +61,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.device import (from_host, host_sync,
                                              resolve_device)
+from crazyflie_nmpc_tpu_torch.estimator.lpf import VelocityLPFState
 from crazyflie_nmpc_tpu_torch.estimator.pipeline import (EstimatorState,
                                                          fuse,
                                                          init_estimator)
@@ -63,6 +70,7 @@ from crazyflie_nmpc_tpu_torch.models.firmware import (AttitudeGains,
                                                       attitude_plant_step)
 from crazyflie_nmpc_tpu_torch.models.quadrotor import NX, NY
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
+from crazyflie_nmpc_tpu_torch.ops.ipm_fast import LoopGraphs
 from crazyflie_nmpc_tpu_torch.runtime.serving import (ESCALATION_CAPACITY,
                                                       TickScheduler, _Fetch)
 from crazyflie_nmpc_tpu_torch.solver.ocp import OCPSpec
@@ -128,6 +136,11 @@ class SwarmNMPC:
         self.substeps = max(predict_substeps, int(round(dt / 0.004)))
         self._carry = None
         self._graph = None
+        # the IPM iteration's barrier algebra replayed from CUDA graphs:
+        # issued operation by operation it held the interpreter for most
+        # of a tick, which a realtime loop shares with the link's threads
+        self._loop_graphs = (LoopGraphs() if self.device.type == "cuda"
+                             and self.use_fused else None)
 
     def _predict_plain(self, x, cmd_prev):
         """d wire ticks ahead through the onboard cascade holding each
@@ -139,32 +152,51 @@ class SwarmNMPC:
                                     gains=self.gains)[0]
         return x
 
-    def _predict(self, x, cmd_prev):
-        """`_predict_plain`; on the card replayed from a CUDA graph
-        captured at its first call.  The cascade is ~900 small operations
-        a substep (12 substeps a tick at 20 Hz): issued one by one they
-        cost the host more than a 50 ms period, while the graph is one
-        launch.  The capture waits for the card once, counted as a
-        `host_sync("graph capture")`."""
-        if x.device.type != "cuda" or not self.delay_steps:
-            return self._predict_plain(x, cmd_prev)
-        if self._graph is None:
-            self._graph = _capture(self._predict_plain, x, cmd_prev)
-        graph, (gx, gcmd), out = self._graph
-        gx.copy_(x)
-        gcmd.copy_(cmd_prev)
-        graph.replay()
-        return out.clone()
+    def _front_plain(self, p_prev, v_prev, v_prev2, elapsed, tele,
+                     cmd_prev):
+        """The estimator's fuse of the (B, 9) telemetry [mocap, Euler
+        deg, gyro deg/s] on the filter state, then `_predict_plain`:
+        (the filter's four new state tensors, x)."""
+        lpf = VelocityLPFState(p_prev, v_prev, v_prev2, elapsed)
+        est, x = fuse(EstimatorState(lpf=lpf, last_u=None), tele[:, 0:3],
+                      rotations.deg2rad(tele[:, 3:6]),
+                      rotations.deg2rad(tele[:, 6:9]), self.tick_dt)
+        new = est.lpf
+        return (new.p_prev, new.v_prev, new.v_prev2, new.elapsed,
+                self._predict_plain(x, cmd_prev))
 
-    def _step(self, mocap, euler_deg, gyro_deg):
+    def _front(self, est, tele, cmd_prev):
+        """`_front_plain` -> (EstimatorState', x); on the card replayed
+        from a CUDA graph captured at its first call.  The cascade is ~900
+        small operations a substep (12 substeps a tick at 20 Hz) and the
+        fuse ~110: issued one by one they cost the host more than a 50 ms
+        period, while the graph is one launch."""
+        lpf = est.lpf
+        args = (lpf.p_prev, lpf.v_prev, lpf.v_prev2, lpf.elapsed, tele,
+                cmd_prev)
+        if tele.device.type != "cuda":
+            out = self._front_plain(*args)
+        else:
+            if self._graph is None:
+                self._graph = _capture(self._front_plain, *args)
+            graph, static, out = self._graph
+            for dst, src in zip(static, args):
+                dst.copy_(src)
+            graph.replay()
+            # the next replay overwrites the outputs (p_prev is a view of
+            # the static telemetry): the carry keeps copies
+            out = tuple(o.clone() for o in out)
+        return (EstimatorState(lpf=VelocityLPFState(*out[:4]),
+                               last_u=est.last_u), out[4])
+
+    def _step(self, tele):
         est, states, cmd_prev = self._carry
-        est, x = fuse(est, mocap, rotations.deg2rad(euler_deg),
-                      rotations.deg2rad(gyro_deg), self.tick_dt)
-        x = self._predict(x, cmd_prev)
+        est, x = self._front(est, tele, cmd_prev)
         if self.use_fused:
             states, out = rti_step_batched(self.spec, states, x, self._yref,
                                            self._yref_e, self.ipm_config,
-                                           layout="batch_last")
+                                           layout="batch_last",
+                                           graphs=self._loop_graphs)
             u_apply = out.u_plan[0].T                       # (B, nu)
             tw = to_cmd_vel(out.u_plan[1].T, out.x_plan[4].T)
         else:
@@ -212,7 +244,12 @@ class SwarmNMPC:
             [np.asarray(a, np.float64) for a in (mocap, euler_deg,
                                                   gyro_deg)], axis=1),
             self.dtype, self.device)
-        cmd, u_apply = self._step(tele[:, 0:3], tele[:, 3:6], tele[:, 6:9])
+        # the first step on the card captures the estimator's and the
+        # solve's graphs, and torch waits for the card to capture: one
+        # intended wait, counted as a `host_sync("graph capture")`
+        with (host_sync("graph capture") if self._graph is None
+              and self.device.type == "cuda" else contextlib.nullcontext()):
+            cmd, u_apply = self._step(tele)
         packed = _Fetch(torch.cat([cmd, u_apply], dim=-1)).numpy()
         return packed[:, :4].copy(), packed[:, 4:].copy()
 
@@ -221,15 +258,14 @@ def _capture(fn, *args):
     """fn(*args) captured as a CUDA graph on static copies of its tensor
     arguments: (graph, the static inputs, the static output)."""
     static = tuple(a.clone() for a in args)
-    with host_sync("graph capture"):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*static)                        # warm-up off the graph
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(*static)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)                            # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
     return graph, static, out
 
 

@@ -172,7 +172,8 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
                      layout: str = "batch_first",
                      windowed: bool | None = None,
                      fused_iter: bool = False,
-                     prep_vde_order: int = 4):
+                     prep_vde_order: int = 4,
+                     graphs: ipm_fast.LoopGraphs | None = None):
     """One RTI iteration for a batch of problems.
 
     Args:
@@ -200,6 +201,9 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
         preparation, `prepare_qp_xla`; fused_prep_condense,
         prep_batch_rows and prep_vde_order then have no effect, as in the
         JAX package.
+      graphs: an `ops.ipm_fast.LoopGraphs` to replay the IPM iteration's
+        barrier algebra from CUDA graphs (a serving loop's, kept across
+        its ticks); None issues it operation by operation.
     Returns (RTIState', RTIOutput) in the input's layout (batch_last:
     u0/u1 are (nu,B), plans are stage-major batch-last).
     Raises ValueError for a custom model ODE (spec.f): such specs use
@@ -232,7 +236,8 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: torch.Tensor,
                                         batch_last)
 
     # feedback: batch-last IPM on the sweeps of the problem's form
-    sol = ipm_fast.solve_checked(qp, config, condense, windowed, fused_iter)
+    sol = ipm_fast.solve_checked(qp, config, condense, windowed, fused_iter,
+                                 graphs=graphs)
     return rti_update(qp, sol, x_bl, u_bl, batch_last)
 
 

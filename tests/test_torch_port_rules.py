@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from crazyflie_nmpc_tpu_torch import bringup, convert, estimator, parallel
+from crazyflie_nmpc_tpu_torch import (bringup, convert, estimator, parallel,
+                                      pid, tools)
 from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.models import (QuadrotorParams, firmware,
                                              hover_state, rotations)
@@ -51,10 +52,11 @@ def test_port_imports_no_jax(path):
 
 def test_no_jax_rule_covers_every_subpackage():
     """Every module of the port is among the files the rule reads, the
-    closed loop's subpackages (estimator, runtime, utils) and the serving
-    stack (runtime's serving and swarm, native, bringup) included."""
+    closed loop's subpackages (estimator, runtime, utils), the serving
+    stack (runtime's serving and swarm, native, bringup) and the launch
+    layer (bringup, tools, pid, demo, ops.riccati_pscan) included."""
     for sub in ("estimator", "runtime", "utils", "models", "ops", "solver",
-                "roofline", "native", "parallel"):
+                "roofline", "native", "parallel", "demo"):
         files = [p for p in PORT_FILES
                  if p.startswith(f"crazyflie_nmpc_tpu_torch/{sub}/")]
         assert f"crazyflie_nmpc_tpu_torch/{sub}/__init__.py" in files
@@ -69,7 +71,10 @@ def test_no_jax_rule_covers_every_subpackage():
                 "parallel/pod.py", "parallel/sharded.py",
                 "utils/profiling.py", "utils/checkpoint.py",
                 "utils/config.py", "utils/debug.py", "utils/coherence.py",
-                "utils/tree.py"):
+                "utils/tree.py", "pid.py", "tools.py", "demo/hover.py",
+                "demo/position.py", "demo/waypoints.py", "demo/mocap.py",
+                "demo/teleop.py", "demo/full_state_stream.py",
+                "ops/riccati_pscan.py"):
         assert f"crazyflie_nmpc_tpu_torch/{mod}" in PORT_FILES
 
 
@@ -101,6 +106,15 @@ def test_no_jax_rule_covers_every_subpackage():
                                   parallel.make_mesh()),
     lambda: parallel.batch_sharded_rti(ts.default_ocp(N=6, device="cpu"),
                                        parallel.make_mesh()),
+    lambda: pid.default_gains(),
+    lambda: pid.init_pid(),
+    lambda: convert.pid_gains(pid.default_gains(device="cpu")),
+    lambda: convert.pid_state(pid.init_pid(device="cpu")),
+    lambda: bringup.nmpc_predictor(steps=1),
+    lambda: bringup.nmpc_attitude_bench(steps=1, port=0),
+    lambda: bringup.pid_waypoints(max_steps=1),
+    lambda: bringup.system_identification(steps=1, port=0),
+    lambda: tools.main(["fly", "--steps", "1"]),
 ], ids=["default_ocp", "hover_state", "init_rti", "hover_yref",
         "state_from_numpy", "regulation_state", "tracking_state",
         "regulation_table", "qp_from_numpy", "roofline_study",
@@ -108,7 +122,10 @@ def test_no_jax_rule_covers_every_subpackage():
         "sample_poly_trajectory", "gains_from_numpy",
         "estimator_state_from_numpy", "ServingLoop",
         "measure_transport_floor", "SwarmNMPC", "swarm_serving",
-        "init_distributed", "pod_rti_step", "batch_sharded_rti"])
+        "init_distributed", "pod_rti_step", "batch_sharded_rti",
+        "pid_default_gains", "init_pid", "pid_gains", "pid_state",
+        "nmpc_predictor", "nmpc_attitude_bench", "pid_waypoints",
+        "system_identification", "tools_fly"])
 def test_constructors_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
                                                            make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -350,7 +367,8 @@ def test_build_hash_covers_sources_and_flags():
                                      "crazyflie_nmpc_tpu.runtime",
                                      "crazyflie_nmpc_tpu.models",
                                      "crazyflie_nmpc_tpu.parallel",
-                                     "crazyflie_nmpc_tpu.utils"])
+                                     "crazyflie_nmpc_tpu.utils",
+                                     "crazyflie_nmpc_tpu.demo"])
 def test_package_exports_match_jax(package):
     """Every public name the JAX package's `__init__` exports (its
     `__version__` too; submodules aside) is exported by the port's

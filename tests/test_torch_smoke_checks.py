@@ -305,15 +305,18 @@ def test_realtime_bars():
 def test_tail_phases_run_at_once():
     """The host-bound loops ([tuning], [tuning_adam], [tuning_wide],
     [cartpole], [client], [closed_loop], [flight]), the multi-rank pod
-    runs ([pod_ranks]) and the certified loops ([certified_loops]) are in
-    the run, each in exactly one concurrent group, the last two alone."""
+    runs ([pod_ranks]), the certified loops ([certified_loops]) and the
+    launch layer ([bringup]) are in the run, each in exactly one
+    concurrent group, the last three alone."""
     tail = [p for g in cs.CONCURRENT for p in g]
     assert sorted(tail) == sorted(("tuning", "tuning_adam", "tuning_wide",
                                    "cartpole", "client", "closed_loop",
-                                   "flight", "pod_ranks", "certified_loops"))
+                                   "flight", "pod_ranks", "certified_loops",
+                                   "bringup"))
     assert set(tail) <= set(cs.PHASES)
     assert ("pod_ranks",) in cs.CONCURRENT
     assert ("certified_loops",) in cs.CONCURRENT
+    assert ("bringup",) in cs.CONCURRENT
 
 
 def test_a_failed_child_fails_the_run():
@@ -458,3 +461,147 @@ def test_certified_check_sees_a_wrong_oracle_plan(certified_run, plant):
     plans = [] if plant == "empty" else [(u, ref)] + rest
     with pytest.raises(SystemExit, match="oracle"):
         cs.check_certified("[certified_loops]", cs.plan_errors(plans))
+
+
+# ---- [pscan] and [bringup] (the associative-scan Riccati, the launch
+# layer)
+
+
+def test_pscan_runs_in_the_main_sequence_before_the_loops():
+    assert "pscan" in cs.PHASES
+    assert all("pscan" not in g for g in cs.CONCURRENT)
+    assert cs.PHASES.index("pscan") < cs.PHASES.index("swarm")
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """The card's sync calls as no-ops, so the checks run on CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode",
+                        lambda *a, **k: None)
+
+
+def test_pscan_parity_passes_on_the_port(no_card):
+    errs = cs.pscan_parity(50, "cpu")
+    assert set(errs) == {"vs sequential", "vs CPU", "factors"}
+    assert max(max(e.values()) for e in errs.values()) < 1e-12
+
+
+def test_pscan_check_sees_a_wrong_P():
+    from crazyflie_nmpc_tpu_torch.ops import riccati
+    from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as rp
+
+    lq = cs.pscan_lq(12, torch.float64, "cpu")
+    fac = [lq[k] for k in ("A", "B", "Qxx", "Ruu", "S", "P_term")]
+    fr, ref = rp.factors_pscan(*fac), riccati.factorize(*fac)
+    cs.check_pscan("[pscan]", dict(P=fr.P, K=fr.K), dict(P=ref.P, K=ref.K))
+    bad = fr.P.clone()
+    bad[3, 2, 2] += 1e-8
+    with pytest.raises(SystemExit, match="P off by"):
+        cs.check_pscan("[pscan]", dict(P=bad, K=fr.K),
+                       dict(P=ref.P, K=ref.K))
+
+
+def test_pscan_parity_sees_a_swapped_scan_operand(no_card, monkeypatch):
+    from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as rp
+
+    scan = rp.associative_scan
+    monkeypatch.setattr(rp, "associative_scan",
+                        lambda fn, elems, reverse=False: scan(
+                            lambda a, b: fn(b, a), elems, reverse))
+    with pytest.raises(SystemExit, match="vs sequential"):
+        cs.pscan_parity(50, "cpu")
+
+
+def test_pscan_parity_sees_a_sync_inside_the_scan(no_card, monkeypatch):
+    """A wait on the card inside the scan: the sync debug mode raises (as
+    torch does, planted here on the CPU) and the run fails."""
+    from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as rp
+
+    combine = rp._combine
+
+    def syncing(ei, ej):
+        raise RuntimeError("called a synchronizing CUDA operation")
+
+    monkeypatch.setattr(rp, "_combine", syncing)
+    with pytest.raises(SystemExit, match="waits on the card"):
+        cs.pscan_parity(50, "cpu")
+    monkeypatch.setattr(rp, "_combine", combine)
+    with pytest.raises(ValueError, match="other"):
+        cs.run_without_sync("[pscan]", lambda: (_ for _ in ()).throw(
+            ValueError("other")))
+
+
+def test_bringup_cpu_comparison_sees_a_differing_run():
+    from crazyflie_nmpc_tpu_torch import bringup
+
+    a, b = (bringup.nmpc_predictor(steps=2, device="cpu")
+            for _ in range(2))
+    assert cs.hold_close("[bringup]", a["result"].x, b["result"].x,
+                         cs.BRINGUP_PREDICTOR_TOL) == 0.0
+    with pytest.raises(SystemExit, match=r"max \|diff\| 2\.0+e-06"):
+        cs.hold_close("[bringup]", a["result"].x + 2e-6, b["result"].x,
+                      cs.BRINGUP_PREDICTOR_TOL)
+
+
+def test_session_check_sees_a_crashed_pane_reported_as_healthy():
+    from crazyflie_nmpc_tpu_torch import bringup
+
+    out = bringup.session({"bad": ("bag_play", "/nonexistent/no.bag"),
+                           "ok": ("teleop", 5, 0)})
+    cs.check_session("[bringup]", out, healthy=("ok",), crashed=("bad",))
+    with pytest.raises(SystemExit, match="pane bad crashed"):
+        cs.check_session("[bringup]", out, healthy=("ok", "bad"))
+    healthy = dict(out, bad={"summary": {}})
+    with pytest.raises(SystemExit, match="should have crashed"):
+        cs.check_session("[bringup]", healthy, healthy=("ok",),
+                         crashed=("bad",))
+    with pytest.raises(SystemExit, match="panes"):
+        cs.check_session("[bringup]", {"ok": out["ok"]}, healthy=("ok",),
+                         crashed=("bad",))
+
+
+def test_swarm_pane_check_sees_no_K2():
+    steps = cs.BRINGUP_SWARM_TICKS + 1
+    cs.check_step_launches("[bringup] swarm pane",
+                           _step_counts(steps, 0), steps, 0)
+    with pytest.raises(SystemExit, match="kkt_sweep_c2 launched 0"):
+        cs.check_step_launches("[bringup] swarm pane",
+                               _step_counts(steps, 0, kkt_sweep_c2=0),
+                               steps, 0)
+
+
+def test_composition_bars_pass_and_see_a_planted_fault():
+    from crazyflie_nmpc_tpu_torch import bringup
+
+    out = bringup.teleop(ticks=10, port=0)
+    cs.check_bars("[bringup] teleop", cs.wire_composition_bars("teleop",
+                                                               out))
+    with pytest.raises(SystemExit, match="device setpoint"):
+        cs.check_bars("[bringup] teleop", cs.wire_composition_bars(
+            "teleop", dict(out, device_setpoint=(3.0, -3.0, 0.0, 35999))))
+    cmd = np.tile([0.1, -0.2, 0.0, 43000.0], (5, 1))
+    bench = {"cmd_vel": cmd, "mocap_published": 5,
+             "device_setpoint": (0.0, 0.0, 0.0, 43000)}
+    cs.check_bars("[bringup] bench", cs.bench_bars(bench, 5))
+    for bad, match in ((dict(mocap_published=4), "mocap published"),
+                       (dict(cmd_vel=cmd * [1, 12, 1, 1]), "roll/pitch"),
+                       (dict(device_setpoint=None), "no setpoint")):
+        with pytest.raises(SystemExit, match=match):
+            cs.check_bars("[bringup] bench", cs.bench_bars(
+                dict(bench, **bad), 5))
+
+
+def test_loop_graphs_check_sees_one_differing_bit():
+    """[swarm_wire]'s graphed-vs-op-by-op check: equal outputs pass; one
+    entry one ulp off, or an output missing, fails."""
+    rng = np.random.default_rng(5)
+    want = [torch.as_tensor(rng.standard_normal((4, 3)), dtype=torch.float32)
+            for _ in range(4)]
+    got = [w.clone() for w in want]
+    assert cs.graphs_agree("[swarm_wire] LoopGraphs", got, want) == 4
+    got[2][1, 1] = torch.nextafter(got[2][1, 1], torch.tensor(np.inf))
+    with pytest.raises(SystemExit, match=r"outputs \[2\] of 4 differ"):
+        cs.graphs_agree("[swarm_wire] LoopGraphs", got, want)
+    with pytest.raises(SystemExit, match="differ"):
+        cs.graphs_agree("[swarm_wire] LoopGraphs", want[:3], want)
