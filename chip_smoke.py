@@ -229,10 +229,10 @@ KERNEL_INFO = {
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:282"),
     "bwd_c2": dict(
-        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        source="crazyflie_nmpc_tpu_torch/csrc/kkt_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:541"),
     "fwd_c2": dict(
-        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        source="crazyflie_nmpc_tpu_torch/csrc/corrector_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:607"),
     "bwd_vec_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
@@ -301,6 +301,11 @@ SPLIT_KERNELS = ("backward_sweep", "forward_sweep", "backward_vector_sweep")
 LONG_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 # the sweeps of that path (windowed=True and None), checked at its N too
 LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
+# K5a and K5b (a group of threads per lane), checked on a ragged last tile
+# and at B=1 ([pod_ranks] (d)'s shape) too, and timed at N=400 at every B
+# of B_MAIN beside K2 and K3
+WIN_KERNELS = ("bwd_c2", "fwd_c2")
+LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 
 
 def fail(msg: str):
@@ -645,14 +650,29 @@ def check_bf16_rounding(outs, dn):
             fail(f"{label} {dn}: the kernel's bf16 rounding differs")
 
 
+def split_vs_fused(inputs):
+    """K5a's gains against K2's, and K5b's rollout on K2's gains against
+    K2's own, on K2's inputs of `inputs` (kernel_inputs): ((max abs, rel)
+    of K, kff, L, Pc; (max abs, rel) of dx, du), as compare().  0 where
+    the split kernels evaluate K2's sums in K2's order."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    args = inputs["kkt_sweep_c2"][2]
+    fused = flat(ck.kkt_sweep_c2(*args))
+    gains = flat(ck.bwd_c2(*args[:-1]))
+    roll = flat(ck.fwd_c2(*args[:3], fused[0], fused[1], args[-1]))
+    return compare(gains, fused[:4]), compare(roll, fused[4:])
+
+
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; K1's two forms again on a ragged last tile (B_RAGGED);
-    the uncondensed kernels (UNCONDENSED_KERNELS) at the odd
-    N=51 in both too; then the sweeps of the long-horizon path
-    (LONG_CHECKED) at its N=400 in float64, where a fault in any of their
-    200 stages shows far above rounding (phase_timing holds them in
-    float32 there).
+    then float32; K1's two forms and K5a/K5b (WIN_KERNELS) again on a
+    ragged last tile (B_RAGGED), K5a/K5b at B=1 too; the uncondensed
+    kernels (UNCONDENSED_KERNELS) at the odd N=51 in both too; then the
+    sweeps of the long-horizon path (LONG_CHECKED) at its N=400 in
+    float64, where a fault in any of their 200 stages shows far above
+    rounding (phase_timing holds them in float32 there), and K5a and K5b
+    against K2 on the same inputs there (split_vs_fused).
     Returns {(kernel name, dtype name): max abs err} at N=50 (a kernel's
     forms pooled)."""
     import torch
@@ -665,8 +685,10 @@ def phase_kernels(device):
     for n, dtype, labels, B in (
             (N, torch.float64, checked, B_CHECK),
             (N, torch.float32, checked, B_CHECK),
-            (N, torch.float64, K1_FORMS, B_RAGGED),
-            (N, torch.float32, K1_FORMS, B_RAGGED),
+            (N, torch.float64, K1_FORMS + WIN_KERNELS, B_RAGGED),
+            (N, torch.float32, K1_FORMS + WIN_KERNELS, B_RAGGED),
+            (N, torch.float64, WIN_KERNELS, 1),
+            (N, torch.float32, WIN_KERNELS, 1),
             (N_ODD, torch.float64, UNCONDENSED_KERNELS, B_CHECK),
             (N_ODD, torch.float32, UNCONDENSED_KERNELS, B_CHECK),
             (N_LONG, torch.float64, LONG_CHECKED, B_CHECK)):
@@ -693,9 +715,21 @@ def phase_kernels(device):
                 errs[(name, dn)] = max(errs.get((name, dn), 0.0), abs_err)
         if labels is checked:
             check_bf16_rounding(outs, dn)
+        if n == N_LONG:
+            (g_abs, g_rel), (r_abs, r_rel) = split_vs_fused(inputs)
+            ok = max(g_rel, r_rel) <= TOL[dn]
+            print(f"[kernel] bwd_c2 vs kkt_sweep_c2's K, kff, L, Pc {dn} "
+                  f"N={n} B={B}: max abs diff {g_abs:.3e}; fwd_c2 on "
+                  f"kkt_sweep_c2's gains vs its dx, du: {r_abs:.3e} (0 "
+                  f"expected: the same sums in the same order; rel "
+                  f"{max(g_rel, r_rel):.3e}, tol {TOL[dn]:.0e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the windowed kernels disagree with K2 at N={n}")
     print("[kernel] held against plain PyTorch in float64 and float32: "
           + ", ".join(checked) + f"; at B={B_RAGGED}: "
-          + ", ".join(K1_FORMS) + f"; at N={N_ODD}: "
+          + ", ".join(K1_FORMS + WIN_KERNELS) + "; at B=1: "
+          + ", ".join(WIN_KERNELS) + f"; at N={N_ODD}: "
           + ", ".join(UNCONDENSED_KERNELS)
           + f"; at N={N_LONG} in float64: " + ", ".join(LONG_CHECKED))
     return errs
@@ -2889,6 +2923,8 @@ def phase_timing(device):
         if n == N:
             for name in GROUP_KERNELS:
                 time_group_batches(device, name, inputs)
+        else:
+            time_long_batches(device, inputs)
     return rows
 
 
@@ -2899,7 +2935,8 @@ GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2")
 
 def group_kernel(label):
     """(launch geometry (B, dtype) -> dict, blocks per SM (dtype) -> int,
-    threads a lane) of a GROUP_KERNELS kernel or one of its FORMS."""
+    threads a lane) of a GROUP_KERNELS or LONG_GROUP_KERNELS kernel or one
+    of its FORMS."""
     from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
     from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
 
@@ -2908,10 +2945,58 @@ def group_kernel(label):
         return ck.kkt_launch_geometry, ck.kkt_blocks_per_sm, ck.KKT_GROUP
     if name == "corrector_sweep_c2":
         return ck.corr_launch_geometry, ck.corr_blocks_per_sm, ck.CORR_GROUP
+    if name == "bwd_c2":
+        return ck.bwd_launch_geometry, ck.bwd_blocks_per_sm, ck.KKT_GROUP
+    if name == "fwd_c2":
+        return ck.fwd_launch_geometry, ck.fwd_blocks_per_sm, ck.FWD_GROUP
     order = 2 if label.endswith("vde_order=2") else 4
     return (functools.partial(pk.prep_launch_geometry, vde_order=order),
             functools.partial(pk.prep_blocks_per_sm, vde_order=order),
             pk.PREP_THREADS // pk.PREP_LANES)
+
+
+def at_lanes(args, B):
+    """The tensor arguments cut or tiled along the lane (last) axis to B
+    lanes, contiguous; other arguments as they are."""
+    import torch
+
+    reps = -(-B // args[0].shape[-1])
+    return tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
+                 if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def time_long_batches(device, inputs):
+    """K5a, K5b, K2 and K3 (LONG_GROUP_KERNELS) at N=400 in float32 at each
+    B of B_MAIN (their B_TIME inputs cut or tiled along the lane axis: no
+    loop of the kernels depends on the data): device time of a launch (the
+    mean of 20 traced) beside the bound, with the blocks an SM holds (the
+    occupancy API) and the waves each B needs.  Prints the seconds it
+    took."""
+    import math
+
+    import torch
+
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for name in LONG_GROUP_KERNELS:
+        geometry, blocks_per_sm, _ = group_kernel(name)
+        bps = blocks_per_sm(torch.float32)
+        kern, _, args = inputs[name]
+        for B in B_MAIN:
+            cut = at_lanes(args, B)
+            geo = geometry(B, torch.float32)
+            waves = math.ceil(geo["grid"] / (bps * sms))
+            ms, _ = device_ms(lambda: kern(*cut), 20,
+                              kernel=kernel_pattern(name))
+            ms = f"{ms:.4f}" if ms is not None else "not measured"
+            bound_ms = max(bytes_of(name, cut, kern(*cut)) / HBM_BYTES_PER_S,
+                           flops_of(name, B, N_LONG) / PEAK_FP32_FLOPS) * 1e3
+            print(f"[timing] {name} N={N_LONG} B={B} float32: {ms} "
+                  f"ms/launch on the device, bound {bound_ms:.4f} ms, "
+                  f"{geo['grid']} blocks of {geo['lanes']} lanes, {bps} "
+                  f"an SM ({geo['smem']} B each), {waves} wave(s)")
+    print(f"[timing] N={N_LONG} group sweeps at B="
+          f"{'/'.join(map(str, B_MAIN))}: {time.perf_counter() - t0:.1f} s")
 
 
 def time_group_batches(device, name, inputs):
@@ -2944,15 +3029,13 @@ def time_group_batches(device, name, inputs):
                   f"{blocks * geo['lanes']} lanes per SM, "
                   f"{blocks * geo['lanes'] * sms} on {sms} SMs")
     for B in B_MAIN:
-        reps = -(-B // B_TIME)
         for label in forms:
             geometry = shapes[label][0]
             geo = geometry(B, torch.float32)
             blocks = geo["grid"] * (N // 2 if name == "prep_condense2" else 1)
             waves = math.ceil(blocks / (bps[label][torch.float32] * sms))
             kern, _, args = inputs[label]
-            cut = tuple(torch.cat([a] * reps, dim=-1)[..., :B].contiguous()
-                        if isinstance(a, torch.Tensor) else a for a in args)
+            cut = at_lanes(args, B)
             window = time_events(lambda: kern(*cut), 20, rounds=3)
             ms, _ = device_ms(lambda: kern(*cut), 20,
                               kernel=kernel_pattern(label))

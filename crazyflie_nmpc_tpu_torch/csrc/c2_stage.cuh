@@ -1,11 +1,12 @@
-// Stage bodies of the block-2 condensed sweeps, shared by the split
-// long-horizon forms (condensed_c2.cu: bwd_c2, fwd_c2, bwd_vec_c2) and the
-// one-launch Mehrotra iteration (iter_c2.cu: iter_sweep_c2);
-// kkt_sweep_c2.cu and corrector_sweep_c2.cu take chol / cho_solve from here
-// and split the rest of their stages over a thread group, keeping these
-// bodies' order of operations.  The vector pass and the rollout take the
-// input width nu as a template argument (NUC by default), so that the
-// uncondensed sweeps (riccati.cu, nu = NU) run them too.
+// Stage bodies of the block-2 condensed sweeps, shared by the windowed
+// corrector's vector pass (condensed_c2.cu: bwd_vec_c2) and the one-launch
+// Mehrotra iteration (iter_c2.cu: iter_sweep_c2); kkt_sweep_c2.cu (K2 and
+// K5a bwd_c2) and corrector_sweep_c2.cu (K3 and K5b fwd_c2) take chol /
+// cho_solve from here and split the rest of their stages over a thread
+// group, keeping these bodies' order of operations.  The
+// vector pass and the rollout take the input width nu as a template
+// argument (NUC by default), so that the uncondensed sweeps (riccati.cu,
+// nu = NU) run them too.
 //
 // Counterparts of the per-stage math of
 // crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_kkt_c2_kernel,
@@ -273,40 +274,6 @@ __device__ __forceinline__ void rollout_stage(
 #pragma unroll
     for (int a = 1; a < nu; ++a) t = t + Bm[i * nu + a] * u[a];
     xn[i] = s + t + c[i];
-  }
-}
-
-// The whole backward factorization from the terminal cost-to-go
-// P = diag(pT), p = pterm: K, kff, L, Pc of every stage.
-template <typename T>
-__device__ __forceinline__ void factor_sweep(
-    const T* __restrict__ Abar, const T* __restrict__ Bbar,
-    const T* __restrict__ cbar, const T* __restrict__ Qbar,
-    const T* __restrict__ S1T, const T* __restrict__ R00,
-    const T* __restrict__ qx, const T* __restrict__ ruu,
-    const T* __restrict__ ru, const T* __restrict__ pT,
-    const T* __restrict__ pterm, T* __restrict__ K, T* __restrict__ kff,
-    T* __restrict__ L, T* __restrict__ Pc, int M, int B, int b) {
-  T P[NX][NX], p[NX];
-  {
-    auto d = lane(pT, NX, 0, B, b);
-    auto pt = lane(pterm, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) P[i][j] = (i == j) ? d[i] : T(0);
-      p[i] = pt[i];
-    }
-  }
-#pragma unroll 1
-  for (int k = M - 1; k >= 0; --k) {
-    factor_stage<T>(lane(Abar, NX * NX, k, B, b),
-                    lane(Bbar, NX * NUC, k, B, b), lane(cbar, NX, k, B, b),
-                    lane(Qbar, NX * NX, k, B, b), lane(S1T, NU * NX, k, B, b),
-                    lane(R00, NU * NU, k, B, b), lane(qx, NX, k, B, b),
-                    lane(ruu, NUC, k, B, b), lane(ru, NUC, k, B, b), P, p,
-                    lane(K, NUC * NX, k, B, b), lane(kff, NUC, k, B, b),
-                    lane(L, NLC, k, B, b), lane(Pc, NX, k, B, b));
   }
 }
 

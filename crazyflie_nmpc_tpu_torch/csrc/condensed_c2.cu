@@ -5,64 +5,41 @@
 //   condense2          (_condense2_kernel)      -> condense2_kernel
 //   expand2            (_expand2_kernel, both forms: even_only=True is
 //                       stride 1, even_only=False stride 2) -> expand2_kernel
-//   kkt_sweep_c2_win / corrector_sweep_c2_win, the split long-horizon
-//   launches: _bwd_c2_kernel -> bwd_c2_kernel, _fwd_c2_kernel ->
-//   fwd_c2_kernel, _bwd_vec_c2_kernel -> bwd_vec_c2_kernel
+//   corrector_sweep_c2_win's first launch: _bwd_vec_c2_kernel ->
+//   bwd_vec_c2_kernel (K5c)
 //
 // kkt_sweep_c2 (K2) and corrector_sweep_c2 (K3) have their own sources,
 // kkt_sweep_c2.cu and corrector_sweep_c2.cu: a group of threads per lane
-// with the stage inputs in shared memory.
+// with the stage inputs in shared memory.  So have the windowed sweeps'
+// other two launches: K5a bwd_c2 (_bwd_c2_kernel) is K2's factorization
+// alone, in kkt_sweep_c2.cu, and K5b fwd_c2 (_fwd_c2_kernel) K3's rollout
+// alone, in corrector_sweep_c2.cu.
 //
 // Design: one thread per batch lane, as the Pallas kernels make every
-// matrix entry a (B,)-lane vector.  The sweeps are sequential over the M
+// matrix entry a (B,)-lane vector.  bwd_vec_c2 is sequential over the M
 // condensed stages, so the stage loop runs inside the thread in place of
 // the sequential Pallas grid, and the grid spans lanes only (64 threads a
-// block).  The stage bodies are c2_stage.cuh's, shared by the sweep
-// kernels.  The whole-horizon K_all/kff_all VMEM scratch of the fused TPU
-// kernels becomes device memory: the factorization writes K and kff there
-// and the rollout reads them back (the same thread, mostly from L2).  So
-// the split forms need no VMEM-sized envelope here: the split forward
-// launch re-reads the gains its backward launch wrote.  The expansion is
-// parallel over (lane, pair).
+// block); its stage body is c2_stage.cuh's vec_stage.  It reads the gains
+// bwd_c2 wrote to device memory (the whole-horizon K_all VMEM scratch of
+// the fused TPU kernels).  The expansion is parallel over (lane, pair).
 //
-// Bounds on the H100: per stage and lane bwd_vec_c2 + fwd_c2 read ~850
-// values and write ~30 for ~800 FMAs, bwd_c2 (K2's factorization) reads
-// ~550 and writes ~160 for ~11k FMAs: both are bytes-bound in principle.
-// But at the main path's B (1024..8192 lanes) only B threads run, a few
-// percent of the card's resident-thread capacity, so they are bound by the
-// latency of one thread's dependent chain, not by bytes or flops.
-// bwd_c2's P, PA, Qux and K (~550 values per thread) exceed the register
-// file and live in local memory (L1); `ptxas -v` in the build log gives the
-// spill counts.  kkt_sweep_c2.cu and corrector_sweep_c2.cu split a lane's
-// stage over a group of threads; K5 and K10 keep one thread per lane until
-// they get the same design (ROADMAP).  K4 is bound by bytes (it reads Ae/Be
-// once).  K6, like the expansion parallel over (lane, pair), is bound by
-// bytes too: per pair and lane it reads ~500 values and writes ~660 for
-// ~6k FMAs; it holds A0/B0 (221 values) for the cost products as K1 does.
+// Bounds on the H100: per stage and lane bwd_vec_c2 reads ~450 values and
+// writes 8 for ~300 FMAs: bytes-bound in principle.  But at the main
+// path's B (1024..8192 lanes) only B threads run, a few percent of the
+// card's resident-thread capacity, so it is bound by the latency of one
+// thread's dependent chain, not by bytes or flops; it and K10 keep one
+// thread per lane until they get the group design (ROADMAP).  K4 is bound
+// by bytes (it reads Ae/Be once).  K6, like the expansion parallel over
+// (lane, pair), is bound by bytes too: per pair and lane it reads ~500
+// values and writes ~660 for ~6k FMAs; it holds A0/B0 (221 values) for the
+// cost products as K1 does.
 #include "c2_stage.cuh"
 
 using namespace cfl;
 
 namespace {
 
-// The split forms: the backward factorization, the vector pass and the
-// rollout, each its own launch; gains travel through device memory.
-template <typename T>
-__global__ void __launch_bounds__(64)
-bwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
-              const T* __restrict__ cbar, const T* __restrict__ Qbar,
-              const T* __restrict__ S1T, const T* __restrict__ R00,
-              const T* __restrict__ qx, const T* __restrict__ ruu,
-              const T* __restrict__ ru, const T* __restrict__ pT,
-              const T* __restrict__ pterm, T* __restrict__ K,
-              T* __restrict__ kff, T* __restrict__ L, T* __restrict__ Pc,
-              int M, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  factor_sweep<T>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm,
-                  K, kff, L, Pc, M, B, b);
-}
-
+// The windowed corrector's vector pass on the stored factorization.
 template <typename T>
 __global__ void __launch_bounds__(64)
 bwd_vec_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
@@ -73,17 +50,6 @@ bwd_vec_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   vec_sweep<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B, b);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(64)
-fwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
-              const T* __restrict__ cbar, const T* __restrict__ K,
-              const T* __restrict__ kff, const T* __restrict__ dx0,
-              T* __restrict__ dx, T* __restrict__ du, int M, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  rollout<T>(Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B, b);
 }
 
 // Block-2 condensing of stage pair j (stages 2j, 2j+1) of diagonal-cost
@@ -258,30 +224,12 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 }  // namespace
 
 #define C2_ENTRIES(SUFFIX, T)                                                 \
-  extern "C" int bwd_c2_##SUFFIX(                                             \
-      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
-      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
-      const T* pT, const T* pterm, T* K, T* kff, T* L, T* Pc, int M, int B,   \
-      void* stream) {                                                         \
-    bwd_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(            \
-        Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, K, kff, L,  \
-        Pc, M, B);                                                            \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
   extern "C" int bwd_vec_c2_##SUFFIX(                                         \
       const T* Abar, const T* Bbar, const T* qx, const T* ru, const T* K,     \
       const T* L, const T* Pc, const T* pterm, T* kff, int M, int B,          \
       void* stream) {                                                         \
     bwd_vec_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(        \
         Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B);                      \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
-  extern "C" int fwd_c2_##SUFFIX(const T* Abar, const T* Bbar,                \
-                                 const T* cbar, const T* K, const T* kff,     \
-                                 const T* dx0, T* dx, T* du, int M, int B,    \
-                                 void* stream) {                              \
-    fwd_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(            \
-        Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B);                         \
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int condense2_##SUFFIX(                                          \

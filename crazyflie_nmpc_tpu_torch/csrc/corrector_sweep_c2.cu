@@ -1,6 +1,6 @@
 // K3: the Mehrotra corrector's sweep of the block-2 condensed QP (the
 // backward vector pass on a stored factorization, then the forward
-// rollout), a group of threads per lane.
+// rollout), a group of threads per lane; and K5b, the rollout alone.
 //
 // Replaces corrector_sweep_c2 of crazyflie_nmpc_tpu/ops/pallas/
 // condensed_kernels.py (_corr_c2_kernel, _cho_solve_n_vec), with its
@@ -75,6 +75,26 @@
 // keeps its own copy helpers rather than share K2's through a header:
 // moving K2's stage loop into shared inlined code once cost it 6%, and the
 // two copies differ in layout anyway.
+//
+// K5b (fwd_c2_kernel) replaces _fwd_c2_kernel of the same Pallas module,
+// the second launch of both windowed long-horizon sweeps (kkt_sweep_c2_win
+// after bwd_c2, corrector_sweep_c2_win after bwd_vec_c2): K3's rollout in
+// a kernel of its own, K3's group, block, copies and sums (on the same
+// gains K5b's dx and du equal K2's rollout's bit for bit).  It loads its
+// stage 0 itself and reads kff from its own array.  What bounds it: bytes,
+// 398 values read and 21 written a stage and lane for 377 multiply-adds:
+// 1.37 GB at N=400, B=4096 in float32, 0.41 ms at 3.35 TB/s, a stream that
+// never fits the 50 MB L2.  The one-thread kernel this replaces ran 64 of
+// the 132 SMs there, each thread's ~400 loads of a stage one dependent
+// chain: 4.9 ms.  A set of K5b's ring holds only the rollout's fields (411
+// values a lane, K3's 481), so two sets and the state take 856 values a
+// lane (kFwdLaneValues), and 4 blocks fit an SM in float32 (2 in float64):
+// B=8192 in one wave; one commit group a stage, kSets-1 stages in flight.
+// `ptxas -v`: 64 registers in float32, 97 in float64, no spills.  At N=400,
+// B=4096 it takes 0.51 ms, 0.80 of its bound (roofline/kkt_variants.py
+// --kernel fwd_c2, PERF.md); 3 sets, G=8 or 32 lanes a block tie there
+// (within 4%), 32 lanes is 27% faster at B=8192 and 20% slower at
+// B=1024, 3 sets the reverse.
 #include <algorithm>
 #include <cstdint>
 
@@ -391,6 +411,155 @@ int launch(const TA* Abar, const TA* Bbar, const TA* cbar, const T* qx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5b: the rollout alone (fwd_c2), K3's in a kernel of its own; one set
+// holds only the rollout's fields (K3's holds the vector pass's too).
+constexpr int kSets = 2;                  // depth of K5b's input ring
+namespace fwd_slot {
+constexpr int BP = slot::BP;            // Bbar's row pitch
+constexpr int A = 0;                    // Abar (13x13)
+constexpr int B = A + NX * NX;          // Bbar (13 rows of 8, pitch BP)
+constexpr int K = B + NX * BP;          // K (8x13)
+constexpr int C = K + NUC * NX;         // cbar
+constexpr int KFF = C + NX;             // kff
+constexpr int SET = KFF + NUC;          // one set of stage inputs (411)
+constexpr int X0 = kSets * SET;         // the even stages' x
+constexpr int X1 = X0 + NX;             // the odd stages' x
+constexpr int U = X1 + NX;              // u
+constexpr int END = U + NUC;
+}  // namespace fwd_slot
+
+constexpr int kFwdLaneValues = fwd_slot::END;
+static_assert(kFwdLaneValues == 856, "fwd_launch_geometry's FWD_LANE_VALUES");
+
+template <typename T>
+constexpr int fwd_smem_bytes() {
+  return kLanes * kFwdLaneValues * static_cast<int>(sizeof(T));
+}
+
+// What K5b's __launch_bounds__ asks for: the blocks an SM holds by shared
+// memory (64 registers a thread in float32).
+template <typename T>
+constexpr int fwd_min_blocks() {
+  return std::min(2048 / kThreads, (227 * 1024) / fwd_smem_bytes<T>());
+}
+
+// The copies issued since the last commit form one group ...
+__device__ __forceinline__ void cp_commit() {
+  CFL_ASM(asm volatile("cp.async.commit_group;\n" ::: "memory"), (void)0);
+}
+// ... and this thread's groups but the newest `pending` have landed
+// (__syncthreads() after it: everyone's).
+template <int pending>
+__device__ __forceinline__ void cp_wait_group() {
+  CFL_ASM(asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory"),
+          (void)0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<T>())
+fwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+              const T* __restrict__ cbar, const T* __restrict__ K,
+              const T* __restrict__ kff, const T* __restrict__ dx0, T* dx,
+              T* du, int M, int B) {
+  using namespace fwd_slot;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x % kLanes, t = threadIdx.x / kLanes;
+  const int b0 = blockIdx.x * kLanes;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  const bool valid = b0 + l < B;       // ... and whether it stores
+  T* const w = sh + l;                 // the lane's column: entry r at r kLanes
+  const auto set = [&](int k) { return sh + (k % kSets) * SET * kLanes; };
+  const auto roll_in = [&](int k) {
+    T* const s = set(k);
+    stage_in(s + A * kLanes, Abar, NX * NX, k, B, b0);
+    stage_in<NUC, BP>(s + fwd_slot::B * kLanes, Bbar, NX * NUC, k, B, b0);
+    stage_in(s + C * kLanes, cbar, NX, k, B, b0);
+    stage_in(s + fwd_slot::K * kLanes, K, NUC * NX, k, B, b0);
+    stage_in(s + KFF * kLanes, kff, NUC, k, B, b0);
+  };
+
+  for (int i = t; i < NX; i += kGroup) w[(X0 + i) * kLanes] = dx0[i * B + bl];
+  // stages 0 .. kSets-2 in flight, one group each
+#pragma unroll
+  for (int k = 0; k < kSets - 1; ++k) {
+    if (k < M) roll_in(k);
+    cp_commit();
+  }
+  cp_wait_group<kSets - 2>();
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = 0; k < M; ++k) {
+    // stage k+kSets-1 into the set stage k-1 freed (a group, maybe empty)
+    if (k + kSets - 1 < M) roll_in(k + kSets - 1);
+    cp_commit();
+    const T* const s = set(k);
+    const T* const As = s + A * kLanes + l;
+    const T* const Bs = s + fwd_slot::B * kLanes + l;
+    const T* const Ks = s + fwd_slot::K * kLanes + l;
+    const int xo = (k & 1) ? X1 : X0, xn = (k & 1) ? X0 : X1;
+    const T* const x = w + xo * kLanes;   // x_k: entry j at x[j kLanes]
+    // K5b's u = K x + kff (threads 0-7)
+    for (int a = t; a < NUC; a += kGroup) {
+      T acc = Ks[a * NX * kLanes] * x[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + Ks[(a * NX + j) * kLanes] * x[j * kLanes];
+      const T u = acc + s[(KFF + a) * kLanes + l];
+      w[(U + a) * kLanes] = u;
+      if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = u;
+    }
+    // K5b's x_k out
+    if (valid) {
+      for (int i = t; i < NX; i += kGroup)
+        dx[((size_t)k * NX + i) * B + b0 + l] = x[i * kLanes];
+    }
+    __syncthreads();
+    // K5b's dx_{k+1} = A x + B u + c (threads 0-12)
+    for (int i = t; i < NX; i += kGroup) {
+      T acc = As[i * NX * kLanes] * x[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + As[(i * NX + j) * kLanes] * x[j * kLanes];
+      T v = Bs[i * BP * kLanes] * w[U * kLanes];
+#pragma unroll
+      for (int a = 1; a < NUC; ++a)
+        v = v + Bs[(i * BP + a) * kLanes] * w[(U + a) * kLanes];
+      w[(xn + i) * kLanes] = acc + v + s[(C + i) * kLanes + l];
+    }
+    cp_wait_group<kSets - 2>();   // stage k+1's inputs have landed (this
+    __syncthreads();        // thread's, then everyone's); set k is free
+  }
+  if (valid) {
+    const int xo = (M & 1) ? X1 : X0;
+    for (int i = t; i < NX; i += kGroup)
+      dx[((size_t)M * NX + i) * B + b0 + l] = w[(xo + i) * kLanes];
+  }
+}
+
+template <typename T>
+int set_fwd_smem() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      fwd_c2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_smem_bytes<T>()));
+}
+
+template <typename T>
+int launch_fwd(const T* Abar, const T* Bbar, const T* cbar, const T* K,
+           const T* kff, const T* dx0, T* dx, T* du, int M, int B, int grid,
+           int threads, int smem, void* stream) {
+  if (B < 1 || M < 1 || threads != kThreads ||
+      smem != fwd_smem_bytes<T>() || grid != (B + kLanes - 1) / kLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_fwd_smem<T>();
+  if (err != 0) return err;
+  fwd_c2_kernel<T>
+      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // FORM in the symbol: "" the exact form, _g bf16 gains (K, L, Pc), _a the
@@ -427,3 +596,23 @@ CORR_ENTRY(_ga, f32, float, bf16, bf16, true)
 CORR_ENTRY(_ga, f64, double, bf16, bf16, true)
 CORR_OCCUPANCY(f32, float)
 CORR_OCCUPANCY(f64, double)
+
+// K5b; grid, threads and smem are the wrapper's fwd_launch_geometry.
+#define FWD_ENTRY(SUFFIX, T)                                                  \
+  extern "C" int fwd_c2_##SUFFIX(const T* Abar, const T* Bbar,                \
+                                 const T* cbar, const T* K, const T* kff,     \
+                                 const T* dx0, T* dx, T* du, int M, int B,    \
+                                 int grid, int threads, int smem,             \
+                                 void* stream) {                              \
+    return launch_fwd<T>(Abar, Bbar, cbar, K, kff, dx0, dx, du, M, B, grid,   \
+                         threads, smem, stream);                              \
+  }                                                                           \
+  extern "C" int fwd_c2_occupancy_##SUFFIX(int* blocks_per_sm) {              \
+    const int err = set_fwd_smem<T>();                                        \
+    if (err != 0) return err;                                                 \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
+        blocks_per_sm, fwd_c2_kernel<T>, kThreads, fwd_smem_bytes<T>()));     \
+  }
+
+FWD_ENTRY(f32, float)
+FWD_ENTRY(f64, double)

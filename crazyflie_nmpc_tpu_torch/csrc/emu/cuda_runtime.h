@@ -31,6 +31,13 @@
 struct uint3 {
   unsigned x, y, z;
 };
+// the 16-byte vector types (a shared-memory row read in one load)
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) double2 {
+  double x, y;
+};
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)

@@ -1,5 +1,6 @@
 // K2: the dense-cost Riccati factorization of the block-2 condensed QP and
-// its forward rollout, a group of threads per lane.
+// its forward rollout, a group of threads per lane; and K5a, the
+// factorization alone.
 //
 // Replaces kkt_sweep_c2 of crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py
 // (_kkt_c2_kernel, _chol_n, _cho_solve_n, _cho_solve_n_vec, _pk), with its
@@ -50,6 +51,26 @@
 // wrote (the K output, or Kf, the full-precision scratch of the bf16-gain
 // forms, as condensed_c2.cu did) after __syncthreads, through L1 (the
 // lines were not cached before the writes).
+//
+// K5a (bwd_c2_kernel) replaces _bwd_c2_kernel of the same Pallas module,
+// the first launch of kkt_sweep_c2_win (windowed=True, the long-horizon
+// form): K2's factorization without its rollout, the same body with a
+// compile-time switch (ROLL), K2's group and block, every sum in K2's
+// order (so its K, kff, L and Pc equal K2's bit for bit).  What bounds it:
+// bytes, 552 values read and ~160 written a stage and lane, 0.70 ms at
+// N=400, B=4096 in float32, where no stage's inputs are in L2; but the
+// group's chain of shared-memory products sets its time, as K2's backward
+// pass.  The one-thread kernel this replaces ran 15.0 ms there (P, PA, Qux
+// and K spilled to local memory).  At N=400 every stage's inputs come from
+// HBM, so K5a issues stage k-1's cost inputs while stage k computes: Qbar
+// and qbar (read by phase D) into a second set, S1T, R00 and the R̄ terms
+// (read by phase B alone) in place after phase B (kPrefetch): 1740 values
+// a lane, still 4 blocks an SM in float32 and 2 in float64.  `ptxas -v`:
+// 128 registers in float32, 192 in float64, no spills.  At N=400, B=4096
+// it takes 2.96 ms, 4.2x its bound; the prefetch saves ~1%.  Landing all
+// of a stage's inputs ahead (A'PA and A'm moved into phase B, which then
+// reads every input last) took 3.13 ms: the copies cost their issue, not
+// their latency (roofline/kkt_variants.py --kernel bwd_c2, PERF.md).
 #include <type_traits>
 
 #include "c2_stage.cuh"
@@ -107,15 +128,33 @@ static_assert(PAT % 8 == 0 && PBT % 8 == 0 && AT % 8 == 0 && BT % 8 == 0 &&
 constexpr int kStride = slot::END + 4;
 static_assert(kStride == 1548, "kkt_launch_geometry's KKT_LANE_VALUES");
 
-template <typename T>
+// K5a's lane (bwd_c2_kernel): K2's slots, then a second set of the two
+// cost inputs that phase D reads (Qbar and qbar of the odd stages), so
+// that stage k-1's cost inputs land while stage k computes; the others
+// (S1T, R00, the shifted R̄ diagonal, rbar), read by phase B alone, land
+// in place after it.
+constexpr bool kPrefetch = true;
+namespace slot {
+constexpr int Q2 = END;                 // Qbar, odd stages
+constexpr int QX2 = Q2 + 172;           // qbar, odd stages
+constexpr int END2 = QX2 + RW;
+}  // namespace slot
+// 1740 a lane: 16-byte aligned, two lanes' same entry 12 banks apart, and
+// 4 blocks an SM in float32 and 2 in float64, as K2 (with the 1 KB each
+// block reserves of the SM's 228 KB)
+constexpr int kBwdStride = slot::END2 + 8;
+static_assert(kBwdStride == 1740, "bwd_launch_geometry's BWD_LANE_VALUES");
+
+// ROLL: K2's lane (the rollout's too), else K5a's
+template <typename T, bool ROLL = true>
 constexpr int smem_bytes() {
-  return kLanes * kStride * static_cast<int>(sizeof(T));
+  return kLanes * (ROLL ? kStride : kBwdStride) * static_cast<int>(sizeof(T));
 }
 
 // Blocks an SM holds by shared memory: what __launch_bounds__ asks for.
-template <typename T>
+template <typename T, bool ROLL = true>
 constexpr int min_blocks() {
-  return (227 * 1024) / smem_bytes<T>();
+  return (227 * 1024) / smem_bytes<T, ROLL>();
 }
 
 // Global -> shared copies that hold no registers: each thread keeps all
@@ -123,25 +162,28 @@ constexpr int min_blocks() {
 // them; __syncthreads() after it makes every thread's copies visible.
 template <typename T>
 __device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
+  CFL_ASM(asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                           static_cast<unsigned>(
+                               __cvta_generic_to_shared(dst))),
+                       "l"(src), "n"(sizeof(T))
+                       : "memory"),
+          *dst = *src);
 }
 __device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  CFL_ASM(asm volatile("cp.async.wait_all;\n" ::: "memory"), (void)0);
 }
 
 // Entries [0, n) of stage k of a batch-last input into every lane's slot
-// `dst`, in the compute type: entry r at dst + r, or with NCOL > 0 (an
-// input of rows of NCOL) transposed, entry (i, j) at dst + j PITCH + i.
+// `dst` (lanes STRIDE values apart), in the compute type: entry r at dst +
+// r, or with NCOL > 0 (an input of rows of NCOL) transposed, entry (i, j)
+// at dst + j PITCH + i.
 // Thread f of the flat (entry, lane) order takes entry f / kLanes of lane
 // f % kLanes, so 8 neighbouring threads read one 32-byte sector.  An input
 // stored in the compute type is copied asynchronously (copy_wait() before
 // use); a bf16 one is converted on the way through registers (DEV: a
 // deviation-coded 13x13 block, the identity added back).
 template <typename T, bool DEV = false, int NCOL = 0, int PITCH = 0,
-          typename S>
+          int STRIDE = kStride, typename S>
 __device__ __forceinline__ void stage_in(T* sh, int dst, const S* src,
                                          int n, int k, int B, int b0) {
 #pragma unroll 4
@@ -149,7 +191,7 @@ __device__ __forceinline__ void stage_in(T* sh, int dst, const S* src,
     const int r = f / kLanes, l = f % kLanes;
     const S* from = src + ((size_t)k * n + r) * B + min(b0 + l, B - 1);
     const int at = NCOL ? (r % NCOL) * PITCH + r / NCOL : r;
-    T* to = sh + l * kStride + dst + at;
+    T* to = sh + l * STRIDE + dst + at;
     if constexpr (std::is_same<S, T>::value && !DEV) {
       copy_async(to, from);
     } else {
@@ -162,7 +204,8 @@ __device__ __forceinline__ void stage_in(T* sh, int dst, const S* src,
 // Slot `src` of every lane into entries [0, n) of stage k of a batch-last
 // output of type D, in the same order (NCOL, PITCH: the slot holds the
 // transpose, as in stage_in); a ragged tile's spare lanes store nothing.
-template <int NCOL = 0, int PITCH = 0, typename T, typename D>
+template <int NCOL = 0, int PITCH = 0, int STRIDE = kStride, typename T,
+          typename D>
 __device__ __forceinline__ void stage_out(D* dst, const T* sh, int src,
                                           int n, int k, int B, int b0) {
   for (int f = threadIdx.x; f < n * kLanes; f += kThreads) {
@@ -170,7 +213,7 @@ __device__ __forceinline__ void stage_out(D* dst, const T* sh, int src,
     const int at = NCOL ? (r % NCOL) * PITCH + r / NCOL : r;
     if (b0 + l < B)
       dst[((size_t)k * n + r) * B + b0 + l] =
-          cvt<D>(sh[l * kStride + src + at]);
+          cvt<D>(sh[l * STRIDE + src + at]);
   }
 }
 
@@ -212,25 +255,30 @@ __device__ __forceinline__ T dot(const T (&x)[n], const T (&y)[n]) {
   return s;
 }
 
-template <typename T, typename TA = T, typename TG = T, bool DEV = false>
-__global__ void __launch_bounds__(kThreads, min_blocks<T>())
-kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
-                    const TA* __restrict__ cbar, const T* __restrict__ Qbar,
-                    const T* __restrict__ S1T, const T* __restrict__ R00,
-                    const T* __restrict__ qx, const T* __restrict__ ruu,
-                    const T* __restrict__ ru, const T* __restrict__ pT,
-                    const T* __restrict__ pterm, const T* __restrict__ dx0,
-                    TG* K, T* kff, TG* Lout, TG* Pcout, T* dx, T* du, T* Kf,
-                    int M, int B) {
+// The backward factorization, then with ROLL the forward rollout: K2's
+// sweep, and K5a's (ROLL false: no rollout, dx0, dx, du and Kf unused, the
+// cost inputs a stage ahead with kPrefetch).  Each kernel below is this
+// body with its switch.
+template <typename T, typename TA, typename TG, bool DEV, bool ROLL>
+__device__ __forceinline__ void sweep(
+    const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
+    const TA* __restrict__ cbar, const T* __restrict__ Qbar,
+    const T* __restrict__ S1T, const T* __restrict__ R00,
+    const T* __restrict__ qx, const T* __restrict__ ruu,
+    const T* __restrict__ ru, const T* __restrict__ pT,
+    const T* __restrict__ pterm, const T* __restrict__ dx0, TG* K, T* kff,
+    TG* Lout, TG* Pcout, T* dx, T* du, T* Kf, int M, int B) {
   using namespace slot;
   constexpr bool kGainsT = std::is_same<TG, T>::value;
+  constexpr int LS = ROLL ? kStride : kBwdStride;   // values a lane
+  constexpr bool kAhead = !ROLL && kPrefetch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sh = reinterpret_cast<T*>(smem_raw);
   const int l = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
   const int b0 = blockIdx.x * kLanes;
   const int bl = min(b0 + l, B - 1);   // the lane this group reads
   const bool valid = b0 + l < B;       // ... and whether it stores
-  T* const w = sh + l * kStride;
+  T* const w = sh + l * LS;
 
   // terminal cost-to-go: P = diag(pT), p = p_term
   for (int e = t; e < NX * NX; e += kGroup) {
@@ -239,20 +287,30 @@ kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
   }
   for (int i = t; i < NX; i += kGroup) w[PV + i] = pterm[i * B + bl];
 
+  // the cost inputs of stage k; ahead (K5a), Qbar and qbar of an odd
+  // stage into the second set
+  const auto cost_in = [&](int k) {
+    const bool odd = kAhead && (k & 1);
+    stage_in<T, false, 0, 0, LS>(sh, odd ? Q2 : Q, Qbar, NX * NX, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, S, S1T, NU * NX, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, R, R00, NU * NU, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, odd ? QX2 : QX, qx, NX, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, RS, ruu, NUC, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, RU, ru, NUC, k, B, b0);
+  };
+  if constexpr (kAhead) cost_in(M - 1);
+
 #pragma unroll 1
   for (int k = M - 1; k >= 0; --k) {
     __syncthreads();   // the last stage's readers of the input slots are done
-    stage_in<T, DEV, NX, RW>(sh, AT, Abar, NX * NX, k, B, b0);
-    stage_in<T, false, NUC, RW>(sh, BT, Bbar, NX * NUC, k, B, b0);
-    stage_in<T>(sh, C, cbar, NX, k, B, b0);
-    stage_in<T>(sh, Q, Qbar, NX * NX, k, B, b0);
-    stage_in<T>(sh, S, S1T, NU * NX, k, B, b0);
-    stage_in<T>(sh, R, R00, NU * NU, k, B, b0);
-    stage_in<T>(sh, QX, qx, NX, k, B, b0);
-    stage_in<T>(sh, RS, ruu, NUC, k, B, b0);
-    stage_in<T>(sh, RU, ru, NUC, k, B, b0);
+    stage_in<T, DEV, NX, RW, LS>(sh, AT, Abar, NX * NX, k, B, b0);
+    stage_in<T, false, NUC, RW, LS>(sh, BT, Bbar, NX * NUC, k, B, b0);
+    stage_in<T, false, 0, 0, LS>(sh, C, cbar, NX, k, B, b0);
+    if constexpr (!kAhead) cost_in(k);
     copy_wait();
     __syncthreads();
+    const int q = (kAhead && (k & 1)) ? Q2 : Q;     // this stage's Qbar
+    const int qv = (kAhead && (k & 1)) ? QX2 : QX;  // ... and qbar
 
     // P [A | B | c], one column a thread (22 columns): column j of P A
     // into PAT row j, of P B into PBT, P c into Pc and m = p + Pc
@@ -305,6 +363,12 @@ kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
     }
     __syncthreads();
 
+    // K5a: stage k-1's cost inputs, landing while this stage computes (S,
+    // R, RS and RU in place: phase B was their last reader)
+    if constexpr (kAhead) {
+      if (k > 0) cost_in(k - 1);
+    }
+
     // L = chol(Quu) in every thread; K = -Quu^{-1} Qux one column a
     // thread (into KT row j), kff = -Quu^{-1} Qu
     {
@@ -333,12 +397,12 @@ kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
     __syncthreads();
 
     // the stage's gains out
-    stage_out<NX, NUC>(K, sh, KT, NUC * NX, k, B, b0);
+    stage_out<NX, NUC, LS>(K, sh, KT, NUC * NX, k, B, b0);
     if constexpr (!kGainsT)
-      stage_out<NX, NUC>(Kf, sh, KT, NUC * NX, k, B, b0);
-    stage_out(kff, sh, KFF, NUC, k, B, b0);
-    stage_out(Lout, sh, L, NLC, k, B, b0);
-    stage_out(Pcout, sh, PC, NX, k, B, b0);
+      stage_out<NX, NUC, LS>(Kf, sh, KT, NUC * NX, k, B, b0);
+    stage_out<0, 0, LS>(kff, sh, KFF, NUC, k, B, b0);
+    stage_out<0, 0, LS>(Lout, sh, L, NLC, k, B, b0);
+    stage_out<0, 0, LS>(Pcout, sh, PC, NX, k, B, b0);
 
     // X = Qbar + A'PA + Qux'K one column a thread (into P, before the
     // symmetrization); the 14th job p <- qx + A'm + K'Qu
@@ -356,9 +420,9 @@ kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
         const T s = dot(x1, y1);
         const T u = dot(x2, y2);
         if (pj)
-          w[PV + i] = w[QX + i] + s + u;
+          w[PV + i] = w[qv + i] + s + u;
         else
-          w[P + i * RW + j] = w[Q + i * NX + j] + s + u;
+          w[P + i * RW + j] = w[q + i * NX + j] + s + u;
       }
     }
     __syncthreads();
@@ -377,69 +441,101 @@ kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
     }
   }
 
-  // forward rollout: du_k = K_k dx_k + kff_k, dx_{k+1} = A dx + B du + c,
-  // on the full-precision gains.  Its inputs go round a ring of two slot
-  // sets in the slots the backward pass is done with: stage k+1's copies
-  // land while stage k computes.
-  const T* Kr;
-  if constexpr (kGainsT) {
-    Kr = K;
-  } else {
-    Kr = Kf;
-  }
-  const auto roll_in = [&](int k) {
-    const int o = (k & 1) * RSET;
-    stage_in<T, DEV>(sh, RA + o, Abar, NX * NX, k, B, b0);
-    stage_in<T>(sh, RB + o, Bbar, NX * NUC, k, B, b0);
-    stage_in<T>(sh, RC + o, cbar, NX, k, B, b0);
-    stage_in<T>(sh, RK + o, Kr, NUC * NX, k, B, b0);
-    stage_in<T>(sh, RKFF + o, static_cast<const T*>(kff), NUC, k, B, b0);
-  };
-  __syncthreads();   // the gains are written, the last P update is done
-  for (int i = t; i < NX; i += kGroup) w[X0 + i] = dx0[i * B + bl];
-  roll_in(0);
-  copy_wait();
-  __syncthreads();
+  if constexpr (ROLL) {
+    // forward rollout: du_k = K_k dx_k + kff_k, dx_{k+1} = A dx + B du + c,
+    // on the full-precision gains.  Its inputs go round a ring of two slot
+    // sets in the slots the backward pass is done with: stage k+1's copies
+    // land while stage k computes.
+    const T* Kr;
+    if constexpr (kGainsT) {
+      Kr = K;
+    } else {
+      Kr = Kf;
+    }
+    const auto roll_in = [&](int k) {
+      const int o = (k & 1) * RSET;
+      stage_in<T, DEV>(sh, RA + o, Abar, NX * NX, k, B, b0);
+      stage_in<T>(sh, RB + o, Bbar, NX * NUC, k, B, b0);
+      stage_in<T>(sh, RC + o, cbar, NX, k, B, b0);
+      stage_in<T>(sh, RK + o, Kr, NUC * NX, k, B, b0);
+      stage_in<T>(sh, RKFF + o, static_cast<const T*>(kff), NUC, k, B, b0);
+    };
+    __syncthreads();   // the gains are written, the last P update is done
+    for (int i = t; i < NX; i += kGroup) w[X0 + i] = dx0[i * B + bl];
+    roll_in(0);
+    copy_wait();
+    __syncthreads();
 #pragma unroll 1
-  for (int k = 0; k < M; ++k) {
-    if (k + 1 < M) roll_in(k + 1);
-    const int o = (k & 1) * RSET;
-    const T* x = w + ((k & 1) ? X1 : X0);
-    T* xn = w + ((k & 1) ? X0 : X1);
-    const T* Kk = w + RK + o;
-    for (int a = t; a < NUC; a += kGroup) {
-      T s = Kk[a * NX] * x[0];
+    for (int k = 0; k < M; ++k) {
+      if (k + 1 < M) roll_in(k + 1);
+      const int o = (k & 1) * RSET;
+      const T* x = w + ((k & 1) ? X1 : X0);
+      T* xn = w + ((k & 1) ? X0 : X1);
+      const T* Kk = w + RK + o;
+      for (int a = t; a < NUC; a += kGroup) {
+        T s = Kk[a * NX] * x[0];
 #pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
-      const T u = s + w[RKFF + o + a];
-      w[U + a] = u;
-      if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = u;
+        for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
+        const T u = s + w[RKFF + o + a];
+        w[U + a] = u;
+        if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = u;
+      }
+      if (valid) {
+        for (int i = t; i < NX; i += kGroup)
+          dx[((size_t)k * NX + i) * B + b0 + l] = x[i];
+      }
+      __syncthreads();
+      const T* A = w + RA + o;
+      const T* Bm = w + RB + o;
+      const T* u = w + U;
+      for (int i = t; i < NX; i += kGroup) {
+        T s = A[i * NX] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) s = s + A[i * NX + j] * x[j];
+        T v = Bm[i * NUC] * u[0];
+#pragma unroll
+        for (int a = 1; a < NUC; ++a) v = v + Bm[i * NUC + a] * u[a];
+        xn[i] = s + v + w[RC + o + i];
+      }
+      copy_wait();       // stage k+1's inputs have landed (this thread's) ...
+      __syncthreads();   // ... everyone's, and stage k's slots are free
     }
     if (valid) {
+      const T* x = w + ((M & 1) ? X1 : X0);
       for (int i = t; i < NX; i += kGroup)
-        dx[((size_t)k * NX + i) * B + b0 + l] = x[i];
+        dx[((size_t)M * NX + i) * B + b0 + l] = x[i];
     }
-    __syncthreads();
-    const T* A = w + RA + o;
-    const T* Bm = w + RB + o;
-    const T* u = w + U;
-    for (int i = t; i < NX; i += kGroup) {
-      T s = A[i * NX] * x[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + A[i * NX + j] * x[j];
-      T v = Bm[i * NUC] * u[0];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a) v = v + Bm[i * NUC + a] * u[a];
-      xn[i] = s + v + w[RC + o + i];
-    }
-    copy_wait();       // stage k+1's inputs have landed (this thread's) ...
-    __syncthreads();   // ... everyone's, and stage k's slots are free
   }
-  if (valid) {
-    const T* x = w + ((M & 1) ? X1 : X0);
-    for (int i = t; i < NX; i += kGroup)
-      dx[((size_t)M * NX + i) * B + b0 + l] = x[i];
-  }
+}
+
+template <typename T, typename TA = T, typename TG = T, bool DEV = false>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+kkt_sweep_c2_kernel(const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
+                    const TA* __restrict__ cbar, const T* __restrict__ Qbar,
+                    const T* __restrict__ S1T, const T* __restrict__ R00,
+                    const T* __restrict__ qx, const T* __restrict__ ruu,
+                    const T* __restrict__ ru, const T* __restrict__ pT,
+                    const T* __restrict__ pterm, const T* __restrict__ dx0,
+                    TG* K, T* kff, TG* Lout, TG* Pcout, T* dx, T* du, T* Kf,
+                    int M, int B) {
+  sweep<T, TA, TG, DEV, true>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru,
+                              pT, pterm, dx0, K, kff, Lout, Pcout, dx, du,
+                              Kf, M, B);
+}
+
+// K5a: the factorization alone (the windowed sweeps' first launch)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, false>())
+bwd_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+              const T* __restrict__ cbar, const T* __restrict__ Qbar,
+              const T* __restrict__ S1T, const T* __restrict__ R00,
+              const T* __restrict__ qx, const T* __restrict__ ruu,
+              const T* __restrict__ ru, const T* __restrict__ pT,
+              const T* __restrict__ pterm, T* K, T* kff, T* Lout, T* Pcout,
+              int M, int B) {
+  sweep<T, T, T, false, false>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru,
+                               pT, pterm, nullptr, K, kff, Lout, Pcout,
+                               nullptr, nullptr, nullptr, M, B);
 }
 
 template <typename T, typename TA, typename TG, bool DEV>
@@ -465,6 +561,31 @@ int launch(const TA* Abar, const TA* Bbar, const TA* cbar, const T* Qbar,
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, dx0, K,
           kff, L, Pc, dx, du, Kf, M, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int set_bwd_smem() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      bwd_c2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T, false>()));
+}
+
+template <typename T>
+int launch_bwd(const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,
+               const T* S1T, const T* R00, const T* qx, const T* ruu,
+               const T* ru, const T* pT, const T* pterm, T* K, T* kff, T* L,
+               T* Pc, int M, int B, int grid, int threads, int smem,
+               void* stream) {
+  if (B < 1 || M < 1 || threads != kThreads ||
+      smem != smem_bytes<T, false>() || grid != (B + kLanes - 1) / kLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_bwd_smem<T>();
+  if (err != 0) return err;
+  bwd_c2_kernel<T>
+      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT, pterm, K, kff,
+          L, Pc, M, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,3 +639,25 @@ KKT_COMPRESSED_ENTRY(_a, f32, float, bf16, float, true)
 KKT_COMPRESSED_ENTRY(_a, f64, double, bf16, double, true)
 KKT_COMPRESSED_ENTRY(_ga, f32, float, bf16, bf16, true)
 KKT_COMPRESSED_ENTRY(_ga, f64, double, bf16, bf16, true)
+
+// K5a (bwd_c2, no compressed forms: windowed=True drops them); grid,
+// threads and smem are the wrapper's bwd_launch_geometry.
+#define BWD_ENTRY(SUFFIX, T)                                                  \
+  extern "C" int bwd_c2_##SUFFIX(                                             \
+      const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
+      const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
+      const T* pT, const T* pterm, T* K, T* kff, T* L, T* Pc, int M, int B,   \
+      int grid, int threads, int smem, void* stream) {                        \
+    return launch_bwd<T>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, pT,   \
+                         pterm, K, kff, L, Pc, M, B, grid, threads, smem,     \
+                         stream);                                             \
+  }                                                                           \
+  extern "C" int bwd_c2_occupancy_##SUFFIX(int* blocks_per_sm) {              \
+    const int err = set_bwd_smem<T>();                                        \
+    if (err != 0) return err;                                                 \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
+        blocks_per_sm, bwd_c2_kernel<T>, kThreads, smem_bytes<T, false>()));  \
+  }
+
+BWD_ENTRY(f32, float)
+BWD_ENTRY(f64, double)

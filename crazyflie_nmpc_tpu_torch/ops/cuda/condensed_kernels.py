@@ -7,11 +7,13 @@ Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
 long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
 kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
 iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
-`csrc/kkt_sweep_c2.cu` (K2) or `csrc/corrector_sweep_c2.cu` (K3), a group
-of threads per lane each (their launch shapes are `kkt_launch_geometry`'s
-and `corr_launch_geometry`'s), `csrc/condensed_c2.cu` or
-`csrc/iter_c2.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
-version for CPU tensors.
+`csrc/kkt_sweep_c2.cu` (K2, and K5a `bwd_c2`: K2's factorization alone)
+or `csrc/corrector_sweep_c2.cu` (K3, and K5b `fwd_c2`: K3's rollout
+alone), a group of threads per lane each (their launch shapes are
+`kkt_launch_geometry`'s, `bwd_launch_geometry`'s, `corr_launch_geometry`'s
+and `fwd_launch_geometry`'s), `csrc/condensed_c2.cu` or `csrc/iter_c2.cu`
+for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
+tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -48,12 +50,20 @@ KKT_GROUP = 16
 KKT_THREADS = 128
 KKT_LANES = KKT_THREADS // KKT_GROUP
 KKT_LANE_VALUES = 1548
+# K5a's (bwd_c2, in K2's source): K2's group and block, and a second set of
+# two cost inputs a lane
+BWD_LANE_VALUES = 1740
 # K3's, from csrc/corrector_sweep_c2.cu in the same way
 _CORR_SOURCE = "corrector_sweep_c2.cu"
 CORR_GROUP = 16
 CORR_THREADS = 256
 CORR_LANES = CORR_THREADS // CORR_GROUP
 CORR_LANE_VALUES = 996
+# K5b's (fwd_c2, in K3's source): K3's group and block, a lane of its own
+FWD_GROUP = 16
+FWD_THREADS = 256
+FWD_LANES = FWD_THREADS // FWD_GROUP
+FWD_LANE_VALUES = 856  # kFwdLaneValues
 _ITER_SOURCE = "iter_c2.cu"
 # fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
 _BIG = 3.4e38
@@ -407,10 +417,22 @@ def kkt_launch_geometry(B: int, dtype) -> dict:
                                 KKT_LANE_VALUES)
 
 
+def bwd_launch_geometry(B: int, dtype) -> dict:
+    """K5a's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, KKT_LANES, KKT_THREADS,
+                                BWD_LANE_VALUES)
+
+
 def corr_launch_geometry(B: int, dtype) -> dict:
     """K3's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
     return _build.lane_geometry(B, dtype, CORR_LANES, CORR_THREADS,
                                 CORR_LANE_VALUES)
+
+
+def fwd_launch_geometry(B: int, dtype) -> dict:
+    """K5b's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, FWD_LANES, FWD_THREADS,
+                                FWD_LANE_VALUES)
 
 
 def kkt_blocks_per_sm(dtype=torch.float32) -> int:
@@ -423,6 +445,16 @@ def corr_blocks_per_sm(dtype=torch.float32) -> int:
     """K3's resident blocks per SM (CORR_LANES lanes each)."""
     return _build.blocks_per_sm(_CORR_SOURCE, "corrector_sweep_c2_occupancy",
                                 dtype)
+
+
+def bwd_blocks_per_sm(dtype=torch.float32) -> int:
+    """K5a's resident blocks per SM (KKT_LANES lanes each)."""
+    return _build.blocks_per_sm(_KKT_SOURCE, "bwd_c2_occupancy", dtype)
+
+
+def fwd_blocks_per_sm(dtype=torch.float32) -> int:
+    """K5b's resident blocks per SM (FWD_LANES lanes each)."""
+    return _build.blocks_per_sm(_CORR_SOURCE, "fwd_c2_occupancy", dtype)
 
 
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
@@ -489,17 +521,20 @@ def corrector_sweep_c2(Abar, Bbar, cbar, qx, ru, K, L, Pc, p_term, dx0,
 
 def bwd_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
            p_term):
-    """The backward factorization of `kkt_sweep_c2` alone.  Returns (K, kff,
-    L, Pc)."""
+    """The backward factorization of `kkt_sweep_c2` alone: K5a, K2's
+    kernel body without its rollout (`csrc/kkt_sweep_c2.cu`,
+    `bwd_launch_geometry`).  Float32 or float64 only.  Returns (K, kff, L, Pc)."""
     if Abar.device.type == "cpu":
         return bwd_c2_ref(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift,
                           ru, pT, p_term)
     M, B = Abar.shape[0], Abar.shape[-1]
     outs = (_empty(Abar, M, NUC, NX, B), _empty(Abar, M, NUC, B),
             _empty(Abar, M, NLC, B), _empty(Abar, M, NX, B))
-    _launch(bwd_c2, _SOURCE, dict(
+    geo = bwd_launch_geometry(B, Abar.dtype)
+    _build.run(bwd_c2, _KKT_SOURCE, dict(
         Abar=Abar, Bbar=Bbar, cbar=cbar, Qbar=Qbar, S1T=S1T, R00=R00, qx=qx,
-        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term), outs)
+        ruu_shift=ruu_shift, ru=ru, pT=pT, p_term=p_term), outs,
+        _shapes(M, B), [M, B, geo["grid"], geo["threads"], geo["smem"]])
     return outs
 
 
@@ -517,14 +552,18 @@ def bwd_vec_c2(Abar, Bbar, qx, ru, K, L, Pc, p_term):
 
 
 def fwd_c2(Abar, Bbar, cbar, K, kff, dx0):
-    """The forward rollout from stored gains (K, kff).  Returns
-    (dx (M+1,13,B), du (M,8,B))."""
+    """The forward rollout from stored gains (K, kff): K5b
+    (`csrc/corrector_sweep_c2.cu`, `fwd_launch_geometry`).  Float32 or float64 only.
+    Returns (dx (M+1,13,B), du (M,8,B))."""
     if Abar.device.type == "cpu":
         return fwd_c2_ref(Abar, Bbar, cbar, K, kff, dx0)
     M, B = Abar.shape[0], Abar.shape[-1]
     outs = (_empty(Abar, M + 1, NX, B), _empty(Abar, M, NUC, B))
-    _launch(fwd_c2, _SOURCE, dict(Abar=Abar, Bbar=Bbar, cbar=cbar, K=K,
-                                  kff=kff, dx0=dx0), outs)
+    geo = fwd_launch_geometry(B, Abar.dtype)
+    _build.run(fwd_c2, _CORR_SOURCE, dict(Abar=Abar, Bbar=Bbar, cbar=cbar,
+                                         K=K, kff=kff, dx0=dx0), outs,
+               _shapes(M, B),
+               [M, B, geo["grid"], geo["threads"], geo["smem"]])
     return outs
 
 

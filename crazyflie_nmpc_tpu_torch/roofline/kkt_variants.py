@@ -1,13 +1,15 @@
-"""K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2` or K1 `prep_condense2` in
-variants on the card: their launch shapes, and the parts of their work cut
-out one at a time.
+"""K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
+`bwd_c2` or K5b `fwd_c2` in variants on the card: their launch shapes, and
+the parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
-        [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2]
+        [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
+                  fwd_c2] [--baseline DIR]
 
-Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`,
-`csrc/corrector_sweep_c2.cu`, `csrc/prep_condense2.cu`) with one edit
-(`VARIANTS`, `CORR_VARIANTS`, `PREP_VARIANTS`).
+Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
+K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b,
+`csrc/prep_condense2.cu`) with one edit (`VARIANTS`, `CORR_VARIANTS`,
+`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -20,22 +22,30 @@ part removed (the even tangent chains, the odd ones, the Jacobian builds,
 the cost products, the stores: every stored value summed into one that is
 never stored), cached stores instead of evict-first ones, 8 or 16 lanes a
 warp (the workers of a lane sharing a warp), 64 lanes a block, 4 or 16
-workers a lane, or 3 blocks an SM (80 registers).  Every
-variant is built with the port's nvcc flags into
+workers a lane, or 3 blocks an SM (80 registers).  K5a: its cost inputs
+loaded at a stage's top, as K2's, instead of while the stage before
+computes, or one part removed (the loads, phases A-D, the stores).  K5b: a ring of 3 input sets
+instead of 2, G = 8 (16 lanes a block), 32 lanes a block (G = 16 or 8), or
+one part removed (the loads in the stage loop, the u phase, the dx phase,
+the stores).  Every variant is built with the port's nvcc flags into
 `build/torch_kernels/variants/`, launched through its float32 entry point
 at its own launch shape, and timed at B = 1024, 4096 and 8192 (N=50, the
 study's condensed data; K3 on K2's factorization of it; K1 on the warm
-start the study condenses), all variants in turn and then in reverse
-order; the unedited kernel runs among them.  A time is the device time of
+start the study condenses; K5a and K5b at N=400, the path that runs them,
+the data's 25 condensed stages repeated 8 times, K5b on K2's gains of
+them), all variants in turn and then in reverse order; the unedited
+kernel runs among them.  A time is the device time of
 a launch, the mean over 20 traced launches (`roofline.device_ms`).  The
 variants that compute the whole stage are also held against the plain
-version at B=1024 (relative 1e-4, as `chip_smoke.py`); the cut ones
-compute garbage and are only timed. What a part costs is the kernel's time
-less the time without it.
+version at B=1024 and N=50 (relative 1e-4, as `chip_smoke.py`); the cut
+ones compute garbage and are only timed. What a part costs is the kernel's
+time less the time without it.
 `--baseline DIR` adds the kernel's source as it stands in another
 checkout's `csrc` (with that checkout's headers; say the parent commit,
 unpacked with `git archive`) as the variant "baseline", timed and checked
-among the others.  Runs on the CUDA device only: without one it exits 1.
+among the others: the file of that checkout that defines the kernel
+(`condensed_c2.cu` for a one-thread K5a or K5b, whose entries take no
+launch shape).  Runs on the CUDA device only: without one it exits 1.
 """
 
 from __future__ import annotations
@@ -57,9 +67,13 @@ from crazyflie_nmpc_tpu_torch.roofline import device_ms
 
 BATCHES = (1024, 4096, 8192)
 _SOURCE = "kkt_sweep_c2.cu"
+_ROLL_SWITCH = "  if constexpr (ROLL) {"
+# K3's rollout, up to its launch
 _ROLLOUT = "  // forward rollout: du_k"
 _LAUNCH = ("template <typename T, typename TA, typename TG, bool DEV>\n"
            "int set_smem()")
+# the horizon each kernel is timed at (the path that runs it)
+HORIZON = {"bwd_c2": 400, "fwd_c2": 400}
 
 
 def _cut(start, end, keep=""):
@@ -109,16 +123,53 @@ VARIANTS = {
     "G=32": _replace("constexpr int kGroup = 16;",
                      "constexpr int kGroup = 32;"),
     "two accumulators": _replace(_DOT, _DOT2),
-    "no backward loads": _cut("    stage_in<T, DEV, NX, RW>(sh, AT, Abar",
-                              "    copy_wait();"),
+    "no backward loads": _cut(
+        "    stage_in<T, DEV, NX, RW, LS>(sh, AT, Abar", "    copy_wait();"),
     "no phase A": _cut("    // P [A | B | c]", "    // B' times", _BARRIER),
-    "no phase B": _cut("    // B' times", "    // L = chol(Quu)", _BARRIER),
+    "no phase B": _cut("    // B' times", "    // K5a: stage k-1's", _BARRIER),
     "no phase C": _cut("    // L = chol(Quu)", "    // the stage's gains out",
                        _BARRIER),
     "no stores": _cut("    // the stage's gains out",
                       "    // X = Qbar + A'PA"),
-    "no phase D": _cut("    // X = Qbar + A'PA", "  }\n\n" + _ROLLOUT),
-    "no rollout": _cut(_ROLLOUT, _LAUNCH, "}\n\n"),
+    "no phase D": _cut("    // X = Qbar + A'PA", "  }\n\n" + _ROLL_SWITCH),
+    "no rollout": _replace(_ROLL_SWITCH, "  if constexpr (false) {"),
+}
+
+# K5a's, on the same source (its body is K2's with the rollout switched
+# off): its cost inputs loaded at a stage's top, as K2's, or a part
+# removed
+_NO_PREFETCH = _replace("constexpr bool kPrefetch = true;",
+                        "constexpr bool kPrefetch = false;")
+BWD_VARIANTS = {
+    "kernel": None,
+    "top-of-stage loads": _NO_PREFETCH,
+    "no loads": _then(VARIANTS["no backward loads"], _NO_PREFETCH),
+    **{name: VARIANTS[name] for name in ("no phase A", "no phase B",
+                                         "no phase C", "no stores",
+                                         "no phase D")},
+}
+
+# K5b's, on K3's source (K3's group and block edited with it)
+_SETS = "constexpr int kSets = 2;"
+_FWD_THREADS = "constexpr int kThreads = 256;"
+_FWD_DX = "    // K5b's dx_{k+1} = A x + B u + c"
+FWD_VARIANTS = {
+    "kernel": None,
+    "3 sets": _then(_replace(_SETS, _SETS.replace("2", "3")),
+                    _replace("kFwdLaneValues == 856",
+                             "kFwdLaneValues == 1267")),
+    "G=8": _then(_G8, _replace(_FWD_THREADS,
+                               _FWD_THREADS.replace("256", "128"))),
+    "32 lanes": _replace(_FWD_THREADS, _FWD_THREADS.replace("256", "512")),
+    "G=8, 32 lanes": _G8,
+    "no loads": _replace(
+        "    if (k + kSets - 1 < M) roll_in(k + kSets - 1);\n", ""),
+    "no u phase": _cut("    // K5b's u = K x + kff", "    // K5b's x_k out"),
+    "no dx phase": _cut(_FWD_DX, "    cp_wait_group<kSets - 2>();"),
+    "no stores": _then(
+        _replace("      w[(U + a) * kLanes] = u;\n      if (valid) du[",
+                 "      w[(U + a) * kLanes] = u;\n      if (false) du["),
+        _cut("    // K5b's x_k out", "    __syncthreads();\n" + _FWD_DX)),
 }
 
 # K3's, on csrc/corrector_sweep_c2.cu
@@ -201,6 +252,20 @@ KERNELS = {
                            "corrector_sweep_c2_kernelIfffLb0E"),
     "prep_condense2": ("prep_condense2.cu", PREP_VARIANTS,
                        "prep_condense2_kernelIfLi4E"),
+    "bwd_c2": (_SOURCE, BWD_VARIANTS, "bwd_c2_kernelIfE"),
+    "fwd_c2": ("corrector_sweep_c2.cu", FWD_VARIANTS, "fwd_c2_kernelIfE"),
+}
+# the sweeps' float32 entries: (input pointers, output shapes at (M, B),
+# the name of the constant holding the values a lane in shared memory)
+_NX, _NU, _NL = ck.NX, ck.NUC, ck.NLC
+_GAINS = lambda M, B: ((M, _NU, _NX, B), (M, _NU, B), (M, _NL, B),  # noqa
+                       (M, _NX, B))
+_ROLL = lambda M, B: ((M + 1, _NX, B), (M, _NU, B))  # noqa: E731
+SWEEPS = {
+    "kkt_sweep_c2": (12, lambda M, B: _GAINS(M, B) + _ROLL(M, B), "kStride"),
+    "corrector_sweep_c2": (10, _ROLL, "kLaneValues"),
+    "bwd_c2": (11, _GAINS, "kBwdStride"),
+    "fwd_c2": (6, _ROLL, "kFwdLaneValues"),
 }
 
 
@@ -233,6 +298,25 @@ def shape(text) -> tuple:
     return group, const["kThreads"]
 
 
+def lane_values(kernel, text):
+    """Values a lane in shared memory of a sweep's source `text` (the
+    static_assert on its geometry constant), None for a one-thread
+    source."""
+    m = re.search(rf"static_assert\({SWEEPS[kernel][2]} == (\d+),", text)
+    return int(m.group(1)) if m else None
+
+
+def baseline_source(kernel, csrc) -> str:
+    """The file of the `csrc` directory that defines `kernel`'s CUDA
+    function: its source here, or the one-thread kernels'
+    `condensed_c2.cu`."""
+    for name in (KERNELS[kernel][0], "condensed_c2.cu"):
+        path = Path(csrc) / name
+        if path.exists() and f"{kernel}_kernel" in path.read_text():
+            return name
+    raise ValueError(f"kkt_variants: no source in {csrc} defines {kernel}")
+
+
 def _stem(kernel, name):
     return f"{kernel}_" + re.sub(r"\W+", "_", name).strip("_")
 
@@ -245,7 +329,8 @@ def build(texts, kernel="kkt_sweep_c2", baseline=None) -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     dirs = {name: out_dir for name in texts}
     if baseline is not None:
-        texts = dict(texts, baseline=(Path(baseline) / source).read_text())
+        texts = dict(texts, baseline=(
+            Path(baseline) / baseline_source(kernel, baseline)).read_text())
         dirs["baseline"] = out_dir / "baseline"
     for d, csrc in ((out_dir, _build.CSRC),
                     (out_dir / "baseline", baseline)):
@@ -322,22 +407,17 @@ def prep_launcher(lib, text, order=4):
 
 def launcher(lib, text, kernel="kkt_sweep_c2"):
     """f(args) -> outputs: the variant's float32 exact form on the sweep's
-    inputs (K2's 12, K3's 10; K1's 8 through `prep_launcher`), at the
-    launch shape of its source `text`."""
+    inputs (`SWEEPS`; K1's 8 through `prep_launcher`), at the launch shape
+    of its source `text` (none for a one-thread source)."""
     if kernel == "prep_condense2":
         return prep_launcher(lib, text)
     group, threads = shape(text)
+    values = lane_values(kernel, text)
+    n_in, shapes, _ = SWEEPS[kernel]
     fn = getattr(lib, f"{kernel}_f32")
-    if kernel == "kkt_sweep_c2":
-        n_ptr, values = 18, ck.KKT_LANE_VALUES
-        shapes = lambda M, B: ((M, ck.NUC, ck.NX, B), (M, ck.NUC, B),  # noqa
-                               (M, ck.NLC, B), (M, ck.NX, B),
-                               (M + 1, ck.NX, B), (M, ck.NUC, B))
-    else:
-        n_ptr, values = 12, ck.CORR_LANE_VALUES
-        shapes = lambda M, B: ((M + 1, ck.NX, B), (M, ck.NUC, B))  # noqa
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    n_out = len(shapes(1, 1))
+    fn.argtypes = [ctypes.c_void_p] * (n_in + n_out) + [ctypes.c_int] * (
+        5 if values else 2) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lanes = threads // group
 
@@ -345,8 +425,9 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
         M, B = args[0].shape[0], args[0].shape[-1]
         outs = tuple(torch.empty(s, dtype=torch.float32, device=args[0].device)
                      for s in shapes(M, B))
-        err = fn(*[t.data_ptr() for t in (*args, *outs)], M, B,
-                 math.ceil(B / lanes), threads, lanes * values * 4,
+        geo = [math.ceil(B / lanes), threads,
+               lanes * values * 4] if values else []
+        err = fn(*[t.data_ptr() for t in (*args, *outs)], M, B, *geo,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"kkt_variants: CUDA error {err}")
@@ -370,14 +451,17 @@ def _plain(kernel, order=4):
             cnd, *rest = pk.prep_condense2_ref(*args, vde_order=order)
             return [*cnd.values(), *rest]
         return ref
-    return (ck.kkt_sweep_c2_ref if kernel == "kkt_sweep_c2"
-            else ck.corrector_sweep_c2_ref)
+    return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
+            "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
+            "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref}[kernel]
 
 
-def inputs(kernel, B, device):
-    """`kernel`'s inputs at N=50 and B lanes: the study's condensed data
-    (K2's), K3's on K2's factorization of it, K1's from the same warm
-    start (the states before K7 and K6 condensed them)."""
+def inputs(kernel, B, device, n=50):
+    """`kernel`'s inputs at horizon n and B lanes: the study's condensed
+    data (N=50; K2's and K5a's), K3's on K2's factorization of it, K5b's
+    on K2's gains, K1's from the same warm start (the states before K7 and
+    K6 condensed them).  At n > 50 (K5a, K5b) every stage-wise input is
+    the N=50 one repeated n/50 times along the stages."""
     from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
 
@@ -392,9 +476,15 @@ def inputs(kernel, B, device):
           c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"], d["dx0"])
     if kernel == "kkt_sweep_c2":
         return k2
-    K, _, L, Pc, _, _ = ck.kkt_sweep_c2_ref(*k2)
-    return (c["Abar"], c["Bbar"], c["cbar"], c["qbar"], c["rbar"], K, L, Pc,
-            d["p_term"], d["dx0"])
+    K, kff, L, Pc, _, _ = ck.kkt_sweep_c2_ref(*k2)
+    args = {"bwd_c2": k2[:-1],
+            "fwd_c2": (c["Abar"], c["Bbar"], c["cbar"], K, kff, d["dx0"]),
+            "corrector_sweep_c2": (c["Abar"], c["Bbar"], c["cbar"],
+                                   c["qbar"], c["rbar"], K, L, Pc,
+                                   d["p_term"], d["dx0"])}[kernel]
+    reps = n // 50
+    return tuple(a.repeat(reps, *[1] * (a.dim() - 1)) if a.dim() >= 3
+                 else a for a in args)
 
 
 def study(device=None, log=print, kernel="kkt_sweep_c2",
@@ -408,7 +498,8 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
     texts = sources(kernel)
     built = build(texts, kernel, baseline)
     if baseline is not None:
-        texts["baseline"] = (Path(baseline) / KERNELS[kernel][0]).read_text()
+        texts["baseline"] = (
+            Path(baseline) / baseline_source(kernel, baseline)).read_text()
     for name, (_, lines) in built.items():
         log(f"ptxas {kernel} {name}: " + "; ".join(lines))
     runs = {name: launcher(lib, texts[name], kernel)
@@ -418,15 +509,18 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
         for name, (lib, _) in built.items():
             runs[name + ORDER2] = prep_launcher(lib, texts[name], order=2)
             refs[name + ORDER2] = _plain(kernel, order=2)
-    data = {B: inputs(kernel, B, device) for B in BATCHES}
+    check = inputs(kernel, BATCHES[0], device)
     for name, run in runs.items():
         if not name.startswith("no "):
-            e = rel_err(run(data[BATCHES[0]]), refs[name](*data[BATCHES[0]]))
+            e = rel_err(run(check), refs[name](*check))
             log(f"{kernel} {name}: rel err {e:.3e} against the plain version "
-                f"at B={BATCHES[0]}")
+                f"at B={BATCHES[0]}, N=50")
             if not e <= 1e-4:
                 raise RuntimeError(f"kkt_variants: {kernel} {name} "
                                    f"disagrees ({e})")
+    n = HORIZON.get(kernel, 50)
+    data = {B: inputs(kernel, B, device, n) for B in BATCHES}
+    log(f"{kernel}: timed at N={n}")
     times = {name: {B: [] for B in BATCHES} for name in runs}
     order = list(runs) + list(runs)[::-1]
     for name in order:

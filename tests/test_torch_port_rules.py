@@ -499,3 +499,30 @@ def test_corr_launch_geometry(B, dtype):
     blocks = {torch.float32: 3, torch.float64: 1}[dtype]
     assert blocks * (geo["smem"] + 1024) <= 228 * 1024
     assert 227 * 1024 // geo["smem"] == blocks
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["bwd_c2", "fwd_c2"])
+def test_windowed_launch_geometry(kernel, B, dtype):
+    """K5a's launch (K2's group and block, a lane of its own in K2's
+    source) and K5b's (K3's group and block, a lane of its own in K3's
+    source; `_check_group_geometry`); each lets an SM hold 4
+    blocks in float32 and 2 in float64 (with the 1 KB each block reserves
+    of the SM's 228 KB), and neither depends on M."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    if kernel == "bwd_c2":
+        geo = ck.bwd_launch_geometry(B, dtype)
+        _check_group_geometry(geo, B, ck.KKT_GROUP, "kkt_sweep_c2.cu", {
+            "kGroup": ck.KKT_GROUP, "kThreads": ck.KKT_THREADS,
+            "kBwdStride": ck.BWD_LANE_VALUES})
+    else:
+        geo = ck.fwd_launch_geometry(B, dtype)
+        _check_group_geometry(geo, B, ck.FWD_GROUP, "corrector_sweep_c2.cu", {
+            "kGroup": ck.FWD_GROUP, "kThreads": ck.FWD_THREADS,
+            "kFwdLaneValues": ck.FWD_LANE_VALUES})
+    blocks = {torch.float32: 4, torch.float64: 2}[dtype]
+    assert blocks * (geo["smem"] + 1024) <= 228 * 1024
+    assert 227 * 1024 // geo["smem"] == blocks

@@ -605,3 +605,45 @@ def test_loop_graphs_check_sees_one_differing_bit():
         cs.graphs_agree("[swarm_wire] LoopGraphs", got, want)
     with pytest.raises(SystemExit, match="differ"):
         cs.graphs_agree("[swarm_wire] LoopGraphs", want[:3], want)
+
+
+@pytest.fixture(scope="module")
+def win_inputs():
+    return cs.kernel_inputs(5, torch.float64, "cpu", n=6)
+
+
+def test_split_vs_fused_is_zero_on_the_same_sums(win_inputs):
+    """[kernel]'s K5a/K5b-vs-K2 check: the plain versions run K2's sums in
+    K2's order, so both differences are exactly 0."""
+    (g_abs, g_rel), (r_abs, r_rel) = cs.split_vs_fused(win_inputs)
+    assert g_abs == g_rel == r_abs == r_rel == 0.0
+
+
+@pytest.mark.parametrize("kernel, out, part", [
+    ("bwd_c2", 1, 0), ("fwd_c2", 0, 1)], ids=["kff", "dx"])
+def test_split_vs_fused_sees_a_planted_fault(win_inputs, monkeypatch, kernel,
+                                             out, part):
+    """A last-bit change in one output of K5a or K5b shows in its own
+    difference, and only there."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    real = getattr(ck, kernel)
+
+    def planted(*args):
+        outs = list(real(*args))
+        outs[out] = outs[out] * (1 + 1e-15)
+        return tuple(outs)
+
+    monkeypatch.setattr(ck, kernel, planted)
+    diffs = cs.split_vs_fused(win_inputs)
+    assert diffs[part][0] > 0.0
+    assert diffs[1 - part] == (0.0, 0.0)
+
+
+def test_at_lanes_cuts_and_tiles_the_lane_axis():
+    a = torch.arange(6.0).reshape(2, 3)
+    cut, _, other = cs.at_lanes((a, a, 0.5), 2)
+    assert torch.equal(cut, a[:, :2]) and cut.is_contiguous()
+    assert other == 0.5
+    (tiled,) = cs.at_lanes((a,), 7)
+    assert torch.equal(tiled, torch.cat([a, a, a], dim=-1)[:, :7])
