@@ -125,11 +125,11 @@ uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel at the shapes of the path that runs it (its device time
 from a profiler trace of 20 launches, beside the CUDA-event window around
-them, which holds the host's issue too), times K1, K2 and K3 (the
+them, which holds the host's issue too), times K1, K2, K3 and K10 (the
 kernels that split a lane over several threads: csrc/prep_condense2.cu in
 both VDE orders, csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in
-their four forms) at every B of [main] with their occupancy, waves and
-bound, and traces a few steps of [main] (every B),
+their four forms, csrc/iter_c2.cu) at every B of [main] with their
+occupancy, waves and bound, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
 [xla_prep] ([single] its own ticks) with torch.profiler.  [pod] runs
 in a child process of its own after [swarm_wire]; the host-bound loops
@@ -306,6 +306,9 @@ LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 # of B_MAIN beside K2 and K3
 WIN_KERNELS = ("bwd_c2", "fwd_c2")
 LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
+# the group kernels checked on a ragged last tile and at B=1 besides K1:
+# K5a, K5b and K10 (8 lanes a block: B=1 is its ragged tile)
+RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2",)
 
 
 def fail(msg: str):
@@ -666,8 +669,8 @@ def split_vs_fused(inputs):
 
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; K1's two forms and K5a/K5b (WIN_KERNELS) again on a
-    ragged last tile (B_RAGGED), K5a/K5b at B=1 too; the uncondensed
+    then float32; K1's two forms and K5a/K5b/K10 (RAGGED_KERNELS) again
+    on a ragged last tile (B_RAGGED), K5a/K5b/K10 at B=1 too; the uncondensed
     kernels (UNCONDENSED_KERNELS) at the odd N=51 in both too; then the
     sweeps of the long-horizon path (LONG_CHECKED) at its N=400 in
     float64, where a fault in any of their 200 stages shows far above
@@ -685,10 +688,10 @@ def phase_kernels(device):
     for n, dtype, labels, B in (
             (N, torch.float64, checked, B_CHECK),
             (N, torch.float32, checked, B_CHECK),
-            (N, torch.float64, K1_FORMS + WIN_KERNELS, B_RAGGED),
-            (N, torch.float32, K1_FORMS + WIN_KERNELS, B_RAGGED),
-            (N, torch.float64, WIN_KERNELS, 1),
-            (N, torch.float32, WIN_KERNELS, 1),
+            (N, torch.float64, K1_FORMS + RAGGED_KERNELS, B_RAGGED),
+            (N, torch.float32, K1_FORMS + RAGGED_KERNELS, B_RAGGED),
+            (N, torch.float64, RAGGED_KERNELS, 1),
+            (N, torch.float32, RAGGED_KERNELS, 1),
             (N_ODD, torch.float64, UNCONDENSED_KERNELS, B_CHECK),
             (N_ODD, torch.float32, UNCONDENSED_KERNELS, B_CHECK),
             (N_LONG, torch.float64, LONG_CHECKED, B_CHECK)):
@@ -728,8 +731,8 @@ def phase_kernels(device):
                 fail(f"the windowed kernels disagree with K2 at N={n}")
     print("[kernel] held against plain PyTorch in float64 and float32: "
           + ", ".join(checked) + f"; at B={B_RAGGED}: "
-          + ", ".join(K1_FORMS + WIN_KERNELS) + "; at B=1: "
-          + ", ".join(WIN_KERNELS) + f"; at N={N_ODD}: "
+          + ", ".join(K1_FORMS + RAGGED_KERNELS) + "; at B=1: "
+          + ", ".join(RAGGED_KERNELS) + f"; at N={N_ODD}: "
           + ", ".join(UNCONDENSED_KERNELS)
           + f"; at N={N_LONG} in float64: " + ", ".join(LONG_CHECKED))
     return errs
@@ -2881,6 +2884,7 @@ def phase_timing(device):
                       f"10% of the bounds infinite (the [kernel] check's "
                       f"inputs): {mixed_ms} ms/launch on the device (event "
                       f"window {mixed_window:.4f} ms)")
+                time_iter_batches(device, args)
             want = ref(*args)
             plain_ms = time_events(lambda: ref(*args), 2)
             if n == N_LONG:
@@ -2997,6 +3001,41 @@ def time_long_batches(device, inputs):
                   f"an SM ({geo['smem']} B each), {waves} wave(s)")
     print(f"[timing] N={N_LONG} group sweeps at B="
           f"{'/'.join(map(str, B_MAIN))}: {time.perf_counter() - t0:.1f} s")
+
+
+def time_iter_batches(device, args):
+    """K10 at each B of B_MAIN in float32 (its B_TIME inputs, every bound
+    finite, cut or tiled along the lane axis, each launch on a copy of its
+    own: `time_kernel`): device time of a launch beside the bound, with
+    the blocks an SM holds (the occupancy API, both dtypes) and the waves
+    each B needs."""
+    import math
+
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    bps = {dt: ck.iter_blocks_per_sm(dt)
+           for dt in (torch.float32, torch.float64)}
+    print(f"[timing] iter_sweep_c2 occupancy: {bps[torch.float32]} blocks "
+          f"of {ck.ITER_LANES} lanes x {ck.ITER_GROUP} threads per SM in "
+          f"float32, {bps[torch.float64]} in float64")
+    for B in B_MAIN:
+        cut = at_lanes(args, B)
+        kern = functools.partial(ck.iter_sweep_c2, scratch=ck.iter_scratch(
+            M, B, torch.float32, device))
+        geo = ck.iter_launch_geometry(B, torch.float32)
+        waves = math.ceil(geo["grid"] / (bps[torch.float32] * sms))
+        ms, window = time_kernel("iter_sweep_c2", kern, cut)
+        ms = f"{ms:.4f}" if ms is not None else "not measured"
+        bound_ms = max(bytes_of("iter_sweep_c2", cut, kern(*fresh(cut)))
+                       / HBM_BYTES_PER_S,
+                       flops_of("iter_sweep_c2", B) / PEAK_FP32_FLOPS) * 1e3
+        print(f"[timing] iter_sweep_c2 N={N} B={B} float32: {ms} ms/launch "
+              f"on the device (event window {window:.4f} ms), bound "
+              f"{bound_ms:.4f} ms, {geo['grid']} blocks of {geo['lanes']} "
+              f"lanes ({geo['smem']} B each), {waves} wave(s)")
 
 
 def time_group_batches(device, name, inputs):

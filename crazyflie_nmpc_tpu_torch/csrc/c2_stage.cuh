@@ -1,21 +1,19 @@
 // Stage bodies of the block-2 condensed sweeps, shared by the windowed
-// corrector's vector pass (condensed_c2.cu: bwd_vec_c2) and the one-launch
-// Mehrotra iteration (iter_c2.cu: iter_sweep_c2); kkt_sweep_c2.cu (K2 and
-// K5a bwd_c2) and corrector_sweep_c2.cu (K3 and K5b fwd_c2) take chol /
-// cho_solve from here and split the rest of their stages over a thread
-// group, keeping these bodies' order of operations.  The
-// vector pass and the rollout take the input width nu as a template
-// argument (NUC by default), so that the uncondensed sweeps (riccati.cu,
-// nu = NU) run them too.
+// corrector's vector pass (condensed_c2.cu: bwd_vec_c2) and the uncondensed
+// sweeps (riccati.cu); kkt_sweep_c2.cu (K2 and K5a bwd_c2),
+// corrector_sweep_c2.cu (K3 and K5b fwd_c2) and iter_c2.cu (K10
+// iter_sweep_c2) take chol / cho_solve from here and split the rest of
+// their stages over a thread group, keeping these bodies' order of
+// operations.  The vector pass and the rollout take the input width nu as
+// a template argument (NUC by default), so that the uncondensed sweeps
+// (nu = NU) run them too.
 //
 // Counterparts of the per-stage math of
-// crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_kkt_c2_kernel,
-// _corr_c2_kernel, _bwd_c2_kernel, _bwd_vec_c2_kernel, _fwd_c2_kernel,
-// _iter_c2_kernel; _chol_n, _cho_solve_n_vec, _pk).  One thread owns one
-// batch lane: P, p and the rollout state live in its registers (and in
-// local memory where they spill).  The fused and split sweeps evaluate
-// the same formulas in the same order, and agree to the last bit on the
-// same inputs.
+// crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_corr_c2_kernel,
+// _bwd_vec_c2_kernel, _fwd_c2_kernel; _chol_n, _cho_solve_n_vec, _pk).
+// One thread owns one batch lane: p and the rollout state live in its
+// registers.  The fused and split sweeps evaluate the same formulas in the
+// same order, and agree to the last bit on the same inputs.
 #pragma once
 
 #include "batch_last.cuh"
@@ -67,156 +65,10 @@ __device__ __forceinline__ void cho_solve(const VL& L, T* y) {
   }
 }
 
-// One backward stage k of the dense-cost Riccati recursion on the
-// cost-to-go (P, p) of stage k+1.  rs is R̄'s diagonal incl. the barrier
-// shift, r the linear input term: lane views of device memory (the
-// sweeps) or registers (iter_sweep_c2, which computes them), read where
-// they are used.  Writes K, kff, L and Pc = P_{k+1} c_k of stage k through
-// the lane views and leaves stage k's (P, p).
-template <typename T, typename V>
-__device__ __forceinline__ void factor_stage(
-    LaneRef<const T> A, LaneRef<const T> Bm, LaneRef<const T> c,
-    LaneRef<const T> Q, LaneRef<const T> S, LaneRef<const T> R,
-    LaneRef<const T> q, const V& rs, const V& r, T (&P)[NX][NX],
-    T (&p)[NX], LaneRef<T> Ko, LaneRef<T> ko, LaneRef<T> Lo,
-    LaneRef<T> Pc) {
-  // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
-  T m[NX];
-  {
-    T cv[NX];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) cv[j] = c[j];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T s = P[i][0] * cv[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
-      Pc[i] = s;
-      m[i] = p[i] + s;
-    }
-  }
-
-  // Quu = B'PB + [R00 0; 0 0] + diag(rs) (lower triangle)
-  T Quu[NUC][NUC];
-  {
-    T PB[NX][NUC];
-#pragma unroll 1
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) {
-        T s = P[i][0] * Bm[a];
-#pragma unroll
-        for (int j = 1; j < NX; ++j) s = s + P[i][j] * Bm[j * NUC + a];
-        PB[i][a] = s;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-      for (int a2 = 0; a2 <= a; ++a2) {
-        T s = Bm[a] * PB[0][a2];
-#pragma unroll
-        for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PB[i][a2];
-        if (a < NU) s = s + R[a * NU + a2];
-        if (a == a2) s = s + rs[a];
-        Quu[a][a2] = s;
-      }
-    }
-  }
-
-  // PA = P A;  Qux = [S1T; 0] + B' PA;  Qu = r + B' m
-  T PA[NX][NX], Qux[NUC][NX], Qu[NUC];
-#pragma unroll 1
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      T s = P[i][0] * A[j];
-#pragma unroll
-      for (int l = 1; l < NX; ++l) s = s + P[i][l] * A[l * NX + j];
-      PA[i][j] = s;
-    }
-  }
-#pragma unroll 1
-  for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      T s = Bm[a] * PA[0][j];
-#pragma unroll
-      for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PA[i][j];
-      Qux[a][j] = (a < NU) ? S[a * NX + j] + s : s;
-    }
-    T s = Bm[a] * m[0];
-#pragma unroll
-    for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
-    Qu[a] = r[a] + s;
-  }
-
-  // L = chol(Quu); K = -Quu^{-1} Qux; kff = -Quu^{-1} Qu
-  T Lp[NLC], Kk[NUC][NX], kf[NUC];
-  chol<T, NUC>(Quu, Lp);
-#pragma unroll 1
-  for (int j = 0; j < NX; ++j) {
-    T y[NUC];
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) y[a] = Qux[a][j];
-    cho_solve<T, NUC>(Lp, y);
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) Kk[a][j] = -y[a];
-  }
-#pragma unroll
-  for (int a = 0; a < NUC; ++a) kf[a] = Qu[a];
-  cho_solve<T, NUC>(Lp, kf);
-#pragma unroll
-  for (int a = 0; a < NUC; ++a) {
-    kf[a] = -kf[a];
-    ko[a] = kf[a];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) Ko[a * NX + j] = Kk[a][j];
-  }
-#pragma unroll
-  for (int t = 0; t < NLC; ++t) Lo[t] = Lp[t];
-
-  // P <- sym(Qbar + A'PA + Qux'K);  p <- qx + A'm + K'Qu
-#pragma unroll 1
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      T s = A[i] * PA[0][j];
-#pragma unroll
-      for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * PA[l][j];
-      T t = Qux[0][i] * Kk[0][j];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a) t = t + Qux[a][i] * Kk[a][j];
-      P[i][j] = Q[i * NX + j] + s + t;
-    }
-  }
-#pragma unroll 1
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      if (j > i) {
-        const T v = T(0.5) * (P[i][j] + P[j][i]);
-        P[i][j] = v;
-        P[j][i] = v;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    T s = A[i] * m[0];
-#pragma unroll
-    for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
-    T t = Kk[0][i] * Qu[0];
-#pragma unroll
-    for (int a = 1; a < NUC; ++a) t = t + Kk[a][i] * Qu[a];
-    p[i] = q[i] + s + t;
-  }
-}
-
 // One stage of the backward vector pass on the stored factorization
 // (K, L, Pc of stage k): m = p + Pc, Qu = r + B'm, kff = -Quu^{-1} Qu,
-// p <- q + A'm + K'Qu.  r as in factor_stage; A, B, K, Pc and L are lane
-// views.
+// p <- q + A'm + K'Qu.  A, B, K, Pc, L and the linear input term r are
+// lane views.
 template <typename T, int nu = NUC, typename VA, typename VB, typename VK,
           typename VP, typename VL, typename V>
 __device__ __forceinline__ void vec_stage(

@@ -34,9 +34,8 @@
 // counterpart of the TPU's VMEM-resident data.  Per-stage time x stages x
 // waves is the issue floor of a one-thread-per-lane K2's backward phase
 // (kkt_sweep_c2.cu splits a lane's stage over a thread group and is not
-// bound by it).  It is not built on
-// c2_stage.cuh's factor_stage, the inlined form that iter_sweep_c2
-// reaches: ptxas schedules that one ~6% slower (PERF.md).
+// bound by it).  It is written out here rather than shared as an inlined
+// stage function: ptxas scheduled that form ~6% slower (PERF.md).
 #include "c2_stage.cuh"
 
 using namespace cfl;

@@ -7,13 +7,13 @@ Counterparts of `crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py`:
 long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
 kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
 iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
-`csrc/kkt_sweep_c2.cu` (K2, and K5a `bwd_c2`: K2's factorization alone)
-or `csrc/corrector_sweep_c2.cu` (K3, and K5b `fwd_c2`: K3's rollout
-alone), a group of threads per lane each (their launch shapes are
-`kkt_launch_geometry`'s, `bwd_launch_geometry`'s, `corr_launch_geometry`'s
-and `fwd_launch_geometry`'s), `csrc/condensed_c2.cu` or `csrc/iter_c2.cu`
-for CUDA tensors and runs its `*_ref` plain PyTorch version for CPU
-tensors.
+`csrc/kkt_sweep_c2.cu` (K2, and K5a `bwd_c2`: K2's factorization alone),
+`csrc/corrector_sweep_c2.cu` (K3, and K5b `fwd_c2`: K3's rollout alone)
+or `csrc/iter_c2.cu` (K10), a group of threads per lane each (their
+launch shapes are `kkt_launch_geometry`'s, `bwd_launch_geometry`'s,
+`corr_launch_geometry`'s, `fwd_launch_geometry`'s and
+`iter_launch_geometry`'s), or `csrc/condensed_c2.cu` for CUDA tensors,
+and runs its `*_ref` plain PyTorch version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -65,6 +65,12 @@ FWD_THREADS = 256
 FWD_LANES = FWD_THREADS // FWD_GROUP
 FWD_LANE_VALUES = 856  # kFwdLaneValues
 _ITER_SOURCE = "iter_c2.cu"
+# K10's (csrc/iter_c2.cu's kGroup, kThreads and kStride): K2's group and
+# block, a lane of its own
+ITER_GROUP = 16
+ITER_THREADS = 128
+ITER_LANES = ITER_THREADS // ITER_GROUP
+ITER_LANE_VALUES = 1612
 # fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
 _BIG = 3.4e38
 
@@ -377,15 +383,13 @@ def stage_shapes(N, B):
         **dict.fromkeys(("pT", "p_term", "dx0"), t13))
 
 
-def _launch(wrapper, source, ins, outs, floats=(), form="", bf16=()):
+def _launch(wrapper, source, ins, outs):
     """Check `ins` (named as in `_shapes`; the first is (M, ..., B)),
-    launch `wrapper`'s kernel (its compressed `form`, whose bfloat16
-    inputs `bf16` names) on them and `outs`, and count the launch on
+    launch `wrapper`'s kernel on them and `outs`, and count the launch on
     `wrapper`."""
     first = next(iter(ins.values()))
     M, B = first.shape[0], first.shape[-1]
-    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B], floats,
-               form, bf16)
+    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B])
 
 
 _STREAM = ("Abar", "Bbar", "cbar")
@@ -435,6 +439,12 @@ def fwd_launch_geometry(B: int, dtype) -> dict:
                                 FWD_LANE_VALUES)
 
 
+def iter_launch_geometry(B: int, dtype) -> dict:
+    """K10's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, ITER_LANES, ITER_THREADS,
+                                ITER_LANE_VALUES)
+
+
 def kkt_blocks_per_sm(dtype=torch.float32) -> int:
     """K2's resident blocks per SM (KKT_LANES lanes each)."""
     return _build.blocks_per_sm(_KKT_SOURCE, "kkt_sweep_c2_occupancy",
@@ -455,6 +465,12 @@ def bwd_blocks_per_sm(dtype=torch.float32) -> int:
 def fwd_blocks_per_sm(dtype=torch.float32) -> int:
     """K5b's resident blocks per SM (FWD_LANES lanes each)."""
     return _build.blocks_per_sm(_CORR_SOURCE, "fwd_c2_occupancy", dtype)
+
+
+def iter_blocks_per_sm(dtype=torch.float32) -> int:
+    """K10's resident blocks per SM (ITER_LANES lanes each)."""
+    return _build.blocks_per_sm(_ITER_SOURCE, "iter_sweep_c2_occupancy",
+                                dtype)
 
 
 def kkt_sweep_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
@@ -632,11 +648,14 @@ def iter_sweep_c2(Abar, Bbar, c_res, Qbar, S1T, R00, qx, ruu, r1u,
         for dst, src in zip(carried, outs):
             dst.copy_(src)
         return carried + outs[-2:]
-    B = Abar.shape[-1]
+    M, B = Abar.shape[0], Abar.shape[-1]
     alpha, mu = _empty(Abar, 1, B), _empty(Abar, 1, B)
     finfo = torch.finfo(Abar.dtype)
-    _launch(iter_sweep_c2, _ITER_SOURCE, dict(ins, **scratch), (alpha, mu),
-            floats=(tau, 100.0 * finfo.eps ** 2, finfo.tiny))
+    geo = iter_launch_geometry(B, Abar.dtype)
+    _build.run(iter_sweep_c2, _ITER_SOURCE, dict(ins, **scratch),
+               (alpha, mu), _shapes(M, B),
+               [M, B, geo["grid"], geo["threads"], geo["smem"]],
+               floats=(tau, 100.0 * finfo.eps ** 2, finfo.tiny))
     return carried + (alpha, mu)
 
 

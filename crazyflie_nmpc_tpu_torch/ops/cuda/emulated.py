@@ -95,16 +95,18 @@ def load(source: str, text: str | None = None) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib: ctypes.CDLL, symbol: str, tensors, ints) -> None:
-    """Call `int symbol(void* tensors..., int ints..., stream)` on CPU
-    tensors (stream null); raise on a non-zero return."""
+def launch(lib: ctypes.CDLL, symbol: str, tensors, ints, floats=()) -> None:
+    """Call `int symbol(void* tensors..., double floats..., int ints...,
+    stream)` on CPU tensors (stream null), as `_build.launch` calls the
+    card's; raise on a non-zero return."""
     if any(t.is_cuda for t in tensors):
         raise ValueError(f"{symbol}: the emulator takes CPU tensors")
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_double] * len(floats)
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(*[t.data_ptr() for t in tensors], *ints, None)
+    err = fn(*[t.data_ptr() for t in tensors], *floats, *ints, None)
     if err != 0:
         raise RuntimeError(f"{symbol}: emulated launch refused (error "
                            f"{err})")

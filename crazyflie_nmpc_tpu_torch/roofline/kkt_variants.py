@@ -1,15 +1,16 @@
 """K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
-`bwd_c2` or K5b `fwd_c2` in variants on the card: their launch shapes, and
-the parts of their work cut out one at a time.
+`bwd_c2`, K5b `fwd_c2` or K10 `iter_sweep_c2` in variants on the card:
+their launch shapes, and the parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
-                  fwd_c2] [--baseline DIR]
+                  fwd_c2|iter_sweep_c2] [--baseline DIR]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
 K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b,
-`csrc/prep_condense2.cu`) with one edit (`VARIANTS`, `CORR_VARIANTS`,
-`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`).
+`csrc/prep_condense2.cu`, `csrc/iter_c2.cu`) with one edit (`VARIANTS`,
+`CORR_VARIANTS`, `PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`,
+`ITER_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -27,11 +28,16 @@ loaded at a stage's top, as K2's, instead of while the stage before
 computes, or one part removed (the loads, phases A-D, the stores).  K5b: a ring of 3 input sets
 instead of 2, G = 8 (16 lanes a block), 32 lanes a block (G = 16 or 8), or
 one part removed (the loads in the stage loop, the u phase, the dx phase,
-the stores).  Every variant is built with the port's nvcc flags into
+the stores).  K10: one of its five phases removed, or the barrier algebra
+of all five (`kAlgebra`); each launch on a copy of its own of the carried
+inputs it updates in place (`calls`), all made before the timing.  Every
+variant is built with the port's nvcc flags into
 `build/torch_kernels/variants/`, launched through its float32 entry point
 at its own launch shape, and timed at B = 1024, 4096 and 8192 (N=50, the
 study's condensed data; K3 on K2's factorization of it; K1 on the warm
-start the study condenses; K5a and K5b at N=400, the path that runs them,
+start the study condenses; K10 on the study's data with seeded slacks
+and duals, every bound finite (`iter_inputs`); K5a and K5b at N=400, the
+path that runs them,
 the data's 25 condensed stages repeated 8 times, K5b on K2's gains of
 them), all variants in turn and then in reverse order; the unedited
 kernel runs among them.  A time is the device time of
@@ -45,7 +51,10 @@ checkout's `csrc` (with that checkout's headers; say the parent commit,
 unpacked with `git archive`) as the variant "baseline", timed and checked
 among the others: the file of that checkout that defines the kernel
 (`condensed_c2.cu` for a one-thread K5a or K5b, whose entries take no
-launch shape).  Runs on the CUDA device only: without one it exits 1.
+launch shape, as the one-thread K10's in `iter_c2.cu`); for K10 also that
+source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
+kernel's phase blocks emptied), as "baseline no phase N".  Runs on the
+CUDA device only: without one it exits 1.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
@@ -245,6 +255,34 @@ PREP_VARIANTS = {
                                "std::min(768 / kThreads,"),
 }
 
+# K10's, on csrc/iter_c2.cu: each of its five phases cut in turn (its
+# call in the kernel), or the barrier algebra of all five alone
+_ITER_PHASES = {"no phase 0": "  backward_affine(g, sh, M, B);\n",
+                "no phase 1": "  forward<false>(g, sh, M, B);\n",
+                "no phase 2": "  backward_corrector(g, sh, M, B);\n",
+                "no phase 3": "  forward<true>(g, sh, M, B);\n",
+                "no phase 4": "  update(g, sh, M, B);\n"}
+ITER_VARIANTS = {
+    "kernel": None,
+    **{name: _replace(call, "") for name, call in _ITER_PHASES.items()},
+    "no barrier algebra": _replace("constexpr bool kAlgebra = true;",
+                                   "constexpr bool kAlgebra = false;"),
+}
+_XT = "    for (int i = 0; i < NX; ++i) xT[i] = dx0_res[i * B + b];\n"
+# the same phase cuts on the one-thread K10 (the kernel before its
+# redesign, a `--baseline` source): each phase's block emptied
+_ITER_ONE_THREAD_PHASES = {
+    "no phase 0": _cut("    T P[NX][NX], p[NX];",
+                       "  }\n\n  // ---- phase 1"),
+    "no phase 1": _cut("    T x[NX];\n    {\n      auto x0 = lane(",
+                       "  }\n  const T nin"),
+    "no phase 2": _cut("    T p[NX];\n    {\n      auto pt = lane(",
+                       "  }\n\n  // ---- phase 3"),
+    "no phase 3": _cut(_XT, "  }\n  T alpha = tmin", _XT),
+    "no phase 4": _cut("  const T shrink = T(1) - alpha;\n",
+                       "}\n\n}  // namespace"),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form)
 KERNELS = {
     "kkt_sweep_c2": (_SOURCE, VARIANTS, "kkt_sweep_c2_kernelIfffLb0E"),
@@ -254,7 +292,10 @@ KERNELS = {
                        "prep_condense2_kernelIfLi4E"),
     "bwd_c2": (_SOURCE, BWD_VARIANTS, "bwd_c2_kernelIfE"),
     "fwd_c2": ("corrector_sweep_c2.cu", FWD_VARIANTS, "fwd_c2_kernelIfE"),
+    "iter_sweep_c2": ("iter_c2.cu", ITER_VARIANTS, "iter_sweep_c2_kernelIfE"),
 }
+# the variants of a kernel's `--baseline` source besides the source itself
+BASELINE_VARIANTS = {"iter_sweep_c2": _ITER_ONE_THREAD_PHASES}
 # the sweeps' float32 entries: (input pointers, output shapes at (M, B),
 # the name of the constant holding the values a lane in shared memory)
 _NX, _NU, _NL = ck.NX, ck.NUC, ck.NLC
@@ -266,7 +307,17 @@ SWEEPS = {
     "corrector_sweep_c2": (10, _ROLL, "kLaneValues"),
     "bwd_c2": (11, _GAINS, "kBwdStride"),
     "fwd_c2": (6, _ROLL, "kFwdLaneValues"),
+    # the 25 inputs and the 7 scratch arrays of iter_sweep_c2's scratch,
+    # out alpha and mu (the 14 carried inputs are outputs too)
+    "iter_sweep_c2": (32, lambda M, B: ((1, B), (1, B)), "kStride"),
 }
+# K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
+# fraction to the boundary and its float arguments in float32 (tau, the
+# mu floor, the smallest normal)
+_ITER_CARRIED = (17, 18, 9, 10, 11, 12, 6, 8, 2, 13, 14, 20, 21, 22)
+_ITER_TAU = 0.995
+_ITER_FLOATS = (_ITER_TAU, 100.0 * torch.finfo(torch.float32).eps ** 2,
+                torch.finfo(torch.float32).tiny)
 
 
 def sources(kernel="kkt_sweep_c2") -> dict:
@@ -317,21 +368,34 @@ def baseline_source(kernel, csrc) -> str:
     raise ValueError(f"kkt_variants: no source in {csrc} defines {kernel}")
 
 
+def baseline_texts(kernel, csrc) -> dict:
+    """{variant name: source text} of `kernel`'s source in the `csrc`
+    directory (`baseline_source`): "baseline", and each of its
+    `BASELINE_VARIANTS` as "baseline <name>"."""
+    text = (Path(csrc) / baseline_source(kernel, csrc)).read_text()
+    return {"baseline": text,
+            **{f"baseline {name}": edit(text) for name, edit in
+               BASELINE_VARIANTS.get(kernel, {}).items()}}
+
+
+def _whole(name) -> bool:
+    """Whether the variant `name` computes the whole kernel (no part cut
+    out: it is checked against the plain version)."""
+    return re.search(r"(^| )no ", name) is None
+
+
 def _stem(kernel, name):
     return f"{kernel}_" + re.sub(r"\W+", "_", name).strip("_")
 
 
 def build(texts, kernel="kkt_sweep_c2", baseline=None) -> dict:
-    """Compile every variant at once (and the kernel's source in the `csrc`
-    directory `baseline`, with its headers, as "baseline"); {name:
-    (library, ptxas lines of its float32 exact-form instance)}."""
-    source, _, mangled = KERNELS[kernel]
+    """Compile every variant at once, the texts named "baseline..."
+    (`baseline_texts`) with the headers of the `csrc` directory
+    `baseline`; {name: (library, ptxas lines of its float32 exact-form
+    instance)}."""
     out_dir = _build.BUILD_DIR / "variants"
-    dirs = {name: out_dir for name in texts}
-    if baseline is not None:
-        texts = dict(texts, baseline=(
-            Path(baseline) / baseline_source(kernel, baseline)).read_text())
-        dirs["baseline"] = out_dir / "baseline"
+    dirs = {name: out_dir / "baseline" if name.startswith("baseline")
+            else out_dir for name in texts}
     for d, csrc in ((out_dir, _build.CSRC),
                     (out_dir / "baseline", baseline)):
         if csrc is not None:
@@ -414,10 +478,13 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
     group, threads = shape(text)
     values = lane_values(kernel, text)
     n_in, shapes, _ = SWEEPS[kernel]
+    iteration = kernel == "iter_sweep_c2"
+    floats = _ITER_FLOATS if iteration else ()
     fn = getattr(lib, f"{kernel}_f32")
     n_out = len(shapes(1, 1))
-    fn.argtypes = [ctypes.c_void_p] * (n_in + n_out) + [ctypes.c_int] * (
-        5 if values else 2) + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * (n_in + n_out)
+                   + [ctypes.c_double] * len(floats)
+                   + [ctypes.c_int] * (5 if values else 2) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lanes = threads // group
 
@@ -427,12 +494,32 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
                      for s in shapes(M, B))
         geo = [math.ceil(B / lanes), threads,
                lanes * values * 4] if values else []
-        err = fn(*[t.data_ptr() for t in (*args, *outs)], M, B, *geo,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(*[t.data_ptr() for t in (*args, *outs)], *floats, M, B,
+                 *geo, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"kkt_variants: CUDA error {err}")
+        if iteration:   # the carried inputs, updated in place, come first
+            return tuple(args[i] for i in _ITER_CARRIED) + outs
         return outs
     return run
+
+
+def fresh(kernel, args):
+    """`args` with a copy of each input the kernel updates in place (K10's
+    carried ones), so that every launch starts from the same iterate."""
+    if kernel != "iter_sweep_c2":
+        return args
+    return tuple(a.clone() if i in _ITER_CARRIED else a
+                 for i, a in enumerate(args))
+
+
+def calls(kernel, run, args, n):
+    """f() -> run's outputs on `args`, for n calls; for K10 each call on a
+    copy of its own (`fresh`), all made here, before any call is timed."""
+    if kernel != "iter_sweep_c2":
+        return lambda: run(args)
+    copies = iter([fresh(kernel, args) for _ in range(n)])
+    return lambda: run(next(copies))
 
 
 def rel_err(got, want):
@@ -451,9 +538,42 @@ def _plain(kernel, order=4):
             cnd, *rest = pk.prep_condense2_ref(*args, vde_order=order)
             return [*cnd.values(), *rest]
         return ref
+    if kernel == "iter_sweep_c2":
+        return lambda *args: ck.iter_sweep_c2_ref(*args[:25], _ITER_TAU)
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
             "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref}[kernel]
+
+
+def iter_inputs(d, B, device):
+    """K10's 25 inputs on the study's condensed data `d` (ipm_iter_sol's
+    `condensed_data`: its dynamics and cost, R̄'s diagonal as ruu), with
+    seeded slacks, duals and residuals and every bound finite (as on the
+    main path: [0, 22] kRPM on every input), then the 7 arrays of its
+    scratch (`condensed_kernels.iter_scratch`)."""
+    rng = np.random.default_rng(1)
+    c = d["cnd"]
+    M = c["Abar"].shape[0]
+
+    def seeded(lo, hi, *shape, normal=False):
+        a = (hi * rng.standard_normal(shape) if normal
+             else rng.uniform(lo, hi, shape))
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    s8 = (M, ck.NUC, B)
+    lam_l, lam_u = seeded(0.05, 1.5, *s8), seeded(0.05, 1.5, *s8)
+    ones = lambda *s: torch.ones(s, device=device)  # noqa: E731
+    ins = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
+           c["qbar"], d["ruu"], c["rbar"] - lam_l + lam_u,
+           seeded(0.1, 2.0, *s8), seeded(0.1, 2.0, *s8), lam_l, lam_u,
+           seeded(0, 0.05, *s8, normal=True),
+           seeded(0, 0.05, *s8, normal=True), ones(*s8), ones(*s8),
+           seeded(0, 0.01, M, ck.NX, B, normal=True),
+           seeded(0, 0.01, *s8, normal=True), d["pT"], d["p_term"],
+           d["dx0"], seeded(0, 0.01, ck.NX, B, normal=True),
+           2.0 * ck.NUC * M * ones(1, B), ones(1, B))
+    return (tuple(a.contiguous() for a in ins)
+            + tuple(ck.iter_scratch(M, B, torch.float32, device).values()))
 
 
 def inputs(kernel, B, device, n=50):
@@ -471,6 +591,8 @@ def inputs(kernel, B, device, n=50):
         yb = d["yref"][:, :, None].expand(*d["yref"].shape, B).contiguous()
         return (st.x_traj.contiguous(), st.u_traj.contiguous(), yb,
                 *prep_tiles(d["spec"], B, torch.float32, device))
+    if kernel == "iter_sweep_c2":
+        return iter_inputs(d, B, device)
     c = d["cnd"]
     k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
           c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"], d["dx0"])
@@ -496,10 +618,9 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
     version."""
     device = torch.device(device or "cuda")
     texts = sources(kernel)
-    built = build(texts, kernel, baseline)
     if baseline is not None:
-        texts["baseline"] = (
-            Path(baseline) / baseline_source(kernel, baseline)).read_text()
+        texts.update(baseline_texts(kernel, baseline))
+    built = build(texts, kernel, baseline)
     for name, (_, lines) in built.items():
         log(f"ptxas {kernel} {name}: " + "; ".join(lines))
     runs = {name: launcher(lib, texts[name], kernel)
@@ -511,8 +632,8 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
             refs[name + ORDER2] = _plain(kernel, order=2)
     check = inputs(kernel, BATCHES[0], device)
     for name, run in runs.items():
-        if not name.startswith("no "):
-            e = rel_err(run(check), refs[name](*check))
+        if _whole(name):
+            e = rel_err(run(fresh(kernel, check)), refs[name](*check))
             log(f"{kernel} {name}: rel err {e:.3e} against the plain version "
                 f"at B={BATCHES[0]}, N=50")
             if not e <= 1e-4:
@@ -525,8 +646,9 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
     order = list(runs) + list(runs)[::-1]
     for name in order:
         for B in BATCHES:
+            # 21 calls: device_ms' warm-up and 20 traced launches
             times[name][B].append(device_ms(
-                lambda: runs[name](data[B]), 20,
+                calls(kernel, runs[name], data[B], 21), 20,
                 kernel=rf"{kernel}_kernel")[0])
     for name, by_b in times.items():
         log(f"{kernel} {name}: " + ", ".join(

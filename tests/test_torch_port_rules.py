@@ -504,6 +504,25 @@ def test_corr_launch_geometry(B, dtype):
 @pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["float32", "float64"])
+def test_iter_launch_geometry(B, dtype):
+    """K10's launch (K2's group and block, a lane of its own in
+    csrc/iter_c2.cu; `_check_group_geometry`): 4 blocks an SM in float32
+    and 2 in float64 (with the 1 KB each block reserves of the SM's 228
+    KB), whatever M."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    geo = ck.iter_launch_geometry(B, dtype)
+    _check_group_geometry(geo, B, ck.ITER_GROUP, "iter_c2.cu", {
+        "kGroup": ck.ITER_GROUP, "kThreads": ck.ITER_THREADS,
+        "kStride": ck.ITER_LANE_VALUES})
+    blocks = {torch.float32: 4, torch.float64: 2}[dtype]
+    assert blocks * (geo["smem"] + 1024) <= 228 * 1024
+    assert 227 * 1024 // geo["smem"] == blocks
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
 @pytest.mark.parametrize("kernel", ["bwd_c2", "fwd_c2"])
 def test_windowed_launch_geometry(kernel, B, dtype):
     """K5a's launch (K2's group and block, a lane of its own in K2's

@@ -209,3 +209,54 @@ def test_kkt_variants_edit_the_kernel_source(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kkt_variants.main([]) == 1
     assert kkt_variants.main(["--kernel", "corrector_sweep_c2"]) == 1
+
+
+def test_iter_variants_cut_one_phase_each():
+    """K10's study variants: each phase cut removes that phase's call and
+    nothing else, the algebra cut flips the switch, and only the whole
+    kernels are held against the plain version (`_whole`)."""
+    texts = kkt_variants.sources("iter_sweep_c2")
+    kernel = texts["kernel"]
+    for name, call in kkt_variants._ITER_PHASES.items():
+        assert kernel.count(call) == 1, name
+        assert texts[name] == kernel.replace(call, ""), name
+    assert "constexpr bool kAlgebra = false;" in texts["no barrier algebra"]
+    assert [n for n in texts if kkt_variants._whole(n)] == ["kernel"]
+    assert kkt_variants._whole("baseline")
+    assert not kkt_variants._whole("baseline no phase 2")
+
+
+def test_iter_study_inputs_and_fresh_copies():
+    """K10's study inputs fit its entry (25 inputs, then the 7 scratch
+    arrays), every bound finite; `calls` gives each launch its own copy
+    of the 14 carried inputs and shares the others; the plain version
+    steps from them."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    d = sol.condensed_data(4, "cpu")
+    args = kkt_variants.iter_inputs(d, 4, "cpu")
+    M = args[0].shape[0]
+    assert len(args) == kkt_variants.SWEEPS["iter_sweep_c2"][0]
+    shapes = ck._shapes(M, 4)
+    names = ("Abar", "Bbar", "c_res", "Qbar", "S1T", "R00", "qx", "ruu",
+             "r1u", "s_l", "s_u", "lam_l", "lam_u", "r3", "r4", "m_l",
+             "m_u", "z_dx", "z_du", "pT", "r1x_T", "dx0_res", "z_dxT",
+             "n_ineq", "has_ineq", *ck.iter_scratch(M, 4, torch.float32,
+                                                   "cpu"))
+    for name, a in zip(names, args):
+        assert tuple(a.shape) == shapes[name] and a.is_contiguous(), name
+    assert [names[i] for i in kkt_variants._ITER_CARRIED] == list(
+        ck._ITER_CARRIED)
+    assert bool((args[15] == 1).all() and (args[16] == 1).all())
+    seen = []
+    fn = kkt_variants.calls("iter_sweep_c2", lambda a: seen.append(a) or a,
+                            args, 3)
+    for _ in range(3):
+        fn()
+    for i, a in enumerate(args):
+        owned = i in kkt_variants._ITER_CARRIED
+        assert all((s[i] is a) != owned for s in seen), i
+        assert i >= 25 or all(torch.equal(s[i], a) for s in seen), i
+    out = kkt_variants._plain("iter_sweep_c2")(*args)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert bool(((out[-2] > 0) & (out[-2] <= 1)).all())
