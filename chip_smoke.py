@@ -125,11 +125,12 @@ uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel at the shapes of the path that runs it (its device time
 from a profiler trace of 20 launches, beside the CUDA-event window around
-them, which holds the host's issue too), times K1, K2, K3 and K10 (the
-kernels that split a lane over several threads: csrc/prep_condense2.cu in
-both VDE orders, csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in
-their four forms, csrc/iter_c2.cu) at every B of [main] with their
-occupancy, waves and bound, and traces a few steps of [main] (every B),
+them, which holds the host's issue too), times K1, K2, K3, K8a, K9a and
+K10 (the kernels that split a lane over several threads:
+csrc/prep_condense2.cu in both VDE orders, csrc/kkt_sweep_c2.cu and
+csrc/corrector_sweep_c2.cu in their four forms, csrc/riccati.cu's
+kkt_sweep and backward_sweep, csrc/iter_c2.cu) at every B of [main] with
+their occupancy, waves and bound, and traces a few steps of [main] (every B),
 [fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
 [xla_prep] ([single] its own ticks) with torch.profiler.  [pod] runs
 in a child process of its own after [swarm_wire]; the host-bound loops
@@ -307,8 +308,9 @@ LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 WIN_KERNELS = ("bwd_c2", "fwd_c2")
 LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 # the group kernels checked on a ragged last tile and at B=1 besides K1:
-# K5a, K5b and K10 (8 lanes a block: B=1 is its ragged tile)
-RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2",)
+# K5a, K5b, K10, K8a and K9a (8 lanes a block: B=1 is their ragged tile)
+RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2", "kkt_sweep",
+                                "backward_sweep")
 
 
 def fail(msg: str):
@@ -667,11 +669,31 @@ def split_vs_fused(inputs):
     return compare(gains, fused[:4]), compare(roll, fused[4:])
 
 
+def uncondensed_split_vs_fused(inputs):
+    """K9a's gains against K8a's, and K9b's rollout on K8a's gains against
+    K8a's own, on K8a's inputs of `inputs` (kernel_inputs): (whether K,
+    kff, L and Pc are equal, whether dx and du are), bit for bit: K9a is
+    K8a's kernel body without its rollout, and K8a's rollout evaluates
+    K9b's sums in K9b's order."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    args = inputs["kkt_sweep"][2]
+    fused = flat(rk.kkt_sweep(*args))
+    gains = flat(rk.backward_sweep(*args[:-1]))
+    roll = flat(rk.forward_sweep(*args[:3], fused[0], fused[1], args[-1]))
+    return (all(torch.equal(a, b) for a, b in zip(gains, fused[:4])),
+            all(torch.equal(a, b) for a, b in zip(roll, fused[4:])))
+
+
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; K1's two forms and K5a/K5b/K10 (RAGGED_KERNELS) again
-    on a ragged last tile (B_RAGGED), K5a/K5b/K10 at B=1 too; the uncondensed
-    kernels (UNCONDENSED_KERNELS) at the odd N=51 in both too; then the
+    then float32; K1's two forms and K5a/K5b/K10/K8a/K9a (RAGGED_KERNELS)
+    again on a ragged last tile (B_RAGGED), K5a/K5b/K10/K8a/K9a at B=1
+    too; the uncondensed kernels (UNCONDENSED_KERNELS) at the odd N=51 in
+    both too, and at both N K9a's and K9b's outputs against K8a's, bit for
+    bit (uncondensed_split_vs_fused); then the
     sweeps of the long-horizon path (LONG_CHECKED) at its N=400 in
     float64, where a fault in any of their 200 stages shows far above
     rounding (phase_timing holds them in float32 there), and K5a and K5b
@@ -718,6 +740,15 @@ def phase_kernels(device):
                 errs[(name, dn)] = max(errs.get((name, dn), 0.0), abs_err)
         if labels is checked:
             check_bf16_rounding(outs, dn)
+        if "kkt_sweep" in labels and B == B_CHECK:
+            same_gains, same_roll = uncondensed_split_vs_fused(inputs)
+            print(f"[kernel] backward_sweep vs kkt_sweep's K, kff, L, Pc "
+                  f"{dn} N={n} B={B}: bitwise {same_gains}; forward_sweep "
+                  f"on kkt_sweep's gains vs its dx, du: bitwise "
+                  f"{same_roll}")
+            if not (same_gains and same_roll):
+                fail(f"the split uncondensed sweeps differ from kkt_sweep "
+                     f"at N={n} {dn}")
         if n == N_LONG:
             (g_abs, g_rel), (r_abs, r_rel) = split_vs_fused(inputs)
             ok = max(g_rel, r_rel) <= TOL[dn]
@@ -2816,16 +2847,11 @@ def phase_certified(device):
           f"{ms['iters8']:.3f} ms at iters=8 without escalation")
 
 
-# the CUDA function each wrapper launches, where its name differs
-KERNEL_SYMBOLS = {"backward_sweep": "kkt_sweep"}
-
-
 def kernel_pattern(label):
     """A regular expression that finds the CUDA function of the kernel (or
     FORMS label) `label` in a trace's kernel names, mangled or not, and not
     the tail of a longer name (condense2_kernel in prep_condense2_kernel)."""
-    name = FORMS.get(label, label)
-    return r"(?<![A-Za-z_])%s_kernel" % KERNEL_SYMBOLS.get(name, name)
+    return r"(?<![A-Za-z_])%s_kernel" % FORMS.get(label, label)
 
 
 def time_kernel(name, kern, args, reps=20):
@@ -2934,7 +2960,8 @@ def phase_timing(device):
 
 # the kernels that give each block a tile of lanes and several threads a
 # lane, timed with their forms at every B of B_MAIN
-GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2")
+GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2",
+                 "kkt_sweep", "backward_sweep")
 
 
 def group_kernel(label):
@@ -2943,8 +2970,13 @@ def group_kernel(label):
     of its FORMS."""
     from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
     from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
 
     name = FORMS.get(label, label)
+    if name in ("kkt_sweep", "backward_sweep"):
+        return (rk.riccati_launch_geometry,
+                functools.partial(rk.riccati_blocks_per_sm, kernel=name),
+                rk.RICCATI_GROUP)
     if name == "kkt_sweep_c2":
         return ck.kkt_launch_geometry, ck.kkt_blocks_per_sm, ck.KKT_GROUP
     if name == "corrector_sweep_c2":

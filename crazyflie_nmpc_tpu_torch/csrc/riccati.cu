@@ -3,39 +3,85 @@
 //
 // Replaces, in crazyflie_nmpc_tpu/ops/pallas/riccati_kernels.py:
 //   kkt_sweep       (_kkt_kernel, _chol4, _cho_solve4, _cho_solve4_vec)
-//                   -> kkt_sweep_kernel
-//   corrector_sweep (_corrector_kernel) -> corrector_sweep_kernel
+//                   -> kkt_sweep_kernel (K8a)
+//   corrector_sweep (_corrector_kernel) -> corrector_sweep_kernel (K8b)
 //   and the split forms of solve_batched(fused=False):
-//   backward_sweep  (_backward_kernel) -> kkt_sweep_kernel<T, false>, the
-//                   factorization without its rollout
-//   forward_sweep   (_forward_kernel) -> forward_sweep_kernel
+//   backward_sweep  (_backward_kernel) -> backward_sweep_kernel (K9a),
+//                   K8a's factorization without its rollout
+//   forward_sweep   (_forward_kernel) -> forward_sweep_kernel (K9b)
 //   backward_vector_sweep (_backward_vec_kernel)
-//                   -> backward_vector_sweep_kernel
+//                   -> backward_vector_sweep_kernel (K9c)
 // The JAX package computes the last rollout state dx[N] outside its Pallas
 // kernels (an einsum after the launch); these kernels write it themselves.
+// The 4x4 Cholesky is the rsqrt form, packed column-major lower,
+// [l00,l10,l20,l30,l11,l21,l31,l22,l32,l33] (riccati_kernels._chol4).
 //
-// Design: one thread per batch lane, as for the condensed sweeps
-// (condensed_c2.cu): the stage loop runs inside the thread in place of the
-// sequential Pallas grid, P (13x13), p and the rollout state live in its
-// registers and local memory, and the whole-horizon K_all/kff_all VMEM
-// scratch becomes the K/kff outputs (corrector_sweep parks its kff in du).
-// The factorization loop is written out in the kernel, the form in which
-// ptxas schedules kkt_sweep_c2's loop fastest; the vector pass and the
-// rollout are c2_stage.cuh's with 4 inputs.  The 4x4 Cholesky is the
-// rsqrt form, packed column-major lower, [l00,l10,l20,l30,l11,l21,l31,
-// l22,l32,l33] (riccati_kernels._chol4).
+// K8a and K9a: a group of threads per lane, on K2's design
+// (kkt_sweep_c2.cu).  What bounds them on the H100: per stage and lane the
+// factorization reads 268 values and writes 79 for ~7.3k multiply-adds,
+// and the rollout re-reads 290 and writes 17: bytes, 0.09 ms at N=50,
+// B=4096 in float32.  One thread per lane (their form before) made each
+// stage one thread's serial chain of those multiply-adds, with P, PA, Qux
+// and K spilled to local memory, in 64 blocks of 2 warps at B=4096: ~25x
+// the bound.  Here kGroup = 16 threads share one lane's stage, and the
+// lane's state and stage inputs live in shared memory:
+//   * the stage inputs land by cp.async, A and B transposed so that their
+//     columns are rows.  Each copy is of one value: a lane's entries lie B
+//     apart in device memory and its slots are lane-major, so no two
+//     values a thread copies are neighbours at both ends;
+//   * every product is split over the group by column: a thread holds one
+//     column of the right-hand matrix in registers and streams the rows of
+//     the left one through 16-byte vector loads of rows padded to 16.
+//     Phase A, P [A | B | c], has 18 columns of 13 dot products: the first
+//     16 go one to a thread, and the last two (B's fourth column and c) by
+//     row, their 26 dot products over the 16 threads.  Phase B, B' [PA | m
+//     | PB], is 16 jobs, one to a thread: Qux's 13 columns and Qu (4 dot
+//     products each), and Quu's lower triangle as its columns 0 and 3, and
+//     1 and 2 (5 each).  Phase D is X = A'PA + Qux'K + diag(qxx), one
+//     column a thread, with p <- qx + A'm + K'Qu as the 14th job; then P <-
+//     sym(X) by pairs;
+//   * phase C: the 4x4 rsqrt Cholesky of Quu (chol<T, 4>) in every thread
+//     (the same instructions, so the same bits), then threads 0-12 each
+//     solve one column of K and thread 13 kff;
+//   * K8a's rollout runs the stages forward with its inputs round a ring of
+//     kSets = 3 slot sets in the slots the factorization is done with:
+//     stages k+1 and k+2 land while stage k computes (with two sets, K2's
+//     ring, the kernel ran 2% slower at B=1024 and 5% at B=8192, within
+//     1% at 4096: roofline/kkt_variants.py, PERF.md).  It reads the gains
+//     this launch wrote, after __syncthreads, through L1 (the lines were
+//     not cached before the writes), as K2's does.
+// Every sum keeps the order of the one-thread kernel this replaces and of
+// c2_stage.cuh's rollout_stage, so K9a's K, kff, L and Pc equal K8a's bit
+// for bit (one body, `sweep<T, ROLL>`), and K8a's dx and du equal K9b's on
+// K8a's gains.
 //
-// The split forms share those bodies: backward_sweep is kkt_sweep's
-// factorization loop (the same kernel template, ROLLOUT false), and the two
-// others are c2_stage.cuh's rollout and vector pass, which the fused sweeps
-// run too, so split and fused agree to the last bit on the same inputs.
+// Tile and geometry: kLanes = 8 consecutive lanes a block (kThreads =
+// 128), so the block's loads of one entry fill one 32-byte sector of a
+// batch-last row; inputs arrive and gains leave in the flat (entry, lane)
+// order.  Shared memory: kStride = 1004 values a lane (996 of slots), so
+// 32,128 bytes a block in float32 and 64,256 in float64 (the opt-in
+// attribute).  In float32 registers, not shared memory, decide the blocks
+// an SM holds: `__launch_bounds__` caps a thread at 128 (4 blocks), and
+// `ptxas -v` gives K8a 99, no spills (4 blocks an SM: 4224 lanes on 132
+// SMs, so B=4096 runs in one wave and B=8192 in two), K9a 72 (7 blocks,
+// as many as shared memory allows); in float64 119 and 94 (3 blocks, by
+// shared memory).  Asking for 8 blocks (64 registers) was slower at every
+// B, and G = 8 or 32, or 16 lanes a block, slower at B=1024 and 4096
+// (roofline/kkt_variants.py, PERF.md).
+// The wrapper (ops/cuda/riccati_kernels.riccati_launch_geometry) computes
+// grid, block and shared bytes; the launch refuses numbers that disagree
+// with these.  A ragged tile's spare groups read the last lane, store
+// nothing and take part in every barrier.
 //
-// Bound on the H100: per stage and lane kkt_sweep reads ~260 values and
-// writes ~90 for ~6.5k FMAs, corrector_sweep reads ~290 and writes ~20 for
-// ~500: both bytes-bound in principle, but at the path's B only B threads
-// run, so the latency of one thread's dependent chain over the N stages
-// sets the time (PERF.md).  The split forms are bound the same way; the
-// rollout alone re-reads the gains its backward launch wrote.
+// K8b, K9b and K9c run one thread per lane (64-thread blocks): the stage
+// loop runs inside the thread in place of the sequential Pallas grid, p and
+// the rollout state live in its registers, and the whole-horizon
+// K_all/kff_all VMEM scratch becomes the K/kff outputs (corrector_sweep
+// parks its kff in du).  Their vector pass and rollout are c2_stage.cuh's
+// with 4 inputs.  Per stage and lane corrector_sweep reads ~290 values and
+// writes ~20 for ~500 multiply-adds: bytes-bound in principle, but at the
+// path's B only B threads run, so the latency of one thread's chain over
+// the N stages sets the time (PERF.md).
 #include "c2_stage.cuh"
 
 using namespace cfl;
@@ -44,8 +90,422 @@ namespace {
 
 constexpr int NL = NU * (NU + 1) / 2;  // packed 4x4 Cholesky entries
 
-template <typename T, bool ROLLOUT>
-__global__ void __launch_bounds__(64)
+// ---- K8a and K9a -----------------------------------------------------------
+
+constexpr int kGroup = 16;                 // threads per lane
+constexpr int kThreads = 128;              // threads per block
+constexpr int kLanes = kThreads / kGroup;  // lanes per block
+constexpr int kSets = 3;                   // depth of the rollout's ring
+
+// One lane's shared-memory slots (offsets in values of the compute type).
+namespace slot {
+// Rows of 13 are padded to 16 values and rows of 4 start every 4, each row
+// 16-byte aligned, so a row is read with 16-byte vector loads (ld_row).  A,
+// B and the products the stage reads by column are kept transposed: AT row
+// j is column j of A, PAT row j column j of P A.
+constexpr int RW = 16;                  // the pitch of a 13-row
+constexpr int P = 0;                    // P (13 rows)
+constexpr int PAT = P + NX * RW;        // (P A)^T (13 rows)
+constexpr int PBT = PAT + NX * RW;      // (P B)^T (4 rows)
+constexpr int AT = PBT + NU * RW;       // A^T (13 rows)
+constexpr int BT = AT + NX * RW;        // B^T (4 rows)
+constexpr int QUXT = BT + NU * RW;      // Qux^T (13 rows of 4)
+constexpr int KT = QUXT + NX * NU;      // K^T (13 rows of 4)
+constexpr int QUU = KT + NX * NU;       // Quu (4x4, lower triangle)
+constexpr int L = QUU + NU * NU;        // packed Cholesky factor (10 of 12)
+constexpr int PV = L + 12;              // p
+constexpr int MV = PV + RW;             // m = p + Pc
+constexpr int PC = MV + RW;             // Pc = P c
+constexpr int C = PC + RW;              // c
+constexpr int QU = C + RW;              // Qu (4)
+constexpr int KFF = QU + NU;            // kff (4)
+constexpr int QXX = KFF + NU;           // qxx, the state cost's diagonal
+constexpr int QX = QXX + RW;            // qx
+constexpr int RS = QX + RW;             // ruu, the shifted input diagonal
+constexpr int RU = RS + NU;             // ru
+constexpr int END = RU + NU;
+// the rollout's ring of kSets input sets (RSET values apart, unpadded
+// rows) and its state, in slots the factorization is done with
+constexpr int RA = 0, RB = RA + NX * NX, RC = RB + NX * NU,
+              RK = RC + NX, RKFF = RK + NU * NX, RSET = RKFF + NU;
+constexpr int X0 = kSets * RSET, X1 = X0 + NX, U = X1 + NX;
+static_assert(U + NU <= END, "the rollout's slots fit the lane's");
+static_assert(PAT % 4 == 0 && PBT % 4 == 0 && AT % 4 == 0 && BT % 4 == 0 &&
+                  QUXT % 4 == 0 && KT % 4 == 0 && PV % 4 == 0 &&
+                  MV % 4 == 0 && PC % 4 == 0 && C % 4 == 0 && QU % 4 == 0,
+              "rows start 16-byte aligned in both dtypes");
+}  // namespace slot
+
+// 1004 a lane: 16-byte aligned, and two lanes' same entry 12 banks apart
+constexpr int kStride = slot::END + 8;
+static_assert(kStride == 1004, "riccati_launch_geometry's LANE_VALUES");
+
+template <typename T>
+constexpr int smem_bytes() {
+  return kLanes * kStride * static_cast<int>(sizeof(T));
+}
+
+// What __launch_bounds__ asks for: 512 threads an SM in float32 (128
+// registers a thread), 256 in float64 (255).
+template <typename T>
+constexpr int min_blocks() {
+  return (sizeof(T) == 4 ? 512 : 256) / kThreads;
+}
+
+// Global -> shared copies that hold no registers (K2's): each thread keeps
+// its copies in flight (cp.async); copy_wait() waits for all of them, and
+// cp_wait_group<n>() for all but the newest n groups (cp_commit() closes a
+// group); __syncthreads() after it makes every thread's copies visible.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  CFL_ASM(asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                           static_cast<unsigned>(
+                               __cvta_generic_to_shared(dst))),
+                       "l"(src), "n"(sizeof(T))
+                       : "memory"),
+          *dst = *src);
+}
+__device__ __forceinline__ void copy_wait() {
+  CFL_ASM(asm volatile("cp.async.wait_all;\n" ::: "memory"), (void)0);
+}
+__device__ __forceinline__ void cp_commit() {
+  CFL_ASM(asm volatile("cp.async.commit_group;\n" ::: "memory"), (void)0);
+}
+template <int pending>
+__device__ __forceinline__ void cp_wait_group() {
+  CFL_ASM(asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory"),
+          (void)0);
+}
+
+// Entries [0, n) of stage k of a batch-last input into every lane's slot
+// `dst`: entry r at dst + r, or with NCOL > 0 (an input of rows of NCOL)
+// transposed, entry (i, j) at dst + j PITCH + i.  Thread f of the flat
+// (entry, lane) order takes entry f / kLanes of lane f % kLanes, so 8
+// neighbouring threads read one 32-byte sector.
+template <int NCOL = 0, int PITCH = 0, typename T>
+__device__ __forceinline__ void stage_in(T* sh, int dst, const T* src, int n,
+                                         int k, int B, int b0) {
+#pragma unroll 4
+  for (int f = threadIdx.x; f < n * kLanes; f += kThreads) {
+    const int r = f / kLanes, l = f % kLanes;
+    const int at = NCOL ? (r % NCOL) * PITCH + r / NCOL : r;
+    copy_async(sh + l * kStride + dst + at,
+               src + ((size_t)k * n + r) * B + min(b0 + l, B - 1));
+  }
+}
+
+// Slot `src` of every lane into entries [0, n) of stage k of a batch-last
+// output, in the same order (NCOL, PITCH: the slot holds the transpose, as
+// in stage_in); a ragged tile's spare lanes store nothing.
+template <int NCOL = 0, int PITCH = 0, typename T>
+__device__ __forceinline__ void stage_out(T* dst, const T* sh, int src, int n,
+                                          int k, int B, int b0) {
+  for (int f = threadIdx.x; f < n * kLanes; f += kThreads) {
+    const int r = f / kLanes, l = f % kLanes;
+    const int at = NCOL ? (r % NCOL) * PITCH + r / NCOL : r;
+    if (b0 + l < B)
+      dst[((size_t)k * n + r) * B + b0 + l] = sh[l * kStride + src + at];
+  }
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+__device__ __forceinline__ void unpack(const float4& v, float* e) {
+  e[0] = v.x;
+  e[1] = v.y;
+  e[2] = v.z;
+  e[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const double2& v, double* e) {
+  e[0] = v.x;
+  e[1] = v.y;
+}
+
+// x = p[0, n) of a 16-byte aligned row, read in 16-byte vectors (up to
+// the row's padding).
+template <int n, typename T>
+__device__ __forceinline__ void ld_row(const T* p, T (&x)[n]) {
+  constexpr int per = 16 / static_cast<int>(sizeof(T));
+  constexpr int nv = (n + per - 1) / per;
+  T e[nv * per];
+#pragma unroll
+  for (int v = 0; v < nv; ++v)
+    unpack(reinterpret_cast<const typename Vec16<T>::type*>(p)[v],
+           e + v * per);
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = e[i];
+}
+
+// x[0] y[0] + x[1] y[1] + ..., in that order
+template <int n, typename T>
+__device__ __forceinline__ T dot(const T (&x)[n], const T (&y)[n]) {
+  T s = x[0] * y[0];
+#pragma unroll
+  for (int i = 1; i < n; ++i) s = s + x[i] * y[i];
+  return s;
+}
+
+// The backward factorization, then with ROLL the forward rollout: K8a's
+// sweep, and K9a's (ROLL false: no rollout, dx0, dx and du unused).
+template <typename T, bool ROLL>
+__device__ __forceinline__ void sweep(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ c, const T* __restrict__ qxx,
+    const T* __restrict__ qx, const T* __restrict__ ruu,
+    const T* __restrict__ ru, const T* __restrict__ pT,
+    const T* __restrict__ pterm, const T* __restrict__ dx0, T* K, T* kff,
+    T* Lout, T* Pcout, T* dx, T* du, int N, int B) {
+  using namespace slot;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
+  const int b0 = blockIdx.x * kLanes;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  const bool valid = b0 + l < B;       // ... and whether it stores
+  T* const w = sh + l * kStride;
+
+  // terminal cost-to-go: P = diag(pT), p = p_term
+  for (int e = t; e < NX * NX; e += kGroup) {
+    const int i = e / NX, j = e % NX;
+    w[P + i * RW + j] = (i == j) ? pT[i * B + bl] : T(0);
+  }
+  for (int i = t; i < NX; i += kGroup) w[PV + i] = pterm[i * B + bl];
+
+  // column `col` of [A | B | c] (a row of AT or BT, or c), and where
+  // column col of P [A | B | c] goes (a row of PAT or PBT, or Pc)
+  constexpr int kCols = NX + NU + 1;
+  constexpr int kWhole = kCols / kGroup * kGroup;  // the columns taken whole
+  const auto src_of = [](int col) {
+    return col < NX ? AT + col * RW : col < NX + NU ? BT + (col - NX) * RW : C;
+  };
+  const auto dst_of = [](int col) {
+    return col < NX ? PAT + col * RW
+                    : col < NX + NU ? PBT + (col - NX) * RW : PC;
+  };
+
+#pragma unroll 1
+  for (int k = N - 1; k >= 0; --k) {
+    __syncthreads();   // the last stage's readers of the input slots are done
+    stage_in<NX, RW>(sh, AT, A, NX * NX, k, B, b0);
+    stage_in<NU, RW>(sh, BT, Bm, NX * NU, k, B, b0);
+    stage_in(sh, C, c, NX, k, B, b0);
+    stage_in(sh, QXX, qxx, NX, k, B, b0);
+    stage_in(sh, QX, qx, NX, k, B, b0);
+    stage_in(sh, RS, ruu, NU, k, B, b0);
+    stage_in(sh, RU, ru, NU, k, B, b0);
+    copy_wait();
+    __syncthreads();
+
+    // P [A | B | c] (phase A): the first kWhole columns one a thread, the
+    // rest by (column, row); column j of P A into PAT row j, of P B into
+    // PBT, P c into Pc and m = p + Pc
+#pragma unroll 1
+    for (int col = t; col < kWhole; col += kGroup) {
+      T x[NX];
+      ld_row(w + src_of(col), x);
+      const int dst = dst_of(col);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        T pr[NX];
+        ld_row(w + P + i * RW, pr);
+        const T s = dot(pr, x);
+        w[dst + i] = s;
+        if (col == NX + NU) w[MV + i] = w[PV + i] + s;
+      }
+    }
+#pragma unroll 1
+    for (int e = t; e < (kCols - kWhole) * NX; e += kGroup) {
+      const int col = kWhole + e / NX, i = e % NX;
+      T x[NX], pr[NX];
+      ld_row(w + src_of(col), x);
+      ld_row(w + P + i * RW, pr);
+      const T s = dot(pr, x);
+      w[dst_of(col) + i] = s;
+      if (col == NX + NU) w[MV + i] = w[PV + i] + s;
+    }
+    __syncthreads();
+
+    // B' [PA | m | PB] (phase B), 16 jobs: column j of PA gives Qux[:, j]
+    // = B'PA[:, j] (S = 0; into QUXT row j), m gives Qu = ru + B'm, and
+    // columns h and 3 - h of PB (job 14 + h) give Quu[a2:, a2] = B'PB +
+    // diag(ruu) (the lower triangle)
+#pragma unroll 1
+    for (int job = t; job < NX + 3; job += kGroup) {
+      if (job <= NX) {
+        T y[NX];
+        ld_row(w + (job < NX ? PAT + job * RW : MV), y);
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          T bt[NX];
+          ld_row(w + BT + a * RW, bt);
+          const T s = dot(bt, y);
+          if (job < NX)
+            w[QUXT + job * NU + a] = s;
+          else
+            w[QU + a] = w[RU + a] + s;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int h = job - NX - 1;
+        const int a2 = half ? NU - 1 - h : h;   // Quu's column
+        T y[NX];
+        ld_row(w + PBT + a2 * RW, y);
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          if (a < a2) continue;
+          T bt[NX];
+          ld_row(w + BT + a * RW, bt);
+          T s = dot(bt, y);
+          if (a == a2) s = s + w[RS + a];
+          w[QUU + a * NU + a2] = s;
+        }
+      }
+    }
+    __syncthreads();
+
+    // L = chol(Quu) in every thread (phase C); K = -Quu^{-1} Qux one
+    // column a thread (into KT row j), kff = -Quu^{-1} Qu the 14th job
+    {
+      T Qm[NU][NU], Lp[NL];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+#pragma unroll
+        for (int a2 = 0; a2 < NU; ++a2)
+          Qm[a][a2] = (a2 <= a) ? w[QUU + a * NU + a2] : T(0);
+      }
+      chol<T, NU>(Qm, Lp);
+#pragma unroll 1
+      for (int col = t; col <= NX; col += kGroup) {
+        T y[NU];
+        ld_row(w + (col < NX ? QUXT + col * NU : QU), y);
+        cho_solve<T, NU>(Lp, y);
+        const int dst = col < NX ? KT + col * NU : KFF;
+#pragma unroll
+        for (int a = 0; a < NU; ++a) w[dst + a] = -y[a];
+      }
+      if (t == kGroup - 1) {
+#pragma unroll
+        for (int q = 0; q < NL; ++q) w[L + q] = Lp[q];
+      }
+    }
+    __syncthreads();
+
+    // the stage's gains out
+    stage_out<NX, NU>(K, sh, KT, NU * NX, k, B, b0);
+    stage_out(kff, sh, KFF, NU, k, B, b0);
+    stage_out(Lout, sh, L, NL, k, B, b0);
+    stage_out(Pcout, sh, PC, NX, k, B, b0);
+
+    // X = A'PA + Qux'K + diag(qxx) one column a thread (phase D; into P,
+    // before the symmetrization); the 14th job p <- qx + A'm + K'Qu
+#pragma unroll 1
+    for (int j = t; j <= NX; j += kGroup) {
+      const bool pj = j == NX;
+      T y1[NX], y2[NU];
+      ld_row(w + (pj ? MV : PAT + j * RW), y1);
+      ld_row(w + (pj ? QU : KT + j * NU), y2);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        T x1[NX], x2[NU];
+        ld_row(w + AT + i * RW, x1);
+        ld_row(w + (pj ? KT : QUXT) + i * NU, x2);
+        const T s = dot(x1, y1);
+        const T u = dot(x2, y2);
+        if (pj)
+          w[PV + i] = w[QX + i] + s + u;
+        else
+          w[P + i * RW + j] = (i == j) ? (s + u) + w[QXX + i] : s + u;
+      }
+    }
+    __syncthreads();
+    // P <- sym(X): the 78 (i < j) pairs
+#pragma unroll 1
+    for (int o = t; o < NX * (NX - 1) / 2; o += kGroup) {
+      int i = 0, r = o;
+      while (r >= NX - 1 - i) {
+        r -= NX - 1 - i;
+        ++i;
+      }
+      const int j = i + 1 + r;
+      const T v = T(0.5) * (w[P + i * RW + j] + w[P + j * RW + i]);
+      w[P + i * RW + j] = v;
+      w[P + j * RW + i] = v;
+    }
+  }
+
+  if constexpr (ROLL) {
+    // forward rollout: du_k = K_k dx_k + kff_k, dx_{k+1} = A dx + B du + c,
+    // on the gains just written.  Its inputs go round a ring of kSets slot
+    // sets, one commit group a stage: stage k+kSets-1's copies land while
+    // stage k computes.
+    const auto roll_in = [&](int k) {
+      const int o = (k % kSets) * RSET;
+      stage_in(sh, RA + o, A, NX * NX, k, B, b0);
+      stage_in(sh, RB + o, Bm, NX * NU, k, B, b0);
+      stage_in(sh, RC + o, c, NX, k, B, b0);
+      stage_in(sh, RK + o, static_cast<const T*>(K), NU * NX, k, B, b0);
+      stage_in(sh, RKFF + o, static_cast<const T*>(kff), NU, k, B, b0);
+    };
+    __syncthreads();   // the gains are written, the last P update is done
+    for (int i = t; i < NX; i += kGroup) w[X0 + i] = dx0[i * B + bl];
+#pragma unroll
+    for (int k = 0; k < kSets - 1; ++k) {
+      if (k < N) roll_in(k);
+      cp_commit();
+    }
+    cp_wait_group<kSets - 2>();
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      // stage k+kSets-1 into the set stage k-1 freed (a group, maybe empty)
+      if (k + kSets - 1 < N) roll_in(k + kSets - 1);
+      cp_commit();
+      const int o = (k % kSets) * RSET;
+      const T* x = w + ((k & 1) ? X1 : X0);
+      T* xn = w + ((k & 1) ? X0 : X1);
+      const T* Kk = w + RK + o;
+      for (int a = t; a < NU; a += kGroup) {
+        T s = Kk[a * NX] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) s = s + Kk[a * NX + j] * x[j];
+        const T u = s + w[RKFF + o + a];
+        w[U + a] = u;
+        if (valid) du[((size_t)k * NU + a) * B + b0 + l] = u;
+      }
+      if (valid) {
+        for (int i = t; i < NX; i += kGroup)
+          dx[((size_t)k * NX + i) * B + b0 + l] = x[i];
+      }
+      __syncthreads();
+      const T* As = w + RA + o;
+      const T* Bs = w + RB + o;
+      const T* u = w + U;
+      for (int i = t; i < NX; i += kGroup) {
+        T s = As[i * NX] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) s = s + As[i * NX + j] * x[j];
+        T v = Bs[i * NU] * u[0];
+#pragma unroll
+        for (int a = 1; a < NU; ++a) v = v + Bs[i * NU + a] * u[a];
+        xn[i] = s + v + w[RC + o + i];
+      }
+      cp_wait_group<kSets - 2>();   // stage k+1's inputs have landed (this
+      __syncthreads();              // thread's, then everyone's), and stage
+                                    // k's set is free
+    }
+    if (valid) {
+      const T* x = w + ((N & 1) ? X1 : X0);
+      for (int i = t; i < NX; i += kGroup)
+        dx[((size_t)N * NX + i) * B + b0 + l] = x[i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
 kkt_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                  const T* __restrict__ c, const T* __restrict__ qxx,
                  const T* __restrict__ qx, const T* __restrict__ ruu,
@@ -53,176 +513,48 @@ kkt_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                  const T* __restrict__ pterm, const T* __restrict__ dx0,
                  T* K, T* kff, T* Lout, T* Pcout, T* dx, T* du, int N,
                  int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // terminal cost-to-go: P = diag(pT), p = p_term
-  T P[NX][NX], p[NX];
-  {
-    auto d = lane(pT, NX, 0, B, b);
-    auto pt = lane(pterm, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) P[i][j] = (i == j) ? d[i] : T(0);
-      p[i] = pt[i];
-    }
-  }
-
-#pragma unroll 1
-  for (int k = N - 1; k >= 0; --k) {
-    auto Ak = lane(A, NX * NX, k, B, b);
-    auto Bk = lane(Bm, NX * NU, k, B, b);
-
-    // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
-    T m[NX];
-    {
-      auto ck = lane(c, NX, k, B, b);
-      auto Pc = lane(Pcout, NX, k, B, b);
-      T cv[NX];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) cv[j] = ck[j];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T s = P[i][0] * cv[0];
-#pragma unroll
-        for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
-        Pc[i] = s;
-        m[i] = p[i] + s;
-      }
-    }
-
-    // Quu = B'PB + diag(ruu_shift) (lower triangle)
-    T Quu[NU][NU];
-    {
-      T PB[NX][NU];
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int a = 0; a < NU; ++a) {
-          T s = P[i][0] * Bk[a];
-#pragma unroll
-          for (int j = 1; j < NX; ++j) s = s + P[i][j] * Bk[j * NU + a];
-          PB[i][a] = s;
-        }
-      }
-      auto rs = lane(ruu, NU, k, B, b);
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-#pragma unroll
-        for (int a2 = 0; a2 <= a; ++a2) {
-          T s = Bk[a] * PB[0][a2];
-#pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bk[i * NU + a] * PB[i][a2];
-          if (a == a2) s = s + rs[a];
-          Quu[a][a2] = s;
-        }
-      }
-    }
-
-    // PA = P A;  Qux = B' PA (S = 0);  Qu = ru + B' m
-    T PA[NX][NX], Qux[NU][NX], Qu[NU];
-#pragma unroll 1
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        T s = P[i][0] * Ak[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + P[i][l] * Ak[l * NX + j];
-        PA[i][j] = s;
-      }
-    }
-    {
-      auto r = lane(ru, NU, k, B, b);
-#pragma unroll 1
-      for (int a = 0; a < NU; ++a) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = Bk[a] * PA[0][j];
-#pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bk[i * NU + a] * PA[i][j];
-          Qux[a][j] = s;
-        }
-        T s = Bk[a] * m[0];
-#pragma unroll
-        for (int i = 1; i < NX; ++i) s = s + Bk[i * NU + a] * m[i];
-        Qu[a] = r[a] + s;
-      }
-    }
-
-    // L = chol(Quu); K = -Quu^{-1} Qux; kff = -Quu^{-1} Qu
-    T Lp[NL], Kk[NU][NX], kf[NU];
-    chol<T, NU>(Quu, Lp);
-#pragma unroll 1
-    for (int j = 0; j < NX; ++j) {
-      T y[NU];
-#pragma unroll
-      for (int a = 0; a < NU; ++a) y[a] = Qux[a][j];
-      cho_solve<T, NU>(Lp, y);
-#pragma unroll
-      for (int a = 0; a < NU; ++a) Kk[a][j] = -y[a];
-    }
-#pragma unroll
-    for (int a = 0; a < NU; ++a) kf[a] = Qu[a];
-    cho_solve<T, NU>(Lp, kf);
-    {
-      auto Ko = lane(K, NU * NX, k, B, b);
-      auto ko = lane(kff, NU, k, B, b);
-      auto Lo = lane(Lout, NL, k, B, b);
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        kf[a] = -kf[a];
-        ko[a] = kf[a];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) Ko[a * NX + j] = Kk[a][j];
-      }
-#pragma unroll
-      for (int t = 0; t < NL; ++t) Lo[t] = Lp[t];
-    }
-
-    // P <- sym(A'PA + Qux'K + diag(qxx));  p <- qx + A'm + K'Qu
-    {
-      auto q = lane(qxx, NX, k, B, b);
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = Ak[i] * PA[0][j];
-#pragma unroll
-          for (int l = 1; l < NX; ++l) s = s + Ak[l * NX + i] * PA[l][j];
-          T t = Qux[0][i] * Kk[0][j];
-#pragma unroll
-          for (int a = 1; a < NU; ++a) t = t + Qux[a][i] * Kk[a][j];
-          P[i][j] = (i == j) ? (s + t) + q[i] : s + t;
-        }
-      }
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          if (j > i) {
-            const T v = T(0.5) * (P[i][j] + P[j][i]);
-            P[i][j] = v;
-            P[j][i] = v;
-          }
-        }
-      }
-      auto g = lane(qx, NX, k, B, b);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T s = Ak[i] * m[0];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + Ak[l * NX + i] * m[l];
-        T t = Kk[0][i] * Qu[0];
-#pragma unroll
-        for (int a = 1; a < NU; ++a) t = t + Kk[a][i] * Qu[a];
-        p[i] = g[i] + s + t;
-      }
-    }
-  }
-
-  if constexpr (ROLLOUT)
-    rollout<T, NU>(A, Bm, c, K, kff, dx0, dx, du, N, B, b);
+  sweep<T, true>(A, Bm, c, qxx, qx, ruu, ru, pT, pterm, dx0, K, kff, Lout,
+                 Pcout, dx, du, N, B);
 }
+
+// K9a: the factorization alone (fused=False)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+backward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
+                      const T* __restrict__ c, const T* __restrict__ qxx,
+                      const T* __restrict__ qx, const T* __restrict__ ruu,
+                      const T* __restrict__ ru, const T* __restrict__ pT,
+                      const T* __restrict__ pterm, T* K, T* kff, T* Lout,
+                      T* Pcout, int N, int B) {
+  sweep<T, false>(A, Bm, c, qxx, qx, ruu, ru, pT, pterm, nullptr, K, kff,
+                  Lout, Pcout, nullptr, nullptr, N, B);
+}
+
+// The opt-in to the shared bytes a block of `kernel` takes, above 48 KB.
+template <typename T, typename F>
+int opt_in(F kernel) {
+  if (smem_bytes<T>() <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>()));
+}
+
+// Whether a launch shape disagrees with the kernel's (kLanes lanes of
+// kThreads threads a block, smem_bytes a block).
+template <typename T>
+bool refused(int N, int B, int grid, int threads, int smem) {
+  return B < 1 || N < 1 || threads != kThreads || smem != smem_bytes<T>() ||
+         grid != (B + kLanes - 1) / kLanes;
+}
+
+template <typename T, typename F>
+int occupancy(F kernel, int* blocks_per_sm) {
+  const int err = opt_in<T>(kernel);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kThreads, smem_bytes<T>()));
+}
+
+// ---- K8b, K9b and K9c: one thread per lane ---------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(64)
@@ -274,26 +606,45 @@ inline cudaStream_t as_stream(void* s) {
 
 inline int lanes_grid(int B) { return (B + 63) / 64; }
 
+
 }  // namespace
 
+// K8a and K9a take their launch shape (grid, threads, smem: the wrapper's
+// riccati_launch_geometry) and refuse another; their _occupancy entries
+// give the blocks an SM holds.
 #define RICCATI_ENTRIES(SUFFIX, T)                                            \
   extern "C" int kkt_sweep_##SUFFIX(                                          \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ruu, const T* ru, const T* pT, const T* pterm, const T* dx0,   \
-      T* K, T* kff, T* L, T* Pc, T* dx, T* du, int N, int B, void* stream) {  \
-    kkt_sweep_kernel<T, true><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(   \
+      T* K, T* kff, T* L, T* Pc, T* dx, T* du, int N, int B, int grid,        \
+      int threads, int smem, void* stream) {                                  \
+    if (refused<T>(N, B, grid, threads, smem))                                \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    const int err = opt_in<T>(kkt_sweep_kernel<T>);                           \
+    if (err != 0) return err;                                                 \
+    kkt_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(          \
         A, Bm, c, qxx, qx, ruu, ru, pT, pterm, dx0, K, kff, L, Pc, dx, du, N, \
         B);                                                                   \
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
+  extern "C" int kkt_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {           \
+    return occupancy<T>(kkt_sweep_kernel<T>, blocks_per_sm);                  \
+  }                                                                           \
   extern "C" int backward_sweep_##SUFFIX(                                     \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ruu, const T* ru, const T* pT, const T* pterm, T* K, T* kff,   \
-      T* L, T* Pc, int N, int B, void* stream) {                              \
-    kkt_sweep_kernel<T, false><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(  \
-        A, Bm, c, qxx, qx, ruu, ru, pT, pterm, nullptr, K, kff, L, Pc,        \
-        nullptr, nullptr, N, B);                                              \
+      T* L, T* Pc, int N, int B, int grid, int threads, int smem,             \
+      void* stream) {                                                         \
+    if (refused<T>(N, B, grid, threads, smem))                                \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    const int err = opt_in<T>(backward_sweep_kernel<T>);                      \
+    if (err != 0) return err;                                                 \
+    backward_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(     \
+        A, Bm, c, qxx, qx, ruu, ru, pT, pterm, K, kff, L, Pc, N, B);          \
     return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int backward_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {      \
+    return occupancy<T>(backward_sweep_kernel<T>, blocks_per_sm);             \
   }                                                                           \
   extern "C" int forward_sweep_##SUFFIX(const T* A, const T* Bm, const T* c,  \
                                         const T* K, const T* kff,             \

@@ -10,7 +10,9 @@ every odd horizon; and their split forms, the sweeps of
 `forward_sweep` (the rollout alone) and `backward_vector_sweep` (the
 vector pass alone).  Each wrapper launches its kernel in
 `csrc/riccati.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
-version for CPU tensors.
+version for CPU tensors.  `kkt_sweep` and `backward_sweep` (K8a, K9a) give
+each lane a group of threads (their launch shape is
+`riccati_launch_geometry`'s); the other three run one thread a lane.
 
 Layout: batch-last, contiguous, B last.  N stages with 13 states and 4
 inputs; the cost is diagonal (qxx (N,13,B), ruu (N,4,B) including the
@@ -42,6 +44,32 @@ NX = 13
 NU = 4
 NL = NU * (NU + 1) // 2
 _SOURCE = "riccati.cu"
+# K8a's and K9a's launch shape (csrc/riccati.cu's kGroup, kThreads and
+# kStride, which their launch checks): RICCATI_GROUP threads per lane,
+# RICCATI_LANES lanes a block, RICCATI_LANE_VALUES values of the compute
+# dtype in shared memory per lane
+RICCATI_GROUP = 16
+RICCATI_THREADS = 128
+RICCATI_LANES = RICCATI_THREADS // RICCATI_GROUP
+RICCATI_LANE_VALUES = 1004
+
+
+def riccati_launch_geometry(B: int, dtype) -> dict:
+    """K8a's and K9a's launch at B lanes of `dtype`
+    (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, RICCATI_LANES, RICCATI_THREADS,
+                                RICCATI_LANE_VALUES)
+
+
+def riccati_blocks_per_sm(dtype=torch.float32, kernel="kkt_sweep") -> int:
+    """Resident blocks per SM of K8a (`kernel="kkt_sweep"`) or K9a
+    (`"backward_sweep"`), RICCATI_LANES lanes each."""
+    return _build.blocks_per_sm(_SOURCE, f"{kernel}_occupancy", dtype)
+
+
+def _geometry_ints(N, B, dtype):
+    geo = riccati_launch_geometry(B, dtype)
+    return [N, B, geo["grid"], geo["threads"], geo["smem"]]
 
 
 def backward_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
@@ -100,10 +128,11 @@ def corrector_sweep_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
 
 
 def kkt_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
-    """Diagonal-cost Riccati factorization + forward rollout in one launch.
-    A (N,13,13,B), Bm (N,13,4,B), c/qxx/qx (N,13,B), ruu/ru (N,4,B) (ruu
-    with the barrier shift), pT/p_term/dx0 (13,B).  Returns (K, kff, L, Pc,
-    dx (N+1,13,B), du (N,4,B))."""
+    """Diagonal-cost Riccati factorization + forward rollout in one launch
+    (K8a, `riccati_launch_geometry`).  A (N,13,13,B), Bm (N,13,4,B),
+    c/qxx/qx (N,13,B), ruu/ru (N,4,B) (ruu with the barrier shift),
+    pT/p_term/dx0 (13,B).  Returns (K, kff, L, Pc, dx (N+1,13,B),
+    du (N,4,B))."""
     if A.device.type == "cpu":
         return kkt_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0)
     N, B = A.shape[0], A.shape[-1]
@@ -111,7 +140,8 @@ def kkt_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
             _empty(A, N, NX, B), _empty(A, N + 1, NX, B), _empty(A, N, NU, B))
     _build.run(kkt_sweep, _SOURCE, dict(
         A=A, Bm=Bm, c=c, qxx=qxx, qx=qx, ruu=ruu, ru=ru, pT=pT,
-        p_term=p_term, dx0=dx0), outs, stage_shapes(N, B), [N, B])
+        p_term=p_term, dx0=dx0), outs, stage_shapes(N, B),
+        _geometry_ints(N, B, A.dtype))
     return outs
 
 
@@ -129,8 +159,8 @@ def corrector_sweep(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
 
 
 def backward_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
-    """`kkt_sweep`'s factorization alone (fused=False).  Returns (K, kff,
-    L, Pc)."""
+    """`kkt_sweep`'s factorization alone (fused=False; K9a, K8a's kernel
+    body without its rollout).  Returns (K, kff, L, Pc)."""
     if A.device.type == "cpu":
         return backward_sweep_ref(A, Bm, c, qxx, qx, ruu, ru, pT, p_term)
     N, B = A.shape[0], A.shape[-1]
@@ -138,7 +168,8 @@ def backward_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
             _empty(A, N, NX, B))
     _build.run(backward_sweep, _SOURCE, dict(
         A=A, Bm=Bm, c=c, qxx=qxx, qx=qx, ruu=ruu, ru=ru, pT=pT,
-        p_term=p_term), outs, stage_shapes(N, B), [N, B])
+        p_term=p_term), outs, stage_shapes(N, B),
+        _geometry_ints(N, B, A.dtype))
     return outs
 
 

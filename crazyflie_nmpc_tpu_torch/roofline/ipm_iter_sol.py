@@ -154,7 +154,9 @@ def _time(fn, reps=5):
 def condensed_data(B, device, seed=0):
     """Section 1: the hover batch, its warm start, K7 then K6, and the
     sweeps' other inputs (the JAX tool's: R̄'s diagonal + 1, pT, p_term and
-    dx0 of 0.01 N(0, 1))."""
+    dx0 of 0.01 N(0, 1)); `stage`, K7's stage QP (A, Bm, c, qxx, qx, ru)
+    before K6 condenses it, and `ruu_stage`, its input-cost diagonal + 1,
+    are the uncondensed sweeps' (K8a, K9a)."""
     from crazyflie_nmpc_tpu_torch.models import hover_state
     from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
     from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
@@ -181,7 +183,8 @@ def condensed_data(B, device, seed=0):
         0.01 * rng.standard_normal(s), dtype=f32, device=device)
     return dict(
         spec=spec, yref=yref, yref_e=yref_e, x0s=x0s, states=states,
-        cnd=cnd,
+        cnd=cnd, stage=(A, Bm, c, qxx, qx, ru),
+        ruu_stage=(r_t[None].expand(N, 4, B) + 1.0).contiguous(),
         ruu=(r_t[None].expand(N, 4, B).reshape(M, NUC, B) + 1.0)
         .contiguous(),
         pT=torch.diagonal(spec.cost.W_e)[:, None].expand(NX, B).contiguous(),

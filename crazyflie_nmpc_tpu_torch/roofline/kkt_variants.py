@@ -1,16 +1,19 @@
 """K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
-`bwd_c2`, K5b `fwd_c2` or K10 `iter_sweep_c2` in variants on the card:
-their launch shapes, and the parts of their work cut out one at a time.
+`bwd_c2`, K5b `fwd_c2`, K10 `iter_sweep_c2`, K8a `kkt_sweep` or K9a
+`backward_sweep` in variants on the card: their launch shapes, and the
+parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
-                  fwd_c2|iter_sweep_c2] [--baseline DIR]
+                  fwd_c2|iter_sweep_c2|kkt_sweep|backward_sweep]
+        [--baseline DIR]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
 K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b,
-`csrc/prep_condense2.cu`, `csrc/iter_c2.cu`) with one edit (`VARIANTS`,
-`CORR_VARIANTS`, `PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`,
-`ITER_VARIANTS`).
+`csrc/prep_condense2.cu`, `csrc/iter_c2.cu`, `csrc/riccati.cu`, which
+holds K8a and K9a) with one edit (`VARIANTS`, `CORR_VARIANTS`,
+`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`, `ITER_VARIANTS`,
+`RICCATI_VARIANTS`, `BACKWARD_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -30,7 +33,13 @@ instead of 2, G = 8 (16 lanes a block), 32 lanes a block (G = 16 or 8), or
 one part removed (the loads in the stage loop, the u phase, the dx phase,
 the stores).  K10: one of its five phases removed, or the barrier algebra
 of all five (`kAlgebra`); each launch on a copy of its own of the carried
-inputs it updates in place (`calls`), all made before the timing.  Every
+inputs it updates in place (`calls`), all made before the timing.  K8a:
+G = 8 or 32 threads a lane (128 threads a block), 256 threads a block
+(16 lanes), `__launch_bounds__` asking float32 for 8 blocks an SM (64
+registers a thread) instead of 4, a ring of 2 rollout input sets
+instead of 3, or one part
+removed (the backward loads, phases A-D, the stores, the rollout); K9a
+the same but the rollout's two.  Every
 variant is built with the port's nvcc flags into
 `build/torch_kernels/variants/`, launched through its float32 entry point
 at its own launch shape, and timed at B = 1024, 4096 and 8192 (N=50, the
@@ -39,7 +48,8 @@ start the study condenses; K10 on the study's data with seeded slacks
 and duals, every bound finite (`iter_inputs`); K5a and K5b at N=400, the
 path that runs them,
 the data's 25 condensed stages repeated 8 times, K5b on K2's gains of
-them), all variants in turn and then in reverse order; the unedited
+them; K8a and K9a on the stage QP that K6 condenses, N=50), all variants
+in turn and then in reverse order; the unedited
 kernel runs among them.  A time is the device time of
 a launch, the mean over 20 traced launches (`roofline.device_ms`).  The
 variants that compute the whole stage are also held against the plain
@@ -51,7 +61,8 @@ checkout's `csrc` (with that checkout's headers; say the parent commit,
 unpacked with `git archive`) as the variant "baseline", timed and checked
 among the others: the file of that checkout that defines the kernel
 (`condensed_c2.cu` for a one-thread K5a or K5b, whose entries take no
-launch shape, as the one-thread K10's in `iter_c2.cu`); for K10 also that
+launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's and K9a's
+in `riccati.cu`, where K9a is `kkt_sweep_kernel<T, false>`); for K10 also that
 source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
 kernel's phase blocks emptied), as "baseline no phase N".  Runs on the
 CUDA device only: without one it exits 1.
@@ -73,6 +84,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
 from crazyflie_nmpc_tpu_torch.roofline import device_ms
 
 BATCHES = (1024, 4096, 8192)
@@ -283,7 +295,36 @@ _ITER_ONE_THREAD_PHASES = {
                        "}\n\n}  // namespace"),
 }
 
-# kernel: (source, variants, mangled name of its float32 exact form)
+# K8a's and K9a's, on csrc/riccati.cu (one body, `sweep<T, ROLL>`)
+_RIC_ROLL = "  if constexpr (ROLL) {"
+_RIC_SETS = "constexpr int kSets = 3;"
+_RIC_END = "  }\n\n" + _RIC_ROLL
+BACKWARD_VARIANTS = {
+    "kernel": None,
+    "G=8": _G8,
+    "G=32": VARIANTS["G=32"],
+    "256 threads": _replace("constexpr int kThreads = 128;",
+                            "constexpr int kThreads = 256;"),
+    "8 blocks an SM": _replace("(sizeof(T) == 4 ? 512 : 256) / kThreads",
+                               "(sizeof(T) == 4 ? 1024 : 256) / kThreads"),
+    "no backward loads": _cut("    stage_in<NX, RW>(sh, AT, A,",
+                              "    copy_wait();"),
+    "no phase A": _cut("    // P [A | B | c] (phase A)", "    // B' [PA | m",
+                       _BARRIER),
+    "no phase B": _cut("    // B' [PA | m", "    // L = chol(Quu)", _BARRIER),
+    "no phase C": _cut("    // L = chol(Quu)", "    // the stage's gains out",
+                       _BARRIER),
+    "no stores": _cut("    // the stage's gains out", "    // X = A'PA"),
+    "no phase D": _cut("    // X = A'PA", _RIC_END),
+}
+RICCATI_VARIANTS = {
+    **BACKWARD_VARIANTS,
+    "2 sets": _replace(_RIC_SETS, _RIC_SETS.replace("3", "2")),
+    "no rollout": _replace(_RIC_ROLL, "  if constexpr (false) {"),
+}
+
+# kernel: (source, variants, mangled name of its float32 exact form, or
+# the names of its forms in this source and in the `--baseline` one)
 KERNELS = {
     "kkt_sweep_c2": (_SOURCE, VARIANTS, "kkt_sweep_c2_kernelIfffLb0E"),
     "corrector_sweep_c2": ("corrector_sweep_c2.cu", CORR_VARIANTS,
@@ -293,7 +334,14 @@ KERNELS = {
     "bwd_c2": (_SOURCE, BWD_VARIANTS, "bwd_c2_kernelIfE"),
     "fwd_c2": ("corrector_sweep_c2.cu", FWD_VARIANTS, "fwd_c2_kernelIfE"),
     "iter_sweep_c2": ("iter_c2.cu", ITER_VARIANTS, "iter_sweep_c2_kernelIfE"),
+    "kkt_sweep": ("riccati.cu", RICCATI_VARIANTS,
+                  ("kkt_sweep_kernelIfE", "kkt_sweep_kernelIfLb1E")),
+    "backward_sweep": ("riccati.cu", BACKWARD_VARIANTS,
+                       ("backward_sweep_kernelIfE", "kkt_sweep_kernelIfLb0E")),
 }
+# the CUDA function of a kernel, where the one-thread source named it
+# otherwise (K9a: `kkt_sweep_kernel<T, false>`)
+SYMBOLS = {"backward_sweep": r"(?:backward|kkt)_sweep_kernel"}
 # the variants of a kernel's `--baseline` source besides the source itself
 BASELINE_VARIANTS = {"iter_sweep_c2": _ITER_ONE_THREAD_PHASES}
 # the sweeps' float32 entries: (input pointers, output shapes at (M, B),
@@ -302,6 +350,10 @@ _NX, _NU, _NL = ck.NX, ck.NUC, ck.NLC
 _GAINS = lambda M, B: ((M, _NU, _NX, B), (M, _NU, B), (M, _NL, B),  # noqa
                        (M, _NX, B))
 _ROLL = lambda M, B: ((M + 1, _NX, B), (M, _NU, B))  # noqa: E731
+# the uncondensed sweeps' (4 inputs)
+_UGAINS = lambda N, B: ((N, rk.NU, _NX, B), (N, rk.NU, B),  # noqa: E731
+                        (N, rk.NL, B), (N, _NX, B))
+_UROLL = lambda N, B: ((N + 1, _NX, B), (N, rk.NU, B))  # noqa: E731
 SWEEPS = {
     "kkt_sweep_c2": (12, lambda M, B: _GAINS(M, B) + _ROLL(M, B), "kStride"),
     "corrector_sweep_c2": (10, _ROLL, "kLaneValues"),
@@ -310,6 +362,8 @@ SWEEPS = {
     # the 25 inputs and the 7 scratch arrays of iter_sweep_c2's scratch,
     # out alpha and mu (the 14 carried inputs are outputs too)
     "iter_sweep_c2": (32, lambda M, B: ((1, B), (1, B)), "kStride"),
+    "kkt_sweep": (10, lambda N, B: _UGAINS(N, B) + _UROLL(N, B), "kStride"),
+    "backward_sweep": (9, _UGAINS, "kStride"),
 }
 # K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
 # fraction to the boundary and its float arguments in float32 (tau, the
@@ -357,13 +411,19 @@ def lane_values(kernel, text):
     return int(m.group(1)) if m else None
 
 
+def symbol(kernel) -> str:
+    """A regular expression that finds `kernel`'s CUDA function (in this
+    source or a `--baseline` one) in a source or a trace."""
+    return SYMBOLS.get(kernel, rf"{kernel}_kernel")
+
+
 def baseline_source(kernel, csrc) -> str:
     """The file of the `csrc` directory that defines `kernel`'s CUDA
     function: its source here, or the one-thread kernels'
     `condensed_c2.cu`."""
     for name in (KERNELS[kernel][0], "condensed_c2.cu"):
         path = Path(csrc) / name
-        if path.exists() and f"{kernel}_kernel" in path.read_text():
+        if path.exists() and re.search(symbol(kernel), path.read_text()):
             return name
     raise ValueError(f"kkt_variants: no source in {csrc} defines {kernel}")
 
@@ -430,6 +490,8 @@ def mangled_forms(kernel):
     """The mangled names whose `ptxas -v` lines `build` keeps: the float32
     exact form's (K1's in both VDE orders)."""
     mangled = KERNELS[kernel][2]
+    if isinstance(mangled, tuple):
+        return mangled
     if kernel == "prep_condense2":
         return mangled, mangled.replace("Li4E", "Li2E")
     return (mangled,)
@@ -542,7 +604,9 @@ def _plain(kernel, order=4):
         return lambda *args: ck.iter_sweep_c2_ref(*args[:25], _ITER_TAU)
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
-            "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref}[kernel]
+            "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref,
+            "kkt_sweep": rk.kkt_sweep_ref,
+            "backward_sweep": rk.backward_sweep_ref}[kernel]
 
 
 def iter_inputs(d, B, device):
@@ -580,7 +644,8 @@ def inputs(kernel, B, device, n=50):
     """`kernel`'s inputs at horizon n and B lanes: the study's condensed
     data (N=50; K2's and K5a's), K3's on K2's factorization of it, K5b's
     on K2's gains, K1's from the same warm start (the states before K7 and
-    K6 condensed them).  At n > 50 (K5a, K5b) every stage-wise input is
+    K6 condensed them), K8a's and K9a's K7's stage QP before K6 condensed
+    it.  At n > 50 (K5a, K5b) every stage-wise input is
     the N=50 one repeated n/50 times along the stages."""
     from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
@@ -593,6 +658,11 @@ def inputs(kernel, B, device, n=50):
                 *prep_tiles(d["spec"], B, torch.float32, device))
     if kernel == "iter_sweep_c2":
         return iter_inputs(d, B, device)
+    if kernel in ("kkt_sweep", "backward_sweep"):
+        A, Bm, c, qxx, qx, ru = d["stage"]
+        k8 = (A, Bm, c, qxx, qx, d["ruu_stage"], ru, d["pT"], d["p_term"],
+              d["dx0"])
+        return k8 if kernel == "kkt_sweep" else k8[:-1]
     c = d["cnd"]
     k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
           c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"], d["dx0"])
@@ -649,7 +719,7 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
             # 21 calls: device_ms' warm-up and 20 traced launches
             times[name][B].append(device_ms(
                 calls(kernel, runs[name], data[B], 21), 20,
-                kernel=rf"{kernel}_kernel")[0])
+                kernel=symbol(kernel))[0])
     for name, by_b in times.items():
         log(f"{kernel} {name}: " + ", ".join(
             f"B={B} " + " / ".join(f"{ms:.4f}" if ms is not None

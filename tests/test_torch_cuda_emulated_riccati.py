@@ -1,0 +1,115 @@
+"""K8a `kkt_sweep` and K9a `backward_sweep` (`csrc/riccati.cu`, one group
+kernel body with a compile-time switch off its rollout) compiled with g++
+against the port's thread emulator (`ops/cuda/emulated.py`, `csrc/emu/`),
+float32 and float64, against their plain versions `kkt_sweep_ref` and
+`backward_sweep_ref` on CPU tensors.
+
+The inputs are `chip_smoke.kernel_inputs`' (K7's stage QP of perturbed
+hover trajectories plus a barrier shift), at lane counts that cover the
+8-lane tile: 1 and 7 (one ragged tile), 17 (full tiles whose rows are not
+16-byte aligned, and a ragged one) and 32 (full, 16-byte aligned tiles),
+over 1, 2, 3 and 5 stages (fewer stages than the rollout's ring of three
+sets holds, then its turn, with a set index out of step with the state's
+two slots).
+Tolerances are the card check's (`chip_smoke.TOL`): both sides evaluate
+the same sums in the same order, apart from `rsqrtf` (exact here) and FMA
+contraction.  K9a runs K8a's factorization, and K8a's rollout is K9b
+`forward_sweep`'s in the same order, so here their outputs are equal bit
+for bit, as `chip_smoke.py` expects on the card.  The plain versions are
+held against the JAX package's kernels by `test_torch_uncondensed.py`.
+"""
+
+import functools
+
+import pytest
+import torch
+
+from crazyflie_nmpc_tpu_torch.ops.cuda import emulated
+from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+SOURCE = "riccati.cu"
+TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                                 ids=["float32", "float64"])
+_GAINS = lambda N, B: ((N, rk.NU, rk.NX, B), (N, rk.NU, B),  # noqa: E731
+                       (N, rk.NL, B), (N, rk.NX, B))
+_ROLL = lambda N, B: ((N + 1, rk.NX, B), (N, rk.NU, B))  # noqa: E731
+# kernel: output shapes at (N, B); the group kernels take their launch
+# geometry after N and B, the one-thread forward_sweep none
+KERNELS = {"kkt_sweep": lambda N, B: _GAINS(N, B) + _ROLL(N, B),
+           "backward_sweep": _GAINS,
+           "forward_sweep": _ROLL}
+
+
+@pytest.fixture(scope="module")
+def lib():
+    if emulated.gxx() is None:
+        pytest.skip("needs g++ (the CPU rehearsal compiles the CUDA source)")
+    return emulated.load(SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(lanes, N, dtype):
+    import chip_smoke
+
+    return chip_smoke.kernel_inputs(lanes, dtype, "cpu", n=N)
+
+
+def emulate(lib, kernel, args, geometry=None):
+    """`kernel`'s launch, as its wrapper makes it, on the emulator, into
+    NaN-filled outputs; `geometry` overrides the wrapper's."""
+    N, B = args[0].shape[0], args[0].shape[-1]
+    dtype = args[0].dtype
+    outs = [torch.full(s, float("nan"), dtype=dtype)
+            for s in KERNELS[kernel](N, B)]
+    ints = [N, B]
+    if kernel != "forward_sweep":
+        geo = geometry or rk.riccati_launch_geometry(B, dtype)
+        ints += [geo["grid"], geo["threads"], geo["smem"]]
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    emulated.launch(lib, f"{kernel}_{sfx}", list(args) + outs, ints)
+    return outs
+
+
+def _rel(got, want):
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 5])
+@pytest.mark.parametrize("lanes", [1, 7, 17, 32])
+@DTYPES
+@pytest.mark.parametrize("kernel", ["kkt_sweep", "backward_sweep"])
+def test_emulated_matches_plain(lib, kernel, dtype, lanes, N):
+    _, ref, args = _inputs(lanes, N, dtype)[kernel]
+    got = emulate(lib, kernel, args)
+    want = ref(*args)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _rel(got, want) <= TOL[dtype], (kernel, _rel(got, want))
+
+
+@pytest.mark.parametrize("lanes", [7, 32])
+@DTYPES
+def test_emulated_split_sweeps_equal_kkt_sweep_bitwise(lib, dtype, lanes):
+    """K9a's K, kff, L and Pc are K8a's, and K9b's rollout on K8a's gains
+    is K8a's own, bit for bit."""
+    args = _inputs(lanes, 5, dtype)["kkt_sweep"][2]
+    K, kff, L, Pc, dx, du = emulate(lib, "kkt_sweep", args)
+    gains = emulate(lib, "backward_sweep", args[:-1])
+    assert all(torch.equal(g, w) for g, w in zip(gains, (K, kff, L, Pc)))
+    A, Bm, c = args[:3]
+    roll = emulate(lib, "forward_sweep", (A, Bm, c, K, kff, args[-1]))
+    assert torch.equal(roll[0], dx) and torch.equal(roll[1], du)
+
+
+@pytest.mark.parametrize("key, delta", [("grid", 1), ("threads", 32),
+                                        ("smem", 16)])
+@pytest.mark.parametrize("kernel", ["kkt_sweep", "backward_sweep"])
+def test_emulated_launch_refuses_other_geometry(lib, kernel, key, delta):
+    """The launch checks grid, threads and shared bytes against the
+    source's constants and refuses (without running) what disagrees."""
+    _, _, args = _inputs(7, 1, torch.float32)[kernel]
+    geo = rk.riccati_launch_geometry(7, torch.float32)
+    with pytest.raises(RuntimeError, match="refused"):
+        emulate(lib, kernel, args, geometry=dict(geo, **{key: geo[key]
+                                                          + delta}))

@@ -545,3 +545,24 @@ def test_windowed_launch_geometry(kernel, B, dtype):
     blocks = {torch.float32: 4, torch.float64: 2}[dtype]
     assert blocks * (geo["smem"] + 1024) <= 228 * 1024
     assert 227 * 1024 // geo["smem"] == blocks
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_riccati_launch_geometry(B, dtype):
+    """K8a's and K9a's launch (K2's group and block, a lane of its own in
+    csrc/riccati.cu; `_check_group_geometry`): its shared memory would let
+    an SM hold 7 blocks in float32 and 3 in float64 (with the 1 KB each
+    block reserves of the SM's 228 KB), so registers decide, and the
+    float64 block needs the opt-in attribute; it does not depend on N."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    geo = rk.riccati_launch_geometry(B, dtype)
+    _check_group_geometry(geo, B, rk.RICCATI_GROUP, "riccati.cu", {
+        "kGroup": rk.RICCATI_GROUP, "kThreads": rk.RICCATI_THREADS,
+        "kStride": rk.RICCATI_LANE_VALUES})
+    blocks = {torch.float32: 7, torch.float64: 3}[dtype]
+    assert blocks * (geo["smem"] + 1024) <= 228 * 1024
+    assert 227 * 1024 // geo["smem"] == blocks
+    assert geo["opt_in"] == (dtype == torch.float64)

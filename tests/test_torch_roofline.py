@@ -260,3 +260,48 @@ def test_iter_study_inputs_and_fresh_copies():
     out = kkt_variants._plain("iter_sweep_c2")(*args)
     assert all(bool(torch.isfinite(o).all()) for o in out)
     assert bool(((out[-2] > 0) & (out[-2] <= 1)).all())
+
+
+@pytest.mark.parametrize("kernel", ["kkt_sweep", "backward_sweep"])
+def test_riccati_variants_find_their_anchors(kernel, tmp_path):
+    """K8a's and K9a's study variants: each cut's start marker stands once
+    in csrc/riccati.cu and the cut removes it (the loads, phases A-D, the
+    stores), the shape edits change their constant, and only the whole
+    kernels are held against the plain version.  The `--baseline` source
+    of either is the one-thread riccati.cu, which names K9a
+    `kkt_sweep_kernel<T, false>`; the study's inputs fit the entries."""
+    texts = kkt_variants.sources(kernel)
+    src = texts["kernel"]
+    marks = {"no backward loads": "    stage_in<NX, RW>(sh, AT, A,",
+             "no phase A": "    // P [A | B | c] (phase A)",
+             "no phase B": "    // B' [PA | m",
+             "no phase C": "    // L = chol(Quu)",
+             "no stores": "    // the stage's gains out",
+             "no phase D": "    // X = A'PA"}
+    for name, mark in marks.items():
+        assert src.count(mark) == 1 and mark not in texts[name], name
+    assert "constexpr int kGroup = 8;" in texts["G=8"]
+    assert "constexpr int kGroup = 32;" in texts["G=32"]
+    assert "constexpr int kThreads = 256;" in texts["256 threads"]
+    if kernel == "kkt_sweep":
+        assert "constexpr int kSets = 2;" in texts["2 sets"]
+        assert "if constexpr (false) {" in texts["no rollout"]
+    else:
+        assert "2 sets" not in texts and "no rollout" not in texts
+    assert kkt_variants.lane_values(kernel, src) == 1004
+    assert kkt_variants.shape(src) == (16, 128)
+    assert "? 1024 : 256) / kThreads" in texts["8 blocks an SM"]
+    assert [n for n in texts if kkt_variants._whole(n)] == [
+        "kernel", "G=8", "G=32", "256 threads", "8 blocks an SM"] + (
+        ["2 sets"] if kernel == "kkt_sweep" else [])
+    (tmp_path / "riccati.cu").write_text(
+        "template <typename T, bool ROLLOUT>\n__global__ void\n"
+        "kkt_sweep_kernel(const T* A) {}\n")
+    assert kkt_variants.baseline_source(kernel, tmp_path) == "riccati.cu"
+    assert kkt_variants.lane_values(
+        kernel, (tmp_path / "riccati.cu").read_text()) is None
+    args = kkt_variants.inputs(kernel, 4, "cpu")
+    n_in, shapes, _ = kkt_variants.SWEEPS[kernel]
+    assert len(args) == n_in and all(a.is_contiguous() for a in args)
+    out = kkt_variants._plain(kernel)(*args)
+    assert [tuple(o.shape) for o in out] == list(shapes(50, 4))

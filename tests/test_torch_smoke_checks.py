@@ -647,3 +647,40 @@ def test_at_lanes_cuts_and_tiles_the_lane_axis():
     assert other == 0.5
     (tiled,) = cs.at_lanes((a,), 7)
     assert torch.equal(tiled, torch.cat([a, a, a], dim=-1)[:, :7])
+
+
+@pytest.mark.parametrize("name", ["kkt_sweep", "backward_sweep"])
+def test_riccati_group_kernels_are_listed(name):
+    """K8a and K9a, a group of threads a lane: timed at every B with their
+    occupancy (GROUP_KERNELS), checked on a ragged last tile and at B=1
+    (RAGGED_KERNELS), with riccati_kernels' launch shape and occupancy
+    entry, and found in a trace under their own CUDA function's name."""
+    import re
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    assert name in cs.GROUP_KERNELS and name in cs.RAGGED_KERNELS
+    geometry, blocks_per_sm, group = cs.group_kernel(name)
+    assert geometry is rk.riccati_launch_geometry
+    assert blocks_per_sm.func is rk.riccati_blocks_per_sm
+    assert blocks_per_sm.keywords == {"kernel": name}
+    assert group == rk.RICCATI_GROUP
+    pattern = cs.kernel_pattern(name)
+    assert re.search(pattern, f"void (anonymous namespace)::{name}_kernel"
+                              f"<float>(float const*, int, int)")
+    other = "backward_sweep" if name == "kkt_sweep" else "kkt_sweep"
+    for stray in (f"{other}_kernel<float>", f"{name}_c2_kernel<float>",
+                  "backward_vector_sweep_kernel<float>"):
+        assert not re.search(pattern, stray), stray
+
+
+def test_kernels_line_has_17_kernels():
+    """The second-to-last line's table: the 15 kernels of the solver's
+    paths (every pl.pallas_call site of the JAX package's ops/pallas/)
+    and the two speed-of-light probes, each with its TPU file:line."""
+    table = {**cs.KERNEL_INFO, **cs.PROBE_INFO}
+    assert len(table) == 17
+    assert all(set(info) == {"source", "replaces"} for info in table.values())
+    assert table["kkt_sweep"]["replaces"].endswith("riccati_kernels.py:459")
+    assert table["backward_sweep"]["replaces"].endswith(
+        "riccati_kernels.py:233")
