@@ -125,15 +125,17 @@ uncompressed float64 answer as well.  It also
 checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel at the shapes of the path that runs it (its device time
 from a profiler trace of 20 launches, beside the CUDA-event window around
-them, which holds the host's issue too), times K1, K2, K3, K8a, K9a and
-K10 (the kernels that split a lane over several threads:
+them, which holds the host's issue too), times K1, K2, K3, K5c, K8a,
+K9a, K9b and K10 (the kernels that split a lane over several threads:
 csrc/prep_condense2.cu in both VDE orders, csrc/kkt_sweep_c2.cu and
-csrc/corrector_sweep_c2.cu in their four forms, csrc/riccati.cu's
-kkt_sweep and backward_sweep, csrc/iter_c2.cu) at every B of [main] with
-their occupancy, waves and bound, and traces a few steps of [main] (every B),
-[fused_iter], [uncondensed], [split], [gondzio], [throughput_mode] and
-[xla_prep] ([single] its own ticks) with torch.profiler.  [pod] runs
-in a child process of its own after [swarm_wire]; the host-bound loops
+csrc/corrector_sweep_c2.cu in their four forms, the latter's bwd_vec_c2,
+csrc/riccati.cu's kkt_sweep, backward_sweep and forward_sweep,
+csrc/iter_c2.cu) at every B of [main] with their occupancy, waves and
+bound, K5a/b/c, K2 and K3 at N=400 too, and traces a few steps of [main]
+(every B), [fused_iter], [uncondensed], [split], [gondzio],
+[throughput_mode] and [xla_prep] ([single] its own ticks) with
+torch.profiler.  [pod] runs in a child process of its own after
+[swarm_wire]; the host-bound loops
 ([tuning] to [client], [closed_loop], [flight]), [pod_ranks] and
 [certified_loops] and [bringup] run last, at once, each group in a
 child process of its own (CONCURRENT).
@@ -236,7 +238,7 @@ KERNEL_INFO = {
         source="crazyflie_nmpc_tpu_torch/csrc/corrector_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:607"),
     "bwd_vec_c2": dict(
-        source="crazyflie_nmpc_tpu_torch/csrc/condensed_c2.cu",
+        source="crazyflie_nmpc_tpu_torch/csrc/corrector_sweep_c2.cu",
         replaces=_PALLAS + "condensed_kernels.py:589"),
     "iter_sweep_c2": dict(
         source="crazyflie_nmpc_tpu_torch/csrc/iter_c2.cu",
@@ -302,15 +304,15 @@ SPLIT_KERNELS = ("backward_sweep", "forward_sweep", "backward_vector_sweep")
 LONG_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 # the sweeps of that path (windowed=True and None), checked at its N too
 LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
-# K5a and K5b (a group of threads per lane), checked on a ragged last tile
-# and at B=1 ([pod_ranks] (d)'s shape) too, and timed at N=400 at every B
-# of B_MAIN beside K2 and K3
-WIN_KERNELS = ("bwd_c2", "fwd_c2")
+# K5a, K5b and K5c (a group of threads per lane), checked on a ragged last
+# tile and at B=1 ([pod_ranks] (d)'s shape) too, and timed at N=400 at
+# every B of B_MAIN beside K2 and K3
+WIN_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 # the group kernels checked on a ragged last tile and at B=1 besides K1:
-# K5a, K5b, K10, K8a and K9a (8 lanes a block: B=1 is their ragged tile)
+# K5a, K5b, K5c, K10, K8a, K9a and K9b (B=1 is a ragged tile of each)
 RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2", "kkt_sweep",
-                                "backward_sweep")
+                                "backward_sweep", "forward_sweep")
 
 
 def fail(msg: str):
@@ -669,6 +671,22 @@ def split_vs_fused(inputs):
     return compare(gains, fused[:4]), compare(roll, fused[4:])
 
 
+def corr_split_vs_fused(inputs):
+    """K5c's kff, then K5b's rollout on it, against K3's dx and du on K3's
+    inputs of `inputs` (kernel_inputs): whether they are equal, bit for
+    bit: K5c is K3's kernel body without its rollout, and K5b evaluates
+    K3's rollout sums in K3's order."""
+    import torch
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    args = inputs["corrector_sweep_c2"][2]
+    fused = flat(ck.corrector_sweep_c2(*args))
+    kff = ck.bwd_vec_c2(*args[:2], *args[3:9])
+    roll = flat(ck.fwd_c2(*args[:3], args[5], kff, args[-1]))
+    return all(torch.equal(a, b) for a, b in zip(roll, fused))
+
+
 def uncondensed_split_vs_fused(inputs):
     """K9a's gains against K8a's, and K9b's rollout on K8a's gains against
     K8a's own, on K8a's inputs of `inputs` (kernel_inputs): (whether K,
@@ -689,15 +707,16 @@ def uncondensed_split_vs_fused(inputs):
 
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; K1's two forms and K5a/K5b/K10/K8a/K9a (RAGGED_KERNELS)
-    again on a ragged last tile (B_RAGGED), K5a/K5b/K10/K8a/K9a at B=1
-    too; the uncondensed kernels (UNCONDENSED_KERNELS) at the odd N=51 in
-    both too, and at both N K9a's and K9b's outputs against K8a's, bit for
-    bit (uncondensed_split_vs_fused); then the
-    sweeps of the long-horizon path (LONG_CHECKED) at its N=400 in
-    float64, where a fault in any of their 200 stages shows far above
-    rounding (phase_timing holds them in float32 there), and K5a and K5b
-    against K2 on the same inputs there (split_vs_fused).
+    then float32; K1's two forms and the group sweeps of RAGGED_KERNELS
+    again on a ragged last tile (B_RAGGED), RAGGED_KERNELS at B=1 too;
+    the uncondensed kernels (UNCONDENSED_KERNELS) at the odd N=51 in both
+    too, and at both N K9a's and K9b's outputs against K8a's, bit for bit
+    (uncondensed_split_vs_fused); then the sweeps of the long-horizon path
+    (LONG_CHECKED) at its N=400 in float64, where a fault in any of their
+    200 stages shows far above rounding (phase_timing holds them in
+    float32 there), and K5a and K5b against K2 on the same inputs there
+    (split_vs_fused); K5c then K5b against K3, bit for bit, at N=50 (both
+    dtypes) and N=400 (corr_split_vs_fused).
     Returns {(kernel name, dtype name): max abs err} at N=50 (a kernel's
     forms pooled)."""
     import torch
@@ -748,6 +767,13 @@ def phase_kernels(device):
                   f"{same_roll}")
             if not (same_gains and same_roll):
                 fail(f"the split uncondensed sweeps differ from kkt_sweep "
+                     f"at N={n} {dn}")
+        if "corrector_sweep_c2" in labels and B == B_CHECK:
+            same = corr_split_vs_fused(inputs)
+            print(f"[kernel] bwd_vec_c2 then fwd_c2 vs corrector_sweep_c2's "
+                  f"dx, du {dn} N={n} B={B}: bitwise {same}")
+            if not same:
+                fail(f"bwd_vec_c2 + fwd_c2 differ from corrector_sweep_c2 "
                      f"at N={n} {dn}")
         if n == N_LONG:
             (g_abs, g_rel), (r_abs, r_rel) = split_vs_fused(inputs)
@@ -2961,7 +2987,8 @@ def phase_timing(device):
 # the kernels that give each block a tile of lanes and several threads a
 # lane, timed with their forms at every B of B_MAIN
 GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2",
-                 "kkt_sweep", "backward_sweep")
+                 "kkt_sweep", "backward_sweep", "bwd_vec_c2",
+                 "forward_sweep")
 
 
 def group_kernel(label):
@@ -2985,6 +3012,12 @@ def group_kernel(label):
         return ck.bwd_launch_geometry, ck.bwd_blocks_per_sm, ck.KKT_GROUP
     if name == "fwd_c2":
         return ck.fwd_launch_geometry, ck.fwd_blocks_per_sm, ck.FWD_GROUP
+    if name == "bwd_vec_c2":
+        return (ck.bwd_vec_launch_geometry, ck.bwd_vec_blocks_per_sm,
+                ck.BWD_VEC_GROUP)
+    if name == "forward_sweep":
+        return (rk.forward_launch_geometry, rk.forward_blocks_per_sm,
+                rk.FORWARD_GROUP)
     order = 2 if label.endswith("vde_order=2") else 4
     return (functools.partial(pk.prep_launch_geometry, vde_order=order),
             functools.partial(pk.prep_blocks_per_sm, vde_order=order),
@@ -3002,9 +3035,9 @@ def at_lanes(args, B):
 
 
 def time_long_batches(device, inputs):
-    """K5a, K5b, K2 and K3 (LONG_GROUP_KERNELS) at N=400 in float32 at each
-    B of B_MAIN (their B_TIME inputs cut or tiled along the lane axis: no
-    loop of the kernels depends on the data): device time of a launch (the
+    """K5a, K5b, K5c, K2 and K3 (LONG_GROUP_KERNELS) at N=400 in float32 at
+    each B of B_MAIN (their B_TIME inputs cut or tiled along the lane axis:
+    no loop of the kernels depends on the data): device time of a launch (the
     mean of 20 traced) beside the bound, with the blocks an SM holds (the
     occupancy API) and the waves each B needs.  Prints the seconds it
     took."""

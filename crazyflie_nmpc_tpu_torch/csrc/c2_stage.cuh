@@ -1,12 +1,12 @@
-// Stage bodies of the block-2 condensed sweeps, shared by the windowed
-// corrector's vector pass (condensed_c2.cu: bwd_vec_c2) and the uncondensed
-// sweeps (riccati.cu); kkt_sweep_c2.cu (K2 and K5a bwd_c2),
-// corrector_sweep_c2.cu (K3 and K5b fwd_c2) and iter_c2.cu (K10
-// iter_sweep_c2) take chol / cho_solve from here and split the rest of
-// their stages over a thread group, keeping these bodies' order of
-// operations.  The vector pass and the rollout take the input width nu as
-// a template argument (NUC by default), so that the uncondensed sweeps
-// (nu = NU) run them too.
+// Stage bodies of the block-2 condensed sweeps, run one thread per lane by
+// the uncondensed sweeps K8b and K9c (riccati.cu) at 4 inputs;
+// kkt_sweep_c2.cu (K2 and K5a bwd_c2), corrector_sweep_c2.cu (K3, K5b
+// fwd_c2 and K5c bwd_vec_c2), iter_c2.cu (K10 iter_sweep_c2) and
+// riccati.cu's K8a and K9a take chol / cho_solve from here; they and
+// riccati.cu's K9b split the rest of their stages over a thread group,
+// keeping these bodies' order of operations.  The vector pass and the rollout take
+// the input width nu as a template argument (NUC by default, the condensed
+// sweeps' width).
 //
 // Counterparts of the per-stage math of
 // crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_corr_c2_kernel,

@@ -1,56 +1,30 @@
-// Block-2 partial condensing, the sweeps of the condensed QP (M = N/2
-// dense stages with stacked 8-dim inputs) and the interior-state expansion.
+// Block-2 partial condensing and the interior-state expansion.
 //
 // Replaces, in crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py:
 //   condense2          (_condense2_kernel)      -> condense2_kernel
 //   expand2            (_expand2_kernel, both forms: even_only=True is
 //                       stride 1, even_only=False stride 2) -> expand2_kernel
-//   corrector_sweep_c2_win's first launch: _bwd_vec_c2_kernel ->
-//   bwd_vec_c2_kernel (K5c)
 //
-// kkt_sweep_c2 (K2) and corrector_sweep_c2 (K3) have their own sources,
-// kkt_sweep_c2.cu and corrector_sweep_c2.cu: a group of threads per lane
-// with the stage inputs in shared memory.  So have the windowed sweeps'
-// other two launches: K5a bwd_c2 (_bwd_c2_kernel) is K2's factorization
-// alone, in kkt_sweep_c2.cu, and K5b fwd_c2 (_fwd_c2_kernel) K3's rollout
-// alone, in corrector_sweep_c2.cu.
+// The sweeps of the condensed QP have their own sources, a group of
+// threads per lane with the stage inputs in shared memory: kkt_sweep_c2
+// (K2) and the windowed factorization K5a bwd_c2 (_bwd_c2_kernel, K2's
+// body without its rollout) in kkt_sweep_c2.cu; corrector_sweep_c2 (K3),
+// the windowed rollout K5b fwd_c2 (_fwd_c2_kernel, K3's rollout alone) and
+// the windowed corrector's vector pass K5c bwd_vec_c2 (_bwd_vec_c2_kernel,
+// K3's body without its rollout) in corrector_sweep_c2.cu; iter_sweep_c2
+// (K10) in iter_c2.cu.
 //
-// Design: one thread per batch lane, as the Pallas kernels make every
-// matrix entry a (B,)-lane vector.  bwd_vec_c2 is sequential over the M
-// condensed stages, so the stage loop runs inside the thread in place of
-// the sequential Pallas grid, and the grid spans lanes only (64 threads a
-// block); its stage body is c2_stage.cuh's vec_stage.  It reads the gains
-// bwd_c2 wrote to device memory (the whole-horizon K_all VMEM scratch of
-// the fused TPU kernels).  The expansion is parallel over (lane, pair).
-//
-// Bounds on the H100: per stage and lane bwd_vec_c2 reads ~450 values and
-// writes 8 for ~300 FMAs: bytes-bound in principle.  But at the main
-// path's B (1024..8192 lanes) only B threads run, a few percent of the
-// card's resident-thread capacity, so it is bound by the latency of one
-// thread's dependent chain, not by bytes or flops; it and K10 keep one
-// thread per lane until they get the group design (ROADMAP).  K4 is bound
-// by bytes (it reads Ae/Be once).  K6, like the expansion parallel over
-// (lane, pair), is bound by bytes too: per pair and lane it reads ~500
-// values and writes ~660 for ~6k FMAs; it holds A0/B0 (221 values) for the
-// cost products as K1 does.
-#include "c2_stage.cuh"
+// Design: one thread per (lane, stage pair), as the Pallas kernels make
+// every matrix entry a (B,)-lane vector; the grid spans lanes and pairs.
+// Bounds on the H100: K4 is bound by bytes (it reads Ae/Be once).  K6 is
+// bound by bytes too: per pair and lane it reads ~500 values and writes
+// ~660 for ~6k FMAs; it holds A0/B0 (221 values) for the cost products as
+// K1 does.
+#include "batch_last.cuh"
 
 using namespace cfl;
 
 namespace {
-
-// The windowed corrector's vector pass on the stored factorization.
-template <typename T>
-__global__ void __launch_bounds__(64)
-bwd_vec_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
-                  const T* __restrict__ qx, const T* __restrict__ ru,
-                  const T* __restrict__ K, const T* __restrict__ L,
-                  const T* __restrict__ Pc, const T* __restrict__ pterm,
-                  T* __restrict__ kff, int M, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  vec_sweep<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B, b);
-}
 
 // Block-2 condensing of stage pair j (stages 2j, 2j+1) of diagonal-cost
 // stage data; q1 = qxx[2j+1] is the eliminated state's cost diagonal:
@@ -219,19 +193,9 @@ inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
 }
 
-inline int lanes_grid(int B) { return (B + 63) / 64; }
-
 }  // namespace
 
 #define C2_ENTRIES(SUFFIX, T)                                                 \
-  extern "C" int bwd_vec_c2_##SUFFIX(                                         \
-      const T* Abar, const T* Bbar, const T* qx, const T* ru, const T* K,     \
-      const T* L, const T* Pc, const T* pterm, T* kff, int M, int B,          \
-      void* stream) {                                                         \
-    bwd_vec_c2_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(        \
-        Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B);                      \
-    return static_cast<int>(cudaGetLastError());                              \
-  }                                                                           \
   extern "C" int condense2_##SUFFIX(                                          \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ru, T* Abar, T* Bbar, T* cbar, T* Qbar, T* S1T, T* R00,        \

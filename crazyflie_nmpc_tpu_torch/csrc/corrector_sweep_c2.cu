@@ -1,6 +1,7 @@
 // K3: the Mehrotra corrector's sweep of the block-2 condensed QP (the
 // backward vector pass on a stored factorization, then the forward
-// rollout), a group of threads per lane; and K5b, the rollout alone.
+// rollout), a group of threads per lane; K5b, the rollout alone; and K5c,
+// the vector pass alone.
 //
 // Replaces corrector_sweep_c2 of crazyflie_nmpc_tpu/ops/pallas/
 // condensed_kernels.py (_corr_c2_kernel, _cho_solve_n_vec), with its
@@ -95,8 +96,24 @@
 // --kernel fwd_c2, PERF.md); 3 sets, G=8 or 32 lanes a block tie there
 // (within 4%), 32 lanes is 27% faster at B=8192 and 20% slower at
 // B=1024, 3 sets the reverse.
+//
+// K5c (bwd_vec_c2_kernel) replaces _bwd_vec_c2_kernel of the same Pallas
+// module, the first launch of corrector_sweep_c2_win: K3's kernel body,
+// `sweep<T, TA, TG, DEV, ROLL>`, with the rollout switched off at compile
+// time (ROLL false), exact forms only, its kff written to its own array
+// (on the same inputs K5c then K5b equal K3's dx and du bit for bit).
+// What bounds it: bytes, 447 values read and 8 written a stage and lane
+// for ~440 multiply-adds: 1.49 GB at N=400, B=4096 in float32, 0.445 ms
+// at 3.35 TB/s, a stream that never fits the 50 MB L2.  The one-thread
+// kernel this replaces (condensed_c2.cu's, c2_stage.cuh's vec_sweep) ran
+// 64 of the 132 SMs there: 2.31 ms.  A set of K5c's ring holds only the
+// vector pass's fields (460 values a lane, K3's 481), kVecSets = 2 sets
+// and the state 954 values (kVecLaneValues): 61,056 bytes a block in
+// float32 (3 blocks an SM), 122,112 in float64 (1); its stages land as
+// K5b's, one commit group a stage, kVecSets-1 stages in flight.
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "c2_stage.cuh"
 
@@ -108,39 +125,64 @@ constexpr int kGroup = 16;                 // threads per lane
 constexpr int kThreads = 256;              // threads per block
 constexpr int kLanes = kThreads / kGroup;  // lanes per block
 
-// One slot set and the state, in rows of kLanes values of the compute type
-// (a stored bf16 field fills the first half of its rows).
-namespace slot {
-constexpr int BP = NUC + 1;             // Bbar's row pitch
-constexpr int A = 0;                    // Abar (13x13)
-constexpr int B = A + NX * NX;          // Bbar (13 rows of 8, pitch BP)
-constexpr int K = B + NX * BP;          // K (8x13)
-constexpr int C = K + NUC * NX;         // cbar (the rollout's)
-constexpr int KFF = C + NX;             // kff (the rollout's)
-constexpr int PC = KFF + NUC;           // Pc (the vector pass's)
-constexpr int L = PC + NX;              // packed Cholesky factor (36)
-constexpr int Q = L + NLC;              // qbar
-constexpr int R = Q + NX;               // rbar
-constexpr int SET = R + NUC;            // one set of stage inputs
-constexpr int P = 2 * SET;              // p, then the rollout's odd x
-constexpr int X0 = P + NX;              // m, then the rollout's even x
-constexpr int QU = X0 + NX;             // Qu, then the rollout's u
-constexpr int END = QU + NUC;
-}  // namespace slot
+// K3's lane: one slot set and the state, in rows of kLanes values of the
+// compute type (a stored bf16 field fills the first half of its rows).
+struct CorrLane {
+  static constexpr int BP = NUC + 1;           // Bbar's row pitch
+  static constexpr int A = 0;                  // Abar (13x13)
+  static constexpr int B = A + NX * NX;        // Bbar (13 rows of 8, pitch BP)
+  static constexpr int K = B + NX * BP;        // K (8x13)
+  static constexpr int C = K + NUC * NX;       // cbar (the rollout's)
+  static constexpr int KFF = C + NX;           // kff (the rollout's)
+  static constexpr int PC = KFF + NUC;         // Pc (the vector pass's)
+  static constexpr int L = PC + NX;            // packed Cholesky factor (36)
+  static constexpr int Q = L + NLC;            // qbar
+  static constexpr int R = Q + NX;             // rbar
+  static constexpr int SET = R + NUC;          // one set of stage inputs
+  static constexpr int P = 2 * SET;            // p, then the rollout's odd x
+  static constexpr int X0 = P + NX;            // m, then the rollout's even x
+  static constexpr int QU = X0 + NX;           // Qu, then the rollout's u
+  static constexpr int END = QU + NUC;
+};
 
-constexpr int kLaneValues = slot::END;
+constexpr int kLaneValues = CorrLane::END;
 static_assert(kLaneValues == 996, "corr_launch_geometry's CORR_LANE_VALUES");
 
-template <typename T>
+// K5c's lane: a ring of kVecSets sets of the vector pass's fields alone
+// (K3's less cbar and kff), then the state.
+constexpr int kVecSets = 2;   // depth of K5c's input ring
+struct VecLane {
+  static constexpr int BP = CorrLane::BP;      // Bbar's row pitch
+  static constexpr int A = 0;                  // Abar (13x13)
+  static constexpr int B = A + NX * NX;        // Bbar (13 rows of 8, pitch BP)
+  static constexpr int K = B + NX * BP;        // K (8x13)
+  static constexpr int PC = K + NUC * NX;      // Pc
+  static constexpr int L = PC + NX;            // packed Cholesky factor (36)
+  static constexpr int Q = L + NLC;            // qbar
+  static constexpr int R = Q + NX;             // rbar
+  static constexpr int SET = R + NUC;          // one set of stage inputs (460)
+  static constexpr int P = kVecSets * SET;     // p
+  static constexpr int X0 = P + NX;            // m
+  static constexpr int QU = X0 + NX;           // Qu
+  static constexpr int END = QU + NUC;
+};
+
+constexpr int kVecLaneValues = VecLane::END;
+static_assert(kVecLaneValues == 954,
+              "bwd_vec_launch_geometry's BWD_VEC_LANE_VALUES");
+
+// ROLL: K3's lane, else K5c's
+template <typename T, bool ROLL = true>
 constexpr int smem_bytes() {
-  return kLanes * kLaneValues * static_cast<int>(sizeof(T));
+  return kLanes * (ROLL ? kLaneValues : kVecLaneValues) *
+         static_cast<int>(sizeof(T));
 }
 
 // What __launch_bounds__ asks for: the blocks an SM holds by shared memory,
 // at most 2 (128 registers a thread).
-template <typename T>
+template <typename T, bool ROLL = true>
 constexpr int min_blocks() {
-  return std::min(2, (227 * 1024) / smem_bytes<T>());
+  return std::min(2, (227 * 1024) / smem_bytes<T, ROLL>());
 }
 
 // A field of stored type S that starts at row `row`.
@@ -204,6 +246,17 @@ __device__ __forceinline__ void stage_in(S* dst, const S* src, int n, int k,
 __device__ __forceinline__ void cp_wait() {
   CFL_ASM(asm volatile("cp.async.wait_all;\n" ::: "memory"), (void)0);
 }
+// The copies issued since the last commit form one group ...
+__device__ __forceinline__ void cp_commit() {
+  CFL_ASM(asm volatile("cp.async.commit_group;\n" ::: "memory"), (void)0);
+}
+// ... and this thread's groups but the newest `pending` have landed
+// (__syncthreads() after it: everyone's).
+template <int pending>
+__device__ __forceinline__ void cp_wait_group() {
+  CFL_ASM(asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory"),
+          (void)0);
+}
 
 // A lane's column of a field of stored type S, read in T: entry q at
 // p[q kLanes].
@@ -224,6 +277,204 @@ __device__ __forceinline__ T a_at(const S* a, int i, int j) {
   return v;
 }
 
+// The backward vector pass, then with ROLL the forward rollout: K3's sweep,
+// and K5c's (ROLL false: no rollout, cbar, dx0, dx and du unused; its
+// inputs round a ring of kVecSets sets, kff to its own output).  Each
+// kernel below is this body inlined; K3 passes du as kff (kff parks there).
+template <typename T, typename TA, typename TG, bool DEV, bool ROLL>
+__device__ __forceinline__ void sweep(
+    const TA* __restrict__ Abar, const TA* __restrict__ Bbar,
+    const TA* __restrict__ cbar, const T* __restrict__ qx,
+    const T* __restrict__ ru, const TG* __restrict__ K,
+    const TG* __restrict__ L, const TG* __restrict__ Pc,
+    const T* __restrict__ pterm, const T* __restrict__ dx0, T* dx, T* du,
+    T* kff, int M, int B) {
+  using S = std::conditional_t<ROLL, CorrLane, VecLane>;
+  constexpr int BP = S::BP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x % kLanes, t = threadIdx.x / kLanes;
+  const int b0 = blockIdx.x * kLanes;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  const bool valid = b0 + l < B;       // ... and whether it stores
+  T* const w = sh + l;                 // the lane's column: entry r at r kLanes
+  const auto set = [&](int k) {
+    if constexpr (ROLL)
+      return sh + (k & 1) * S::SET * kLanes;
+    else
+      return sh + (k % kVecSets) * S::SET * kLanes;
+  };
+
+  for (int i = t; i < NX; i += kGroup)
+    w[(S::P + i) * kLanes] = pterm[i * B + bl];
+
+  // vector pass inputs of stage k into its set
+  const auto vec_in = [&](int k) {
+    T* const s = set(k);
+    stage_in(at<TA>(s, S::A), Abar, NX * NX, k, B, b0);
+    stage_in<NUC, BP>(at<TA>(s, S::B), Bbar, NX * NUC, k, B, b0);
+    stage_in(at<TG>(s, S::K), K, NUC * NX, k, B, b0);
+    stage_in(at<TG>(s, S::PC), Pc, NX, k, B, b0);
+    stage_in(at<TG>(s, S::L), L, NLC, k, B, b0);
+    stage_in(at<T>(s, S::Q), qx, NX, k, B, b0);
+    stage_in(at<T>(s, S::R), ru, NUC, k, B, b0);
+  };
+  if constexpr (ROLL) {
+    vec_in(M - 1);
+    cp_wait();
+  } else {
+    // K5c: stages M-1 .. M-kVecSets+1 in flight, one group each
+#pragma unroll
+    for (int j = 1; j < kVecSets; ++j) {
+      if (M - j >= 0) vec_in(M - j);
+      cp_commit();
+    }
+    cp_wait_group<kVecSets - 2>();
+  }
+  __syncthreads();
+
+  // backward vector pass; kff parks in du (K3) or goes to kff (K5c)
+#pragma unroll 1
+  for (int k = M - 1; k >= 0; --k) {
+    T* const s = set(k);
+    if constexpr (ROLL) {
+      if (k > 0)
+        vec_in(k - 1);
+      else   // the rollout's stage-0 c, beside the A, B and K it reuses
+        stage_in(at<TA>(s, S::C), cbar, NX, 0, B, b0);
+    } else {
+      // K5c: stage k-kVecSets+1 into the set stage k+1 freed (a group,
+      // maybe empty)
+      if (k - kVecSets + 1 >= 0) vec_in(k - kVecSets + 1);
+      cp_commit();
+    }
+    const TA* const As = at<TA>(s, S::A) + l;
+    const TA* const Bs = at<TA>(s, S::B) + l;
+    const TG* const Ks = at<TG>(s, S::K) + l;
+
+    // vector-pass Qu: m = p + Pc (threads 0-12, into X0 for the p update;
+    // threads 0-7 all of it, in registers), Qu = r + B'm (threads 0-7)
+    if (t < NX) {
+      const TG* const Pcs = at<TG>(s, S::PC) + l;
+      for (int i = t; i < NX; i += kGroup)
+        w[(S::X0 + i) * kLanes] =
+            w[(S::P + i) * kLanes] + cvt<T>(Pcs[i * kLanes]);
+      if (t < NUC) {
+        T m[NX];
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+          m[j] = w[(S::P + j) * kLanes] + cvt<T>(Pcs[j * kLanes]);
+        for (int a = t; a < NUC; a += kGroup) {
+          T acc = cvt<T>(Bs[a * kLanes]) * m[0];
+#pragma unroll
+          for (int i = 1; i < NX; ++i)
+            acc = acc + cvt<T>(Bs[(i * BP + a) * kLanes]) * m[i];
+          w[(S::QU + a) * kLanes] = s[(S::R + a) * kLanes + l] + acc;
+        }
+      }
+    }
+    __syncthreads();
+
+    // vector-pass p update: p <- q + A'm + K'Qu (threads 0-12)
+    for (int i = t; i < NX; i += kGroup) {
+      const T* const m = w + S::X0 * kLanes;
+      T acc = a_at<DEV, T>(As, 0, i) * m[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + a_at<DEV, T>(As, j, i) * m[j * kLanes];
+      T v = cvt<T>(Ks[i * kLanes]) * w[S::QU * kLanes];
+#pragma unroll
+      for (int a = 1; a < NUC; ++a)
+        v = v + cvt<T>(Ks[(a * NX + i) * kLanes]) * w[(S::QU + a) * kLanes];
+      w[(S::P + i) * kLanes] = s[(S::Q + i) * kLanes + l] + acc + v;
+    }
+    // vector-pass kff solve: kff = -Quu^{-1} Qu (thread kGroup - 1)
+    if (t == kGroup - 1) {
+      T y[NUC];
+#pragma unroll
+      for (int a = 0; a < NUC; ++a) y[a] = w[(S::QU + a) * kLanes];
+      // L read where used: the factor never sits in registers whole
+      cho_solve<T, NUC>(Col<T, TG>{at<TG>(s, S::L) + l}, y);
+#pragma unroll
+      for (int a = 0; a < NUC; ++a) {
+        const T kf = -y[a];
+        if (valid) kff[((size_t)k * NUC + a) * B + b0 + l] = kf;
+        if constexpr (ROLL) {
+          if (k == 0) s[(S::KFF + a) * kLanes + l] = kf;
+        }
+      }
+    }
+    if constexpr (ROLL)
+      cp_wait();       // stage k-1's inputs have landed (this thread's) ...
+    else
+      cp_wait_group<kVecSets - 2>();
+    __syncthreads();   // ... everyone's, and stage k's slots are free
+  }
+
+  if constexpr (ROLL) {
+    // forward rollout: du_k = K_k dx_k + kff_k, dx_{k+1} = A dx + B du + c.
+    // Stage 0's inputs are in set 0; stage k+1's land while stage k
+    // computes.
+    for (int i = t; i < NX; i += kGroup)
+      w[(S::X0 + i) * kLanes] = dx0[i * B + bl];
+    __syncthreads();
+    const auto roll_in = [&](int k) {
+      T* const s = set(k);
+      stage_in(at<TA>(s, S::A), Abar, NX * NX, k, B, b0);
+      stage_in<NUC, BP>(at<TA>(s, S::B), Bbar, NX * NUC, k, B, b0);
+      stage_in(at<TA>(s, S::C), cbar, NX, k, B, b0);
+      stage_in(at<TG>(s, S::K), K, NUC * NX, k, B, b0);
+      stage_in<0, 0, true>(at<T>(s, S::KFF), static_cast<const T*>(du), NUC,
+                           k, B, b0);
+    };
+#pragma unroll 1
+    for (int k = 0; k < M; ++k) {
+      if (k + 1 < M) roll_in(k + 1);
+      T* const s = set(k);
+      const TA* const As = at<TA>(s, S::A) + l;
+      const TA* const Bs = at<TA>(s, S::B) + l;
+      const TG* const Ks = at<TG>(s, S::K) + l;
+      const int xo = (k & 1) ? S::P : S::X0, xn = (k & 1) ? S::X0 : S::P;
+      const T* const x = w + xo * kLanes;   // x_k: entry j at x[j kLanes]
+      // rollout u: u = K x + kff (threads 0-7); dx_k out
+      for (int a = t; a < NUC; a += kGroup) {
+        T acc = cvt<T>(Ks[a * NX * kLanes]) * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j)
+          acc = acc + cvt<T>(Ks[(a * NX + j) * kLanes]) * x[j * kLanes];
+        const T u = acc + s[(S::KFF + a) * kLanes + l];
+        w[(S::QU + a) * kLanes] = u;
+        if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = u;
+      }
+      if (valid) {
+        for (int i = t; i < NX; i += kGroup)
+          dx[((size_t)k * NX + i) * B + b0 + l] = x[i * kLanes];
+      }
+      __syncthreads();
+      // rollout dx: dx_{k+1} = A x + B u + c (threads 0-12)
+      for (int i = t; i < NX; i += kGroup) {
+        T acc = a_at<DEV, T>(As, i, 0) * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j)
+          acc = acc + a_at<DEV, T>(As, i, j) * x[j * kLanes];
+        T v = cvt<T>(Bs[i * BP * kLanes]) * w[S::QU * kLanes];
+#pragma unroll
+        for (int a = 1; a < NUC; ++a)
+          v = v + cvt<T>(Bs[(i * BP + a) * kLanes]) * w[(S::QU + a) * kLanes];
+        w[(xn + i) * kLanes] =
+            acc + v + cvt<T>(at<TA>(s, S::C)[(i * kLanes) + l]);
+      }
+      cp_wait();         // stage k+1's inputs have landed (this thread's) ...
+      __syncthreads();   // ... everyone's, and stage k's slots are free
+    }
+    if (valid) {
+      const int xo = (M & 1) ? S::P : S::X0;
+      for (int i = t; i < NX; i += kGroup)
+        dx[((size_t)M * NX + i) * B + b0 + l] = w[(xo + i) * kLanes];
+    }
+  }
+}
+
 template <typename T, typename TA = T, typename TG = T, bool DEV = false>
 __global__ void __launch_bounds__(kThreads, min_blocks<T>())
 corrector_sweep_c2_kernel(const TA* __restrict__ Abar,
@@ -235,156 +486,20 @@ corrector_sweep_c2_kernel(const TA* __restrict__ Abar,
                           const T* __restrict__ pterm,
                           const T* __restrict__ dx0, T* dx, T* du, int M,
                           int B) {
-  using namespace slot;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sh = reinterpret_cast<T*>(smem_raw);
-  const int l = threadIdx.x % kLanes, t = threadIdx.x / kLanes;
-  const int b0 = blockIdx.x * kLanes;
-  const int bl = min(b0 + l, B - 1);   // the lane this group reads
-  const bool valid = b0 + l < B;       // ... and whether it stores
-  T* const w = sh + l;                 // the lane's column: entry r at r kLanes
-  const auto set = [&](int k) { return sh + (k & 1) * SET * kLanes; };
+  sweep<T, TA, TG, DEV, true>(Abar, Bbar, cbar, qx, ru, K, L, Pc, pterm, dx0,
+                              dx, du, du, M, B);
+}
 
-  for (int i = t; i < NX; i += kGroup) w[(P + i) * kLanes] = pterm[i * B + bl];
-
-  // vector pass inputs of stage k into set k & 1
-  const auto vec_in = [&](int k) {
-    T* const s = set(k);
-    stage_in(at<TA>(s, A), Abar, NX * NX, k, B, b0);
-    stage_in<NUC, BP>(at<TA>(s, slot::B), Bbar, NX * NUC, k, B, b0);
-    stage_in(at<TG>(s, slot::K), K, NUC * NX, k, B, b0);
-    stage_in(at<TG>(s, PC), Pc, NX, k, B, b0);
-    stage_in(at<TG>(s, slot::L), L, NLC, k, B, b0);
-    stage_in(at<T>(s, Q), qx, NX, k, B, b0);
-    stage_in(at<T>(s, R), ru, NUC, k, B, b0);
-  };
-  vec_in(M - 1);
-  cp_wait();
-  __syncthreads();
-
-  // backward vector pass; kff parks in du
-#pragma unroll 1
-  for (int k = M - 1; k >= 0; --k) {
-    T* const s = set(k);
-    if (k > 0)
-      vec_in(k - 1);
-    else   // the rollout's stage-0 c, beside the A, B and K it reuses
-      stage_in(at<TA>(s, C), cbar, NX, 0, B, b0);
-    const TA* const As = at<TA>(s, A) + l;
-    const TA* const Bs = at<TA>(s, slot::B) + l;
-    const TG* const Ks = at<TG>(s, slot::K) + l;
-
-    // vector-pass Qu: m = p + Pc (threads 0-12, into X0 for the p update;
-    // threads 0-7 all of it, in registers), Qu = r + B'm (threads 0-7)
-    if (t < NX) {
-      const TG* const Pcs = at<TG>(s, PC) + l;
-      for (int i = t; i < NX; i += kGroup)
-        w[(X0 + i) * kLanes] = w[(P + i) * kLanes] + cvt<T>(Pcs[i * kLanes]);
-      if (t < NUC) {
-        T m[NX];
-#pragma unroll
-        for (int j = 0; j < NX; ++j)
-          m[j] = w[(P + j) * kLanes] + cvt<T>(Pcs[j * kLanes]);
-        for (int a = t; a < NUC; a += kGroup) {
-          T acc = cvt<T>(Bs[a * kLanes]) * m[0];
-#pragma unroll
-          for (int i = 1; i < NX; ++i)
-            acc = acc + cvt<T>(Bs[(i * BP + a) * kLanes]) * m[i];
-          w[(QU + a) * kLanes] = s[(R + a) * kLanes + l] + acc;
-        }
-      }
-    }
-    __syncthreads();
-
-    // vector-pass p update: p <- q + A'm + K'Qu (threads 0-12)
-    for (int i = t; i < NX; i += kGroup) {
-      const T* const m = w + X0 * kLanes;
-      T acc = a_at<DEV, T>(As, 0, i) * m[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j)
-        acc = acc + a_at<DEV, T>(As, j, i) * m[j * kLanes];
-      T v = cvt<T>(Ks[i * kLanes]) * w[QU * kLanes];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a)
-        v = v + cvt<T>(Ks[(a * NX + i) * kLanes]) * w[(QU + a) * kLanes];
-      w[(P + i) * kLanes] = s[(Q + i) * kLanes + l] + acc + v;
-    }
-    // vector-pass kff solve: kff = -Quu^{-1} Qu (thread kGroup - 1)
-    if (t == kGroup - 1) {
-      T y[NUC];
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) y[a] = w[(QU + a) * kLanes];
-      // L read where used: the factor never sits in registers whole
-      cho_solve<T, NUC>(Col<T, TG>{at<TG>(s, slot::L) + l}, y);
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) {
-        const T kf = -y[a];
-        if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = kf;
-        if (k == 0) s[(KFF + a) * kLanes + l] = kf;
-      }
-    }
-    cp_wait();         // stage k-1's inputs have landed (this thread's) ...
-    __syncthreads();   // ... everyone's, and stage k's slots are free
-  }
-
-  // forward rollout: du_k = K_k dx_k + kff_k, dx_{k+1} = A dx + B du + c.
-  // Stage 0's inputs are in set 0; stage k+1's land while stage k computes.
-  for (int i = t; i < NX; i += kGroup) w[(X0 + i) * kLanes] = dx0[i * B + bl];
-  __syncthreads();
-  const auto roll_in = [&](int k) {
-    T* const s = set(k);
-    stage_in(at<TA>(s, A), Abar, NX * NX, k, B, b0);
-    stage_in<NUC, BP>(at<TA>(s, slot::B), Bbar, NX * NUC, k, B, b0);
-    stage_in(at<TA>(s, C), cbar, NX, k, B, b0);
-    stage_in(at<TG>(s, slot::K), K, NUC * NX, k, B, b0);
-    stage_in<0, 0, true>(at<T>(s, KFF), static_cast<const T*>(du), NUC, k,
-                         B, b0);
-  };
-#pragma unroll 1
-  for (int k = 0; k < M; ++k) {
-    if (k + 1 < M) roll_in(k + 1);
-    T* const s = set(k);
-    const TA* const As = at<TA>(s, A) + l;
-    const TA* const Bs = at<TA>(s, slot::B) + l;
-    const TG* const Ks = at<TG>(s, slot::K) + l;
-    const int xo = (k & 1) ? P : X0, xn = (k & 1) ? X0 : P;
-    const T* const x = w + xo * kLanes;   // x_k: entry j at x[j kLanes]
-    // rollout u: u = K x + kff (threads 0-7); dx_k out
-    for (int a = t; a < NUC; a += kGroup) {
-      T acc = cvt<T>(Ks[a * NX * kLanes]) * x[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j)
-        acc = acc + cvt<T>(Ks[(a * NX + j) * kLanes]) * x[j * kLanes];
-      const T u = acc + s[(KFF + a) * kLanes + l];
-      w[(QU + a) * kLanes] = u;
-      if (valid) du[((size_t)k * NUC + a) * B + b0 + l] = u;
-    }
-    if (valid) {
-      for (int i = t; i < NX; i += kGroup)
-        dx[((size_t)k * NX + i) * B + b0 + l] = x[i * kLanes];
-    }
-    __syncthreads();
-    // rollout dx: dx_{k+1} = A x + B u + c (threads 0-12)
-    for (int i = t; i < NX; i += kGroup) {
-      T acc = a_at<DEV, T>(As, i, 0) * x[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j)
-        acc = acc + a_at<DEV, T>(As, i, j) * x[j * kLanes];
-      T v = cvt<T>(Bs[i * BP * kLanes]) * w[QU * kLanes];
-#pragma unroll
-      for (int a = 1; a < NUC; ++a)
-        v = v + cvt<T>(Bs[(i * BP + a) * kLanes]) * w[(QU + a) * kLanes];
-      w[(xn + i) * kLanes] =
-          acc + v + cvt<T>(at<TA>(s, C)[(i * kLanes) + l]);
-    }
-    cp_wait();         // stage k+1's inputs have landed (this thread's) ...
-    __syncthreads();   // ... everyone's, and stage k's slots are free
-  }
-  if (valid) {
-    const int xo = (M & 1) ? P : X0;
-    for (int i = t; i < NX; i += kGroup)
-      dx[((size_t)M * NX + i) * B + b0 + l] = w[(xo + i) * kLanes];
-  }
+// K5c: the vector pass alone (bwd_vec_c2), exact forms only
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, false>())
+bwd_vec_c2_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
+                  const T* __restrict__ qx, const T* __restrict__ ru,
+                  const T* __restrict__ K, const T* __restrict__ L,
+                  const T* __restrict__ Pc, const T* __restrict__ pterm,
+                  T* __restrict__ kff, int M, int B) {
+  sweep<T, T, T, false, false>(Abar, Bbar, nullptr, qx, ru, K, L, Pc, pterm,
+                               nullptr, nullptr, nullptr, kff, M, B);
 }
 
 template <typename T, typename TA, typename TG, bool DEV>
@@ -411,11 +526,34 @@ int launch(const TA* Abar, const TA* Bbar, const TA* cbar, const T* qx,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int set_vec_smem() {
+  if (smem_bytes<T, false>() <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      bwd_vec_c2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T, false>()));
+}
+
+template <typename T>
+int launch_vec(const T* Abar, const T* Bbar, const T* qx, const T* ru,
+               const T* K, const T* L, const T* Pc, const T* pterm, T* kff,
+               int M, int B, int grid, int threads, int smem, void* stream) {
+  if (B < 1 || M < 1 || threads != kThreads ||
+      smem != smem_bytes<T, false>() || grid != (B + kLanes - 1) / kLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_vec_smem<T>();
+  if (err != 0) return err;
+  bwd_vec_c2_kernel<T>
+      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K5b: the rollout alone (fwd_c2), K3's in a kernel of its own; one set
 // holds only the rollout's fields (K3's holds the vector pass's too).
 constexpr int kSets = 2;                  // depth of K5b's input ring
 namespace fwd_slot {
-constexpr int BP = slot::BP;            // Bbar's row pitch
+constexpr int BP = CorrLane::BP;        // Bbar's row pitch
 constexpr int A = 0;                    // Abar (13x13)
 constexpr int B = A + NX * NX;          // Bbar (13 rows of 8, pitch BP)
 constexpr int K = B + NX * BP;          // K (8x13)
@@ -441,18 +579,6 @@ constexpr int fwd_smem_bytes() {
 template <typename T>
 constexpr int fwd_min_blocks() {
   return std::min(2048 / kThreads, (227 * 1024) / fwd_smem_bytes<T>());
-}
-
-// The copies issued since the last commit form one group ...
-__device__ __forceinline__ void cp_commit() {
-  CFL_ASM(asm volatile("cp.async.commit_group;\n" ::: "memory"), (void)0);
-}
-// ... and this thread's groups but the newest `pending` have landed
-// (__syncthreads() after it: everyone's).
-template <int pending>
-__device__ __forceinline__ void cp_wait_group() {
-  CFL_ASM(asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory"),
-          (void)0);
 }
 
 template <typename T>
@@ -616,3 +742,24 @@ CORR_OCCUPANCY(f64, double)
 
 FWD_ENTRY(f32, float)
 FWD_ENTRY(f64, double)
+
+// K5c (bwd_vec_c2, no compressed forms: windowed=True drops them); grid,
+// threads and smem are the wrapper's bwd_vec_launch_geometry.
+#define BWD_VEC_ENTRY(SUFFIX, T)                                              \
+  extern "C" int bwd_vec_c2_##SUFFIX(                                         \
+      const T* Abar, const T* Bbar, const T* qx, const T* ru, const T* K,     \
+      const T* L, const T* Pc, const T* pterm, T* kff, int M, int B,          \
+      int grid, int threads, int smem, void* stream) {                        \
+    return launch_vec<T>(Abar, Bbar, qx, ru, K, L, Pc, pterm, kff, M, B,      \
+                         grid, threads, smem, stream);                        \
+  }                                                                           \
+  extern "C" int bwd_vec_c2_occupancy_##SUFFIX(int* blocks_per_sm) {          \
+    const int err = set_vec_smem<T>();                                        \
+    if (err != 0) return err;                                                 \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
+        blocks_per_sm, bwd_vec_c2_kernel<T>, kThreads,                        \
+        smem_bytes<T, false>()));                                             \
+  }
+
+BWD_VEC_ENTRY(f32, float)
+BWD_VEC_ENTRY(f64, double)

@@ -8,7 +8,8 @@
 //   and the split forms of solve_batched(fused=False):
 //   backward_sweep  (_backward_kernel) -> backward_sweep_kernel (K9a),
 //                   K8a's factorization without its rollout
-//   forward_sweep   (_forward_kernel) -> forward_sweep_kernel (K9b)
+//   forward_sweep   (_forward_kernel) -> forward_sweep_kernel (K9b),
+//                   K8a's rollout alone
 //   backward_vector_sweep (_backward_vec_kernel)
 //                   -> backward_vector_sweep_kernel (K9c)
 // The JAX package computes the last rollout state dx[N] outside its Pallas
@@ -73,8 +74,36 @@
 // with these.  A ragged tile's spare groups read the last lane, store
 // nothing and take part in every barrier.
 //
-// K8b, K9b and K9c run one thread per lane (64-thread blocks): the stage
-// loop runs inside the thread in place of the sequential Pallas grid, p and
+// K9b: a group of threads per lane, on K5b's design (corrector_sweep_c2.cu's
+// fwd_c2): the rollout alone, from the gains K9a wrote.  What bounds it:
+// bytes, 290 values read and 17 written a stage and lane for 273
+// multiply-adds: 251 MB at N=50, B=4096 in float32, 0.075 ms at 3.35 TB/s,
+// a stream past the 50 MB L2.  One thread per lane (its form before) ran
+// 64 of the 132 SMs there, each thread's ~290 loads of a stage one
+// dependent chain: 0.83 ms.  Here kFwdGroup = 16 threads share one lane's
+// stage, kFwdLanes = 16 lanes a block (kFwdThreads = 256):
+//   * the stage inputs land in [entry][lane] slots round a ring of
+//     kFwdSets = 2 sets, one commit group a stage: stage k+1's copies land
+//     while stage k computes.  A full tile of a batch-last row (16 lanes
+//     of one entry: 64 bytes in float32, 128 in float64) goes in 16-byte
+//     copies (cp.async.cg, K3's tile-row copies, `tile::stage_in`), a
+//     ragged or unaligned one value by value;
+//   * a u phase (threads 0-3, 4 dot products of 13) and a dx phase
+//     (threads 0-12, 13 of 17), two barriers a stage; thread t of lane l
+//     reads entry e at row e, so a warp's two t read rows an odd stride
+//     apart (Bm padded to a pitch of 5, A's rows 13): 32 distinct banks in
+//     float32;
+//   * the sums are K8a's rollout's term for term, so K9b on K8a's gains
+//     equals K8a's dx and du bit for bit.
+// Shared memory: kFwdLaneValues = 636 values a lane (two sets of 303 and
+// the state), 40,704 bytes a block in float32 (5 blocks an SM by shared
+// memory; `__launch_bounds__` asks for 4, 64 registers a thread, so B=8192
+// runs in one wave) and 81,408 in float64 (2, the opt-in attribute).  The
+// wrapper (ops/cuda/riccati_kernels.forward_launch_geometry) computes grid,
+// block and shared bytes; the launch refuses numbers that disagree.
+//
+// K8b and K9c run one thread per lane (64-thread blocks): the stage loop
+// runs inside the thread in place of the sequential Pallas grid, p and
 // the rollout state live in its registers, and the whole-horizon
 // K_all/kff_all VMEM scratch becomes the K/kff outputs (corrector_sweep
 // parks its kff in du).  Their vector pass and rollout are c2_stage.cuh's
@@ -82,6 +111,10 @@
 // writes ~20 for ~500 multiply-adds: bytes-bound in principle, but at the
 // path's B only B threads run, so the latency of one thread's chain over
 // the N stages sets the time (PERF.md).
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+
 #include "c2_stage.cuh"
 
 using namespace cfl;
@@ -554,7 +587,202 @@ int occupancy(F kernel, int* blocks_per_sm) {
       blocks_per_sm, kernel, kThreads, smem_bytes<T>()));
 }
 
-// ---- K8b, K9b and K9c: one thread per lane ---------------------------------
+// ---- K9b: a group of threads per lane, on K5b's design ---------------------
+
+constexpr int kFwdGroup = 16;                       // threads per lane
+constexpr int kFwdThreads = 256;                    // threads per block
+constexpr int kFwdLanes = kFwdThreads / kFwdGroup;  // lanes per block
+constexpr int kFwdSets = 2;                         // depth of the input ring
+
+// One lane's slots, [entry][lane]: entry r of a field at row r of kFwdLanes
+// values (K5b's layout; K8a's slots are lane-major).
+namespace fwd_slot {
+constexpr int BP = NU + 1;              // Bm's row pitch (odd: see below)
+constexpr int A = 0;                    // A (13x13)
+constexpr int B = A + NX * NX;          // Bm (13 rows of 4, pitch BP)
+constexpr int K = B + NX * BP;          // K (4x13)
+constexpr int C = K + NU * NX;          // c
+constexpr int KFF = C + NX;             // kff
+constexpr int SET = KFF + NU;           // one set of stage inputs (303)
+constexpr int X0 = kFwdSets * SET;      // the even stages' x
+constexpr int X1 = X0 + NX;             // the odd stages' x
+constexpr int U = X1 + NX;              // u
+constexpr int END = U + NU;
+}  // namespace fwd_slot
+
+constexpr int kFwdLaneValues = fwd_slot::END;
+static_assert(kFwdLaneValues == 636,
+              "forward_launch_geometry's FORWARD_LANE_VALUES");
+
+template <typename T>
+constexpr int fwd_smem_bytes() {
+  return kFwdLanes * kFwdLaneValues * static_cast<int>(sizeof(T));
+}
+
+// What K9b's __launch_bounds__ asks for: the blocks an SM holds by shared
+// memory, at most 4 (64 registers a thread; B=8192 in one wave).
+template <typename T>
+constexpr int fwd_min_blocks() {
+  return std::min(1024 / kFwdThreads, (227 * 1024) / fwd_smem_bytes<T>());
+}
+
+// K3's tile-row copies (corrector_sweep_c2.cu's stage_in, its exact forms),
+// kept here so that K3's source stays as it is.
+namespace tile {
+// Entries [0, n) of stage k of a batch-last input into the field `dst`:
+// entry r of the block's lane l at dst[row(r) kFwdLanes + l], row(r) = r
+// or, with NCOL > 0 (rows of NCOL entries), r / NCOL * PITCH + r % NCOL.  A
+// full, 16-byte aligned tile goes in 16-byte copies (cp.async.cg), the
+// others value by value, spare lanes reading lane B-1.  cp_wait_group
+// before use.
+template <int NCOL = 0, int PITCH = 0, typename T>
+__device__ __forceinline__ void stage_in(T* dst, const T* src, int n, int k,
+                                         int B, int b0) {
+  constexpr int per = 16 / static_cast<int>(sizeof(T));  // values a copy
+  constexpr int cpe = kFwdLanes / per;                    // copies an entry
+  const T* from = src + (size_t)k * n * B;
+  const auto row = [](int r) {
+    return NCOL ? r / NCOL * PITCH + r % NCOL : r;
+  };
+  if (b0 + kFwdLanes <= B && B % per == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll 1
+    for (int c = threadIdx.x; c < n * cpe; c += kFwdThreads) {
+      const int r = c / cpe, v = c % cpe;
+      T* to = dst + row(r) * kFwdLanes + v * per;
+      const T* fr = from + (size_t)r * B + b0 + v * per;
+      CFL_ASM(asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                               static_cast<unsigned>(
+                                   __cvta_generic_to_shared(to))),
+                           "l"(fr)
+                           : "memory"),
+              memcpy(to, fr, 16));
+    }
+  } else {
+    for (int f = threadIdx.x; f < n * kFwdLanes; f += kFwdThreads) {
+      const int r = f / kFwdLanes, l = f % kFwdLanes;
+      copy_async(dst + row(r) * kFwdLanes + l,
+                 from + (size_t)r * B + min(b0 + l, B - 1));
+    }
+  }
+}
+}  // namespace tile
+
+// K9b: the rollout from stored gains, du_k = K_k dx_k + kff_k, dx_{k+1} =
+// A dx + B du + c.  Stage k+kFwdSets-1's inputs land while stage k
+// computes (one commit group a stage); a u phase (threads 0-3: 4 dot
+// products of 13) and a dx phase (threads 0-12: 13 of 17), two barriers a
+// stage; the sums term for term as K8a's rollout.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<T>())
+forward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
+                     const T* __restrict__ c, const T* __restrict__ K,
+                     const T* __restrict__ kff, const T* __restrict__ dx0,
+                     T* __restrict__ dx, T* __restrict__ du, int N, int B) {
+  namespace fs = fwd_slot;
+  constexpr int kL = kFwdLanes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x % kL, t = threadIdx.x / kL;
+  const int b0 = blockIdx.x * kL;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  const bool valid = b0 + l < B;       // ... and whether it stores
+  T* const w = sh + l;                 // the lane's column: entry r at r kL
+  const auto set = [&](int k) { return sh + (k % kFwdSets) * fs::SET * kL; };
+  const auto roll_in = [&](int k) {
+    T* const s = set(k);
+    tile::stage_in(s + fs::A * kL, A, NX * NX, k, B, b0);
+    tile::stage_in<NU, fs::BP>(s + fs::B * kL, Bm, NX * NU, k, B, b0);
+    tile::stage_in(s + fs::C * kL, c, NX, k, B, b0);
+    tile::stage_in(s + fs::K * kL, K, NU * NX, k, B, b0);
+    tile::stage_in(s + fs::KFF * kL, kff, NU, k, B, b0);
+  };
+
+  for (int i = t; i < NX; i += kFwdGroup)
+    w[(fs::X0 + i) * kL] = dx0[i * B + bl];
+  // stages 0 .. kFwdSets-2 in flight, one group each
+#pragma unroll
+  for (int k = 0; k < kFwdSets - 1; ++k) {
+    if (k < N) roll_in(k);
+    cp_commit();
+  }
+  cp_wait_group<kFwdSets - 2>();
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = 0; k < N; ++k) {
+    // stage k+kFwdSets-1 into the set stage k-1 freed (a group, maybe empty)
+    if (k + kFwdSets - 1 < N) roll_in(k + kFwdSets - 1);
+    cp_commit();
+    const T* const s = set(k);
+    const T* const As = s + fs::A * kL + l;
+    const T* const Bs = s + fs::B * kL + l;
+    const T* const Ks = s + fs::K * kL + l;
+    const int xo = (k & 1) ? fs::X1 : fs::X0, xn = (k & 1) ? fs::X0 : fs::X1;
+    const T* const x = w + xo * kL;   // x_k: entry j at x[j kL]
+    // K9b's u = K x + kff (threads 0-3)
+    for (int a = t; a < NU; a += kFwdGroup) {
+      T acc = Ks[a * NX * kL] * x[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + Ks[(a * NX + j) * kL] * x[j * kL];
+      const T u = acc + s[(fs::KFF + a) * kL + l];
+      w[(fs::U + a) * kL] = u;
+      if (valid) du[((size_t)k * NU + a) * B + b0 + l] = u;
+    }
+    // K9b's x_k out
+    if (valid) {
+      for (int i = t; i < NX; i += kFwdGroup)
+        dx[((size_t)k * NX + i) * B + b0 + l] = x[i * kL];
+    }
+    __syncthreads();
+    // K9b's dx_{k+1} = A x + B u + c (threads 0-12)
+    for (int i = t; i < NX; i += kFwdGroup) {
+      T acc = As[i * NX * kL] * x[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + As[(i * NX + j) * kL] * x[j * kL];
+      T v = Bs[i * fs::BP * kL] * w[fs::U * kL];
+#pragma unroll
+      for (int a = 1; a < NU; ++a)
+        v = v + Bs[(i * fs::BP + a) * kL] * w[(fs::U + a) * kL];
+      w[(xn + i) * kL] = acc + v + s[(fs::C + i) * kL + l];
+    }
+    cp_wait_group<kFwdSets - 2>();   // stage k+1's inputs have landed (this
+    __syncthreads();                 // thread's, then everyone's); set k is
+                                     // free
+  }
+  if (valid) {
+    const int xo = (N & 1) ? fs::X1 : fs::X0;
+    for (int i = t; i < NX; i += kFwdGroup)
+      dx[((size_t)N * NX + i) * B + b0 + l] = w[(xo + i) * kL];
+  }
+}
+
+template <typename T>
+int fwd_opt_in() {
+  if (fwd_smem_bytes<T>() <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      forward_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_smem_bytes<T>()));
+}
+
+template <typename T>
+int launch_fwd(const T* A, const T* Bm, const T* c, const T* K, const T* kff,
+               const T* dx0, T* dx, T* du, int N, int B, int grid,
+               int threads, int smem, void* stream) {
+  if (B < 1 || N < 1 || threads != kFwdThreads ||
+      smem != fwd_smem_bytes<T>() || grid != (B + kFwdLanes - 1) / kFwdLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = fwd_opt_in<T>();
+  if (err != 0) return err;
+  forward_sweep_kernel<T><<<grid, threads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      A, Bm, c, K, kff, dx0, dx, du, N, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K8b and K9c: one thread per lane -------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(64)
@@ -572,19 +800,8 @@ corrector_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
   rollout<T, NU>(A, Bm, c, K, du, dx0, dx, du, N, B, b);
 }
 
-// The split sweeps (fused=False): the rollout alone from stored gains, and
-// the backward vector pass alone on the stored factorization.
-template <typename T>
-__global__ void __launch_bounds__(64)
-forward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
-                     const T* __restrict__ c, const T* __restrict__ K,
-                     const T* __restrict__ kff, const T* __restrict__ dx0,
-                     T* __restrict__ dx, T* __restrict__ du, int N, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  rollout<T, NU>(A, Bm, c, K, kff, dx0, dx, du, N, B, b);
-}
-
+// The split sweeps' backward vector pass (fused=False) alone on the stored
+// factorization.
 template <typename T>
 __global__ void __launch_bounds__(64)
 backward_vector_sweep_kernel(const T* __restrict__ A,
@@ -610,8 +827,8 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
 }  // namespace
 
 // K8a and K9a take their launch shape (grid, threads, smem: the wrapper's
-// riccati_launch_geometry) and refuse another; their _occupancy entries
-// give the blocks an SM holds.
+// riccati_launch_geometry), K9b its own (forward_launch_geometry), and
+// refuse another; their _occupancy entries give the blocks an SM holds.
 #define RICCATI_ENTRIES(SUFFIX, T)                                            \
   extern "C" int kkt_sweep_##SUFFIX(                                          \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
@@ -646,13 +863,19 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
   extern "C" int backward_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {      \
     return occupancy<T>(backward_sweep_kernel<T>, blocks_per_sm);             \
   }                                                                           \
-  extern "C" int forward_sweep_##SUFFIX(const T* A, const T* Bm, const T* c,  \
-                                        const T* K, const T* kff,             \
-                                        const T* dx0, T* dx, T* du, int N,    \
-                                        int B, void* stream) {                \
-    forward_sweep_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(     \
-        A, Bm, c, K, kff, dx0, dx, du, N, B);                                 \
-    return static_cast<int>(cudaGetLastError());                              \
+  extern "C" int forward_sweep_##SUFFIX(                                      \
+      const T* A, const T* Bm, const T* c, const T* K, const T* kff,          \
+      const T* dx0, T* dx, T* du, int N, int B, int grid, int threads,        \
+      int smem, void* stream) {                                               \
+    return launch_fwd<T>(A, Bm, c, K, kff, dx0, dx, du, N, B, grid, threads,  \
+                         smem, stream);                                       \
+  }                                                                           \
+  extern "C" int forward_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {       \
+    const int err = fwd_opt_in<T>();                                          \
+    if (err != 0) return err;                                                 \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
+        blocks_per_sm, forward_sweep_kernel<T>, kFwdThreads,                  \
+        fwd_smem_bytes<T>()));                                                \
   }                                                                           \
   extern "C" int backward_vector_sweep_##SUFFIX(                              \
       const T* A, const T* Bm, const T* qx, const T* ru, const T* K,          \

@@ -8,12 +8,14 @@ long-horizon sweeps `kkt_sweep_c2_win` / `corrector_sweep_c2_win` (K5: the
 kernels `bwd_c2`, `fwd_c2`, `bwd_vec_c2`) and the one-launch Mehrotra
 iteration `iter_sweep_c2` (K10).  Each kernel wrapper launches its kernel in
 `csrc/kkt_sweep_c2.cu` (K2, and K5a `bwd_c2`: K2's factorization alone),
-`csrc/corrector_sweep_c2.cu` (K3, and K5b `fwd_c2`: K3's rollout alone)
-or `csrc/iter_c2.cu` (K10), a group of threads per lane each (their
-launch shapes are `kkt_launch_geometry`'s, `bwd_launch_geometry`'s,
-`corr_launch_geometry`'s, `fwd_launch_geometry`'s and
-`iter_launch_geometry`'s), or `csrc/condensed_c2.cu` for CUDA tensors,
-and runs its `*_ref` plain PyTorch version for CPU tensors.
+`csrc/corrector_sweep_c2.cu` (K3, K5b `fwd_c2`: K3's rollout alone, and
+K5c `bwd_vec_c2`: K3's vector pass alone) or `csrc/iter_c2.cu` (K10), a
+group of threads per lane each (their launch shapes are
+`kkt_launch_geometry`'s, `bwd_launch_geometry`'s,
+`corr_launch_geometry`'s, `fwd_launch_geometry`'s,
+`bwd_vec_launch_geometry`'s and `iter_launch_geometry`'s), or
+`csrc/condensed_c2.cu` (K4, K6) for CUDA tensors, and runs its `*_ref`
+plain PyTorch version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -64,6 +66,12 @@ FWD_GROUP = 16
 FWD_THREADS = 256
 FWD_LANES = FWD_THREADS // FWD_GROUP
 FWD_LANE_VALUES = 856  # kFwdLaneValues
+# K5c's (bwd_vec_c2, K3's body without its rollout): K3's group and block,
+# a lane of its own
+BWD_VEC_GROUP = 16
+BWD_VEC_THREADS = 256
+BWD_VEC_LANES = BWD_VEC_THREADS // BWD_VEC_GROUP
+BWD_VEC_LANE_VALUES = 954  # kVecLaneValues
 _ITER_SOURCE = "iter_c2.cu"
 # K10's (csrc/iter_c2.cu's kGroup, kThreads and kStride): K2's group and
 # block, a lane of its own
@@ -383,15 +391,6 @@ def stage_shapes(N, B):
         **dict.fromkeys(("pT", "p_term", "dx0"), t13))
 
 
-def _launch(wrapper, source, ins, outs):
-    """Check `ins` (named as in `_shapes`; the first is (M, ..., B)),
-    launch `wrapper`'s kernel on them and `outs`, and count the launch on
-    `wrapper`."""
-    first = next(iter(ins.values()))
-    M, B = first.shape[0], first.shape[-1]
-    _build.run(wrapper, source, ins, outs, _shapes(M, B), [M, B])
-
-
 _STREAM = ("Abar", "Bbar", "cbar")
 _GAINS = ("K", "L", "Pc")
 
@@ -439,6 +438,12 @@ def fwd_launch_geometry(B: int, dtype) -> dict:
                                 FWD_LANE_VALUES)
 
 
+def bwd_vec_launch_geometry(B: int, dtype) -> dict:
+    """K5c's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, BWD_VEC_LANES, BWD_VEC_THREADS,
+                                BWD_VEC_LANE_VALUES)
+
+
 def iter_launch_geometry(B: int, dtype) -> dict:
     """K10's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
     return _build.lane_geometry(B, dtype, ITER_LANES, ITER_THREADS,
@@ -465,6 +470,11 @@ def bwd_blocks_per_sm(dtype=torch.float32) -> int:
 def fwd_blocks_per_sm(dtype=torch.float32) -> int:
     """K5b's resident blocks per SM (FWD_LANES lanes each)."""
     return _build.blocks_per_sm(_CORR_SOURCE, "fwd_c2_occupancy", dtype)
+
+
+def bwd_vec_blocks_per_sm(dtype=torch.float32) -> int:
+    """K5c's resident blocks per SM (BWD_VEC_LANES lanes each)."""
+    return _build.blocks_per_sm(_CORR_SOURCE, "bwd_vec_c2_occupancy", dtype)
 
 
 def iter_blocks_per_sm(dtype=torch.float32) -> int:
@@ -555,15 +565,19 @@ def bwd_c2(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu_shift, ru, pT,
 
 
 def bwd_vec_c2(Abar, Bbar, qx, ru, K, L, Pc, p_term):
-    """The backward vector pass of `corrector_sweep_c2` alone.  Returns
+    """The backward vector pass of `corrector_sweep_c2` alone: K5c, K3's
+    kernel body without its rollout (`csrc/corrector_sweep_c2.cu`,
+    `bwd_vec_launch_geometry`).  Float32 or float64 only.  Returns
     kff (M,8,B)."""
     if Abar.device.type == "cpu":
         return bwd_vec_c2_ref(Abar, Bbar, qx, ru, K, L, Pc, p_term)
     M, B = Abar.shape[0], Abar.shape[-1]
     kff = _empty(Abar, M, NUC, B)
-    _launch(bwd_vec_c2, _SOURCE, dict(
+    geo = bwd_vec_launch_geometry(B, Abar.dtype)
+    _build.run(bwd_vec_c2, _CORR_SOURCE, dict(
         Abar=Abar, Bbar=Bbar, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term),
-        (kff,))
+        (kff,), _shapes(M, B),
+        [M, B, geo["grid"], geo["threads"], geo["smem"]])
     return kff
 
 

@@ -12,7 +12,9 @@ vector pass alone).  Each wrapper launches its kernel in
 `csrc/riccati.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
 version for CPU tensors.  `kkt_sweep` and `backward_sweep` (K8a, K9a) give
 each lane a group of threads (their launch shape is
-`riccati_launch_geometry`'s); the other three run one thread a lane.
+`riccati_launch_geometry`'s), and so does `forward_sweep` (K9b, its own
+`forward_launch_geometry`); `corrector_sweep` and `backward_vector_sweep`
+(K8b, K9c) run one thread a lane.
 
 Layout: batch-last, contiguous, B last.  N stages with 13 states and 4
 inputs; the cost is diagonal (qxx (N,13,B), ruu (N,4,B) including the
@@ -52,6 +54,12 @@ RICCATI_GROUP = 16
 RICCATI_THREADS = 128
 RICCATI_LANES = RICCATI_THREADS // RICCATI_GROUP
 RICCATI_LANE_VALUES = 1004
+# K9b's (csrc/riccati.cu's kFwdGroup, kFwdThreads and kFwdLaneValues, K5b's
+# group and block at 4 inputs)
+FORWARD_GROUP = 16
+FORWARD_THREADS = 256
+FORWARD_LANES = FORWARD_THREADS // FORWARD_GROUP
+FORWARD_LANE_VALUES = 636
 
 
 def riccati_launch_geometry(B: int, dtype) -> dict:
@@ -67,8 +75,19 @@ def riccati_blocks_per_sm(dtype=torch.float32, kernel="kkt_sweep") -> int:
     return _build.blocks_per_sm(_SOURCE, f"{kernel}_occupancy", dtype)
 
 
-def _geometry_ints(N, B, dtype):
-    geo = riccati_launch_geometry(B, dtype)
+def forward_launch_geometry(B: int, dtype) -> dict:
+    """K9b's launch at B lanes of `dtype` (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, FORWARD_LANES, FORWARD_THREADS,
+                                FORWARD_LANE_VALUES)
+
+
+def forward_blocks_per_sm(dtype=torch.float32) -> int:
+    """K9b's resident blocks per SM (FORWARD_LANES lanes each)."""
+    return _build.blocks_per_sm(_SOURCE, "forward_sweep_occupancy", dtype)
+
+
+def _geometry_ints(N, B, dtype, geometry=riccati_launch_geometry):
+    geo = geometry(B, dtype)
     return [N, B, geo["grid"], geo["threads"], geo["smem"]]
 
 
@@ -174,15 +193,17 @@ def backward_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term):
 
 
 def forward_sweep(A, Bm, c, K, kff, dx0):
-    """The rollout from stored gains (K, kff) alone.  Returns
-    (dx (N+1,13,B), du (N,4,B)); the kernel writes dx[N] itself."""
+    """The rollout from stored gains (K, kff) alone (K9b,
+    `forward_launch_geometry`).  Returns (dx (N+1,13,B), du (N,4,B)); the
+    kernel writes dx[N] itself."""
     if A.device.type == "cpu":
         return forward_sweep_ref(A, Bm, c, K, kff, dx0)
     N, B = A.shape[0], A.shape[-1]
     outs = (_empty(A, N + 1, NX, B), _empty(A, N, NU, B))
     _build.run(forward_sweep, _SOURCE, dict(A=A, Bm=Bm, c=c, K=K, kff=kff,
                                             dx0=dx0), outs,
-               stage_shapes(N, B), [N, B])
+               stage_shapes(N, B),
+               _geometry_ints(N, B, A.dtype, forward_launch_geometry))
     return outs
 
 

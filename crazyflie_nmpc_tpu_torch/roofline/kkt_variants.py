@@ -1,19 +1,22 @@
 """K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
-`bwd_c2`, K5b `fwd_c2`, K10 `iter_sweep_c2`, K8a `kkt_sweep` or K9a
-`backward_sweep` in variants on the card: their launch shapes, and the
-parts of their work cut out one at a time.
+`bwd_c2`, K5b `fwd_c2`, K5c `bwd_vec_c2`, K10 `iter_sweep_c2`, K8a
+`kkt_sweep`, K9a `backward_sweep` or K9b `forward_sweep` in variants on
+the card: their launch shapes, and the parts of their work cut out one at
+a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
-                  fwd_c2|iter_sweep_c2|kkt_sweep|backward_sweep]
+                  fwd_c2|bwd_vec_c2|iter_sweep_c2|kkt_sweep|backward_sweep|
+                  forward_sweep]
         [--baseline DIR]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
-K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b,
+K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b and K5c,
 `csrc/prep_condense2.cu`, `csrc/iter_c2.cu`, `csrc/riccati.cu`, which
-holds K8a and K9a) with one edit (`VARIANTS`, `CORR_VARIANTS`,
-`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`, `ITER_VARIANTS`,
-`RICCATI_VARIANTS`, `BACKWARD_VARIANTS`).
+holds K8a, K9a and K9b) with one edit (`VARIANTS`, `CORR_VARIANTS`,
+`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`, `VEC_VARIANTS`,
+`ITER_VARIANTS`, `RICCATI_VARIANTS`, `BACKWARD_VARIANTS`,
+`FORWARD_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -31,7 +34,11 @@ loaded at a stage's top, as K2's, instead of while the stage before
 computes, or one part removed (the loads, phases A-D, the stores).  K5b: a ring of 3 input sets
 instead of 2, G = 8 (16 lanes a block), 32 lanes a block (G = 16 or 8), or
 one part removed (the loads in the stage loop, the u phase, the dx phase,
-the stores).  K10: one of its five phases removed, or the barrier algebra
+the stores).  K5c: a ring of 3 input sets instead of 2, K5b's shapes
+(G = 8, 32 lanes a block, both), or one part removed (the loads in the
+stage loop, the m/Qu phase, the p update, the kff solve, the kff stores,
+kept alive behind a B < 0 test).  K9b: K5b's variants at 4 inputs (its
+own constants, `SHAPE_CONSTANTS`).  K10: one of its five phases removed, or the barrier algebra
 of all five (`kAlgebra`); each launch on a copy of its own of the carried
 inputs it updates in place (`calls`), all made before the timing.  K8a:
 G = 8 or 32 threads a lane (128 threads a block), 256 threads a block
@@ -45,10 +52,11 @@ variant is built with the port's nvcc flags into
 at its own launch shape, and timed at B = 1024, 4096 and 8192 (N=50, the
 study's condensed data; K3 on K2's factorization of it; K1 on the warm
 start the study condenses; K10 on the study's data with seeded slacks
-and duals, every bound finite (`iter_inputs`); K5a and K5b at N=400, the
+and duals, every bound finite (`iter_inputs`); K5a, K5b and K5c at N=400, the
 path that runs them,
 the data's 25 condensed stages repeated 8 times, K5b on K2's gains of
-them; K8a and K9a on the stage QP that K6 condenses, N=50), all variants
+them, K5c on K2's factorization; K8a and K9a on the stage QP that K6
+condenses, N=50, K9b on K8a's gains of it), all variants
 in turn and then in reverse order; the unedited
 kernel runs among them.  A time is the device time of
 a launch, the mean over 20 traced launches (`roofline.device_ms`).  The
@@ -60,9 +68,9 @@ time less the time without it.
 checkout's `csrc` (with that checkout's headers; say the parent commit,
 unpacked with `git archive`) as the variant "baseline", timed and checked
 among the others: the file of that checkout that defines the kernel
-(`condensed_c2.cu` for a one-thread K5a or K5b, whose entries take no
-launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's and K9a's
-in `riccati.cu`, where K9a is `kkt_sweep_kernel<T, false>`); for K10 also that
+(`condensed_c2.cu` for a one-thread K5a, K5b or K5c, whose entries take
+no launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's, K9a's
+and K9b's in `riccati.cu`, where K9a is `kkt_sweep_kernel<T, false>`); for K10 also that
 source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
 kernel's phase blocks emptied), as "baseline no phase N".  Runs on the
 CUDA device only: without one it exits 1.
@@ -90,12 +98,10 @@ from crazyflie_nmpc_tpu_torch.roofline import device_ms
 BATCHES = (1024, 4096, 8192)
 _SOURCE = "kkt_sweep_c2.cu"
 _ROLL_SWITCH = "  if constexpr (ROLL) {"
-# K3's rollout, up to its launch
-_ROLLOUT = "  // forward rollout: du_k"
-_LAUNCH = ("template <typename T, typename TA, typename TG, bool DEV>\n"
-           "int set_smem()")
+# K3's rollout, switched on with ROLL
+_ROLLOUT = "  if constexpr (ROLL) {\n    // forward rollout: du_k"
 # the horizon each kernel is timed at (the path that runs it)
-HORIZON = {"bwd_c2": 400, "fwd_c2": 400}
+HORIZON = {"bwd_c2": 400, "fwd_c2": 400, "bwd_vec_c2": 400}
 
 
 def _cut(start, end, keep=""):
@@ -194,24 +200,47 @@ FWD_VARIANTS = {
         _cut("    // K5b's x_k out", "    __syncthreads();\n" + _FWD_DX)),
 }
 
-# K3's, on csrc/corrector_sweep_c2.cu
-_CORR_TURN = "    cp_wait();         // stage k-1's inputs have landed"
-_BLOCKS = "  return std::min(2, (227 * 1024) / smem_bytes<T>());"
+# K3's, on csrc/corrector_sweep_c2.cu (its body `sweep<..., ROLL>`)
+_CORR_TURN = "    if constexpr (ROLL)\n      cp_wait();"
+_BLOCKS = "  return std::min(2, (227 * 1024) / smem_bytes<T, ROLL>());"
+_QU = "    // vector-pass Qu: m = p + Pc"
+_P_UPDATE = "    // vector-pass p update"
+_KFF_SOLVE = "    // vector-pass kff solve"
 CORR_VARIANTS = {
     "kernel": None,
     "G=8": _G8,
     "128 threads": _replace("constexpr int kThreads = 256;",
                             "constexpr int kThreads = 128;"),
-    "no vector-pass loads": _cut("    if (k > 0)\n      vec_in(k - 1);",
-                                 "    const TA* const As"),
+    "no vector-pass loads": _cut("      if (k > 0)\n        vec_in(k - 1);",
+                                 "    } else {\n      // K5c: stage"),
     "no Qu": _cut("      if (t < NUC) {\n        T m[NX];",
-                  "    }\n    __syncthreads();\n\n"
-                  "    // vector-pass p update"),
-    "no kff solve": _cut("    // vector-pass kff solve", _CORR_TURN),
-    "no p update": _cut("    // vector-pass p update",
-                        "    // vector-pass kff solve"),
-    "no rollout": _cut(_ROLLOUT, _LAUNCH, "}\n\n"),
+                  "    }\n    __syncthreads();\n\n" + _P_UPDATE),
+    "no kff solve": _cut(_KFF_SOLVE, _CORR_TURN),
+    "no p update": _cut(_P_UPDATE, _KFF_SOLVE),
+    "no rollout": _replace(_ROLLOUT,
+                           _ROLLOUT.replace("(ROLL)", "(false)")),
     "3 blocks an SM": _replace(_BLOCKS, _BLOCKS.replace("2,", "3,")),
+}
+
+# K5c's, on the same source (K3's body with the rollout switched off; K3's
+# group and block edited with it): a ring of 3 sets, the shapes of K5b's
+# study, or a part removed (the kff stores kept alive behind B < 0)
+_VEC_SETS = "constexpr int kVecSets = 2;"
+VEC_VARIANTS = {
+    "kernel": None,
+    "3 sets": _then(_replace(_VEC_SETS, _VEC_SETS.replace("2", "3")),
+                    _replace("kVecLaneValues == 954",
+                             "kVecLaneValues == 1414")),
+    "G=8": FWD_VARIANTS["G=8"],
+    "32 lanes": FWD_VARIANTS["32 lanes"],
+    "G=8, 32 lanes": _G8,
+    "no loads": _replace(
+        "      if (k - kVecSets + 1 >= 0) vec_in(k - kVecSets + 1);\n", ""),
+    "no m/Qu phase": _cut(_QU, _P_UPDATE, _BARRIER),
+    "no p update": CORR_VARIANTS["no p update"],
+    "no kff solve": CORR_VARIANTS["no kff solve"],
+    "no stores": _replace("        if (valid) kff[",
+                          "        if (valid && B < 0) kff["),
 }
 
 # K1's, on csrc/prep_condense2.cu; each variant runs in both VDE orders,
@@ -323,6 +352,30 @@ RICCATI_VARIANTS = {
     "no rollout": _replace(_RIC_ROLL, "  if constexpr (false) {"),
 }
 
+# K9b's, on the same source (its own constants): K5b's study at 4 inputs
+_K9B_GROUP = "constexpr int kFwdGroup = 16;"
+_K9B_THREADS = "constexpr int kFwdThreads = 256;"
+_K9B_SETS = "constexpr int kFwdSets = 2;"
+_K9B_DX = "    // K9b's dx_{k+1} = A x + B u + c"
+FORWARD_VARIANTS = {
+    "kernel": None,
+    "3 sets": _then(_replace(_K9B_SETS, _K9B_SETS.replace("2", "3")),
+                    _replace("kFwdLaneValues == 636",
+                             "kFwdLaneValues == 939")),
+    "G=8": _then(_replace(_K9B_GROUP, _K9B_GROUP.replace("16", "8")),
+                 _replace(_K9B_THREADS, _K9B_THREADS.replace("256", "128"))),
+    "32 lanes": _replace(_K9B_THREADS, _K9B_THREADS.replace("256", "512")),
+    "G=8, 32 lanes": _replace(_K9B_GROUP, _K9B_GROUP.replace("16", "8")),
+    "no loads": _replace(
+        "    if (k + kFwdSets - 1 < N) roll_in(k + kFwdSets - 1);\n", ""),
+    "no u phase": _cut("    // K9b's u = K x + kff", "    // K9b's x_k out"),
+    "no dx phase": _cut(_K9B_DX, "    cp_wait_group<kFwdSets - 2>();"),
+    "no stores": _then(
+        _replace("      if (valid) du[((size_t)k * NU + a)",
+                 "      if (valid && B < 0) du[((size_t)k * NU + a)"),
+        _cut("    // K9b's x_k out", "    __syncthreads();\n" + _K9B_DX)),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form, or
 # the names of its forms in this source and in the `--baseline` one)
 KERNELS = {
@@ -338,7 +391,14 @@ KERNELS = {
                   ("kkt_sweep_kernelIfE", "kkt_sweep_kernelIfLb1E")),
     "backward_sweep": ("riccati.cu", BACKWARD_VARIANTS,
                        ("backward_sweep_kernelIfE", "kkt_sweep_kernelIfLb0E")),
+    "bwd_vec_c2": ("corrector_sweep_c2.cu", VEC_VARIANTS,
+                   "bwd_vec_c2_kernelIfE"),
+    "forward_sweep": ("riccati.cu", FORWARD_VARIANTS,
+                      "forward_sweep_kernelIfE"),
 }
+# the constants of a kernel's launch shape (threads a lane, a block) where
+# its source names them otherwise (K9b beside K8a's kGroup and kThreads)
+SHAPE_CONSTANTS = {"forward_sweep": ("kFwdGroup", "kFwdThreads")}
 # the CUDA function of a kernel, where the one-thread source named it
 # otherwise (K9a: `kkt_sweep_kernel<T, false>`)
 SYMBOLS = {"backward_sweep": r"(?:backward|kkt)_sweep_kernel"}
@@ -364,6 +424,8 @@ SWEEPS = {
     "iter_sweep_c2": (32, lambda M, B: ((1, B), (1, B)), "kStride"),
     "kkt_sweep": (10, lambda N, B: _UGAINS(N, B) + _UROLL(N, B), "kStride"),
     "backward_sweep": (9, _UGAINS, "kStride"),
+    "bwd_vec_c2": (8, lambda M, B: ((M, _NU, B),), "kVecLaneValues"),
+    "forward_sweep": (6, _UROLL, "kFwdLaneValues"),
 }
 # K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
 # fraction to the boundary and its float arguments in float32 (tau, the
@@ -390,17 +452,17 @@ def prep_lane_values(text) -> dict:
     return {4: int(m.group(1)), 2: int(m.group(2))} if m else {}
 
 
-def shape(text) -> tuple:
+def shape(text, kernel=None) -> tuple:
     """(threads per lane, threads a block) of a variant's source text (K1's:
-    kThreads / kLanes threads a lane; (1, 128) for the one-thread K1
-    source, which has neither)."""
-    const = {name: int(m.group(1)) for name in ("kGroup", "kLanes",
-                                                 "kThreads")
+    kThreads / kLanes threads a lane; K9b's its SHAPE_CONSTANTS; (1, 128)
+    for a one-thread source, which has neither)."""
+    group_c, threads_c = SHAPE_CONSTANTS.get(kernel, ("kGroup", "kThreads"))
+    const = {name: int(m.group(1)) for name in (group_c, "kLanes", threads_c)
              if (m := re.search(rf"constexpr int {name} = (\d+);", text))}
-    if "kThreads" not in const:
+    if threads_c not in const:
         return 1, 128
-    group = const.get("kGroup") or const["kThreads"] // const["kLanes"]
-    return group, const["kThreads"]
+    group = const.get(group_c) or const[threads_c] // const["kLanes"]
+    return group, const[threads_c]
 
 
 def lane_values(kernel, text):
@@ -537,7 +599,7 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
     of its source `text` (none for a one-thread source)."""
     if kernel == "prep_condense2":
         return prep_launcher(lib, text)
-    group, threads = shape(text)
+    group, threads = shape(text, kernel)
     values = lane_values(kernel, text)
     n_in, shapes, _ = SWEEPS[kernel]
     iteration = kernel == "iter_sweep_c2"
@@ -602,11 +664,14 @@ def _plain(kernel, order=4):
         return ref
     if kernel == "iter_sweep_c2":
         return lambda *args: ck.iter_sweep_c2_ref(*args[:25], _ITER_TAU)
+    if kernel == "bwd_vec_c2":   # one output, as a list
+        return lambda *args: [ck.bwd_vec_c2_ref(*args)]
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
             "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref,
             "kkt_sweep": rk.kkt_sweep_ref,
-            "backward_sweep": rk.backward_sweep_ref}[kernel]
+            "backward_sweep": rk.backward_sweep_ref,
+            "forward_sweep": rk.forward_sweep_ref}[kernel]
 
 
 def iter_inputs(d, B, device):
@@ -658,10 +723,13 @@ def inputs(kernel, B, device, n=50):
                 *prep_tiles(d["spec"], B, torch.float32, device))
     if kernel == "iter_sweep_c2":
         return iter_inputs(d, B, device)
-    if kernel in ("kkt_sweep", "backward_sweep"):
+    if kernel in ("kkt_sweep", "backward_sweep", "forward_sweep"):
         A, Bm, c, qxx, qx, ru = d["stage"]
         k8 = (A, Bm, c, qxx, qx, d["ruu_stage"], ru, d["pT"], d["p_term"],
               d["dx0"])
+        if kernel == "forward_sweep":
+            K, kff = rk.kkt_sweep_ref(*k8)[:2]
+            return A, Bm, c, K, kff, d["dx0"]
         return k8 if kernel == "kkt_sweep" else k8[:-1]
     c = d["cnd"]
     k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
@@ -673,7 +741,9 @@ def inputs(kernel, B, device, n=50):
             "fwd_c2": (c["Abar"], c["Bbar"], c["cbar"], K, kff, d["dx0"]),
             "corrector_sweep_c2": (c["Abar"], c["Bbar"], c["cbar"],
                                    c["qbar"], c["rbar"], K, L, Pc,
-                                   d["p_term"], d["dx0"])}[kernel]
+                                   d["p_term"], d["dx0"]),
+            "bwd_vec_c2": (c["Abar"], c["Bbar"], c["qbar"], c["rbar"], K, L,
+                           Pc, d["p_term"])}[kernel]
     reps = n // 50
     return tuple(a.repeat(reps, *[1] * (a.dim() - 1)) if a.dim() >= 3
                  else a for a in args)

@@ -1,21 +1,24 @@
 """K8a `kkt_sweep` and K9a `backward_sweep` (`csrc/riccati.cu`, one group
-kernel body with a compile-time switch off its rollout) compiled with g++
-against the port's thread emulator (`ops/cuda/emulated.py`, `csrc/emu/`),
-float32 and float64, against their plain versions `kkt_sweep_ref` and
-`backward_sweep_ref` on CPU tensors.
+kernel body with a compile-time switch off its rollout) and K9b
+`forward_sweep` (a group kernel of its own on K5b's design, in the same
+source) compiled with g++ against the port's thread emulator
+(`ops/cuda/emulated.py`, `csrc/emu/`), float32 and float64, against their
+plain versions `kkt_sweep_ref`, `backward_sweep_ref` and
+`forward_sweep_ref` on CPU tensors.
 
 The inputs are `chip_smoke.kernel_inputs`' (K7's stage QP of perturbed
-hover trajectories plus a barrier shift), at lane counts that cover the
-8-lane tile: 1 and 7 (one ragged tile), 17 (full tiles whose rows are not
+hover trajectories plus a barrier shift, K8a's gains of it for K9b), at
+lane counts that cover K8a's 8-lane tile and both copy paths of K9b's
+16-lane one: 1 and 7 (one ragged tile), 17 (full tiles whose rows are not
 16-byte aligned, and a ragged one) and 32 (full, 16-byte aligned tiles),
-over 1, 2, 3 and 5 stages (fewer stages than the rollout's ring of three
-sets holds, then its turn, with a set index out of step with the state's
-two slots).
+over 1, 2, 3 and 5 stages (fewer stages than a ring of input sets holds,
+then its turn, with a set index out of step with the state's two
+slots).
 Tolerances are the card check's (`chip_smoke.TOL`): both sides evaluate
 the same sums in the same order, apart from `rsqrtf` (exact here) and FMA
-contraction.  K9a runs K8a's factorization, and K8a's rollout is K9b
-`forward_sweep`'s in the same order, so here their outputs are equal bit
-for bit, as `chip_smoke.py` expects on the card.  The plain versions are
+contraction.  K9a runs K8a's factorization, and K9b's sums are K8a's
+rollout's term for term, so here their outputs are equal bit for bit, as
+`chip_smoke.py` expects on the card.  The plain versions are
 held against the JAX package's kernels by `test_torch_uncondensed.py`.
 """
 
@@ -34,11 +37,11 @@ DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
 _GAINS = lambda N, B: ((N, rk.NU, rk.NX, B), (N, rk.NU, B),  # noqa: E731
                        (N, rk.NL, B), (N, rk.NX, B))
 _ROLL = lambda N, B: ((N + 1, rk.NX, B), (N, rk.NU, B))  # noqa: E731
-# kernel: output shapes at (N, B); the group kernels take their launch
-# geometry after N and B, the one-thread forward_sweep none
-KERNELS = {"kkt_sweep": lambda N, B: _GAINS(N, B) + _ROLL(N, B),
-           "backward_sweep": _GAINS,
-           "forward_sweep": _ROLL}
+# kernel: (output shapes at (N, B), its launch geometry)
+KERNELS = {"kkt_sweep": (lambda N, B: _GAINS(N, B) + _ROLL(N, B),
+                         rk.riccati_launch_geometry),
+           "backward_sweep": (_GAINS, rk.riccati_launch_geometry),
+           "forward_sweep": (_ROLL, rk.forward_launch_geometry)}
 
 
 @pytest.fixture(scope="module")
@@ -60,14 +63,12 @@ def emulate(lib, kernel, args, geometry=None):
     NaN-filled outputs; `geometry` overrides the wrapper's."""
     N, B = args[0].shape[0], args[0].shape[-1]
     dtype = args[0].dtype
-    outs = [torch.full(s, float("nan"), dtype=dtype)
-            for s in KERNELS[kernel](N, B)]
-    ints = [N, B]
-    if kernel != "forward_sweep":
-        geo = geometry or rk.riccati_launch_geometry(B, dtype)
-        ints += [geo["grid"], geo["threads"], geo["smem"]]
+    shapes, launch_geometry = KERNELS[kernel]
+    outs = [torch.full(s, float("nan"), dtype=dtype) for s in shapes(N, B)]
+    geo = geometry or launch_geometry(B, dtype)
     sfx = "f32" if dtype == torch.float32 else "f64"
-    emulated.launch(lib, f"{kernel}_{sfx}", list(args) + outs, ints)
+    emulated.launch(lib, f"{kernel}_{sfx}", list(args) + outs,
+                    [N, B, geo["grid"], geo["threads"], geo["smem"]])
     return outs
 
 
@@ -79,7 +80,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("N", [1, 2, 3, 5])
 @pytest.mark.parametrize("lanes", [1, 7, 17, 32])
 @DTYPES
-@pytest.mark.parametrize("kernel", ["kkt_sweep", "backward_sweep"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
 def test_emulated_matches_plain(lib, kernel, dtype, lanes, N):
     _, ref, args = _inputs(lanes, N, dtype)[kernel]
     got = emulate(lib, kernel, args)
@@ -104,12 +105,12 @@ def test_emulated_split_sweeps_equal_kkt_sweep_bitwise(lib, dtype, lanes):
 
 @pytest.mark.parametrize("key, delta", [("grid", 1), ("threads", 32),
                                         ("smem", 16)])
-@pytest.mark.parametrize("kernel", ["kkt_sweep", "backward_sweep"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
 def test_emulated_launch_refuses_other_geometry(lib, kernel, key, delta):
     """The launch checks grid, threads and shared bytes against the
     source's constants and refuses (without running) what disagrees."""
     _, _, args = _inputs(7, 1, torch.float32)[kernel]
-    geo = rk.riccati_launch_geometry(7, torch.float32)
+    geo = KERNELS[kernel][1](7, torch.float32)
     with pytest.raises(RuntimeError, match="refused"):
         emulate(lib, kernel, args, geometry=dict(geo, **{key: geo[key]
                                                           + delta}))

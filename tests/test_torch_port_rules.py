@@ -566,3 +566,36 @@ def test_riccati_launch_geometry(B, dtype):
     assert blocks * (geo["smem"] + 1024) <= 228 * 1024
     assert 227 * 1024 // geo["smem"] == blocks
     assert geo["opt_in"] == (dtype == torch.float64)
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["bwd_vec_c2", "forward_sweep"])
+def test_k5c_and_k9b_launch_geometry(kernel, B, dtype):
+    """K5c's launch (K3's group and block, a lane of its own in K3's
+    source: 3 blocks an SM in float32, 1 in float64) and K9b's (K5b's
+    group and block at 4 inputs, in csrc/riccati.cu beside K8a's
+    constants: 5 and 2), by shared memory with the 1 KB each block
+    reserves of the SM's 228 KB (`_check_group_geometry`); neither
+    depends on the horizon."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    if kernel == "bwd_vec_c2":
+        geo = ck.bwd_vec_launch_geometry(B, dtype)
+        _check_group_geometry(geo, B, ck.BWD_VEC_GROUP,
+                              "corrector_sweep_c2.cu", {
+                                  "kGroup": ck.BWD_VEC_GROUP,
+                                  "kThreads": ck.BWD_VEC_THREADS,
+                                  "kVecLaneValues": ck.BWD_VEC_LANE_VALUES})
+        blocks = {torch.float32: 3, torch.float64: 1}[dtype]
+    else:
+        geo = rk.forward_launch_geometry(B, dtype)
+        _check_group_geometry(geo, B, rk.FORWARD_GROUP, "riccati.cu", {
+            "kFwdGroup": rk.FORWARD_GROUP,
+            "kFwdThreads": rk.FORWARD_THREADS,
+            "kFwdLaneValues": rk.FORWARD_LANE_VALUES})
+        blocks = {torch.float32: 5, torch.float64: 2}[dtype]
+    assert blocks * (geo["smem"] + 1024) <= 228 * 1024
+    assert 227 * 1024 // geo["smem"] == blocks

@@ -305,3 +305,57 @@ def test_riccati_variants_find_their_anchors(kernel, tmp_path):
     assert len(args) == n_in and all(a.is_contiguous() for a in args)
     out = kkt_variants._plain(kernel)(*args)
     assert [tuple(o.shape) for o in out] == list(shapes(50, 4))
+
+
+_K5C_K9B_CUTS = {
+    "bwd_vec_c2": {
+        "no loads": ("      if (k - kVecSets + 1 >= 0) "
+                     "vec_in(k - kVecSets + 1);"),
+        "no m/Qu phase": "    // vector-pass Qu: m = p + Pc",
+        "no p update": "    // vector-pass p update",
+        "no kff solve": "    // vector-pass kff solve"},
+    "forward_sweep": {
+        "no loads": "    if (k + kFwdSets - 1 < N) roll_in(k + kFwdSets - 1);",
+        "no u phase": "    // K9b's u = K x + kff",
+        "no dx phase": "    // K9b's dx_{k+1}",
+        "no stores": "    // K9b's x_k out"},
+}
+
+
+@pytest.mark.parametrize("kernel, source, values, sets_values, store", [
+    ("bwd_vec_c2", "condensed_c2.cu", 954, 1414, "if (valid && B < 0) kff["),
+    ("forward_sweep", "riccati.cu", 636, 939, "if (valid && B < 0) du[")])
+def test_k5c_and_k9b_variants_find_their_anchors(kernel, source, values,
+                                                 sets_values, store,
+                                                 tmp_path):
+    """K5c's and K9b's study variants: each cut's start marker stands once
+    in the source and the cut removes it, the kept-alive stores test
+    B < 0, the shape edits give their launch shape (K9b's from its own
+    constants beside K8a's), and only the whole kernels are held against
+    the plain version.  The `--baseline` source is the one-thread file
+    (condensed_c2.cu, riccati.cu), whose entries take no launch shape;
+    the study's inputs fit the entries."""
+    texts = kkt_variants.sources(kernel)
+    src = texts["kernel"]
+    for name, mark in _K5C_K9B_CUTS[kernel].items():
+        assert src.count(mark) == 1 and mark not in texts[name], name
+    assert store in texts["no stores"] and store not in src
+    shapes = {"kernel": (16, 256), "3 sets": (16, 256), "G=8": (8, 128),
+              "32 lanes": (16, 512), "G=8, 32 lanes": (8, 256)}
+    assert {n: kkt_variants.shape(texts[n], kernel) for n in shapes} == shapes
+    assert kkt_variants.lane_values(kernel, src) == values
+    assert kkt_variants.lane_values(kernel, texts["3 sets"]) == sets_values
+    assert [n for n in texts if kkt_variants._whole(n)] == list(shapes)
+    (tmp_path / source).write_text(
+        f"template <typename T>\n__global__ void\n{kernel}_kernel("
+        f"const T* A) {{}}\n")
+    assert kkt_variants.baseline_source(kernel, tmp_path) == source
+    one_thread = (tmp_path / source).read_text()
+    assert kkt_variants.lane_values(kernel, one_thread) is None
+    assert kkt_variants.shape(one_thread, kernel) == (1, 128)
+    args = kkt_variants.inputs(kernel, 4, "cpu")
+    n_in, out_shapes, _ = kkt_variants.SWEEPS[kernel]
+    assert len(args) == n_in and all(a.is_contiguous() for a in args)
+    out = kkt_variants._plain(kernel)(*args)
+    assert [tuple(o.shape) for o in out] == list(
+        out_shapes(args[0].shape[0], 4))

@@ -674,6 +674,72 @@ def test_riccati_group_kernels_are_listed(name):
         assert not re.search(pattern, stray), stray
 
 
+def test_corr_split_vs_fused_is_bitwise_on_the_same_sums(win_inputs):
+    """[kernel]'s K5c-then-K5b-vs-K3 check: the plain versions run K3's
+    sums in K3's order, so the rollouts are equal bit for bit."""
+    assert cs.corr_split_vs_fused(win_inputs) is True
+
+
+@pytest.mark.parametrize("kernel, out", [("bwd_vec_c2", None),
+                                         ("fwd_c2", 1)], ids=["kff", "du"])
+def test_corr_split_vs_fused_sees_a_planted_fault(win_inputs, monkeypatch,
+                                                  kernel, out):
+    """A last-bit change in K5c's kff or in K5b's du breaks the check."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    real = getattr(ck, kernel)
+
+    def planted(*args):
+        got = real(*args)
+        if out is None:
+            return got * (1 + 1e-15)
+        got = list(got)
+        got[out] = got[out] * (1 + 1e-15)
+        return tuple(got)
+
+    monkeypatch.setattr(ck, kernel, planted)
+    assert cs.corr_split_vs_fused(win_inputs) is False
+
+
+@pytest.mark.parametrize("name", ["bwd_vec_c2", "forward_sweep"])
+def test_k5c_and_k9b_are_listed_as_group_kernels(name):
+    """K5c and K9b, a group of threads a lane: timed at every B with their
+    occupancy (GROUP_KERNELS), checked on a ragged last tile and at B=1
+    (RAGGED_KERNELS), K5c also at N=400 at every B (LONG_GROUP_KERNELS),
+    with their module's launch shape and occupancy entry, and found in a
+    trace under their own CUDA function's name."""
+    import re
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    assert name in cs.GROUP_KERNELS and name in cs.RAGGED_KERNELS
+    geometry, blocks_per_sm, group = cs.group_kernel(name)
+    if name == "bwd_vec_c2":
+        assert name in cs.WIN_KERNELS and name in cs.LONG_GROUP_KERNELS
+        assert (geometry, blocks_per_sm, group) == (
+            ck.bwd_vec_launch_geometry, ck.bwd_vec_blocks_per_sm,
+            ck.BWD_VEC_GROUP)
+        assert cs.KERNEL_INFO[name]["source"].endswith(
+            "csrc/corrector_sweep_c2.cu")
+        strays = ("bwd_c2_kernel<float>", "fwd_c2_kernel<float>",
+                  "corrector_sweep_c2_kernel<float, float, float, false>")
+    else:
+        assert (geometry, blocks_per_sm, group) == (
+            rk.forward_launch_geometry, rk.forward_blocks_per_sm,
+            rk.FORWARD_GROUP)
+        strays = ("kkt_sweep_kernel<float>", "backward_sweep_kernel<float>",
+                  "backward_vector_sweep_kernel<float>",
+                  "corrector_sweep_kernel<float>")
+    pattern = cs.kernel_pattern(name)
+    assert re.search(pattern, f"void (anonymous namespace)::{name}_kernel"
+                              f"<float>(float const*, int, int)")
+    for stray in strays:
+        assert not re.search(pattern, stray), stray
+    assert not re.search(cs.kernel_pattern("bwd_c2"),
+                         "bwd_vec_c2_kernel<float>")
+
+
 def test_kernels_line_has_17_kernels():
     """The second-to-last line's table: the 15 kernels of the solver's
     paths (every pl.pallas_call site of the JAX package's ops/pallas/)
