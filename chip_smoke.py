@@ -126,12 +126,13 @@ checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel at the shapes of the path that runs it (its device time
 from a profiler trace of 20 launches, beside the CUDA-event window around
 them, which holds the host's issue too), times K1, K2, K3, K5c, K8a,
-K9a, K9b and K10 (the kernels that split a lane over several threads:
-csrc/prep_condense2.cu in both VDE orders, csrc/kkt_sweep_c2.cu and
-csrc/corrector_sweep_c2.cu in their four forms, the latter's bwd_vec_c2,
-csrc/riccati.cu's kkt_sweep, backward_sweep and forward_sweep,
-csrc/iter_c2.cu) at every B of [main] with their occupancy, waves and
-bound, K5a/b/c, K2 and K3 at N=400 too, and traces a few steps of [main]
+K9a, K9b, K8b, K9c and K10 (the kernels that split a lane over several
+threads: csrc/prep_condense2.cu in both VDE orders, csrc/kkt_sweep_c2.cu
+and csrc/corrector_sweep_c2.cu in their four forms, the latter's
+bwd_vec_c2, csrc/riccati.cu's kkt_sweep, backward_sweep, forward_sweep,
+corrector_sweep and backward_vector_sweep, csrc/iter_c2.cu) at every B
+of [main] with their occupancy, waves and bound, K5a/b/c, K2 and K3 at
+N=400 too, and traces a few steps of [main]
 (every B), [fused_iter], [uncondensed], [split], [gondzio],
 [throughput_mode] and [xla_prep] ([single] its own ticks) with
 torch.profiler.  [pod] runs in a child process of its own after
@@ -310,9 +311,11 @@ LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 WIN_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 # the group kernels checked on a ragged last tile and at B=1 besides K1:
-# K5a, K5b, K5c, K10, K8a, K9a and K9b (B=1 is a ragged tile of each)
+# K5a, K5b, K5c, K10, K8a, K9a, K9b, K8b and K9c (B=1 is a ragged tile of
+# each)
 RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2", "kkt_sweep",
-                                "backward_sweep", "forward_sweep")
+                                "backward_sweep", "forward_sweep",
+                                "corrector_sweep", "backward_vector_sweep")
 
 
 def fail(msg: str):
@@ -688,11 +691,13 @@ def corr_split_vs_fused(inputs):
 
 
 def uncondensed_split_vs_fused(inputs):
-    """K9a's gains against K8a's, and K9b's rollout on K8a's gains against
-    K8a's own, on K8a's inputs of `inputs` (kernel_inputs): (whether K,
-    kff, L and Pc are equal, whether dx and du are), bit for bit: K9a is
-    K8a's kernel body without its rollout, and K8a's rollout evaluates
-    K9b's sums in K9b's order."""
+    """K9a's gains against K8a's, K9b's rollout on K8a's gains against
+    K8a's own, and K9c's kff then K9b's rollout on it against K8b's dx and
+    du, on K8a's and K8b's inputs of `inputs` (kernel_inputs): (whether K,
+    kff, L and Pc are equal, whether K8a's dx and du are, whether K8b's
+    are), bit for bit: K9a is K8a's kernel body without its rollout, K9c
+    K8b's, and K8a's and K8b's rollouts evaluate K9b's sums in K9b's
+    order."""
     import torch
 
     from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
@@ -701,8 +706,13 @@ def uncondensed_split_vs_fused(inputs):
     fused = flat(rk.kkt_sweep(*args))
     gains = flat(rk.backward_sweep(*args[:-1]))
     roll = flat(rk.forward_sweep(*args[:3], fused[0], fused[1], args[-1]))
+    A, Bm, c, qx, ru, K, L, Pc, p_term, dx0 = inputs["corrector_sweep"][2]
+    corr = flat(rk.corrector_sweep(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0))
+    kff = rk.backward_vector_sweep(A, Bm, qx, ru, K, L, Pc, p_term)
+    split = flat(rk.forward_sweep(A, Bm, c, K, kff, dx0))
     return (all(torch.equal(a, b) for a, b in zip(gains, fused[:4])),
-            all(torch.equal(a, b) for a, b in zip(roll, fused[4:])))
+            all(torch.equal(a, b) for a, b in zip(roll, fused[4:])),
+            all(torch.equal(a, b) for a, b in zip(split, corr)))
 
 
 def phase_kernels(device):
@@ -710,13 +720,14 @@ def phase_kernels(device):
     then float32; K1's two forms and the group sweeps of RAGGED_KERNELS
     again on a ragged last tile (B_RAGGED), RAGGED_KERNELS at B=1 too;
     the uncondensed kernels (UNCONDENSED_KERNELS) at the odd N=51 in both
-    too, and at both N K9a's and K9b's outputs against K8a's, bit for bit
-    (uncondensed_split_vs_fused); then the sweeps of the long-horizon path
-    (LONG_CHECKED) at its N=400 in float64, where a fault in any of their
-    200 stages shows far above rounding (phase_timing holds them in
-    float32 there), and K5a and K5b against K2 on the same inputs there
-    (split_vs_fused); K5c then K5b against K3, bit for bit, at N=50 (both
-    dtypes) and N=400 (corr_split_vs_fused).
+    too, and at both N K9a's and K9b's outputs against K8a's and K9c then
+    K9b against K8b, bit for bit (uncondensed_split_vs_fused); then the
+    sweeps of the long-horizon path (LONG_CHECKED) at its N=400 in
+    float64, where a fault in any of their 200 stages shows far above
+    rounding (phase_timing holds them in float32 there), and K5a and K5b
+    against K2 on the same inputs there (split_vs_fused); K5c then K5b
+    against K3, bit for bit, at N=50 (both dtypes) and N=400
+    (corr_split_vs_fused).
     Returns {(kernel name, dtype name): max abs err} at N=50 (a kernel's
     forms pooled)."""
     import torch
@@ -760,12 +771,14 @@ def phase_kernels(device):
         if labels is checked:
             check_bf16_rounding(outs, dn)
         if "kkt_sweep" in labels and B == B_CHECK:
-            same_gains, same_roll = uncondensed_split_vs_fused(inputs)
+            same_gains, same_roll, same_corr = uncondensed_split_vs_fused(
+                inputs)
             print(f"[kernel] backward_sweep vs kkt_sweep's K, kff, L, Pc "
                   f"{dn} N={n} B={B}: bitwise {same_gains}; forward_sweep "
                   f"on kkt_sweep's gains vs its dx, du: bitwise "
-                  f"{same_roll}")
-            if not (same_gains and same_roll):
+                  f"{same_roll}; backward_vector_sweep then forward_sweep "
+                  f"vs corrector_sweep's dx, du: bitwise {same_corr}")
+            if not (same_gains and same_roll and same_corr):
                 fail(f"the split uncondensed sweeps differ from kkt_sweep "
                      f"at N={n} {dn}")
         if "corrector_sweep_c2" in labels and B == B_CHECK:
@@ -2988,7 +3001,7 @@ def phase_timing(device):
 # lane, timed with their forms at every B of B_MAIN
 GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2",
                  "kkt_sweep", "backward_sweep", "bwd_vec_c2",
-                 "forward_sweep")
+                 "forward_sweep", "corrector_sweep", "backward_vector_sweep")
 
 
 def group_kernel(label):
@@ -3018,6 +3031,10 @@ def group_kernel(label):
     if name == "forward_sweep":
         return (rk.forward_launch_geometry, rk.forward_blocks_per_sm,
                 rk.FORWARD_GROUP)
+    if name in ("corrector_sweep", "backward_vector_sweep"):
+        return (rk.vector_launch_geometry,
+                functools.partial(rk.vector_blocks_per_sm, kernel=name),
+                rk.VECTOR_GROUP)
     order = 2 if label.endswith("vde_order=2") else 4
     return (functools.partial(pk.prep_launch_geometry, vde_order=order),
             functools.partial(pk.prep_blocks_per_sm, vde_order=order),

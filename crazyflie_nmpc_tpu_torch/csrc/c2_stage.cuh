@@ -1,19 +1,20 @@
-// Stage bodies of the block-2 condensed sweeps, run one thread per lane by
-// the uncondensed sweeps K8b and K9c (riccati.cu) at 4 inputs;
-// kkt_sweep_c2.cu (K2 and K5a bwd_c2), corrector_sweep_c2.cu (K3, K5b
-// fwd_c2 and K5c bwd_vec_c2), iter_c2.cu (K10 iter_sweep_c2) and
-// riccati.cu's K8a and K9a take chol / cho_solve from here; they and
-// riccati.cu's K9b split the rest of their stages over a thread group,
-// keeping these bodies' order of operations.  The vector pass and the rollout take
-// the input width nu as a template argument (NUC by default, the condensed
-// sweeps' width).
+// Stage bodies of the block-2 condensed sweeps.  kkt_sweep_c2.cu (K2 and
+// K5a bwd_c2), corrector_sweep_c2.cu (K3, K5b fwd_c2 and K5c bwd_vec_c2),
+// iter_c2.cu (K10 iter_sweep_c2) and riccati.cu (K8a, K9a, K9b, K8b, K9c)
+// take chol / cho_solve from here, and split the rest of their stages over
+// a thread group, keeping the order of operations of vec_stage and
+// rollout_stage below (the one-thread-per-lane stage bodies they
+// replaced, kept as that order's statement).  The vector pass and the
+// rollout take the input width nu as a template argument (NUC by default,
+// the condensed sweeps' width; 4 in riccati.cu).
 //
 // Counterparts of the per-stage math of
 // crazyflie_nmpc_tpu/ops/pallas/condensed_kernels.py (_corr_c2_kernel,
 // _bwd_vec_c2_kernel, _fwd_c2_kernel; _chol_n, _cho_solve_n_vec, _pk).
-// One thread owns one batch lane: p and the rollout state live in its
-// registers.  The fused and split sweeps evaluate the same formulas in the
-// same order, and agree to the last bit on the same inputs.
+// In these bodies one thread owns one batch lane: p and the rollout state
+// live in its registers.  The fused and split sweeps evaluate the same
+// formulas in the same order, and agree to the last bit on the same
+// inputs.
 #pragma once
 
 #include "batch_last.cuh"
@@ -127,68 +128,6 @@ __device__ __forceinline__ void rollout_stage(
     for (int a = 1; a < nu; ++a) t = t + Bm[i * nu + a] * u[a];
     xn[i] = s + t + c[i];
   }
-}
-
-// The whole backward vector pass from p = pterm: kff of every stage.
-template <typename T, int nu = NUC>
-__device__ __forceinline__ void vec_sweep(
-    const T* __restrict__ Abar, const T* __restrict__ Bbar,
-    const T* __restrict__ qx, const T* __restrict__ ru,
-    const T* __restrict__ K, const T* __restrict__ L,
-    const T* __restrict__ Pc, const T* __restrict__ pterm,
-    T* __restrict__ kff, int M, int B, int b) {
-  T p[NX];
-  {
-    auto pt = lane(pterm, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) p[i] = pt[i];
-  }
-#pragma unroll 1
-  for (int k = M - 1; k >= 0; --k)
-    vec_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
-                     lane(Bbar, NX * nu, k, B, b),
-                     lane(K, nu * NX, k, B, b), lane(Pc, NX, k, B, b),
-                     lane(L, nu * (nu + 1) / 2, k, B, b),
-                     lane(qx, NX, k, B, b), lane(ru, nu, k, B, b), p,
-                     lane(kff, nu, k, B, b));
-}
-
-// Forward rollout over the horizon from dx0: du_k = K_k dx_k + kff_k,
-// dx_{k+1} = A dx + B du + c; dx holds M+1 states (the terminal last).
-// kff may alias du (each stage reads its kff before writing its du).
-template <typename T, int nu = NUC>
-__device__ __forceinline__ void rollout(const T* __restrict__ Abar,
-                                        const T* __restrict__ Bbar,
-                                        const T* __restrict__ cbar,
-                                        const T* __restrict__ K,
-                                        const T* kff,
-                                        const T* __restrict__ dx0,
-                                        T* __restrict__ dx, T* du, int M,
-                                        int B, int b) {
-  T x[NX];
-  auto x0 = lane(dx0, NX, 0, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = x0[i];
-#pragma unroll 1
-  for (int k = 0; k < M; ++k) {
-    T u[nu], xn[NX];
-    rollout_stage<T, nu>(lane(Abar, NX * NX, k, B, b),
-                         lane(Bbar, NX * nu, k, B, b),
-                         lane(cbar, NX, k, B, b), lane(K, nu * NX, k, B, b),
-                         lane(kff, nu, k, B, b), x, u, xn);
-    auto dxk = lane(dx, NX, k, B, b);
-    auto duk = lane(du, nu, k, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      dxk[i] = x[i];
-      x[i] = xn[i];
-    }
-#pragma unroll
-    for (int a = 0; a < nu; ++a) duk[a] = u[a];
-  }
-  auto xT = lane(dx, NX, M, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xT[i] = x[i];
 }
 
 }  // namespace cfl

@@ -102,15 +102,52 @@
 // wrapper (ops/cuda/riccati_kernels.forward_launch_geometry) computes grid,
 // block and shared bytes; the launch refuses numbers that disagree.
 //
-// K8b and K9c run one thread per lane (64-thread blocks): the stage loop
-// runs inside the thread in place of the sequential Pallas grid, p and
-// the rollout state live in its registers, and the whole-horizon
-// K_all/kff_all VMEM scratch becomes the K/kff outputs (corrector_sweep
-// parks its kff in du).  Their vector pass and rollout are c2_stage.cuh's
-// with 4 inputs.  Per stage and lane corrector_sweep reads ~290 values and
-// writes ~20 for ~500 multiply-adds: bytes-bound in principle, but at the
-// path's B only B threads run, so the latency of one thread's chain over
-// the N stages sets the time (PERF.md).
+// K8b and K9c: one group body, `vec_sweep_group<T, ROLLOUT>`, on K3's
+// design (corrector_sweep_c2.cu) at 4 inputs, on K9b's group and block:
+// the backward vector pass on the stored factorization (K, L, Pc), then for
+// K8b (ROLLOUT) K9b's rollout; K9c is the body with the rollout compiled
+// out, its kff written to its own array (K8b parks it in du).  What bounds
+// them: bytes.  Per stage and lane the vector pass reads 313 values for
+// ~290 multiply-adds, K8b's rollout 290 more (it re-reads A, B and K) for
+// 273, and they write 17 (K8b) or 4 (K9c): 281 MB and 260 MB at N=50,
+// B=4096 in float32, 0.084 and 0.078 ms at 3.35 TB/s, a stream past the
+// 50 MB L2.  One thread per lane (their form before, c2_stage.cuh's stage
+// bodies) ran 64 of the 132 SMs at B=4096, each thread's loads of a stage
+// one dependent chain: 0.70 and 0.58 ms.  Here:
+//   * the stage inputs land in [entry][lane] slots round a ring of
+//     kVecSets = 3 sets (343 values a lane each: the vector pass's fields
+//     and the rollout's c and kff, which K9c leaves unused), one commit
+//     group a stage, by K9b's tile copies (`tile::stage_in`): stages k-1
+//     and k-2 (vector pass) or k+1 and k+2 (rollout) land while stage k
+//     computes;
+//   * the stage's chain is K3's: threads 0-12 form m = p + Pc, threads 0-3
+//     Qu (4 dot products of 13, m in registers), then threads 0-12 each
+//     update one entry of p (a dot product of 13 and one of 4) while
+//     thread kFwdGroup - 1, which p leaves idle, solves and stores kff; two
+//     barriers a stage;
+//   * at the turn, K8b's rollout stage 0 reads A, B and K where the vector
+//     pass left them (its c lands during the pass's last stage, its kff is
+//     written there); later stages read the parked kff back through L2
+//     (cp.async.cg, or __ldcg value by value);
+//   * Bm's rows are padded to a pitch of 5, so a warp's two threads a lane
+//     read distinct banks in float32, as in K9b.
+// The vector pass sums in c2_stage.cuh's vec_stage order and the rollout in
+// K9b's, so K9c's kff equals the kff K8b parks and K9c then K9b equal K8b's
+// dx and du bit for bit.  Shared memory: kVecLaneValues = 1059 values a
+// lane, 67,776 bytes a block in float32 (3 blocks an SM with the 1 KB a
+// block reserves, what `__launch_bounds__` asks for: 85 registers a thread)
+// and 135,552 in float64 (1); both need the opt-in attribute.  `ptxas -v`:
+// K8b 69 registers in float32, 110 in float64, K9c 62 and 101, no spills.
+// At N=50, B=4096 K8b takes 0.187 ms (2.2x its bound; the loads 0.12 of
+// it, the rollout 0.09) and K9c 0.099 (1.27x).  Two sets (4 blocks an SM)
+// ran 7-11% slower at B=4096, the paths' batch, and 26-28% faster at
+// B=8192, which they ran in one wave; 32 lanes a block with three sets won
+// at B=4096 and 8192 in float32, but its float64 block would not fit
+// (roofline/kkt_variants.py, PERF.md).  The
+// wrapper (ops/cuda/riccati_kernels.vector_launch_geometry) computes grid,
+// block and shared bytes; the launch refuses numbers that disagree.  A
+// ragged tile's spare groups read the last lane, store nothing and take
+// part in every barrier.
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -563,28 +600,38 @@ backward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                   Lout, Pcout, nullptr, nullptr, N, B);
 }
 
-// The opt-in to the shared bytes a block of `kernel` takes, above 48 KB.
-template <typename T, typename F>
-int opt_in(F kernel) {
-  if (smem_bytes<T>() <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>()));
-}
-
-// Whether a launch shape disagrees with the kernel's (kLanes lanes of
-// kThreads threads a block, smem_bytes a block).
+// A kernel's launch shape: `lanes` lanes of `threads` threads a block and
+// `smem` bytes of shared memory a block (K8a's and K9a's here; K9b's,
+// K8b's and K9c's below).
+struct Shape {
+  int lanes, threads, smem;
+};
 template <typename T>
-bool refused(int N, int B, int grid, int threads, int smem) {
-  return B < 1 || N < 1 || threads != kThreads || smem != smem_bytes<T>() ||
-         grid != (B + kLanes - 1) / kLanes;
+constexpr Shape riccati_shape() {
+  return {kLanes, kThreads, smem_bytes<T>()};
 }
 
-template <typename T, typename F>
-int occupancy(F kernel, int* blocks_per_sm) {
-  const int err = opt_in<T>(kernel);
+// The opt-in to the shared bytes a block of `kernel` takes, above 48 KB.
+template <typename F>
+int opt_in(F kernel, Shape s) {
+  if (s.smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem));
+}
+
+// Whether a launch (grid, threads, smem) at N stages and B lanes disagrees
+// with the shape `s`.
+inline bool refused(Shape s, int N, int B, int grid, int threads, int smem) {
+  return B < 1 || N < 1 || threads != s.threads || smem != s.smem ||
+         grid != (B + s.lanes - 1) / s.lanes;
+}
+
+template <typename F>
+int occupancy(F kernel, Shape s, int* blocks_per_sm) {
+  const int err = opt_in(kernel, s);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kThreads, smem_bytes<T>()));
+      blocks_per_sm, kernel, s.threads, s.smem));
 }
 
 // ---- K9b: a group of threads per lane, on K5b's design ---------------------
@@ -626,16 +673,16 @@ constexpr int fwd_min_blocks() {
   return std::min(1024 / kFwdThreads, (227 * 1024) / fwd_smem_bytes<T>());
 }
 
-// K3's tile-row copies (corrector_sweep_c2.cu's stage_in, its exact forms),
-// kept here so that K3's source stays as it is.
+// K3's tile-row copies (corrector_sweep_c2.cu's stage_in, its exact forms)
+// and lane columns, kept here so that K3's source stays as it is.
 namespace tile {
 // Entries [0, n) of stage k of a batch-last input into the field `dst`:
 // entry r of the block's lane l at dst[row(r) kFwdLanes + l], row(r) = r
 // or, with NCOL > 0 (rows of NCOL entries), r / NCOL * PITCH + r % NCOL.  A
 // full, 16-byte aligned tile goes in 16-byte copies (cp.async.cg), the
-// others value by value, spare lanes reading lane B-1.  cp_wait_group
-// before use.
-template <int NCOL = 0, int PITCH = 0, typename T>
+// others value by value, spare lanes reading lane B-1.  FRESH: the input
+// is this launch's own output, read through L2.  cp_wait_group before use.
+template <int NCOL = 0, int PITCH = 0, bool FRESH = false, typename T>
 __device__ __forceinline__ void stage_in(T* dst, const T* src, int n, int k,
                                          int B, int b0) {
   constexpr int per = 16 / static_cast<int>(sizeof(T));  // values a copy
@@ -661,11 +708,24 @@ __device__ __forceinline__ void stage_in(T* dst, const T* src, int n, int k,
   } else {
     for (int f = threadIdx.x; f < n * kFwdLanes; f += kFwdThreads) {
       const int r = f / kFwdLanes, l = f % kFwdLanes;
-      copy_async(dst + row(r) * kFwdLanes + l,
-                 from + (size_t)r * B + min(b0 + l, B - 1));
+      T* to = dst + row(r) * kFwdLanes + l;
+      const T* fr = from + (size_t)r * B + min(b0 + l, B - 1);
+      if constexpr (FRESH)
+        *to = __ldcg(fr);
+      else
+        copy_async(to, fr);
     }
   }
 }
+
+// A lane's column of a field: entry q at p[q kFwdLanes].
+template <typename T>
+struct Col {
+  const T* p;
+  __device__ __forceinline__ T operator[](int q) const {
+    return p[q * kFwdLanes];
+  }
+};
 }  // namespace tile
 
 // K9b: the rollout from stored gains, du_k = K_k dx_k + kff_k, dx_{k+1} =
@@ -760,32 +820,251 @@ forward_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
 }
 
 template <typename T>
-int fwd_opt_in() {
-  if (fwd_smem_bytes<T>() <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      forward_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fwd_smem_bytes<T>()));
+constexpr Shape fwd_shape() {
+  return {kFwdLanes, kFwdThreads, fwd_smem_bytes<T>()};
+}
+
+// ---- K8b and K9c: a group of threads per lane, on K3's and K5c's design ---
+
+// K9b's group and block (kFwdGroup threads a lane, kFwdLanes lanes a
+// block); a ring of kVecSets input sets.
+constexpr int kVecSets = 3;   // depth of the input ring
+
+// One lane's slots, [entry][lane] as K9b's: a set holds the vector pass's
+// fields and K8b's rollout's (K9c leaves c and kff unused: one layout for
+// both, the same blocks an SM by shared memory), then the state.
+namespace vec_slot {
+constexpr int BP = NU + 1;              // Bm's row pitch (odd, as K9b's)
+constexpr int A = 0;                    // A (13x13)
+constexpr int B = A + NX * NX;          // Bm (13 rows of 4, pitch BP)
+constexpr int K = B + NX * BP;          // K (4x13)
+constexpr int PC = K + NU * NX;         // Pc
+constexpr int L = PC + NX;              // packed Cholesky factor (10)
+constexpr int Q = L + NL;               // qx
+constexpr int R = Q + NX;               // ru
+constexpr int C = R + NU;               // c (K8b's rollout)
+constexpr int KFF = C + NX;             // kff (K8b's rollout)
+constexpr int SET = KFF + NU;           // one set of stage inputs (343)
+constexpr int P = kVecSets * SET;       // p, then the rollout's odd x
+constexpr int X0 = P + NX;              // m, then the rollout's even x
+constexpr int QU = X0 + NX;             // Qu, then the rollout's u
+constexpr int END = QU + NU;
+}  // namespace vec_slot
+
+constexpr int kVecLaneValues = vec_slot::END;
+static_assert(kVecLaneValues == 1059,
+              "vector_launch_geometry's VECTOR_LANE_VALUES");
+
+template <typename T>
+constexpr int vec_smem_bytes() {
+  return kFwdLanes * kVecLaneValues * static_cast<int>(sizeof(T));
+}
+
+// What K8b's and K9c's __launch_bounds__ ask for: the blocks an SM holds by
+// shared memory (3 in float32: 85 registers a thread), at most 4.
+template <typename T>
+constexpr int vec_min_blocks() {
+  return std::min(1024 / kFwdThreads, (227 * 1024) / vec_smem_bytes<T>());
+}
+
+// The backward vector pass on the stored factorization (K, L, Pc), then
+// with ROLLOUT the forward rollout: K8b's sweep, and K9c's (ROLLOUT false:
+// no rollout; c, dx0, dx and du unused).  Per stage k from p = p_term:
+// m = p + Pc_k, Qu = r_k + B_k' m, kff_k = -L_k^-T L_k^-1 Qu, p <- q_k +
+// A_k' m + K_k' Qu; then from dx0: du_k = K_k dx_k + kff_k, dx_{k+1} = A_k
+// dx_k + B_k du_k + c_k.  kff goes to `kff` (K8b passes du: kff parks
+// there, and the rollout reads it back through L2).
+template <typename T, bool ROLLOUT>
+__device__ __forceinline__ void vec_sweep_group(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ c, const T* __restrict__ qx,
+    const T* __restrict__ ru, const T* __restrict__ K,
+    const T* __restrict__ L, const T* __restrict__ Pc,
+    const T* __restrict__ pterm, const T* __restrict__ dx0, T* dx, T* du,
+    T* kff, int N, int B) {
+  namespace vs = vec_slot;
+  constexpr int kL = kFwdLanes;
+  constexpr int G = kFwdGroup;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x % kL, t = threadIdx.x / kL;
+  const int b0 = blockIdx.x * kL;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  const bool valid = b0 + l < B;       // ... and whether it stores
+  T* const w = sh + l;                 // the lane's column: entry r at r kL
+  const auto set = [&](int k) { return sh + (k % kVecSets) * vs::SET * kL; };
+  // the vector pass's inputs of stage k into its set
+  const auto vec_in = [&](int k) {
+    T* const s = set(k);
+    tile::stage_in(s + vs::A * kL, A, NX * NX, k, B, b0);
+    tile::stage_in<NU, vs::BP>(s + vs::B * kL, Bm, NX * NU, k, B, b0);
+    tile::stage_in(s + vs::K * kL, K, NU * NX, k, B, b0);
+    tile::stage_in(s + vs::PC * kL, Pc, NX, k, B, b0);
+    tile::stage_in(s + vs::L * kL, L, NL, k, B, b0);
+    tile::stage_in(s + vs::Q * kL, qx, NX, k, B, b0);
+    tile::stage_in(s + vs::R * kL, ru, NU, k, B, b0);
+  };
+
+  for (int i = t; i < NX; i += G) w[(vs::P + i) * kL] = pterm[i * B + bl];
+  // stages N-1 .. N-kVecSets+1 in flight, one group each
+#pragma unroll
+  for (int j = 1; j < kVecSets; ++j) {
+    if (N - j >= 0) vec_in(N - j);
+    cp_commit();
+  }
+  cp_wait_group<kVecSets - 2>();
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = N - 1; k >= 0; --k) {
+    // stage k-kVecSets+1 into the set stage k+1 freed (a group, maybe
+    // empty); at the last stage K8b's rollout's stage-0 c, beside the A, B
+    // and K it reuses
+    if (k - kVecSets + 1 >= 0) {
+      vec_in(k - kVecSets + 1);
+    } else if constexpr (ROLLOUT) {
+      if (k == 0) tile::stage_in(set(0) + vs::C * kL, c, NX, 0, B, b0);
+    }
+    cp_commit();
+    T* const s = set(k);
+    const T* const As = s + vs::A * kL + l;
+    const T* const Bs = s + vs::B * kL + l;
+    const T* const Ks = s + vs::K * kL + l;
+
+    // K8b's and K9c's m = p + Pc (threads 0-12, into X0 for the p update;
+    // threads 0-3 all of it, in registers), Qu = r + B'm (threads 0-3)
+    if (t < NX) {
+      const T* const Pcs = s + vs::PC * kL + l;
+      for (int i = t; i < NX; i += G)
+        w[(vs::X0 + i) * kL] = w[(vs::P + i) * kL] + Pcs[i * kL];
+      if (t < NU) {
+        T m[NX];
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+          m[j] = w[(vs::P + j) * kL] + Pcs[j * kL];
+        for (int a = t; a < NU; a += G) {
+          T acc = Bs[a * kL] * m[0];
+#pragma unroll
+          for (int i = 1; i < NX; ++i)
+            acc = acc + Bs[(i * vs::BP + a) * kL] * m[i];
+          w[(vs::QU + a) * kL] = s[(vs::R + a) * kL + l] + acc;
+        }
+      }
+    }
+    __syncthreads();
+
+    // K8b's and K9c's p update: p <- q + A'm + K'Qu (threads 0-12)
+    for (int i = t; i < NX; i += G) {
+      const T* const m = w + vs::X0 * kL;
+      T acc = As[i * kL] * m[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        acc = acc + As[(j * NX + i) * kL] * m[j * kL];
+      T v = Ks[i * kL] * w[vs::QU * kL];
+#pragma unroll
+      for (int a = 1; a < NU; ++a)
+        v = v + Ks[(a * NX + i) * kL] * w[(vs::QU + a) * kL];
+      w[(vs::P + i) * kL] = s[(vs::Q + i) * kL + l] + acc + v;
+    }
+    // K8b's and K9c's kff solve: kff = -Quu^{-1} Qu (thread G - 1, which
+    // the p update leaves idle)
+    if (t == G - 1) {
+      T y[NU];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) y[a] = w[(vs::QU + a) * kL];
+      // L read where used: the factor never sits in registers whole
+      cho_solve<T, NU>(tile::Col<T>{s + vs::L * kL + l}, y);
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        const T kf = -y[a];
+        if (valid) kff[((size_t)k * NU + a) * B + b0 + l] = kf;
+        if constexpr (ROLLOUT) {
+          if (k == 0) s[(vs::KFF + a) * kL + l] = kf;
+        }
+      }
+    }
+    cp_wait_group<kVecSets - 2>();   // stage k-1's inputs have landed (this
+    __syncthreads();                 // thread's, then everyone's); set k is
+                                     // free
+  }
+
+  if constexpr (ROLLOUT) {
+    // K8b's rollout.  Stage 0's A, B and K are in set 0 from the vector
+    // pass, its c landed with the pass's last stage and its kff was written
+    // there; stage k+kVecSets-1's inputs land while stage k computes, one
+    // commit group a stage (K9b's ring, K9b's sums term for term).
+    const auto roll_in = [&](int k) {
+      T* const s = set(k);
+      tile::stage_in(s + vs::A * kL, A, NX * NX, k, B, b0);
+      tile::stage_in<NU, vs::BP>(s + vs::B * kL, Bm, NX * NU, k, B, b0);
+      tile::stage_in(s + vs::C * kL, c, NX, k, B, b0);
+      tile::stage_in(s + vs::K * kL, K, NU * NX, k, B, b0);
+      tile::stage_in<0, 0, true>(s + vs::KFF * kL,
+                                 static_cast<const T*>(kff), NU, k, B, b0);
+    };
+    for (int i = t; i < NX; i += G) w[(vs::X0 + i) * kL] = dx0[i * B + bl];
+    copy_wait();   // stage 0's c has landed (this thread's copies)
+    // stages 1 .. kVecSets-2 in flight, one group each
+#pragma unroll
+    for (int k = 1; k < kVecSets - 1; ++k) {
+      if (k < N) roll_in(k);
+      cp_commit();
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      // stage k+kVecSets-1 into the set stage k-1 freed (a group, maybe
+      // empty)
+      if (k + kVecSets - 1 < N) roll_in(k + kVecSets - 1);
+      cp_commit();
+      const T* const s = set(k);
+      const T* const As = s + vs::A * kL + l;
+      const T* const Bs = s + vs::B * kL + l;
+      const T* const Ks = s + vs::K * kL + l;
+      const int xo = (k & 1) ? vs::P : vs::X0, xn = (k & 1) ? vs::X0 : vs::P;
+      const T* const x = w + xo * kL;   // x_k: entry j at x[j kL]
+      // K8b's u = K x + kff (threads 0-3)
+      for (int a = t; a < NU; a += G) {
+        T acc = Ks[a * NX * kL] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j)
+          acc = acc + Ks[(a * NX + j) * kL] * x[j * kL];
+        const T u = acc + s[(vs::KFF + a) * kL + l];
+        w[(vs::QU + a) * kL] = u;
+        if (valid) du[((size_t)k * NU + a) * B + b0 + l] = u;  // K8b's du
+      }
+      // K8b's x_k out
+      if (valid) {
+        for (int i = t; i < NX; i += G)
+          dx[((size_t)k * NX + i) * B + b0 + l] = x[i * kL];
+      }
+      __syncthreads();
+      // K8b's dx_{k+1} = A x + B u + c (threads 0-12)
+      for (int i = t; i < NX; i += G) {
+        T acc = As[i * NX * kL] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j)
+          acc = acc + As[(i * NX + j) * kL] * x[j * kL];
+        T v = Bs[i * vs::BP * kL] * w[vs::QU * kL];
+#pragma unroll
+        for (int a = 1; a < NU; ++a)
+          v = v + Bs[(i * vs::BP + a) * kL] * w[(vs::QU + a) * kL];
+        w[(xn + i) * kL] = acc + v + s[(vs::C + i) * kL + l];
+      }
+      cp_wait_group<kVecSets - 2>();   // stage k+1's inputs have landed
+      __syncthreads();                 // (this thread's, then everyone's);
+                                       // set k is free
+    }
+    if (valid) {
+      const int xo = (N & 1) ? vs::P : vs::X0;
+      for (int i = t; i < NX; i += G)
+        dx[((size_t)N * NX + i) * B + b0 + l] = w[(xo + i) * kL];
+    }
+  }
 }
 
 template <typename T>
-int launch_fwd(const T* A, const T* Bm, const T* c, const T* K, const T* kff,
-               const T* dx0, T* dx, T* du, int N, int B, int grid,
-               int threads, int smem, void* stream) {
-  if (B < 1 || N < 1 || threads != kFwdThreads ||
-      smem != fwd_smem_bytes<T>() || grid != (B + kFwdLanes - 1) / kFwdLanes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int err = fwd_opt_in<T>();
-  if (err != 0) return err;
-  forward_sweep_kernel<T><<<grid, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, c, K, kff, dx0, dx, du, N, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- K8b and K9c: one thread per lane -------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kFwdThreads, vec_min_blocks<T>())
 corrector_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                        const T* __restrict__ c, const T* __restrict__ qx,
                        const T* __restrict__ ru, const T* __restrict__ K,
@@ -793,17 +1072,13 @@ corrector_sweep_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                        const T* __restrict__ pterm,
                        const T* __restrict__ dx0, T* dx, T* du, int N,
                        int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // backward vector pass on the stored factorization; kff parks in du
-  vec_sweep<T, NU>(A, Bm, qx, ru, K, L, Pc, pterm, du, N, B, b);
-  rollout<T, NU>(A, Bm, c, K, du, dx0, dx, du, N, B, b);
+  vec_sweep_group<T, true>(A, Bm, c, qx, ru, K, L, Pc, pterm, dx0, dx, du,
+                           du, N, B);
 }
 
-// The split sweeps' backward vector pass (fused=False) alone on the stored
-// factorization.
+// K9c: the vector pass alone (fused=False)
 template <typename T>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kFwdThreads, vec_min_blocks<T>())
 backward_vector_sweep_kernel(const T* __restrict__ A,
                              const T* __restrict__ Bm,
                              const T* __restrict__ qx,
@@ -812,32 +1087,34 @@ backward_vector_sweep_kernel(const T* __restrict__ A,
                              const T* __restrict__ Pc,
                              const T* __restrict__ pterm,
                              T* __restrict__ kff, int N, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  vec_sweep<T, NU>(A, Bm, qx, ru, K, L, Pc, pterm, kff, N, B, b);
+  vec_sweep_group<T, false>(A, Bm, nullptr, qx, ru, K, L, Pc, pterm, nullptr,
+                            nullptr, nullptr, kff, N, B);
+}
+
+template <typename T>
+constexpr Shape vec_shape() {
+  return {kFwdLanes, kFwdThreads, vec_smem_bytes<T>()};
 }
 
 inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
 }
 
-inline int lanes_grid(int B) { return (B + 63) / 64; }
-
-
 }  // namespace
 
 // K8a and K9a take their launch shape (grid, threads, smem: the wrapper's
-// riccati_launch_geometry), K9b its own (forward_launch_geometry), and
-// refuse another; their _occupancy entries give the blocks an SM holds.
+// riccati_launch_geometry), K9b its own (forward_launch_geometry), K8b and
+// K9c theirs (vector_launch_geometry), and refuse another; their _occupancy
+// entries give the blocks an SM holds.
 #define RICCATI_ENTRIES(SUFFIX, T)                                            \
   extern "C" int kkt_sweep_##SUFFIX(                                          \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ruu, const T* ru, const T* pT, const T* pterm, const T* dx0,   \
       T* K, T* kff, T* L, T* Pc, T* dx, T* du, int N, int B, int grid,        \
       int threads, int smem, void* stream) {                                  \
-    if (refused<T>(N, B, grid, threads, smem))                                \
+    if (refused(riccati_shape<T>(), N, B, grid, threads, smem))               \
       return static_cast<int>(cudaErrorInvalidValue);                         \
-    const int err = opt_in<T>(kkt_sweep_kernel<T>);                           \
+    const int err = opt_in(kkt_sweep_kernel<T>, riccati_shape<T>());          \
     if (err != 0) return err;                                                 \
     kkt_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(          \
         A, Bm, c, qxx, qx, ruu, ru, pT, pterm, dx0, K, kff, L, Pc, dx, du, N, \
@@ -845,54 +1122,74 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int kkt_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {           \
-    return occupancy<T>(kkt_sweep_kernel<T>, blocks_per_sm);                  \
+    return occupancy(kkt_sweep_kernel<T>, riccati_shape<T>(), blocks_per_sm); \
   }                                                                           \
   extern "C" int backward_sweep_##SUFFIX(                                     \
       const T* A, const T* Bm, const T* c, const T* qxx, const T* qx,         \
       const T* ruu, const T* ru, const T* pT, const T* pterm, T* K, T* kff,   \
       T* L, T* Pc, int N, int B, int grid, int threads, int smem,             \
       void* stream) {                                                         \
-    if (refused<T>(N, B, grid, threads, smem))                                \
+    if (refused(riccati_shape<T>(), N, B, grid, threads, smem))               \
       return static_cast<int>(cudaErrorInvalidValue);                         \
-    const int err = opt_in<T>(backward_sweep_kernel<T>);                      \
+    const int err = opt_in(backward_sweep_kernel<T>, riccati_shape<T>());     \
     if (err != 0) return err;                                                 \
     backward_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(     \
         A, Bm, c, qxx, qx, ruu, ru, pT, pterm, K, kff, L, Pc, N, B);          \
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int backward_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {      \
-    return occupancy<T>(backward_sweep_kernel<T>, blocks_per_sm);             \
+    return occupancy(backward_sweep_kernel<T>, riccati_shape<T>(),            \
+                     blocks_per_sm);                                          \
   }                                                                           \
   extern "C" int forward_sweep_##SUFFIX(                                      \
       const T* A, const T* Bm, const T* c, const T* K, const T* kff,          \
       const T* dx0, T* dx, T* du, int N, int B, int grid, int threads,        \
       int smem, void* stream) {                                               \
-    return launch_fwd<T>(A, Bm, c, K, kff, dx0, dx, du, N, B, grid, threads,  \
-                         smem, stream);                                       \
+    if (refused(fwd_shape<T>(), N, B, grid, threads, smem))                   \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    const int err = opt_in(forward_sweep_kernel<T>, fwd_shape<T>());          \
+    if (err != 0) return err;                                                 \
+    forward_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(      \
+        A, Bm, c, K, kff, dx0, dx, du, N, B);                                 \
+    return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int forward_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {       \
-    const int err = fwd_opt_in<T>();                                          \
-    if (err != 0) return err;                                                 \
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
-        blocks_per_sm, forward_sweep_kernel<T>, kFwdThreads,                  \
-        fwd_smem_bytes<T>()));                                                \
+    return occupancy(forward_sweep_kernel<T>, fwd_shape<T>(), blocks_per_sm); \
   }                                                                           \
   extern "C" int backward_vector_sweep_##SUFFIX(                              \
       const T* A, const T* Bm, const T* qx, const T* ru, const T* K,          \
       const T* L, const T* Pc, const T* pterm, T* kff, int N, int B,          \
-      void* stream) {                                                         \
-    backward_vector_sweep_kernel<T>                                           \
-        <<<lanes_grid(B), 64, 0, as_stream(stream)>>>(A, Bm, qx, ru, K, L,    \
-                                                      Pc, pterm, kff, N, B);  \
+      int grid, int threads, int smem, void* stream) {                        \
+    if (refused(vec_shape<T>(), N, B, grid, threads, smem))                   \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    const int err = opt_in(backward_vector_sweep_kernel<T>, vec_shape<T>());  \
+    if (err != 0) return err;                                                 \
+    backward_vector_sweep_kernel<T><<<grid, threads, smem,                    \
+                                      as_stream(stream)>>>(                   \
+        A, Bm, qx, ru, K, L, Pc, pterm, kff, N, B);                           \
     return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int backward_vector_sweep_occupancy_##SUFFIX(                    \
+      int* blocks_per_sm) {                                                   \
+    return occupancy(backward_vector_sweep_kernel<T>, vec_shape<T>(),         \
+                     blocks_per_sm);                                          \
   }                                                                           \
   extern "C" int corrector_sweep_##SUFFIX(                                    \
       const T* A, const T* Bm, const T* c, const T* qx, const T* ru,          \
       const T* K, const T* L, const T* Pc, const T* pterm, const T* dx0,      \
-      T* dx, T* du, int N, int B, void* stream) {                             \
-    corrector_sweep_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(   \
+      T* dx, T* du, int N, int B, int grid, int threads, int smem,            \
+      void* stream) {                                                         \
+    if (refused(vec_shape<T>(), N, B, grid, threads, smem))                   \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    const int err = opt_in(corrector_sweep_kernel<T>, vec_shape<T>());       \
+    if (err != 0) return err;                                                 \
+    corrector_sweep_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(    \
         A, Bm, c, qx, ru, K, L, Pc, pterm, dx0, dx, du, N, B);                \
     return static_cast<int>(cudaGetLastError());                              \
+  }                                                                           \
+  extern "C" int corrector_sweep_occupancy_##SUFFIX(int* blocks_per_sm) {     \
+    return occupancy(corrector_sweep_kernel<T>, vec_shape<T>(),               \
+                     blocks_per_sm);                                          \
   }
 
 RICCATI_ENTRIES(f32, float)

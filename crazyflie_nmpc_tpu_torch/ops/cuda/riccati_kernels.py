@@ -10,11 +10,19 @@ every odd horizon; and their split forms, the sweeps of
 `forward_sweep` (the rollout alone) and `backward_vector_sweep` (the
 vector pass alone).  Each wrapper launches its kernel in
 `csrc/riccati.cu` for CUDA tensors and runs its `*_ref` plain PyTorch
-version for CPU tensors.  `kkt_sweep` and `backward_sweep` (K8a, K9a) give
-each lane a group of threads (their launch shape is
-`riccati_launch_geometry`'s), and so does `forward_sweep` (K9b, its own
-`forward_launch_geometry`); `corrector_sweep` and `backward_vector_sweep`
-(K8b, K9c) run one thread a lane.
+version for CPU tensors.  Every kernel gives each lane a group of threads
+and takes its wrapper's launch shape: `kkt_sweep` and `backward_sweep`
+(K8a, K9a) `riccati_launch_geometry`'s, `forward_sweep` (K9b)
+`forward_launch_geometry`'s, `corrector_sweep` and `backward_vector_sweep`
+(K8b, K9c, one body on K9b's group and block: K3's vector pass at 4
+inputs, then for K8b K9b's rollout) `vector_launch_geometry`'s.  What
+bounds K8b and K9c on the H100 is bytes: per stage and lane K8b reads 313
+values in the vector pass and 290 in the rollout and writes 17, K9c reads
+313 and writes 4 (281 MB and 260 MB at N=50, B=4096 in float32: 0.084 and
+0.078 ms at 3.35 TB/s).  One thread a lane, their form before, ran 64 of
+the 132 SMs at B=4096, each thread's loads of a stage one dependent chain:
+0.70 and 0.58 ms; the group kernels take 0.187 and 0.099 ms there
+(`roofline/kkt_variants.py`, PERF.md).
 
 Layout: batch-last, contiguous, B last.  N stages with 13 states and 4
 inputs; the cost is diagonal (qxx (N,13,B), ruu (N,4,B) including the
@@ -60,6 +68,11 @@ FORWARD_GROUP = 16
 FORWARD_THREADS = 256
 FORWARD_LANES = FORWARD_THREADS // FORWARD_GROUP
 FORWARD_LANE_VALUES = 636
+# K8b's and K9c's (K9b's group and block; csrc/riccati.cu's kVecLaneValues)
+VECTOR_GROUP = FORWARD_GROUP
+VECTOR_THREADS = FORWARD_THREADS
+VECTOR_LANES = FORWARD_LANES
+VECTOR_LANE_VALUES = 1059
 
 
 def riccati_launch_geometry(B: int, dtype) -> dict:
@@ -84,6 +97,20 @@ def forward_launch_geometry(B: int, dtype) -> dict:
 def forward_blocks_per_sm(dtype=torch.float32) -> int:
     """K9b's resident blocks per SM (FORWARD_LANES lanes each)."""
     return _build.blocks_per_sm(_SOURCE, "forward_sweep_occupancy", dtype)
+
+
+def vector_launch_geometry(B: int, dtype) -> dict:
+    """K8b's and K9c's launch at B lanes of `dtype`
+    (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, VECTOR_LANES, VECTOR_THREADS,
+                                VECTOR_LANE_VALUES)
+
+
+def vector_blocks_per_sm(dtype=torch.float32,
+                         kernel="corrector_sweep") -> int:
+    """Resident blocks per SM of K8b (`kernel="corrector_sweep"`) or K9c
+    (`"backward_vector_sweep"`), VECTOR_LANES lanes each."""
+    return _build.blocks_per_sm(_SOURCE, f"{kernel}_occupancy", dtype)
 
 
 def _geometry_ints(N, B, dtype, geometry=riccati_launch_geometry):
@@ -166,14 +193,17 @@ def kkt_sweep(A, Bm, c, qxx, qx, ruu, ru, pT, p_term, dx0):
 
 def corrector_sweep(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0):
     """Backward vector pass on the stored factorization (K, L, Pc) +
-    forward rollout in one launch.  Returns (dx (N+1,13,B), du (N,4,B))."""
+    forward rollout in one launch (K8b, `vector_launch_geometry`).
+    Returns (dx (N+1,13,B), du (N,4,B)); the kernel writes dx[N]
+    itself."""
     if A.device.type == "cpu":
         return corrector_sweep_ref(A, Bm, c, qx, ru, K, L, Pc, p_term, dx0)
     N, B = A.shape[0], A.shape[-1]
     outs = (_empty(A, N + 1, NX, B), _empty(A, N, NU, B))
     _build.run(corrector_sweep, _SOURCE, dict(
         A=A, Bm=Bm, c=c, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term,
-        dx0=dx0), outs, stage_shapes(N, B), [N, B])
+        dx0=dx0), outs, stage_shapes(N, B),
+        _geometry_ints(N, B, A.dtype, vector_launch_geometry))
     return outs
 
 
@@ -208,15 +238,16 @@ def forward_sweep(A, Bm, c, K, kff, dx0):
 
 
 def backward_vector_sweep(A, Bm, qx, ru, K, L, Pc, p_term):
-    """`corrector_sweep`'s vector pass on the stored factorization alone.
-    Returns kff (N,4,B)."""
+    """`corrector_sweep`'s vector pass on the stored factorization alone
+    (K9c, K8b's kernel body without its rollout).  Returns kff (N,4,B)."""
     if A.device.type == "cpu":
         return backward_vector_sweep_ref(A, Bm, qx, ru, K, L, Pc, p_term)
     N, B = A.shape[0], A.shape[-1]
     kff = _empty(A, N, NU, B)
     _build.run(backward_vector_sweep, _SOURCE, dict(
         A=A, Bm=Bm, qx=qx, ru=ru, K=K, L=L, Pc=Pc, p_term=p_term), (kff,),
-        stage_shapes(N, B), [N, B])
+        stage_shapes(N, B),
+        _geometry_ints(N, B, A.dtype, vector_launch_geometry))
     return kff
 
 

@@ -1,22 +1,22 @@
 """K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
 `bwd_c2`, K5b `fwd_c2`, K5c `bwd_vec_c2`, K10 `iter_sweep_c2`, K8a
-`kkt_sweep`, K9a `backward_sweep` or K9b `forward_sweep` in variants on
-the card: their launch shapes, and the parts of their work cut out one at
-a time.
+`kkt_sweep`, K9a `backward_sweep`, K9b `forward_sweep`, K8b
+`corrector_sweep` or K9c `backward_vector_sweep` in variants on the card:
+their launch shapes, and the parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
                   fwd_c2|bwd_vec_c2|iter_sweep_c2|kkt_sweep|backward_sweep|
-                  forward_sweep]
+                  forward_sweep|corrector_sweep|backward_vector_sweep]
         [--baseline DIR]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
 K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b and K5c,
 `csrc/prep_condense2.cu`, `csrc/iter_c2.cu`, `csrc/riccati.cu`, which
-holds K8a, K9a and K9b) with one edit (`VARIANTS`, `CORR_VARIANTS`,
-`PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`, `VEC_VARIANTS`,
-`ITER_VARIANTS`, `RICCATI_VARIANTS`, `BACKWARD_VARIANTS`,
-`FORWARD_VARIANTS`).
+holds K8a, K9a, K9b, K8b and K9c) with one edit (`VARIANTS`,
+`CORR_VARIANTS`, `PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`,
+`VEC_VARIANTS`, `ITER_VARIANTS`, `RICCATI_VARIANTS`, `BACKWARD_VARIANTS`,
+`FORWARD_VARIANTS`, `CORRECTOR_VARIANTS`, `VECTOR_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -38,9 +38,14 @@ the stores).  K5c: a ring of 3 input sets instead of 2, K5b's shapes
 (G = 8, 32 lanes a block, both), or one part removed (the loads in the
 stage loop, the m/Qu phase, the p update, the kff solve, the kff stores,
 kept alive behind a B < 0 test).  K9b: K5b's variants at 4 inputs (its
-own constants, `SHAPE_CONSTANTS`).  K10: one of its five phases removed, or the barrier algebra
-of all five (`kAlgebra`); each launch on a copy of its own of the carried
-inputs it updates in place (`calls`), all made before the timing.  K8a:
+own constants, `SHAPE_CONSTANTS`).  K8b and K9c (one body on K9b's
+group and block, a ring of 3 sets): a ring of 2 sets, K5c's shapes at 4
+inputs, or one part removed (the loads in the stage loops, the m/Qu
+phase, the p update, the kff solve, the stores kept alive behind a B < 0
+test, and K8b's rollout).  K10: one of its five phases removed, or the
+barrier algebra of all five (`kAlgebra`); each launch on a copy of its
+own of the carried inputs it updates in place (`calls`), all made before
+the timing.  K8a:
 G = 8 or 32 threads a lane (128 threads a block), 256 threads a block
 (16 lanes), `__launch_bounds__` asking float32 for 8 blocks an SM (64
 registers a thread) instead of 4, a ring of 2 rollout input sets
@@ -56,7 +61,8 @@ and duals, every bound finite (`iter_inputs`); K5a, K5b and K5c at N=400, the
 path that runs them,
 the data's 25 condensed stages repeated 8 times, K5b on K2's gains of
 them, K5c on K2's factorization; K8a and K9a on the stage QP that K6
-condenses, N=50, K9b on K8a's gains of it), all variants
+condenses, N=50, K9b on K8a's gains of it, K8b and K9c on K8a's
+factorization of it), all variants
 in turn and then in reverse order; the unedited
 kernel runs among them.  A time is the device time of
 a launch, the mean over 20 traced launches (`roofline.device_ms`).  The
@@ -70,7 +76,8 @@ unpacked with `git archive`) as the variant "baseline", timed and checked
 among the others: the file of that checkout that defines the kernel
 (`condensed_c2.cu` for a one-thread K5a, K5b or K5c, whose entries take
 no launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's, K9a's
-and K9b's in `riccati.cu`, where K9a is `kkt_sweep_kernel<T, false>`); for K10 also that
+and K9b's, K8b's and K9c's in `riccati.cu`, where K9a is
+`kkt_sweep_kernel<T, false>`); for K10 also that
 source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
 kernel's phase blocks emptied), as "baseline no phase N".  Runs on the
 CUDA device only: without one it exits 1.
@@ -376,6 +383,43 @@ FORWARD_VARIANTS = {
         _cut("    // K9b's x_k out", "    __syncthreads();\n" + _K9B_DX)),
 }
 
+# K8b's and K9c's, on the same source (one body, `vec_sweep_group<T,
+# ROLLOUT>`, on K9b's constants): K5c's study at 4 inputs, the stores kept
+# alive behind B < 0; K8b's "no loads" cuts both passes' stage-loop loads
+_VEC_DX = "      // K8b's dx_{k+1} = A x + B u + c"
+_VEC_ROLL = "  if constexpr (ROLLOUT) {\n    // K8b's rollout."
+_VEC_P = "    // K8b's and K9c's p update"
+_VEC_KFF = "    // K8b's and K9c's kff solve"
+VECTOR_VARIANTS = {
+    "kernel": None,
+    "2 sets": _then(_replace("constexpr int kVecSets = 3;",
+                             "constexpr int kVecSets = 2;"),
+                    _replace("kVecLaneValues == 1059",
+                             "kVecLaneValues == 716")),
+    **{name: FORWARD_VARIANTS[name]
+       for name in ("G=8", "32 lanes", "G=8, 32 lanes")},
+    "no loads": _then(
+        _replace("      vec_in(k - kVecSets + 1);\n", ""),
+        _replace("      if (k + kVecSets - 1 < N) "
+                 "roll_in(k + kVecSets - 1);\n", "")),
+    "no m/Qu phase": _cut("    // K8b's and K9c's m = p + Pc", _VEC_P,
+                          _BARRIER),
+    "no p update": _cut(_VEC_P, _VEC_KFF),
+    "no kff solve": _cut(_VEC_KFF, "    cp_wait_group<kVecSets - 2>();"),
+    "no stores": _then(
+        _replace("        if (valid) kff[",
+                 "        if (valid && B < 0) kff["),
+        _replace("        if (valid) du[((size_t)k * NU + a) * B + b0 + l] "
+                 "= u;  // K8b's du",
+                 "        if (valid && B < 0) du[((size_t)k * NU + a) * B "
+                 "+ b0 + l] = u;"),
+        _cut("      // K8b's x_k out", "      __syncthreads();\n" + _VEC_DX)),
+}
+CORRECTOR_VARIANTS = {
+    **VECTOR_VARIANTS,
+    "no rollout": _replace(_VEC_ROLL, _VEC_ROLL.replace("ROLLOUT", "false")),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form, or
 # the names of its forms in this source and in the `--baseline` one)
 KERNELS = {
@@ -395,10 +439,17 @@ KERNELS = {
                    "bwd_vec_c2_kernelIfE"),
     "forward_sweep": ("riccati.cu", FORWARD_VARIANTS,
                       "forward_sweep_kernelIfE"),
+    "corrector_sweep": ("riccati.cu", CORRECTOR_VARIANTS,
+                        "corrector_sweep_kernelIfE"),
+    "backward_vector_sweep": ("riccati.cu", VECTOR_VARIANTS,
+                              "backward_vector_sweep_kernelIfE"),
 }
 # the constants of a kernel's launch shape (threads a lane, a block) where
-# its source names them otherwise (K9b beside K8a's kGroup and kThreads)
-SHAPE_CONSTANTS = {"forward_sweep": ("kFwdGroup", "kFwdThreads")}
+# its source names them otherwise (K9b, K8b and K9c beside K8a's kGroup
+# and kThreads)
+SHAPE_CONSTANTS = dict.fromkeys(
+    ("forward_sweep", "corrector_sweep", "backward_vector_sweep"),
+    ("kFwdGroup", "kFwdThreads"))
 # the CUDA function of a kernel, where the one-thread source named it
 # otherwise (K9a: `kkt_sweep_kernel<T, false>`)
 SYMBOLS = {"backward_sweep": r"(?:backward|kkt)_sweep_kernel"}
@@ -426,6 +477,9 @@ SWEEPS = {
     "backward_sweep": (9, _UGAINS, "kStride"),
     "bwd_vec_c2": (8, lambda M, B: ((M, _NU, B),), "kVecLaneValues"),
     "forward_sweep": (6, _UROLL, "kFwdLaneValues"),
+    "corrector_sweep": (10, _UROLL, "kVecLaneValues"),
+    "backward_vector_sweep": (8, lambda N, B: ((N, rk.NU, B),),
+                              "kVecLaneValues"),
 }
 # K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
 # fraction to the boundary and its float arguments in float32 (tau, the
@@ -666,12 +720,15 @@ def _plain(kernel, order=4):
         return lambda *args: ck.iter_sweep_c2_ref(*args[:25], _ITER_TAU)
     if kernel == "bwd_vec_c2":   # one output, as a list
         return lambda *args: [ck.bwd_vec_c2_ref(*args)]
+    if kernel == "backward_vector_sweep":
+        return lambda *args: [rk.backward_vector_sweep_ref(*args)]
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
             "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref,
             "kkt_sweep": rk.kkt_sweep_ref,
             "backward_sweep": rk.backward_sweep_ref,
-            "forward_sweep": rk.forward_sweep_ref}[kernel]
+            "forward_sweep": rk.forward_sweep_ref,
+            "corrector_sweep": rk.corrector_sweep_ref}[kernel]
 
 
 def iter_inputs(d, B, device):
@@ -710,7 +767,8 @@ def inputs(kernel, B, device, n=50):
     data (N=50; K2's and K5a's), K3's on K2's factorization of it, K5b's
     on K2's gains, K1's from the same warm start (the states before K7 and
     K6 condensed them), K8a's and K9a's K7's stage QP before K6 condensed
-    it.  At n > 50 (K5a, K5b) every stage-wise input is
+    it, K9b's on K8a's gains of it, K8b's and K9c's on K8a's factorization
+    of it.  At n > 50 (K5a, K5b) every stage-wise input is
     the N=50 one repeated n/50 times along the stages."""
     from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
@@ -723,14 +781,19 @@ def inputs(kernel, B, device, n=50):
                 *prep_tiles(d["spec"], B, torch.float32, device))
     if kernel == "iter_sweep_c2":
         return iter_inputs(d, B, device)
-    if kernel in ("kkt_sweep", "backward_sweep", "forward_sweep"):
+    if kernel in ("kkt_sweep", "backward_sweep", "forward_sweep",
+                  "corrector_sweep", "backward_vector_sweep"):
         A, Bm, c, qxx, qx, ru = d["stage"]
         k8 = (A, Bm, c, qxx, qx, d["ruu_stage"], ru, d["pT"], d["p_term"],
               d["dx0"])
-        if kernel == "forward_sweep":
-            K, kff = rk.kkt_sweep_ref(*k8)[:2]
-            return A, Bm, c, K, kff, d["dx0"]
-        return k8 if kernel == "kkt_sweep" else k8[:-1]
+        if kernel in ("kkt_sweep", "backward_sweep"):
+            return k8 if kernel == "kkt_sweep" else k8[:-1]
+        K, kff, L, Pc = rk.kkt_sweep_ref(*k8)[:4]
+        return {"forward_sweep": (A, Bm, c, K, kff, d["dx0"]),
+                "corrector_sweep": (A, Bm, c, qx, ru, K, L, Pc, d["p_term"],
+                                    d["dx0"]),
+                "backward_vector_sweep": (A, Bm, qx, ru, K, L, Pc,
+                                          d["p_term"])}[kernel]
     c = d["cnd"]
     k2 = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
           c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"], d["dx0"])

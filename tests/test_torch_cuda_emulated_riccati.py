@@ -1,14 +1,18 @@
 """K8a `kkt_sweep` and K9a `backward_sweep` (`csrc/riccati.cu`, one group
-kernel body with a compile-time switch off its rollout) and K9b
+kernel body with a compile-time switch off its rollout), K9b
 `forward_sweep` (a group kernel of its own on K5b's design, in the same
-source) compiled with g++ against the port's thread emulator
-(`ops/cuda/emulated.py`, `csrc/emu/`), float32 and float64, against their
-plain versions `kkt_sweep_ref`, `backward_sweep_ref` and
-`forward_sweep_ref` on CPU tensors.
+source) and K8b `corrector_sweep` and K9c `backward_vector_sweep` (one
+group body on K3's design at 4 inputs, K9b's group and block, the rollout
+switched off for K9c) compiled with g++ against the port's thread
+emulator (`ops/cuda/emulated.py`, `csrc/emu/`), float32 and float64,
+against their plain versions `kkt_sweep_ref`, `backward_sweep_ref`,
+`forward_sweep_ref`, `corrector_sweep_ref` and `backward_vector_sweep_ref`
+on CPU tensors.
 
 The inputs are `chip_smoke.kernel_inputs`' (K7's stage QP of perturbed
-hover trajectories plus a barrier shift, K8a's gains of it for K9b), at
-lane counts that cover K8a's 8-lane tile and both copy paths of K9b's
+hover trajectories plus a barrier shift, K8a's gains of it for K9b, K8a's
+factorization of it and a perturbed input gradient for K8b and K9c), at
+lane counts that cover K8a's 8-lane tile and both copy paths of the
 16-lane one: 1 and 7 (one ragged tile), 17 (full tiles whose rows are not
 16-byte aligned, and a ragged one) and 32 (full, 16-byte aligned tiles),
 over 1, 2, 3 and 5 stages (fewer stages than a ring of input sets holds,
@@ -16,8 +20,9 @@ then its turn, with a set index out of step with the state's two
 slots).
 Tolerances are the card check's (`chip_smoke.TOL`): both sides evaluate
 the same sums in the same order, apart from `rsqrtf` (exact here) and FMA
-contraction.  K9a runs K8a's factorization, and K9b's sums are K8a's
-rollout's term for term, so here their outputs are equal bit for bit, as
+contraction.  K9a runs K8a's factorization, K9b's sums are K8a's
+rollout's term for term, K9c runs K8b's vector pass and K8b's rollout
+K9b's sums, so here their outputs are equal bit for bit, as
 `chip_smoke.py` expects on the card.  The plain versions are
 held against the JAX package's kernels by `test_torch_uncondensed.py`.
 """
@@ -41,7 +46,10 @@ _ROLL = lambda N, B: ((N + 1, rk.NX, B), (N, rk.NU, B))  # noqa: E731
 KERNELS = {"kkt_sweep": (lambda N, B: _GAINS(N, B) + _ROLL(N, B),
                          rk.riccati_launch_geometry),
            "backward_sweep": (_GAINS, rk.riccati_launch_geometry),
-           "forward_sweep": (_ROLL, rk.forward_launch_geometry)}
+           "forward_sweep": (_ROLL, rk.forward_launch_geometry),
+           "corrector_sweep": (_ROLL, rk.vector_launch_geometry),
+           "backward_vector_sweep": (lambda N, B: ((N, rk.NU, B),),
+                                     rk.vector_launch_geometry)}
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +93,8 @@ def test_emulated_matches_plain(lib, kernel, dtype, lanes, N):
     _, ref, args = _inputs(lanes, N, dtype)[kernel]
     got = emulate(lib, kernel, args)
     want = ref(*args)
+    if isinstance(want, torch.Tensor):   # K9c's one output
+        want = (want,)
     assert all(torch.isfinite(g).all() for g in got)
     assert _rel(got, want) <= TOL[dtype], (kernel, _rel(got, want))
 
@@ -100,6 +110,22 @@ def test_emulated_split_sweeps_equal_kkt_sweep_bitwise(lib, dtype, lanes):
     assert all(torch.equal(g, w) for g, w in zip(gains, (K, kff, L, Pc)))
     A, Bm, c = args[:3]
     roll = emulate(lib, "forward_sweep", (A, Bm, c, K, kff, args[-1]))
+    assert torch.equal(roll[0], dx) and torch.equal(roll[1], du)
+
+
+@pytest.mark.parametrize("lanes", [7, 32])
+@DTYPES
+def test_emulated_vector_then_forward_sweep_equal_corrector_sweep_bitwise(
+        lib, dtype, lanes):
+    """K9c's kff, then K9b's rollout on K8a's gains and that kff, equal
+    K8b's dx and du bit for bit: K9c is K8b's kernel body without its
+    rollout, and K8b's rollout evaluates K9b's sums in K9b's order."""
+    args = _inputs(lanes, 5, dtype)["corrector_sweep"][2]
+    dx, du = emulate(lib, "corrector_sweep", args)
+    A, Bm, c, qx, ru, K, L, Pc, p_term, dx0 = args
+    (kff,) = emulate(lib, "backward_vector_sweep",
+                     (A, Bm, qx, ru, K, L, Pc, p_term))
+    roll = emulate(lib, "forward_sweep", (A, Bm, c, K, kff, dx0))
     assert torch.equal(roll[0], dx) and torch.equal(roll[1], du)
 
 

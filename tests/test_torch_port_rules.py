@@ -599,3 +599,25 @@ def test_k5c_and_k9b_launch_geometry(kernel, B, dtype):
         blocks = {torch.float32: 5, torch.float64: 2}[dtype]
     assert blocks * (geo["smem"] + 1024) <= 228 * 1024
     assert 227 * 1024 // geo["smem"] == blocks
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_k8b_and_k9c_launch_geometry(B, dtype):
+    """K8b's and K9c's launch (one body on K9b's group and block, its own
+    lane of 1059 values, a ring of 3 sets, in csrc/riccati.cu;
+    `_check_group_geometry`): with the 1 KB each block reserves of the
+    SM's 228 KB, shared memory lets an SM hold 3 blocks in float32 (what
+    `__launch_bounds__` asks for) and 1 in float64, and both blocks need
+    the opt-in attribute; it does not depend on the horizon."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    geo = rk.vector_launch_geometry(B, dtype)
+    _check_group_geometry(geo, B, rk.VECTOR_GROUP, "riccati.cu", {
+        "kFwdGroup": rk.VECTOR_GROUP, "kFwdThreads": rk.VECTOR_THREADS,
+        "kVecLaneValues": rk.VECTOR_LANE_VALUES, "kVecSets": 3})
+    assert (rk.VECTOR_GROUP, rk.VECTOR_LANES) == (16, 16)
+    blocks = {torch.float32: 3, torch.float64: 1}[dtype]
+    assert 228 * 1024 // (geo["smem"] + 1024) == blocks
+    assert geo["opt_in"]

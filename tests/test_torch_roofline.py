@@ -359,3 +359,54 @@ def test_k5c_and_k9b_variants_find_their_anchors(kernel, source, values,
     out = kkt_variants._plain(kernel)(*args)
     assert [tuple(o.shape) for o in out] == list(
         out_shapes(args[0].shape[0], 4))
+
+
+_K8B_K9C_CUTS = {
+    "no loads": ("      vec_in(k - kVecSets + 1);",
+                 "      if (k + kVecSets - 1 < N) roll_in(k + kVecSets - 1);"),
+    "no m/Qu phase": ("    // K8b's and K9c's m = p + Pc",),
+    "no p update": ("    // K8b's and K9c's p update",),
+    "no kff solve": ("    // K8b's and K9c's kff solve",),
+    "no stores": ("      // K8b's x_k out",),
+}
+
+
+@pytest.mark.parametrize("kernel", ["corrector_sweep",
+                                    "backward_vector_sweep"])
+def test_k8b_and_k9c_variants_find_their_anchors(kernel, tmp_path):
+    """K8b's and K9c's study variants (one body in csrc/riccati.cu): each
+    cut's markers stand once in the source and the cut removes them, the
+    kept-alive stores test B < 0, K8b's "no rollout" switches its rollout
+    off, the shape edits give their launch shape (K9b's constants), and
+    only the whole kernels are held against the plain version.  The
+    `--baseline` source is the one-thread riccati.cu, whose entries take
+    no launch shape; the study's inputs fit the entries."""
+    texts = kkt_variants.sources(kernel)
+    src = texts["kernel"]
+    for name, marks in _K8B_K9C_CUTS.items():
+        for mark in marks:
+            assert src.count(mark) == 1 and mark not in texts[name], name
+    for store in ("if (valid && B < 0) kff[", "if (valid && B < 0) du["):
+        assert store in texts["no stores"] and store not in src
+    roll = "  if constexpr (false) {\n    // K8b's rollout."
+    if kernel == "corrector_sweep":
+        assert roll in texts["no rollout"] and roll not in src
+    else:
+        assert "no rollout" not in texts
+    shapes = {"kernel": (16, 256), "2 sets": (16, 256), "G=8": (8, 128),
+              "32 lanes": (16, 512), "G=8, 32 lanes": (8, 256)}
+    assert {n: kkt_variants.shape(texts[n], kernel) for n in shapes} == shapes
+    assert kkt_variants.lane_values(kernel, src) == 1059
+    assert kkt_variants.lane_values(kernel, texts["2 sets"]) == 716
+    assert [n for n in texts if kkt_variants._whole(n)] == list(shapes)
+    (tmp_path / "riccati.cu").write_text(
+        f"template <typename T>\n__global__ void\n{kernel}_kernel("
+        f"const T* A) {{}}\n")
+    assert kkt_variants.baseline_source(kernel, tmp_path) == "riccati.cu"
+    assert kkt_variants.lane_values(
+        kernel, (tmp_path / "riccati.cu").read_text()) is None
+    args = kkt_variants.inputs(kernel, 4, "cpu")
+    n_in, out_shapes, _ = kkt_variants.SWEEPS[kernel]
+    assert len(args) == n_in and all(a.is_contiguous() for a in args)
+    out = kkt_variants._plain(kernel)(*args)
+    assert [tuple(o.shape) for o in out] == list(out_shapes(50, 4))

@@ -740,6 +740,74 @@ def test_k5c_and_k9b_are_listed_as_group_kernels(name):
                          "bwd_vec_c2_kernel<float>")
 
 
+@pytest.mark.parametrize("name", ["corrector_sweep", "backward_vector_sweep"])
+def test_k8b_and_k9c_are_listed_as_group_kernels(name):
+    """K8b and K9c, a group of threads a lane: timed at every B with their
+    occupancy (GROUP_KERNELS), checked on a ragged last tile and at B=1
+    (RAGGED_KERNELS), with riccati_kernels' launch shape and occupancy
+    entry, and found in a trace under their own CUDA function's name."""
+    import re
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    assert name in cs.GROUP_KERNELS and name in cs.RAGGED_KERNELS
+    assert name in cs.UNCONDENSED_KERNELS and name not in cs.WIN_KERNELS
+    geometry, blocks_per_sm, group = cs.group_kernel(name)
+    assert geometry is rk.vector_launch_geometry
+    assert blocks_per_sm.func is rk.vector_blocks_per_sm
+    assert blocks_per_sm.keywords == {"kernel": name}
+    assert group == rk.VECTOR_GROUP
+    assert cs.KERNEL_INFO[name]["source"].endswith("csrc/riccati.cu")
+    pattern = cs.kernel_pattern(name)
+    assert re.search(pattern, f"void (anonymous namespace)::{name}_kernel"
+                              f"<float>(float const*, int, int)")
+    other = ("backward_vector_sweep" if name == "corrector_sweep"
+             else "corrector_sweep")
+    for stray in (f"{other}_kernel<float>", "kkt_sweep_kernel<float>",
+                  "forward_sweep_kernel<float>",
+                  "corrector_sweep_c2_kernel<float, float, float, false>",
+                  "bwd_vec_c2_kernel<float>"):
+        assert not re.search(pattern, stray), stray
+
+
+@pytest.fixture(scope="module")
+def riccati_inputs():
+    return cs.kernel_inputs(5, torch.float64, "cpu", n=5)
+
+
+def test_uncondensed_split_vs_fused_is_bitwise_on_the_same_sums(
+        riccati_inputs):
+    """[kernel]'s uncondensed check: the plain versions of K8a and K8b are
+    their split forms' in turn, so K9a's gains, K9b's rollout on K8a's
+    gains and K9c then K9b against K8b are all equal bit for bit."""
+    assert cs.uncondensed_split_vs_fused(riccati_inputs) == (True, True,
+                                                              True)
+
+
+@pytest.mark.parametrize("kernel, part", [
+    ("backward_sweep", 0), ("backward_vector_sweep", 2)],
+    ids=["K9a", "K9c"])
+def test_uncondensed_split_vs_fused_sees_a_planted_fault(
+        riccati_inputs, monkeypatch, kernel, part):
+    """A last-bit change in K9a's kff or in K9c's kff shows in its own
+    comparison, and only there."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+
+    real = getattr(rk, kernel)
+
+    def planted(*args):
+        got = real(*args)
+        if isinstance(got, torch.Tensor):
+            return got * (1 + 1e-15)
+        got = list(got)
+        got[1] = got[1] * (1 + 1e-15)
+        return tuple(got)
+
+    monkeypatch.setattr(rk, kernel, planted)
+    same = cs.uncondensed_split_vs_fused(riccati_inputs)
+    assert [s is False for s in same] == [i == part for i in range(3)]
+
+
 def test_kernels_line_has_17_kernels():
     """The second-to-last line's table: the 15 kernels of the solver's
     paths (every pl.pallas_call site of the JAX package's ops/pallas/)
