@@ -114,7 +114,8 @@ and seventeen paths of their own:
                  crazyflie_nmpc_tpu_torch.bringup teleop`;
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
-                 depends on every product and stage), then the study of
+                 depends on every product and stage; fma_chain at B =
+                 1024, 1000, 1003 and 1), then the study of
                  crazyflie_nmpc_tpu_torch/roofline/ipm_iter_sol.py at N=50,
                  B=4096 (its table on the lines it prints).
 
@@ -126,15 +127,16 @@ checks the certified path's per-lane escalation on a 1.5 m step transient,
 times each kernel at the shapes of the path that runs it (its device time
 from a profiler trace of 20 launches, beside the CUDA-event window around
 them, which holds the host's issue too), times K1, K2, K3, K5c, K8a,
-K9a, K9b, K8b, K9c and K10 (the kernels that split a lane over several
-threads: csrc/prep_condense2.cu in both VDE orders, csrc/kkt_sweep_c2.cu
-and csrc/corrector_sweep_c2.cu in their four forms, the latter's
-bwd_vec_c2, csrc/riccati.cu's kkt_sweep, backward_sweep, forward_sweep,
-corrector_sweep and backward_vector_sweep, csrc/iter_c2.cu) at every B
+K9a, K9b, K8b, K9c, K10 and K6 (the kernels that split a lane over
+several threads: csrc/prep_condense2.cu in both VDE orders,
+csrc/kkt_sweep_c2.cu and csrc/corrector_sweep_c2.cu in their four forms,
+the latter's bwd_vec_c2, csrc/riccati.cu's kkt_sweep, backward_sweep,
+forward_sweep, corrector_sweep and backward_vector_sweep,
+csrc/iter_c2.cu, csrc/condensed_c2.cu's condense2) at every B
 of [main] with their occupancy, waves and bound, K5a/b/c, K2 and K3 at
 N=400 too, and traces a few steps of [main]
-(every B), [fused_iter], [uncondensed], [split], [gondzio],
-[throughput_mode] and [xla_prep] ([single] its own ticks) with
+(every B), [fused_iter], [uncondensed], [unfused_prep], [split],
+[gondzio], [throughput_mode] and [xla_prep] ([single] its own ticks) with
 torch.profiler.  [pod] runs in a child process of its own after
 [swarm_wire]; the host-bound loops
 ([tuning] to [client], [closed_loop], [flight]), [pod_ranks] and
@@ -151,6 +153,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import re
 import subprocess
@@ -311,11 +314,13 @@ LONG_CHECKED = LONG_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 WIN_KERNELS = ("bwd_c2", "fwd_c2", "bwd_vec_c2")
 LONG_GROUP_KERNELS = WIN_KERNELS + ("kkt_sweep_c2", "corrector_sweep_c2")
 # the group kernels checked on a ragged last tile and at B=1 besides K1:
-# K5a, K5b, K5c, K10, K8a, K9a, K9b, K8b and K9c (B=1 is a ragged tile of
-# each)
+# K5a, K5b, K5c, K10, K8a, K9a, K9b, K8b, K9c and K6 (B=1 is a ragged tile
+# of each); K6 also at one stage pair (N_PAIR) on the ragged tile
 RAGGED_KERNELS = WIN_KERNELS + ("iter_sweep_c2", "kkt_sweep",
                                 "backward_sweep", "forward_sweep",
-                                "corrector_sweep", "backward_vector_sweep")
+                                "corrector_sweep", "backward_vector_sweep",
+                                "condense2")
+N_PAIR = 2
 
 
 def fail(msg: str):
@@ -436,6 +441,9 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
               0.01 * r(13, B), torch.clamp(n_fin, min=1)[None].contiguous(),
               (n_fin > 0).to(dtype)[None].contiguous(), 0.995)
     stride2 = (A, Bm, c7, k4_in[3], k4_in[4])
+    # K6's state cost differs between the two stages of a pair (the odd
+    # one eliminated, the even one on Qbar's diagonal), so a swap shows
+    qxx6 = (qxx * tensor(rng.uniform(0.5, 1.5, (n, 13, B)))).contiguous()
     # the bf16-stream forms (compress_gains, compress_ab)
     bf = torch.bfloat16
     eye = torch.eye(13, dtype=dtype, device=device)[:, :, None]
@@ -487,7 +495,7 @@ def kernel_inputs(B, dtype, device, seed=0, n=N, finite=0.9):
                                                 scratch=scratch),
                               ck.iter_sweep_c2_ref, k10_in),
             "condense2": (ck.condense2, ck.condense2_ref,
-                          (A, Bm, c7, qxx, qx7, ru7)),
+                          (A, Bm, c7, qxx6, qx7, ru7)),
             "expand2 stride 2": (functools.partial(ck.expand2, stride=2),
                                  functools.partial(ck.expand2_ref, stride=2),
                                  stride2)}
@@ -717,8 +725,9 @@ def uncondensed_split_vs_fused(inputs):
 
 def phase_kernels(device):
     """Each kernel (and FORMS) against its plain version at N=50, float64
-    then float32; K1's two forms and the group sweeps of RAGGED_KERNELS
-    again on a ragged last tile (B_RAGGED), RAGGED_KERNELS at B=1 too;
+    then float32; K1's two forms and the group kernels of RAGGED_KERNELS
+    again on a ragged last tile (B_RAGGED), RAGGED_KERNELS at B=1 too, K6
+    at one stage pair (N_PAIR) on the ragged tile;
     the uncondensed kernels (UNCONDENSED_KERNELS) at the odd N=51 in both
     too, and at both N K9a's and K9b's outputs against K8a's and K9c then
     K9b against K8b, bit for bit (uncondensed_split_vs_fused); then the
@@ -744,6 +753,8 @@ def phase_kernels(device):
             (N, torch.float32, K1_FORMS + RAGGED_KERNELS, B_RAGGED),
             (N, torch.float64, RAGGED_KERNELS, 1),
             (N, torch.float32, RAGGED_KERNELS, 1),
+            (N_PAIR, torch.float64, ("condense2",), B_RAGGED),
+            (N_PAIR, torch.float32, ("condense2",), B_RAGGED),
             (N_ODD, torch.float64, UNCONDENSED_KERNELS, B_CHECK),
             (N_ODD, torch.float32, UNCONDENSED_KERNELS, B_CHECK),
             (N_LONG, torch.float64, LONG_CHECKED, B_CHECK)):
@@ -802,7 +813,8 @@ def phase_kernels(device):
     print("[kernel] held against plain PyTorch in float64 and float32: "
           + ", ".join(checked) + f"; at B={B_RAGGED}: "
           + ", ".join(K1_FORMS + RAGGED_KERNELS) + "; at B=1: "
-          + ", ".join(RAGGED_KERNELS) + f"; at N={N_ODD}: "
+          + ", ".join(RAGGED_KERNELS) + f"; condense2 at N={N_PAIR}, "
+          f"B={B_RAGGED}; at N={N_ODD}: "
           + ", ".join(UNCONDENSED_KERNELS)
           + f"; at N={N_LONG} in float64: " + ", ".join(LONG_CHECKED))
     return errs
@@ -3001,7 +3013,10 @@ def phase_timing(device):
 # lane, timed with their forms at every B of B_MAIN
 GROUP_KERNELS = ("prep_condense2", "kkt_sweep_c2", "corrector_sweep_c2",
                  "kkt_sweep", "backward_sweep", "bwd_vec_c2",
-                 "forward_sweep", "corrector_sweep", "backward_vector_sweep")
+                 "forward_sweep", "corrector_sweep", "backward_vector_sweep",
+                 "condense2")
+# the group kernels whose grid spans the stage pairs besides the lanes
+PAIR_GRID_KERNELS = ("prep_condense2", "condense2")
 
 
 def group_kernel(label):
@@ -3035,6 +3050,9 @@ def group_kernel(label):
         return (rk.vector_launch_geometry,
                 functools.partial(rk.vector_blocks_per_sm, kernel=name),
                 rk.VECTOR_GROUP)
+    if name == "condense2":
+        return (ck.condense_launch_geometry, ck.condense_blocks_per_sm,
+                ck.CONDENSE_THREADS // ck.CONDENSE_LANES)
     order = 2 if label.endswith("vde_order=2") else 4
     return (functools.partial(pk.prep_launch_geometry, vde_order=order),
             functools.partial(pk.prep_blocks_per_sm, vde_order=order),
@@ -3153,7 +3171,7 @@ def time_group_batches(device, name, inputs):
         for label in forms:
             geometry = shapes[label][0]
             geo = geometry(B, torch.float32)
-            blocks = geo["grid"] * (N // 2 if name == "prep_condense2" else 1)
+            blocks = geo["grid"] * (M if name in PAIR_GRID_KERNELS else 1)
             waves = math.ceil(blocks / (bps[label][torch.float32] * sms))
             kern, _, args = inputs[label]
             cut = at_lanes(args, B)
@@ -3167,6 +3185,12 @@ def time_group_batches(device, name, inputs):
             print(f"[timing] {label} N={N} B={B} float32: {ms} ms/launch on "
                   f"the device (event window {window:.4f} ms), bound "
                   f"{bound_ms:.4f} ms, {blocks} blocks, {waves} wave(s)")
+
+
+# the lanes each probe is checked at: fma_chain (8 lanes a block) also at
+# B_RAGGED, on a ragged last tile (B_RAGGED + 3) and at B=1
+PROBE_BATCHES = {"fma_chain": (B_CHECK, B_RAGGED, B_RAGGED + 3, 1),
+                 "stage_replay": (B_CHECK,)}
 
 
 def probe_flops(name, B, reps):
@@ -3185,11 +3209,13 @@ def probe_flops(name, B, reps):
 def phase_roofline(device):
     """The speed-of-light study's probes and path: fma_chain and
     stage_replay against their plain versions at B=B_CHECK in float64
-    and float32 (their default reps), on inputs whose output depends on
-    every product and stage (probe_inputs(parity=True)): the kernel's
-    answer must also disagree, beyond the same tolerance, with the plain
-    version one unrolled group of products (fma_chain) or one stage
-    (stage_replay) short, so a wrong count cannot pass.  Then the study of
+    and float32 (their default reps), fma_chain (a group of threads a
+    lane, 8 lanes a block) also at the B of PROBE_BATCHES (a ragged last
+    tile, B=1), on inputs whose output depends on every product and stage
+    (probe_inputs(parity=True)): the kernel's answer must also disagree,
+    beyond the same tolerance, with the plain version one group of UNROLL
+    products (fma_chain) or one stage (stage_replay) short, so a wrong
+    count cannot pass.  Then the study of
     roofline/ipm_iter_sol.py at N=50, B=B_TIME (its table on the lines
     above), with the launch counts read around it; then each probe's
     time, plain time and bound at the study's B.  Returns (errs, totals,
@@ -3205,10 +3231,13 @@ def phase_roofline(device):
     reps = {"fma_chain": sol.FMA_REPS, "stage_replay": sol.REPLAY_REPS}
     short = {"fma_chain": sk.UNROLL, "stage_replay": 1}
     errs = {}
-    for dtype in (torch.float64, torch.float32):
+    for dtype, B in itertools.product((torch.float64, torch.float32),
+                                      PROBE_BATCHES["fma_chain"]):
         dn = str(dtype).split(".")[1]
         for name, args in zip(PROBE_INFO, sol.probe_inputs(
-                B_CHECK, dtype, device, parity=True)):
+                B, dtype, device, parity=True)):
+            if B not in PROBE_BATCHES[name]:
+                continue
             fn, plain = kern[name]
             before = kc.launch_counts(kc.PROBES)[name]
             got = flat(fn(*args))
@@ -3219,7 +3248,7 @@ def phase_roofline(device):
             _, rel_short = compare(got, flat(plain(
                 *args, reps=reps[name] - short[name])))
             ok = rel_err <= TOL[dn] < rel_short
-            print(f"[roofline] {name} {dn} B={B_CHECK}: max abs err "
+            print(f"[roofline] {name} {dn} B={B}: max abs err "
                   f"{abs_err:.3e}, rel {rel_err:.3e} (tol {TOL[dn]:.0e}); "
                   f"rel {rel_short:.3e} against the plain version "
                   f"{short[name]} short of {reps[name]} (must exceed the "
@@ -3227,7 +3256,8 @@ def phase_roofline(device):
             if not ok:
                 fail(f"{name} {dn} disagrees with its plain version, or "
                      f"the check cannot see a wrong count")
-            errs[(name, dn)] = abs_err
+            if B == B_CHECK:
+                errs[(name, dn)] = abs_err
 
     kc.reset_launch_counts()
     kc.reset_launch_counts(kc.PROBES)
@@ -4433,7 +4463,7 @@ def main(argv=None) -> int:
         print(f"[phase] {phase} starts at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     errs, totals, timing = {}, {}, {}
-    main_runs, fused_runs, unc_runs = {}, {}, {}
+    main_runs, fused_runs, unc_runs, unf_runs = {}, {}, {}, {}
     split_runs, gondzio_runs, thr_runs = {}, {}, {}
     roofline_rows, xla_runs = {}, {}
     if "build" in phases:
@@ -4463,7 +4493,7 @@ def main(argv=None) -> int:
                        if k not in SPLIT_KERNELS})
     if "unfused_prep" in phases:
         mark("unfused_prep")
-        unf_totals, _ = phase_unfused_prep(device)
+        unf_totals, unf_runs = phase_unfused_prep(device)
         totals["prep_sweep"] = (totals.get("prep_sweep", 0)
                                 + unf_totals["prep_sweep"])
         totals["condense2"] = unf_totals["condense2"]
@@ -4507,6 +4537,7 @@ def main(argv=None) -> int:
         for label, run in (("main", main_runs.get(B_TIME)),
                            ("fused_iter", fused_runs.get(B_TIME)),
                            ("uncondensed", unc_runs.get(B_TIME)),
+                           ("unfused_prep", unf_runs.get(B_TIME)),
                            ("split", split_runs.get(N)),
                            ("gondzio", gondzio_runs.get(N)),
                            ("throughput_mode", thr_runs.get(B_TIME)),

@@ -9,18 +9,42 @@
 //                         stage replayed on resident VMEM data)
 //                                                           -> stage_replay
 //
-// Design: one thread per batch lane, 64 threads a block, the launch shape
-// of the port's one-thread-per-lane sweeps, so a probe's time per lane and
-// stage is what such a sweep's thread can reach at best.
-//
 // fma_chain computes c <- (c b) 7.6e-4 + b, `reps` times (rounded down to
-// a multiple of UNROLL), the UNROLL products of a loop step unrolled: the
-// products are written as the one-thread K2 wrote P A (rows in a loop the
-// compiler keeps, columns and the inner sum unrolled), so c and its
-// successor live in local memory (L1) as that K2's P and PA did, and b in
-// registers.  `reps` is a runtime argument: no product is folded or
-// dropped, and the time must grow with it (roofline/ipm_iter_sol.py
-// checks that).  Bound: operations, 2 x 13^3 flops a product and lane.
+// a multiple of UNROLL), from c = a.  Bound: operations, 2 x 13^3 flops a
+// product and lane.  It is the primitive rate of the port's sweeps, which
+// give each lane a group of threads (kkt_sweep_c2.cu, corrector_sweep_c2.cu,
+// riccati.cu): here a group of kFmaGroup = 16 threads a lane (K2's G),
+// kFmaLanes = 8 lanes a block (K2's block).  Row i of the next c depends
+// only on row i of c and on b, so the 13 rows are 13 independent chains:
+// thread i < 13 of a group holds row i of c in registers for the whole
+// chain (threads 13-15 idle after b lands; kFmaRows > 1 gives a thread
+// several rows, a study variant), and no thread needs another's results
+// between products.  b lands once in shared memory, its rows at a
+// pitch of 16 and each lane's 13 rows one 16-byte pad apart (the lanes of
+// a warp then read other banks); every thread of a group reads a row of b
+// with the same 16-byte loads (a broadcast), about 3 multiply-adds a load.
+// One barrier, after b lands; the stores go out at the end.  Each entry's
+// sum runs in the one-thread kernel's order, then s 7.6e-4 + b, so the
+// output equals that kernel's bit for bit.  FP32 (FP64) FMAs on the CUDA
+// cores: no tensor cores, no TF32, as the group sweeps are built.  The
+// product's loads of b sit behind an index the compiler cannot prove
+// constant (an empty asm on it), so they stay inside the chain and b is
+// not hoisted into registers.  `reps` is a runtime argument: no product is
+// folded or dropped, and the time must grow with it
+// (roofline/ipm_iter_sol.py checks that).  One thread per lane, its form
+// before, held c, its successor and b (507 values) at 255 registers with
+// spills in both dtypes: 1.64-1.74 ms at B=4096 for 512 products, 11x the
+// bound.  This form takes 0.60 ms there, 4.1x the bound (H100 80GB HBM3,
+// 700 W; roofline/kkt_variants.py, PERF.md): each of a row's 13 x 13
+// multiply-adds a product takes its b entry from shared memory, 56
+// 16-byte loads a warp and product for 182 multiply-adds, and the loads
+// of b, not the multiply-adds, set its time.  Two rows a thread (half the
+// loads) was no faster (0.635 ms: two warps a scheduler do not hide the
+// loads' latency), four rows a thread faster (0.456, 146 registers).
+// The wrapper (ops/cuda/sol_kernels.fma_launch_geometry) computes grid,
+// block and shared bytes; the launch refuses numbers that disagree with
+// these.  Ragged tiles: spare lanes read lane B-1, store nothing, and take
+// part in the barrier.
 //
 // stage_replay runs `reps` backward stages of the one-thread-per-lane K2
 // (the factorization loop as that kernel wrote it out), on the
@@ -34,8 +58,12 @@
 // counterpart of the TPU's VMEM-resident data.  Per-stage time x stages x
 // waves is the issue floor of a one-thread-per-lane K2's backward phase
 // (kkt_sweep_c2.cu splits a lane's stage over a thread group and is not
-// bound by it).  It is written out here rather than shared as an inlined
-// stage function: ptxas scheduled that form ~6% slower (PERF.md).
+// bound by it).  One thread per lane, 64 threads a block, the launch shape
+// of the port's one-thread-per-lane sweeps.  It is written out here rather
+// than shared as an inlined stage function: ptxas scheduled that form ~6%
+// slower (PERF.md).
+#include <algorithm>
+
 #include "c2_stage.cuh"
 
 using namespace cfl;
@@ -45,56 +73,127 @@ namespace {
 constexpr int UNROLL = 16;
 constexpr double FMA_SCALE = 7.6e-4;
 
-// o = (c b) FMA_SCALE + b for one lane's 13x13 c, o (local memory) and b
-// (registers).
+// fma_chain's launch shape: kFmaGroup threads a lane, each holding
+// kFmaRows rows of c (thread t of a block is lane t / kFmaGroup, its rows
+// from (t % kFmaGroup) kFmaRows on), kFmaThreads a block; b's 13 rows at a
+// pitch of 16, a 16-byte pad after each lane's (kFmaLaneValues values a
+// lane in either dtype)
+constexpr int kFmaRows = 1;
+constexpr int kFmaGroup = 16;
+constexpr int kFmaThreads = 128;
+constexpr int kFmaLanes = kFmaThreads / kFmaGroup;
+constexpr int kFmaLaneValues = NX * 16 + 4;
+static_assert(kFmaGroup * kFmaRows >= NX && kFmaThreads % kFmaGroup == 0,
+              "a group holds a lane's 13 rows");
+static_assert(kFmaLaneValues == 212,
+              "fma_launch_geometry's FMA_LANE_VALUES");
+
 template <typename T>
-__device__ __forceinline__ void fma_product(const T (&c)[NX][NX],
-                                            const T (&bm)[NX][NX],
-                                            T (&o)[NX][NX]) {
-#pragma unroll 1
-  for (int i = 0; i < NX; ++i) {
+constexpr int fma_smem() {
+  return kFmaLanes * kFmaLaneValues * static_cast<int>(sizeof(T));
+}
+
+// What __launch_bounds__ asks for: 1024 rows an SM in float32 (64
+// registers a row), 512 in float64.
+template <typename T>
+constexpr int fma_min_blocks() {
+  return std::max(1, (sizeof(T) == 4 ? 1024 : 512) / (kFmaThreads * kFmaRows));
+}
+
+template <typename T>
+struct alignas(16) Pack {
+  T v[16 / sizeof(T)];
+};
+
+// Row k of b at bl (pitch 16), a pack a load.
+template <typename T>
+__device__ __forceinline__ void b_row(const T* bl, int k, T (&bk)[16]) {
+  constexpr int P = 16 / sizeof(T);
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      T s = c[i][0] * bm[0][j];
+  for (int q = 0; q < NX; q += P) {
+    const Pack<T> v = *reinterpret_cast<const Pack<T>*>(bl + k * 16 + q);
 #pragma unroll
-      for (int l = 1; l < NX; ++l) s = s + c[i][l] * bm[l][j];
-      o[i][j] = s * T(FMA_SCALE) + bm[i][j];
+    for (int t = 0; t < P; ++t) bk[q + t] = v.v[t];
+  }
+}
+
+// c <- (c b) FMA_SCALE + b for rows i0.. of a lane's c (a row past the
+// 13th is held as zeros and adds row 12 of b), b's rows at bl.
+template <typename T>
+__device__ __forceinline__ void fma_product(const T* bl, int i0,
+                                            T (&c)[kFmaRows][NX]) {
+  T s[kFmaRows][NX], bk[16];
+#pragma unroll
+  for (int k = 0; k < NX; ++k) {
+    b_row(bl, k, bk);
+#pragma unroll
+    for (int r = 0; r < kFmaRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+        s[r][j] = k ? s[r][j] + c[r][k] * bk[j] : c[r][k] * bk[j];
     }
+  }
+#pragma unroll
+  for (int r = 0; r < kFmaRows; ++r) {
+    b_row(bl, min(i0 + r, NX - 1), bk);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) c[r][j] = s[r][j] * T(FMA_SCALE) + bk[j];
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kFmaThreads, fma_min_blocks<T>())
 fma_chain_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  T* __restrict__ out, int reps, int B) {
-  const int lb = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lb >= B) return;
-  T c[NX][NX], n[NX][NX], bm[NX][NX];
-  {
-    auto av = lane(a, NX * NX, 0, B, lb);
-    auto bv = lane(b, NX * NX, 0, B, lb);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x / kFmaGroup;
+  const int i0 = threadIdx.x % kFmaGroup * kFmaRows;  // this thread's rows
+  const int b0 = blockIdx.x * kFmaLanes;
+  const int lb = min(b0 + l, B - 1);
+  // b lands: entry (r, k) of lane ll at sh[ll kFmaLaneValues + 16 r + k],
+  // consecutive threads on consecutive lanes, every load issued before
+  // the first store
+  constexpr int kTurns = (kFmaLanes * NX * NX + kFmaThreads - 1) / kFmaThreads;
+  T v[kTurns];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        c[i][j] = av[i * NX + j];
-        bm[i][j] = bv[i * NX + j];
-      }
-    }
+  for (int n = 0; n < kTurns; ++n) {
+    const int t = threadIdx.x + n * kFmaThreads;
+    if (t < kFmaLanes * NX * NX)
+      v[n] = b[(size_t)(t / kFmaLanes) * B + min(b0 + t % kFmaLanes, B - 1)];
   }
+#pragma unroll
+  for (int n = 0; n < kTurns; ++n) {
+    const int t = threadIdx.x + n * kFmaThreads;
+    const int ll = t % kFmaLanes, rk = t / kFmaLanes;
+    if (t < kFmaLanes * NX * NX)
+      sh[ll * kFmaLaneValues + rk / NX * 16 + rk % NX] = v[n];
+  }
+  T c[kFmaRows][NX];
+#pragma unroll
+  for (int r = 0; r < kFmaRows; ++r) {
+#pragma unroll
+    for (int k = 0; k < NX; ++k)
+      c[r][k] = i0 + r < NX ? a[(size_t)((i0 + r) * NX + k) * B + lb] : T(0);
+  }
+  __syncthreads();
+  if (i0 >= NX) return;
+  int off = l * kFmaLaneValues;
 #pragma unroll 1
   for (int r = 0; r < reps / UNROLL; ++r) {
-#pragma unroll
-    for (int u = 0; u < UNROLL; u += 2) {
-      fma_product<T>(c, bm, n);
-      fma_product<T>(n, bm, c);
+#pragma unroll 1
+    for (int u = 0; u < UNROLL; ++u) {
+      asm volatile("" : "+r"(off));  // b's loads stay in the chain
+      fma_product<T>(sh + off, i0, c);
     }
   }
-  auto ov = lane(out, NX * NX, 0, B, lb);
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int r = 0; r < kFmaRows; ++r) {
+    if (i0 + r < NX && b0 + l < B) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) ov[i * NX + j] = c[i][j];
+      for (int k = 0; k < NX; ++k)
+        out[(size_t)((i0 + r) * NX + k) * B + lb] = c[r][k];
+    }
   }
 }
 
@@ -285,14 +384,37 @@ inline cudaStream_t as_stream(void* s) {
 
 inline int lanes_grid(int B) { return (B + 63) / 64; }
 
+template <typename T>
+int fma_opt_in() {
+  if (fma_smem<T>() <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      fma_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fma_smem<T>()));
+}
+
+// fma_chain's launch: grid, threads and smem are the wrapper's
+// fma_launch_geometry; another is refused
+template <typename T>
+int fma_chain_launch(const T* a, const T* b, T* out, int reps, int B,
+                     int grid, int threads, int smem, void* stream) {
+  if (B < 1 || reps < 0 || threads != kFmaThreads || smem != fma_smem<T>() ||
+      grid != (B + kFmaLanes - 1) / kFmaLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = fma_opt_in<T>();
+  if (err != 0) return err;
+  fma_chain_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(a, b, out,
+                                                                   reps, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define SOL_ENTRIES(SUFFIX, T)                                                \
   extern "C" int fma_chain_##SUFFIX(const T* a, const T* b, T* out,          \
-                                    int reps, int B, void* stream) {         \
-    fma_chain_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(        \
-        a, b, out, reps, B);                                                  \
-    return static_cast<int>(cudaGetLastError());                              \
+                                    int reps, int B, int grid, int threads,  \
+                                    int smem, void* stream) {                \
+    return fma_chain_launch<T>(a, b, out, reps, B, grid, threads, smem,       \
+                               stream);                                       \
   }                                                                           \
   extern "C" int stage_replay_##SUFFIX(                                       \
       const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
@@ -305,8 +427,10 @@ inline int lanes_grid(int B) { return (B + 63) / 64; }
     return static_cast<int>(cudaGetLastError());                              \
   }                                                                           \
   extern "C" int fma_chain_occupancy_##SUFFIX(int* blocks_per_sm) {           \
+    const int err = fma_opt_in<T>();                                          \
+    if (err != 0) return err;                                                 \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
-        blocks_per_sm, fma_chain_kernel<T>, 64, 0));                          \
+        blocks_per_sm, fma_chain_kernel<T>, kFmaThreads, fma_smem<T>()));     \
   }                                                                           \
   extern "C" int stage_replay_occupancy_##SUFFIX(int* blocks_per_sm) {        \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \

@@ -14,8 +14,9 @@ group of threads per lane each (their launch shapes are
 `kkt_launch_geometry`'s, `bwd_launch_geometry`'s,
 `corr_launch_geometry`'s, `fwd_launch_geometry`'s,
 `bwd_vec_launch_geometry`'s and `iter_launch_geometry`'s), or
-`csrc/condensed_c2.cu` (K4, K6) for CUDA tensors, and runs its `*_ref`
-plain PyTorch version for CPU tensors.
+`csrc/condensed_c2.cu` (K4 one thread per lane and pair; K6 on K1's block
+of 32 lanes and 8 threads a lane, `condense_launch_geometry`'s) for CUDA
+tensors, and runs its `*_ref` plain PyTorch version for CPU tensors.
 
 Layout: batch-last, contiguous, B last.  M condensed stages with 13
 states and 8 stacked inputs; L is the packed column-major lower Cholesky
@@ -79,6 +80,12 @@ ITER_GROUP = 16
 ITER_THREADS = 128
 ITER_LANES = ITER_THREADS // ITER_GROUP
 ITER_LANE_VALUES = 1612
+# K6's (csrc/condensed_c2.cu's kLanes, kThreads and kLaneValues, K1's
+# block): CONDENSE_LANES lanes of one stage pair a block,
+# CONDENSE_THREADS // CONDENSE_LANES threads (workers) a lane
+CONDENSE_LANES = 32
+CONDENSE_THREADS = 256
+CONDENSE_LANE_VALUES = 299
 # fraction-to-boundary ratio of a non-binding entry (the Pallas kernel's)
 _BIG = 3.4e38
 
@@ -450,6 +457,13 @@ def iter_launch_geometry(B: int, dtype) -> dict:
                                 ITER_LANE_VALUES)
 
 
+def condense_launch_geometry(B: int, dtype) -> dict:
+    """K6's launch at B lanes of `dtype` (`_build.lane_geometry`; the
+    grid's second axis is the M stage pairs)."""
+    return _build.lane_geometry(B, dtype, CONDENSE_LANES, CONDENSE_THREADS,
+                                CONDENSE_LANE_VALUES)
+
+
 def kkt_blocks_per_sm(dtype=torch.float32) -> int:
     """K2's resident blocks per SM (KKT_LANES lanes each)."""
     return _build.blocks_per_sm(_KKT_SOURCE, "kkt_sweep_c2_occupancy",
@@ -475,6 +489,11 @@ def fwd_blocks_per_sm(dtype=torch.float32) -> int:
 def bwd_vec_blocks_per_sm(dtype=torch.float32) -> int:
     """K5c's resident blocks per SM (BWD_VEC_LANES lanes each)."""
     return _build.blocks_per_sm(_CORR_SOURCE, "bwd_vec_c2_occupancy", dtype)
+
+
+def condense_blocks_per_sm(dtype=torch.float32) -> int:
+    """K6's resident blocks per SM (CONDENSE_LANES lanes each)."""
+    return _build.blocks_per_sm(_SOURCE, "condense2_occupancy", dtype)
 
 
 def iter_blocks_per_sm(dtype=torch.float32) -> int:
@@ -680,7 +699,9 @@ def condense2(A, Bm, c, qxx, qx, ru):
     cbar (M,13,B), Qbar (M,13,13,B), S1T (M,4,13,B), R00 (M,4,4,B),
     qbar (M,13,B), rbar (M,8,B)).  qxx is read at both stages of a pair:
     the odd one is the eliminated state's cost, the even one Qbar's
-    diagonal."""
+    diagonal.  The kernel runs K1's block (`condense_launch_geometry`):
+    32 lanes of one pair, 8 threads a lane, row jobs of A1 and the cost
+    columns of [A0 | B0] dealt between them."""
     N, B = A.shape[0], A.shape[-1]
     if N % 2 != 0:
         raise ValueError("condense2 needs even N")
@@ -691,9 +712,10 @@ def condense2(A, Bm, c, qxx, qx, ru):
             _empty(A, M, NX, B), _empty(A, M, NX, NX, B),
             _empty(A, M, NU, NX, B), _empty(A, M, NU, NU, B),
             _empty(A, M, NX, B), _empty(A, M, NUC, B))
+    geo = condense_launch_geometry(B, A.dtype)
     _build.run(condense2, _SOURCE, dict(A=A, Bm=Bm, c=c, qxx=qxx, qx=qx,
                                         ru=ru), outs, stage_shapes(N, B),
-               [M, B])
+               [M, B, geo["grid"], geo["threads"], geo["smem"]])
     return dict(zip(("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar",
                      "rbar"), outs))
 

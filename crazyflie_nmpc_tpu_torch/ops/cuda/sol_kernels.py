@@ -11,8 +11,10 @@ version for CPU tensors.  Nothing on the solver's path calls them: they
 are the yardsticks of `roofline.ipm_iter_sol`.
 
 Layout: batch-last, contiguous, B last, as the sweeps.  `fma_chain` runs
-`reps // UNROLL * UNROLL` products (its kernel unrolls UNROLL a loop
-step), `stage_replay` `reps` stages.
+`reps // UNROLL * UNROLL` products (its kernel runs them in groups of
+UNROLL), `stage_replay` `reps` stages.  `fma_chain`'s kernel gives each
+lane a group of threads, as the sweeps do (`fma_launch_geometry`);
+`stage_replay`'s one thread a lane.
 """
 
 from __future__ import annotations
@@ -34,7 +36,16 @@ from crazyflie_nmpc_tpu_torch.ops.cuda.condensed_kernels import (
 _SOURCE = "sol_probes.cu"
 UNROLL = 16
 FMA_SCALE = 7.6e-4
-# the launch shape of the port's one-thread-per-lane sweeps (all but K2)
+# fma_chain's launch shape (csrc/sol_probes.cu's kFmaGroup, kFmaThreads and
+# kFmaLaneValues, which its launch checks): FMA_GROUP threads a lane (K2's
+# G; thread i < 13 holds row i of c), FMA_LANES lanes a block (K2's
+# block), FMA_LANE_VALUES values of the dtype in shared memory a lane (b)
+FMA_GROUP = 16
+FMA_THREADS = 128
+FMA_LANES = FMA_THREADS // FMA_GROUP
+FMA_LANE_VALUES = 212
+# stage_replay's: one thread a lane, the launch shape of the port's
+# one-thread-per-lane sweeps before their redesigns
 THREADS_PER_BLOCK = 64
 
 
@@ -71,16 +82,26 @@ def _check_reps(name, reps):
         raise ValueError(f"{name}: reps {reps} out of range")
 
 
+def fma_launch_geometry(B: int, dtype) -> dict:
+    """fma_chain's launch at B lanes of `dtype`
+    (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, FMA_LANES, FMA_THREADS,
+                                FMA_LANE_VALUES)
+
+
 def fma_chain(a, b, reps: int = 512):
     """`reps // UNROLL * UNROLL` chained products c <- (c b) 7.6e-4 + b
-    from c = a; a, b (13,13,B).  Returns c (13,13,B)."""
+    from c = a; a, b (13,13,B).  Returns c (13,13,B).  The kernel gives
+    each lane a group of FMA_GROUP threads, row i of c on thread i
+    (`fma_launch_geometry`)."""
     _check_reps("fma_chain", reps)
     if a.device.type == "cpu":
         return fma_chain_plain(a, b, reps)
     B = a.shape[-1]
     out = _empty(a, NX, NX, B)
+    geo = fma_launch_geometry(B, a.dtype)
     _build.run(fma_chain, _SOURCE, dict(a=a, b=b), (out,), _shapes(B),
-               [reps, B])
+               [reps, B, geo["grid"], geo["threads"], geo["smem"]])
     return out
 
 
@@ -102,9 +123,10 @@ def stage_replay(A, Bm, c, Q, S1T, R00, qx, ruu, ru, P0, p0,
 
 
 def blocks_per_sm(name: str, dtype=torch.float32) -> int:
-    """Resident 64-thread blocks per SM of the kernel of `name`
-    ("fma_chain" or "stage_replay"), from the CUDA occupancy API for its
-    registers (builds the kernels first)."""
+    """Resident blocks per SM of the kernel of `name` ("fma_chain": blocks
+    of its launch geometry, FMA_LANES lanes each; "stage_replay": blocks
+    of 64 threads, a thread a lane), from the CUDA occupancy API for its
+    registers and shared memory (builds the kernels first)."""
     sfx = "f32" if dtype == torch.float32 else "f64"
     fn = getattr(_build.load(_SOURCE), f"{name}_occupancy_{sfx}")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]

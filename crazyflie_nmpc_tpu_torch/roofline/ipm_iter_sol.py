@@ -13,16 +13,20 @@ section, at N=50 (M=25 condensed stages), float32:
   3. the full `rti_step_batched` step, the default against
      `windowed=True`;
   4. the stream bandwidth: an elementwise PyTorch pass over 256 MB;
-  5. P1 `fma_chain`'s primitive rate at the sweep's B and at a B that fills
-     the card (from the occupancy API for the kernel's registers), beside
-     `torch.bmm`'s time for the same batched 13x13 product (batch-first,
-     TF32 off), and P2 `stage_replay`'s time per backward stage; both are
-     checked to grow with `reps` (the compiler kept every product and
-     stage);
+  5. P1 `fma_chain`'s primitive rate, the rate of a group of threads a lane
+     (16, row i of the 13x13 c on thread i, as the group sweeps split a
+     lane), at the sweep's B and at a B that fills the card (from the
+     occupancy API for the kernel's registers and shared memory, FMA_LANES
+     lanes a block), beside `torch.bmm`'s time for one link of the chain
+     (the same batched 13x13 product, batch-first, TF32 off), and P2
+     `stage_replay`'s time per backward stage; both are checked to grow
+     with `reps` (the compiler kept every product and stage);
   6. the speed-of-light table of K2 and K3: bytes per launch, the bound at
      the measured bandwidth (their SoL: both run a group of threads per
-     lane), the measured time and the gap; beside it the floor of a
-     one-thread-per-lane kernel (K2: P2's replay; K3: its issue floor).
+     lane), the measured time and the gap; beside it a floor from the
+     probes (K2: P2's replay, the floor of a one-thread-per-lane K2; K3:
+     its multiply-adds at the group rate, the issue floor of K3's own
+     design).
 
 Runs on the CUDA device only: without one it exits 1.  Times are CUDA
 events around a chained window (median over rounds of its mean).  Not
@@ -44,9 +48,11 @@ How the TPU formulas carry over:
     study prints its time against the one-thread floor beside it (below
     1: the group shortened the chain that bounds any one-thread K2).
   * issue floor of K3: CORR_MACS_PER_STAGE x M x B multiply-adds at P1's
-    rate measured at the same B, the floor of a K3 with one thread per
-    lane (P1 runs one); csrc/corrector_sweep_c2.cu splits a lane's stage
-    over a group as K2 does, so its SoL is its bytes bound too.
+    rate measured at the same B.  P1 gives each lane a group of 16
+    threads, as csrc/corrector_sweep_c2.cu does, so this is the issue
+    floor of K3's own design (K3's multiply-adds at the group rate); K3
+    streams its stage inputs from memory, so its SoL is its bytes bound,
+    as K2's.
   * bytes: what the port's kernels read and write (csrc/kkt_sweep_c2.cu,
     csrc/corrector_sweep_c2.cu), not the TPU BlockSpecs: K2's rollout
     re-reads the stage stream and its own K and kff outputs (which stand
@@ -267,6 +273,14 @@ def waves(B, blocks_per_sm, sms, threads=64):
     return math.ceil(math.ceil(B / threads) / (blocks_per_sm * sms))
 
 
+def fill_lanes(blocks_per_sm, sms):
+    """P1's lanes that fill the card: `blocks_per_sm` resident blocks of
+    its launch geometry (FMA_LANES lanes each) on each of `sms` SMs."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+
+    return blocks_per_sm * sms * sk.FMA_LANES
+
+
 def fma_rate(device, B, reps=FMA_REPS):
     """P1 at B lanes: ms per launch at reps and 2 reps, ns per product
     (per launch over its products), and MAC/s over the B lanes."""
@@ -358,7 +372,7 @@ def study(batch=4096, device=None, log=print):
 
     bps_fma = sk.blocks_per_sm("fma_chain")
     bps_rep = sk.blocks_per_sm("stage_replay")
-    b_fill = bps_fma * sms * sk.THREADS_PER_BLOCK
+    b_fill = fill_lanes(bps_fma, sms)
     fma = {Bx: fma_rate(device, Bx) for Bx in dict.fromkeys((B, b_fill))}
     bmm = {Bx: bmm_time(device, Bx) for Bx in fma}
     for Bx, r in fma.items():
@@ -366,9 +380,10 @@ def study(batch=4096, device=None, log=print):
             f"{FMA_REPS} products, {r['ns_per_product']:.1f} ns per "
             f"product -> {r['mac_per_s'] / 1e12:.4f} T MAC/s; x2 reps: "
             f"x{r['scale']:.3f}; torch.bmm of the same {Bx} products "
-            f"{bmm[Bx] * 1e3:.2f} us")
-    log(f"P1 occupancy: {bps_fma} blocks of 64 per SM -> B={b_fill} fills "
-        f"the card; rate there / at B={B}: "
+            f"{bmm[Bx] * 1e3:.2f} us (one link)")
+    log(f"P1 occupancy: {bps_fma} blocks of {sk.FMA_LANES} lanes x "
+        f"{sk.FMA_GROUP} threads per SM -> B={b_fill} fills the card; rate "
+        f"there / at B={B}: "
         f"{fma[b_fill]['mac_per_s'] / fma[B]['mac_per_s']:.2f}x (the "
         f"headroom of more lanes)")
     lanes_wave = bps_rep * sms * sk.THREADS_PER_BLOCK
@@ -386,25 +401,25 @@ def study(batch=4096, device=None, log=print):
 
     kb, cb = kkt_bytes(M, B), corr_bytes(M, B)
     t_one_thread = rep["us_per_stage"] * M * nw / 1e3
-    t_corr_issue = CORR_MACS_PER_STAGE * M * B / fma[B]["mac_per_s"] * 1e3
+    t_corr_group = CORR_MACS_PER_STAGE * M * B / fma[B]["mac_per_s"] * 1e3
     rows = {}
     log(f"=== speed-of-light table (M={M}, B={B}, float32; bandwidth "
         f"{bw:.0f} GB/s measured) ===")
     log(f"{'kernel':<20}{'bytes/launch':>14}{'BW bound':>11}"
-        f"{'@3.35TB/s':>11}{'1-thread floor':>16}{'SoL=BW':>10}"
+        f"{'@3.35TB/s':>11}{'probe floor':>16}{'SoL=BW':>10}"
         f"{'measured':>10}{'gap':>7}")
-    # both run a group of threads per lane: SoL is the bytes bound, and the
-    # floor of a one-thread-per-lane kernel stands beside it (K2: P2's
-    # replay; K3: its multiply-adds at P1's rate)
+    # both run a group of threads per lane: SoL is the bytes bound, and a
+    # floor from the probes stands beside it (K2: P2's one-thread replay;
+    # K3: its multiply-adds at P1's group rate)
     for name, nbytes, floor, tm in (("kkt_sweep_c2", kb, t_one_thread,
                                      t["kkt"]),
-                                    ("corrector_sweep_c2", cb, t_corr_issue,
+                                    ("corrector_sweep_c2", cb, t_corr_group,
                                      t["corr"])):
         tbw = nbytes / (bw * 1e9) * 1e3
         sheet = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = dict(bytes=nbytes, bw_ms=tbw, sheet_ms=sheet,
-                          one_thread_ms=floor, sol_ms=tbw, ms=tm,
-                          gap=tm / tbw, vs_one_thread=tm / floor)
+                          floor_ms=floor, sol_ms=tbw, ms=tm,
+                          gap=tm / tbw, vs_floor=tm / floor)
         log(f"{name:<20}{nbytes / 1e6:>11.1f} MB{tbw:>9.4f}ms"
             f"{sheet:>9.4f}ms{floor:>14.4f}ms{tbw:>8.4f}ms{tm:>8.4f}ms"
             f"{tm / tbw:>7.2f}")
@@ -413,11 +428,11 @@ def study(batch=4096, device=None, log=print):
         f"{t_one_thread:.4f} ms; measured / floor "
         f"{t['kkt'] / t_one_thread:.3f} (below 1: shorter than any "
         f"one-thread-per-lane K2)")
-    log(f"corrector_sweep_c2 against the one-thread issue floor "
+    log(f"corrector_sweep_c2 against K3's multiply-adds at the group rate "
         f"({CORR_MACS_PER_STAGE} multiply-adds a stage x M={M} x B={B} at "
-        f"P1's {fma[B]['mac_per_s'] / 1e12:.3f} T MAC/s): "
-        f"{t_corr_issue:.4f} ms; measured / floor "
-        f"{t['corr'] / t_corr_issue:.3f}")
+        f"P1's {fma[B]['mac_per_s'] / 1e12:.3f} T MAC/s, 16 threads a "
+        f"lane): {t_corr_group:.4f} ms; measured / floor "
+        f"{t['corr'] / t_corr_group:.3f}")
     return dict(B=B, sms=sms, sweeps=t, steps=steps, bandwidth_gbs=bw,
                 fma=fma, bmm=bmm, b_fill=b_fill, replay=rep, waves=nw,
                 table=rows)

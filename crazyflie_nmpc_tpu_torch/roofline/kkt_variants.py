@@ -1,22 +1,26 @@
 """K2 `kkt_sweep_c2`, K3 `corrector_sweep_c2`, K1 `prep_condense2`, K5a
 `bwd_c2`, K5b `fwd_c2`, K5c `bwd_vec_c2`, K10 `iter_sweep_c2`, K8a
 `kkt_sweep`, K9a `backward_sweep`, K9b `forward_sweep`, K8b
-`corrector_sweep` or K9c `backward_vector_sweep` in variants on the card:
-their launch shapes, and the parts of their work cut out one at a time.
+`corrector_sweep`, K9c `backward_vector_sweep`, K6 `condense2` or the
+probe P1 `fma_chain` in variants on the card: their launch shapes, and
+the parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
                   fwd_c2|bwd_vec_c2|iter_sweep_c2|kkt_sweep|backward_sweep|
-                  forward_sweep|corrector_sweep|backward_vector_sweep]
-        [--baseline DIR]
+                  forward_sweep|corrector_sweep|backward_vector_sweep|
+                  condense2|fma_chain]
+        [--baseline DIR] [--variants NAME,...]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
 K5a too, `csrc/corrector_sweep_c2.cu`, which holds K5b and K5c,
 `csrc/prep_condense2.cu`, `csrc/iter_c2.cu`, `csrc/riccati.cu`, which
-holds K8a, K9a, K9b, K8b and K9c) with one edit (`VARIANTS`,
+holds K8a, K9a, K9b, K8b and K9c, `csrc/condensed_c2.cu`,
+`csrc/sol_probes.cu`) with one edit (`VARIANTS`,
 `CORR_VARIANTS`, `PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`,
 `VEC_VARIANTS`, `ITER_VARIANTS`, `RICCATI_VARIANTS`, `BACKWARD_VARIANTS`,
-`FORWARD_VARIANTS`, `CORRECTOR_VARIANTS`, `VECTOR_VARIANTS`).
+`FORWARD_VARIANTS`, `CORRECTOR_VARIANTS`, `VECTOR_VARIANTS`,
+`CONDENSE_VARIANTS`, `FMA_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -42,7 +46,13 @@ own constants, `SHAPE_CONSTANTS`).  K8b and K9c (one body on K9b's
 group and block, a ring of 3 sets): a ring of 2 sets, K5c's shapes at 4
 inputs, or one part removed (the loads in the stage loops, the m/Qu
 phase, the p update, the kff solve, the stores kept alive behind a B < 0
-test, and K8b's rollout).  K10: one of its five phases removed, or the
+test, and K8b's rollout).  K6 (on K1's block): 4 or 16 workers a lane,
+64 lanes a block, or one part removed (the loads, the row jobs, the cost
+columns, the stores).  P1: the 13 rows packed flat (no idle thread) at
+16 or 32 lanes a block, 16 or 32 lanes a block of 16 threads a lane,
+half the blocks an SM, 2 or 4 rows of c a thread, on the study's inputs
+(`ipm_iter_sol.probe_inputs`, 512 products).  K10: one of its five
+phases removed, or the
 barrier algebra of all five (`kAlgebra`); each launch on a copy of its
 own of the carried inputs it updates in place (`calls`), all made before
 the timing.  K8a:
@@ -77,7 +87,9 @@ among the others: the file of that checkout that defines the kernel
 (`condensed_c2.cu` for a one-thread K5a, K5b or K5c, whose entries take
 no launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's, K9a's
 and K9b's, K8b's and K9c's in `riccati.cu`, where K9a is
-`kkt_sweep_kernel<T, false>`); for K10 also that
+`kkt_sweep_kernel<T, false>`, and the one-thread K6's and P1's); the
+whole variants' outputs are compared with the baseline's bit for bit;
+for K10 also that
 source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
 kernel's phase blocks emptied), as "baseline no phase N".  Runs on the
 CUDA device only: without one it exits 1.
@@ -100,9 +112,12 @@ import torch
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
 from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
 from crazyflie_nmpc_tpu_torch.roofline import device_ms
 
 BATCHES = (1024, 4096, 8192)
+# P1's products a launch (the speed-of-light study's)
+FMA_REPS = 512
 _SOURCE = "kkt_sweep_c2.cu"
 _ROLL_SWITCH = "  if constexpr (ROLL) {"
 # K3's rollout, switched on with ROLL
@@ -420,6 +435,62 @@ CORRECTOR_VARIANTS = {
     "no rollout": _replace(_VEC_ROLL, _VEC_ROLL.replace("ROLLOUT", "false")),
 }
 
+# K6's, on csrc/condensed_c2.cu (K1's block): 4 or 16 workers a lane, 64
+# lanes a block, or one part removed (every global load, each value then
+# made from its lane and index; the row jobs; the cost columns; the
+# stores: every stored value summed into one that is never stored)
+_C2_THREADS = "constexpr int kThreads = 256;"
+_C2_END = "  }\n}\n\n// dx_odd[k]"
+CONDENSE_VARIANTS = {
+    "kernel": None,
+    "4 workers": _replace(_C2_THREADS, _C2_THREADS.replace("256", "128")),
+    "16 workers": _replace(_C2_THREADS, _C2_THREADS.replace("256", "512")),
+    "64 lanes": _then(
+        _replace("constexpr int kLanes = 32;", "constexpr int kLanes = 64;"),
+        _replace(_C2_THREADS, _C2_THREADS.replace("256", "512"))),
+    "no loads": _replace("    return base[(size_t)r * B + b];",
+                         "    return T(b + r);"),
+    "no row jobs": _cut("  // 2. the row jobs", "  // 3. the cost columns"),
+    "no cost columns": _cut("  // 3. the cost columns", "// dx_odd[k]",
+                            "}\n\n"),
+    "no stores": _then(
+        _replace("  const auto put = [&](T* base, int r, T v) {\n"
+                 "    if (valid) __stcs(base + (size_t)r * B + b, v);\n  };",
+                 "  T sink = T(0);\n"
+                 "  const auto put = [&](T*, int, T v) { sink = sink + v; };"),
+        _replace(_C2_END, "  }\n  if (valid && B < 0) Abar[b] = sink;\n}\n\n"
+                 "// dx_odd[k]")),
+}
+
+# P1's, on csrc/sol_probes.cu: 16 or 32 lanes a block, `__launch_bounds__`
+# asking float32 for half the blocks an SM (128 registers a row instead of
+# 64), the 13 rows packed flat (thread t of a block is lane t / 13, row t
+# % 13: no idle thread) at 16 or 32 lanes a block, or 2 or 4 rows of c a
+# thread (8 or 4 threads a lane, each b entry it loads used 2 or 4 times)
+_FMA_ROWS = "constexpr int kFmaRows = 1;"
+_FMA_GROUP = "constexpr int kFmaGroup = 16;"
+_FMA_THREADS = "constexpr int kFmaThreads = 128;"
+
+
+def _fma_shape(group, threads, rows=1):
+    return _then(_replace(_FMA_ROWS, _FMA_ROWS.replace("1", str(rows))),
+                 _replace(_FMA_GROUP, _FMA_GROUP.replace("16", str(group))),
+                 _replace(_FMA_THREADS,
+                          _FMA_THREADS.replace("128", str(threads))))
+
+
+FMA_VARIANTS = {
+    "kernel": None,
+    "16 lanes": _fma_shape(16, 256),
+    "32 lanes": _fma_shape(16, 512),
+    "2 blocks an SM": _replace("(sizeof(T) == 4 ? 1024 : 512)",
+                               "(sizeof(T) == 4 ? 512 : 256)"),
+    "packed 13": _fma_shape(13, 208),
+    "packed 13, 32 lanes": _fma_shape(13, 416),
+    "2 rows a thread": _fma_shape(8, 64, rows=2),
+    "4 rows a thread": _fma_shape(4, 32, rows=4),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form, or
 # the names of its forms in this source and in the `--baseline` one)
 KERNELS = {
@@ -443,13 +514,17 @@ KERNELS = {
                         "corrector_sweep_kernelIfE"),
     "backward_vector_sweep": ("riccati.cu", VECTOR_VARIANTS,
                               "backward_vector_sweep_kernelIfE"),
+    "condense2": ("condensed_c2.cu", CONDENSE_VARIANTS,
+                  "condense2_kernelIfE"),
+    "fma_chain": ("sol_probes.cu", FMA_VARIANTS, "fma_chain_kernelIfE"),
 }
 # the constants of a kernel's launch shape (threads a lane, a block) where
 # its source names them otherwise (K9b, K8b and K9c beside K8a's kGroup
 # and kThreads)
-SHAPE_CONSTANTS = dict.fromkeys(
-    ("forward_sweep", "corrector_sweep", "backward_vector_sweep"),
-    ("kFwdGroup", "kFwdThreads"))
+SHAPE_CONSTANTS = {
+    **dict.fromkeys(("forward_sweep", "corrector_sweep",
+                     "backward_vector_sweep"), ("kFwdGroup", "kFwdThreads")),
+    "fma_chain": ("kFmaGroup", "kFmaThreads")}
 # the CUDA function of a kernel, where the one-thread source named it
 # otherwise (K9a: `kkt_sweep_kernel<T, false>`)
 SYMBOLS = {"backward_sweep": r"(?:backward|kkt)_sweep_kernel"}
@@ -480,6 +555,14 @@ SWEEPS = {
     "corrector_sweep": (10, _UROLL, "kVecLaneValues"),
     "backward_vector_sweep": (8, lambda N, B: ((N, rk.NU, B),),
                               "kVecLaneValues"),
+    # K6's at M = N/2 stage pairs: the condensed stage (condense2_ref's
+    # dict, in order)
+    "condense2": (6, lambda M, B: (
+        (M, _NX, _NX, B), (M, _NX, _NU, B), (M, _NX, B), (M, _NX, _NX, B),
+        (M, rk.NU, _NX, B), (M, rk.NU, rk.NU, B), (M, _NX, B), (M, _NU, B)),
+        "kLaneValues"),
+    # P1's: c (13,13,B) after FMA_REPS products
+    "fma_chain": (2, lambda M, B: ((_NX, _NX, B),), "kFmaLaneValues"),
 }
 # K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
 # fraction to the boundary and its float arguments in float32 (tau, the
@@ -552,6 +635,19 @@ def baseline_texts(kernel, csrc) -> dict:
     return {"baseline": text,
             **{f"baseline {name}": edit(text) for name, edit in
                BASELINE_VARIANTS.get(kernel, {}).items()}}
+
+
+def bitwise_report(got, base) -> str:
+    """"True" when every output equals the baseline's bit for bit, else
+    "False" with, for each output that differs, its position among the
+    outputs, the entries that differ and the largest difference relative
+    to max(1, max |baseline|)."""
+    diffs = [(i, int((g != w).sum()), g.numel(), float(
+        (g.double() - w.double()).abs().max()) / max(1.0, float(
+            w.abs().max()))) for i, (g, w) in enumerate(zip(got, base))]
+    parts = [f"output {i}: {n} of {size} entries, {rel:.1e}"
+             for i, n, size, rel in diffs if n]
+    return "True" if not parts else "False (" + "; ".join(parts) + ")"
 
 
 def _whole(name) -> bool:
@@ -668,11 +764,14 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
 
     def run(args):
         M, B = args[0].shape[0], args[0].shape[-1]
+        # K6's M stage pairs of its N stages; P1's entry takes its reps
+        M = M // 2 if kernel == "condense2" else M
+        lead = FMA_REPS if kernel == "fma_chain" else M
         outs = tuple(torch.empty(s, dtype=torch.float32, device=args[0].device)
                      for s in shapes(M, B))
         geo = [math.ceil(B / lanes), threads,
                lanes * values * 4] if values else []
-        err = fn(*[t.data_ptr() for t in (*args, *outs)], *floats, M, B,
+        err = fn(*[t.data_ptr() for t in (*args, *outs)], *floats, lead, B,
                  *geo, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"kkt_variants: CUDA error {err}")
@@ -722,6 +821,10 @@ def _plain(kernel, order=4):
         return lambda *args: [ck.bwd_vec_c2_ref(*args)]
     if kernel == "backward_vector_sweep":
         return lambda *args: [rk.backward_vector_sweep_ref(*args)]
+    if kernel == "condense2":
+        return lambda *args: list(ck.condense2_ref(*args).values())
+    if kernel == "fma_chain":
+        return lambda *args: [sk.fma_chain_plain(*args, reps=FMA_REPS)]
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
             "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref,
@@ -770,10 +873,15 @@ def inputs(kernel, B, device, n=50):
     it, K9b's on K8a's gains of it, K8b's and K9c's on K8a's factorization
     of it.  At n > 50 (K5a, K5b) every stage-wise input is
     the N=50 one repeated n/50 times along the stages."""
-    from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import condensed_data
+    from crazyflie_nmpc_tpu_torch.roofline.ipm_iter_sol import (
+        condensed_data, probe_inputs)
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
 
+    if kernel == "fma_chain":
+        return probe_inputs(B, torch.float32, device)[0]
     d = condensed_data(B, device)
+    if kernel == "condense2":
+        return d["stage"]
     if kernel == "prep_condense2":
         st = d["states"]
         yb = d["yref"][:, :, None].expand(*d["yref"].shape, B).contiguous()
@@ -813,14 +921,16 @@ def inputs(kernel, B, device, n=50):
 
 
 def study(device=None, log=print, kernel="kkt_sweep_c2",
-          baseline=None) -> dict:
-    """Build, check and time every variant of `kernel` (and `baseline`, as
-    `build`; K1's in both VDE orders); returns {name: {B: [ms, ms]}}, the
-    device time of a launch (`device_ms`) in each of two passes.  Raises
-    RuntimeError when a whole-stage variant disagrees with the plain
-    version."""
+          baseline=None, variants=None) -> dict:
+    """Build, check and time every variant of `kernel` (those named in
+    `variants`, when given; and `baseline`, as `build`; K1's in both VDE
+    orders); returns {name: {B: [ms, ms]}}, the device time of a launch
+    (`device_ms`) in each of two passes.  Raises RuntimeError when a
+    whole-stage variant disagrees with the plain version."""
     device = torch.device(device or "cuda")
     texts = sources(kernel)
+    if variants is not None:
+        texts = {name: texts[name] for name in variants}
     if baseline is not None:
         texts.update(baseline_texts(kernel, baseline))
     built = build(texts, kernel, baseline)
@@ -834,11 +944,17 @@ def study(device=None, log=print, kernel="kkt_sweep_c2",
             runs[name + ORDER2] = prep_launcher(lib, texts[name], order=2)
             refs[name + ORDER2] = _plain(kernel, order=2)
     check = inputs(kernel, BATCHES[0], device)
+    base = (runs["baseline"](fresh(kernel, check)) if "baseline" in runs
+            else None)
     for name, run in runs.items():
         if _whole(name):
-            e = rel_err(run(fresh(kernel, check)), refs[name](*check))
+            got = run(fresh(kernel, check))
+            e = rel_err(got, refs[name](*check))
+            same = ("" if base is None or name.endswith(ORDER2) else
+                    f"; bitwise equal to the baseline: "
+                    f"{bitwise_report(got, base)}")
             log(f"{kernel} {name}: rel err {e:.3e} against the plain version "
-                f"at B={BATCHES[0]}, N=50")
+                f"at B={BATCHES[0]}, N=50{same}")
             if not e <= 1e-4:
                 raise RuntimeError(f"kkt_variants: {kernel} {name} "
                                    f"disagrees ({e})")
@@ -868,13 +984,19 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="DIR",
                     help="a csrc directory whose copy of the kernel's "
                          "source runs as the variant 'baseline'")
+    ap.add_argument("--variants", metavar="NAME,...",
+                    help="the variants to run (default: all of the kernel's)")
     args = ap.parse_args(argv)
+    variants = args.variants.split(",") if args.variants else None
+    unknown = set(variants or ()) - set(KERNELS[args.kernel][1])
+    if unknown:
+        ap.error(f"no variant {', '.join(sorted(unknown))} of {args.kernel}")
     if not torch.cuda.is_available():
         print("kkt_variants: no CUDA device (the variants run on the card)",
               file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}")
-    study(kernel=args.kernel, baseline=args.baseline)
+    study(kernel=args.kernel, baseline=args.baseline, variants=variants)
     return 0
 
 

@@ -18,6 +18,7 @@ from crazyflie_nmpc_tpu_torch.runtime import (Bag, BagWriter, LoopResult,
                                               record_loop_result)
 from crazyflie_nmpc_tpu_torch.runtime import bag as tbag
 from crazyflie_nmpc_tpu_torch.runtime.telemetry import TelemetryLog
+from _torch_shared import one_torch_thread  # noqa: F401
 
 
 def _write(writer_cls, path):

@@ -19,6 +19,7 @@ from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.runtime import batch as tbatch
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B, TICKS = 10, 8, 3
 TOL = 1e-9

@@ -22,18 +22,11 @@ import torch
 
 from crazyflie_nmpc_tpu import bringup as jbringup
 from crazyflie_nmpc_tpu_torch import bringup
+from _torch_shared import one_torch_thread  # noqa: F401
 
 BENCH_TICKS = 40
 ANGLE_TOL_DEG = 1e-3
 PWM_TOL = 1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_registry_matches_jax():

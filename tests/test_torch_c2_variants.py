@@ -34,6 +34,7 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import certified_config
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prep_tiles,
                                                          prepare_qp,
                                                          rti_step_batched)
+from _torch_shared import jit_o0, one_torch_thread  # noqa: F401
 
 N, M, B, STEPS = 10, 5, 8, 2
 TOL = 1e-9
@@ -94,16 +95,18 @@ def sweeps():
           np.tile(W[13:], 2)[None, :, None]
           + rng.uniform(0.01, 1.0, (M, 8, B)),
           cnd["rbar"], pT, p_term, dx0)
-    jkkt = jck.kkt_sweep_c2_win(*map(jnp.asarray, k5), block_b=B,
-                                stages_per_step=1, interpret=True)
+    jkkt = jit_o0(lambda *a: jck.kkt_sweep_c2_win(
+        *a, block_b=B, stages_per_step=1, interpret=True))(
+            *map(jnp.asarray, k5))
     tkkt = tck.kkt_sweep_c2_win(*map(_t, k5))
 
     kc = (k5[0], k5[1], k5[2], k5[6],
           k5[8] + 0.1 * rng.standard_normal((M, 8, B)),
           np.array(jkkt[0]), np.array(jkkt[2]), np.array(jkkt[3]), p_term,
           dx0)
-    jcorr = jck.corrector_sweep_c2_win(*map(jnp.asarray, kc), block_b=B,
-                                       stages_per_step=1, interpret=True)
+    jcorr = jit_o0(lambda *a: jck.corrector_sweep_c2_win(
+        *a, block_b=B, stages_per_step=1, interpret=True))(
+            *map(jnp.asarray, kc))
     tcorr = tck.corrector_sweep_c2_win(*map(_t, kc))
 
     # the iteration's carried state: finite bounds where the mask is 1
@@ -125,10 +128,10 @@ def sweeps():
           m_l, m_u, 0.01 * rng.standard_normal((M, 13, B)),
           0.01 * rng.standard_normal((M, 8, B)), pT, p_term, dx0,
           0.01 * rng.standard_normal((13, B)))
-    jiter = jck.iter_sweep_c2(
-        *map(jnp.asarray, ki), jnp.asarray(np.maximum(n_fin, 1)),
-        jnp.asarray(n_fin > 0), 0.995, block_b=B, stages_per_step=1,
-        interpret=True)
+    jiter = jit_o0(lambda *a: jck.iter_sweep_c2(
+        *a, 0.995, block_b=B, stages_per_step=1, interpret=True))(
+            *map(jnp.asarray, ki), jnp.asarray(np.maximum(n_fin, 1)),
+            jnp.asarray(n_fin > 0))
     tin = tuple(map(_t, ki))
     titer = tck.iter_sweep_c2(
         *tin, _t(np.maximum(n_fin, 1)[None]), _t((n_fin > 0)[None] * 1.0),
@@ -197,7 +200,7 @@ def steps(request, problem):
     jspec, tspec, x0s = problem
     kw = {request.param: True}
     yref, yref_e = hover_yref(jspec)
-    step = jax.jit(lambda s, x: j_step(
+    step = jit_o0(lambda s, x: j_step(
         jspec, s, x, yref, yref_e, JCfg(iters=8), block_b=B,
         stages_per_step=2, prep_stages_per_step=1, interpret=True, **kw))
     jst = jax.vmap(lambda x: init_rti(jspec, x))(jnp.asarray(x0s))
@@ -239,7 +242,7 @@ def test_certified_fused_iter_solve_matches_jax(certified_qp):
     """certified_config through solve_batched with fused_iter=True: the
     first pass is 8 one-launch iterations, the escalated lanes are
     re-solved by the two-launch iteration on both sides."""
-    jsol = jax.jit(lambda q: jfast.solve_batched(
+    jsol = jit_o0(lambda q: jfast.solve_batched(
         q, j_certified(capacity=4), block_b=B, stages_per_step=2,
         interpret=True, condense=2, fused_iter=True))(
             {k: jnp.asarray(v) for k, v in certified_qp.items()})

@@ -15,7 +15,6 @@ mode) against central differences.  Each JAX program is jitted once and
 compiled at XLA's optimization level 0.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,25 +33,10 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.runtime import closed_loop as tcl
 from crazyflie_nmpc_tpu_torch.solver import policies as tpol
 from crazyflie_nmpc_tpu_torch.solver.rti import init_rti, sqp_solve
+from _torch_shared import o0, one_torch_thread  # noqa: F401
 
 N, TICKS, SQP_ITERS = 10, 5, 3
 TOL = 1e-8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _o0(fn, *args):
-    """fn(*args), jitted and compiled at XLA's optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
 def _close(got, want, tag, tol=TOL):
@@ -126,7 +110,7 @@ def test_sqp_from_hanging_matches_jax(specs):
         return jsqp(js, jinit(js, x0), x0, yref, yref_e, iters=SQP_ITERS,
                     config=JCfg(iters=12))
 
-    jst, jk = _o0(jrun, x0j)
+    jst, jk = o0(jrun, x0j)
     x0 = tcp.downward_state(torch.float64, device="cpu")
     st, k = sqp_solve(ts, init_rti(ts, x0, device="cpu"), x0,
                       torch.zeros((N, 5), dtype=torch.float64),
@@ -182,7 +166,7 @@ def test_closed_loops_match_jax(specs, loop):
         got = tcl.trajectory_tracking(ts, torch.as_tensor(x0),
                                       torch.as_tensor(table), steps=TICKS,
                                       config=tcfg)
-    want = _o0(jrun, jnp.asarray(x0))
+    want = o0(jrun, jnp.asarray(x0))
     got = convert.loop_result_to_numpy(got)
     want = convert.loop_result_to_numpy(want)
     for f in got._fields:

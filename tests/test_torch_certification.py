@@ -17,6 +17,7 @@ from crazyflie_nmpc_tpu_torch.models import dynamics, hover_state
 from crazyflie_nmpc_tpu_torch.ops.integrators import rk4_step
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -28,20 +28,13 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.solver.rti import rti_step
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
 from crazyflie_nmpc_tpu_torch.utils.trajectories import helix_trajectory
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 HOVER_TICKS = 24
 HELIX_TICKS = 48          # of the JAX test's 96 (the card runs all 96)
 BATCHED_TICKS = 5
 PLAIN_TICKS = 3           # the plain solve is held on the first ticks
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

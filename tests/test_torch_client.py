@@ -20,19 +20,10 @@ from crazyflie_nmpc_tpu.solver import policies as jpol
 from crazyflie_nmpc_tpu_torch import convert, device
 from crazyflie_nmpc_tpu_torch.runtime.client import MissionClient
 from crazyflie_nmpc_tpu_torch.utils import save_traj_txt
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N = 10
 TOL = 1e-12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,6 @@ ValueErrors and the remat option's forward pass.
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,17 +33,12 @@ from crazyflie_nmpc_tpu_torch.models import firmware as tfw
 from crazyflie_nmpc_tpu_torch.models import hover_state as hover_state_t
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.runtime import closed_loop as tcl
+from _torch_shared import o0, one_torch_thread  # noqa: F401
 
 N, TICKS = 10, 6
 TOL = 1e-8
 HELIX_ROWS = 40
 LAG_GAINS = dict(kd_rate=0.002, tau_m=0.015)
-
-
-def _o0(fn, *args):
-    """fn(*args), jitted and compiled at XLA's optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
 def _close_result(got, want, tag):
@@ -110,7 +104,7 @@ def flights(setup):
     """Both packages' flight_configuration on the helix rows."""
     jloop, tloop = _loops(setup, "flight")
     table = setup["table"]
-    return (_o0(jloop, jnp.asarray(table)),
+    return (o0(jloop, jnp.asarray(table)),
             tloop(torch.as_tensor(table)))
 
 
@@ -118,7 +112,7 @@ def flights(setup):
                                   "motvel"])
 def test_closed_loop_matches_jax(setup, case):
     jloop, tloop = _loops(setup, case)
-    want = _o0(jloop, jnp.asarray(setup["x0"]))
+    want = o0(jloop, jnp.asarray(setup["x0"]))
     got = tloop(torch.as_tensor(setup["x0"]))
     assert got.x.shape == (TICKS, 13) and got.policy_mode.shape == (TICKS,)
     _close_result(got, want, case)

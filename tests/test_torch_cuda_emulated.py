@@ -21,6 +21,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
 from crazyflie_nmpc_tpu_torch.ops.cuda import emulated
+from _torch_shared import one_torch_thread  # noqa: F401
 
 SOURCE = "corrector_sweep_c2.cu"
 FORMS = ("corrector_sweep_c2", "corrector_sweep_c2 bf16 gains",

@@ -21,6 +21,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
 from crazyflie_nmpc_tpu_torch.ops.cuda import emulated
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],

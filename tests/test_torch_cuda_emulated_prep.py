@@ -22,6 +22,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import _build, emulated
 from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as pk
+from _torch_shared import one_torch_thread  # noqa: F401
 
 SOURCE = "prep_condense2.cu"
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}

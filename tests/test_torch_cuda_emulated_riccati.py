@@ -34,6 +34,7 @@ import torch
 
 from crazyflie_nmpc_tpu_torch.ops.cuda import emulated
 from crazyflie_nmpc_tpu_torch.ops.cuda import riccati_kernels as rk
+from _torch_shared import one_torch_thread  # noqa: F401
 
 SOURCE = "riccati.cu"
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}

@@ -24,14 +24,7 @@ from crazyflie_nmpc_tpu.models import QuadrotorParams as JParams
 from crazyflie_nmpc_tpu_torch import demo as tdemo
 from crazyflie_nmpc_tpu_torch.demo import hover as thover
 from crazyflie_nmpc_tpu_torch.models import QuadrotorParams
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_shared import one_torch_thread  # noqa: F401
 
 
 class FakeClock:

@@ -10,6 +10,7 @@ import pytest
 from crazyflie_nmpc_tpu.models import description as jdesc
 from crazyflie_nmpc_tpu_torch.models import description as tdesc
 from crazyflie_nmpc_tpu_torch.models.quadrotor import QuadrotorParams
+from _torch_shared import one_torch_thread  # noqa: F401
 
 PRESETS = ("cf21_identified", "cf2_urdf", "cf1_urdf")
 

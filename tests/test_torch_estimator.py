@@ -21,6 +21,7 @@ from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch import estimator as port_est
 from crazyflie_nmpc_tpu_torch.estimator import sysid as tsysid
 from crazyflie_nmpc_tpu_torch.estimator.lpf import WARMUP_SECONDS
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 DT = 0.015

@@ -19,6 +19,7 @@ from crazyflie_nmpc_tpu.models import hover_state
 from crazyflie_nmpc_tpu.solver import default_ocp
 from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch.models import firmware as tf
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 CALLS = 3

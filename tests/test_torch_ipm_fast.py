@@ -19,6 +19,7 @@ from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as jpk
 from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
 from crazyflie_nmpc_tpu_torch.ops import ipm_fast as tfast
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig as TCfg
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B = 10, 8
 FIELDS = ("dx", "du", "lam_l", "lam_u", "mu", "res_stat", "res_eq")

@@ -19,6 +19,7 @@ from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as jpk
 from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
 from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as tck
 from crazyflie_nmpc_tpu_torch.ops.cuda import prep_kernel as tpk
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, M, B = 10, 5, 8
 PREP_OUT = ("Abar", "Bbar", "cbar", "Qbar", "S1T", "R00", "qbar", "rbar",

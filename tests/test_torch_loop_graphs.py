@@ -16,6 +16,7 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig, certified_config
 from crazyflie_nmpc_tpu_torch.solver import default_ocp, init_rti
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import (rti_step_batched,
                                                          to_batch_last)
+from _torch_shared import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("tau", [1.0, 0.995])

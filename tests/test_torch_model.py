@@ -17,6 +17,7 @@ from crazyflie_nmpc_tpu.solver import init_rti as j_init_rti
 from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.models import quadrotor as tq
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 

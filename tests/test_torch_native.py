@@ -29,6 +29,7 @@ from crazyflie_nmpc_tpu_torch import native
 from crazyflie_nmpc_tpu_torch.models import QuadrotorParams, firmware
 from crazyflie_nmpc_tpu_torch.native import bindings
 from crazyflie_nmpc_tpu_torch.native.hl_executor import _CascadePlant
+from _torch_shared import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PLANT_BAR_MS = 2.0

@@ -36,6 +36,7 @@ from crazyflie_nmpc_tpu_torch.parallel import (BATCH_AXIS, STAGE_AXIS,
                                                pod_rti_step,
                                                stage_sharded_rti_step)
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL_JAX = 1e-10
 TOL_POD = 1e-12

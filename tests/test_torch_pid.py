@@ -25,6 +25,7 @@ from crazyflie_nmpc_tpu import pid as jpid
 from crazyflie_nmpc_tpu_torch import convert
 from crazyflie_nmpc_tpu_torch import pid as tpid
 from crazyflie_nmpc_tpu_torch.models import rotations
+from _torch_shared import one_torch_thread  # noqa: F401
 
 DT = 0.02          # the reference PID's 50 Hz (controller.cpp:254)
 TICKS = 300
@@ -36,14 +37,6 @@ FLOAT64_TOL = 1e-12
 # (a few ulp); the z axis multiplies an error by kd/dt = 3e5, so a
 # command's ulp-level difference is relative to 6e4 PWM
 FLOAT32_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def scripted_states(seed=0):

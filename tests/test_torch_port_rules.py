@@ -25,6 +25,7 @@ from crazyflie_nmpc_tpu_torch.runtime import (batch, closed_loop, serving,
 from crazyflie_nmpc_tpu_torch.solver import outputs
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
 from crazyflie_nmpc_tpu_torch.utils import trajectories
+from _torch_shared import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
@@ -621,3 +622,42 @@ def test_k8b_and_k9c_launch_geometry(B, dtype):
     blocks = {torch.float32: 3, torch.float64: 1}[dtype]
     assert 228 * 1024 // (geo["smem"] + 1024) == blocks
     assert geo["opt_in"]
+
+
+@pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["condense2", "fma_chain"])
+def test_k6_and_p1_launch_geometry(kernel, B, dtype):
+    """K6's launch (K1's block: 32 lanes of one stage pair, 8 threads a
+    lane, 299 values a lane in csrc/condensed_c2.cu; the grid's second
+    axis is the pairs) and P1's (16 threads a lane, K2's 8 lanes a
+    block, b's 13 rows at pitch 16 and a 16-byte pad a lane in
+    csrc/sol_probes.cu; `_check_group_geometry`).  By shared memory, with
+    the 1 KB each block reserves of the SM's 228 KB, an SM would hold 5
+    K6 blocks in float32 and 3 in float64, whose block needs the opt-in
+    attribute (registers hold them to the 2 and 1 `__launch_bounds__`
+    asks for); P1's blocks fit 29 and 16, above the 8 and 4 its
+    registers allow."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+
+    if kernel == "condense2":
+        geo = ck.condense_launch_geometry(B, dtype)
+        _check_group_geometry(
+            geo, B, ck.CONDENSE_THREADS // ck.CONDENSE_LANES,
+            "condensed_c2.cu", {"kLanes": ck.CONDENSE_LANES,
+                                "kThreads": ck.CONDENSE_THREADS,
+                                "kLaneValues": ck.CONDENSE_LANE_VALUES})
+        assert (ck.CONDENSE_LANES, geo["threads"]) == (32, 256)
+        blocks = {torch.float32: 5, torch.float64: 3}[dtype]
+        assert geo["opt_in"] == (dtype == torch.float64)
+    else:
+        geo = sk.fma_launch_geometry(B, dtype)
+        _check_group_geometry(geo, B, sk.FMA_GROUP, "sol_probes.cu", {
+            "kFmaGroup": sk.FMA_GROUP, "kFmaThreads": sk.FMA_THREADS,
+            "kFmaLaneValues": sk.FMA_LANE_VALUES})
+        assert (sk.FMA_GROUP, sk.FMA_LANES) == (16, 8)
+        blocks = {torch.float32: 29, torch.float64: 16}[dtype]
+        assert not geo["opt_in"]
+    assert 228 * 1024 // (geo["smem"] + 1024) == blocks

@@ -20,6 +20,7 @@ import torch
 from crazyflie_nmpc_tpu.ops import riccati_pscan as jpscan
 from crazyflie_nmpc_tpu_torch.ops import riccati
 from crazyflie_nmpc_tpu_torch.ops import riccati_pscan as pscan
+from _torch_shared import one_torch_thread  # noqa: F401
 
 # each JAX function compiled as one program (eager dispatch of the scan's
 # many small ops compiles each of them instead)
@@ -28,14 +29,6 @@ J_SOLVE = jax.jit(jpscan.solve_lq_pscan)
 J_FACTORS = jax.jit(jpscan.factors_pscan)
 KEYS = ("A", "B", "c", "Qxx", "qx", "Ruu", "ru", "S", "P_term", "p_term",
         "dx0")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def random_lq(seed, N=8, nx=5, nu=3):

@@ -38,6 +38,7 @@ from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
 from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
 from crazyflie_nmpc_tpu_torch.roofline import kkt_variants
+from _torch_shared import one_torch_thread  # noqa: F401
 
 B = 8
 TOL = 1e-12
@@ -410,3 +411,76 @@ def test_k8b_and_k9c_variants_find_their_anchors(kernel, tmp_path):
     assert len(args) == n_in and all(a.is_contiguous() for a in args)
     out = kkt_variants._plain(kernel)(*args)
     assert [tuple(o.shape) for o in out] == list(out_shapes(50, 4))
+
+
+def test_fill_lanes_follow_p1s_launch_geometry():
+    """The study's b_fill: P1's resident blocks an SM times the SMs times
+    its launch geometry's lanes a block (8 lanes of a group of 16 threads
+    each), not the one-thread probe's 64 threads."""
+    assert sk.fma_launch_geometry(1, torch.float32)["lanes"] == sk.FMA_LANES
+    assert sol.fill_lanes(8, 132) == 8 * 132 * sk.FMA_LANES == 8448
+    assert sol.fill_lanes(1, 1) == sk.FMA_THREADS // sk.FMA_GROUP
+
+
+_K6_P1_CUTS = {
+    "condense2": {"no row jobs": "  // 2. the row jobs",
+                  "no cost columns": "  // 3. the cost columns",
+                  "no loads": "    return base[(size_t)r * B + b];",
+                  "no stores": ("    if (valid) __stcs(base + (size_t)r * B"
+                                " + b, v);")},
+    "fma_chain": {},
+}
+
+
+@pytest.mark.parametrize("kernel, source, shapes, values", [
+    ("condense2", "condensed_c2.cu",
+     {"kernel": (8, 256), "4 workers": (4, 128), "16 workers": (16, 512),
+      "64 lanes": (8, 512)}, 299),
+    ("fma_chain", "sol_probes.cu",
+     {"kernel": (16, 128), "16 lanes": (16, 256), "32 lanes": (16, 512),
+      "2 blocks an SM": (16, 128), "packed 13": (13, 208),
+      "packed 13, 32 lanes": (13, 416), "2 rows a thread": (8, 64),
+      "4 rows a thread": (4, 32)}, 212)])
+def test_k6_and_p1_variants_find_their_anchors(kernel, source, shapes,
+                                               values, tmp_path):
+    """K6's and P1's study variants: each cut's marker stands once in the
+    source and the cut removes it (K6's stores summed into one kept alive
+    behind B < 0), the shape edits give their launch shape (P1's from its
+    own constants), and only the whole kernels are held against the plain
+    version.  The `--baseline` source is the one-thread file of the same
+    name, whose entry takes no launch shape; the study's inputs fit the
+    entry and the plain version's outputs its shapes."""
+    texts = kkt_variants.sources(kernel)
+    src = texts["kernel"]
+    for name, mark in _K6_P1_CUTS[kernel].items():
+        assert src.count(mark) == 1 and mark not in texts[name], name
+    if kernel == "condense2":
+        assert "if (valid && B < 0) Abar[b] = sink;" in texts["no stores"]
+    assert {n: kkt_variants.shape(texts[n], kernel) for n in shapes} == shapes
+    assert kkt_variants.lane_values(kernel, src) == values
+    assert [n for n in texts if kkt_variants._whole(n)] == list(shapes)
+    (tmp_path / source).write_text(
+        f"template <typename T>\n__global__ void\n{kernel}_kernel("
+        f"const T* A) {{}}\n")
+    assert kkt_variants.baseline_source(kernel, tmp_path) == source
+    one_thread = (tmp_path / source).read_text()
+    assert kkt_variants.lane_values(kernel, one_thread) is None
+    assert kkt_variants.shape(one_thread, kernel) == (1, 128)
+    args = kkt_variants.inputs(kernel, 4, "cpu")
+    n_in, out_shapes, _ = kkt_variants.SWEEPS[kernel]
+    assert len(args) == n_in and all(a.is_contiguous() for a in args)
+    out = kkt_variants._plain(kernel)(*args)
+    lead = args[0].shape[0] // 2 if kernel == "condense2" else 1
+    assert [tuple(o.shape) for o in out] == list(out_shapes(lead, 4))
+
+
+def test_bitwise_report_names_the_outputs_that_differ():
+    """The study's comparison with the baseline's outputs: True when every
+    output is equal bit for bit, else each differing output with its
+    count of differing entries and its largest relative difference."""
+    a = [torch.zeros(2, 3), torch.ones(4)]
+    assert kkt_variants.bitwise_report(a, [t.clone() for t in a]) == "True"
+    b = [a[0].clone(), a[1].clone()]
+    b[1][2] = 1.5
+    assert kkt_variants.bitwise_report(a, b) == (
+        "False (output 1: 1 of 4 entries, 3.3e-01)")

@@ -24,6 +24,7 @@ from crazyflie_nmpc_tpu_torch.solver.rti_batched import (
     to_batch_first,
     to_batch_last,
 )
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B, STEPS = 10, 8, 2
 FIELDS = ("u0", "u1", "x_plan", "u_plan", "kkt_res", "qp_mu")

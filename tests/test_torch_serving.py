@@ -36,22 +36,13 @@ from crazyflie_nmpc_tpu_torch.runtime.serving import (ServeConfig,
                                                       TickScheduler,
                                                       measure_transport_floor)
 from crazyflie_nmpc_tpu_torch.solver import default_ocp, hover_yref
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, TICKS = 16, 30
 SETPOINT = (0.0, 0.0, 0.4)
 START = (0.15, -0.1, 0.2)
 TOL_LANE = 1e-9
 TOL_BATCHED = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class FakeClock:

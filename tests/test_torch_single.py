@@ -46,15 +46,10 @@ from crazyflie_nmpc_tpu_torch.ops import riccati as tric
 from crazyflie_nmpc_tpu_torch.solver import outputs as tout
 from crazyflie_nmpc_tpu_torch.solver import policies as tpol
 from crazyflie_nmpc_tpu_torch.solver.ocp import default_ocp as t_default_ocp
+from _torch_shared import o0, one_torch_thread  # noqa: F401
 
 N = 10
 EXACT, QP_TOL = 1e-12, 1e-9
-
-
-def _o0(fn, *args):
-    """fn(*args), jitted and compiled at XLA's optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
 def _np(x):
@@ -99,7 +94,7 @@ ROT_UNARY = ("quat_normalize", "quat_canonicalize", "quat_to_euler",
 @pytest.mark.parametrize("name", ROT_UNARY)
 def test_rotations_unary(rng, name):
     arg = rng.standard_normal((5, 3 if name == "euler_to_quat" else 4))
-    want = _o0(getattr(jrot, name), jnp.asarray(arg))
+    want = o0(getattr(jrot, name), jnp.asarray(arg))
     _close(getattr(trot, name)(_t(arg)), want, EXACT, name)
 
 
@@ -108,8 +103,8 @@ def test_rotations_binary(rng):
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     v, b = rng.standard_normal((5, 3)), rng.standard_normal((5, 4))
     _close(trot.rotate_earth_to_body(_t(q), _t(v)),
-           _o0(jrot.rotate_earth_to_body, q, v), EXACT)
-    _close(trot.quat_multiply(_t(q), _t(b)), _o0(jrot.quat_multiply, q, b),
+           o0(jrot.rotate_earth_to_body, q, v), EXACT)
+    _close(trot.quat_multiply(_t(q), _t(b)), o0(jrot.quat_multiply, q, b),
            EXACT)
 
 
@@ -117,7 +112,7 @@ def test_rotations_binary(rng):
 
 def test_dynamics_jacobians(states):
     x, u = states
-    jx, ju = _o0(lambda x, u: jjac(JParams(), x, u), x, u)
+    jx, ju = o0(lambda x, u: jjac(JParams(), x, u), x, u)
     tx, tu = tjac(QuadrotorParams(), _t(x), _t(u))
     _close(tx, jx, EXACT, "Jx")
     _close(tu, ju, EXACT, "Ju")
@@ -133,11 +128,11 @@ def test_dynamics_jacobians(states):
 def test_integrate_and_sensitivities(states, num_steps):
     x, u = states
     dt = 0.015
-    want = _o0(lambda x, u: jint.integrate(jdyn, JParams(), x, u,
+    want = o0(lambda x, u: jint.integrate(jdyn, JParams(), x, u,
                                            dt * num_steps, num_steps), x, u)
     _close(tint.integrate(tdyn, QuadrotorParams(), _t(x), _t(u),
                           dt * num_steps, num_steps), want, EXACT)
-    wx, wA, wB = _o0(lambda x, u: jint.step_with_sensitivities(
+    wx, wA, wB = o0(lambda x, u: jint.step_with_sensitivities(
         jdyn, JParams(), x, u, dt, num_steps), x[0], u[0])
     gx, gA, gB = tint.step_with_sensitivities(tdyn, QuadrotorParams(),
                                               _t(x[0]), _t(u[0]), dt,
@@ -153,7 +148,7 @@ def test_linearize_trajectory(rng, num_steps):
     x = np.tile(np.eye(1, 13, 3), (3, N + 1, 1)) + 0.05 * rng.standard_normal(
         (3, N + 1, 13))
     u = 14.0 + rng.standard_normal((3, N, 4))
-    want = _o0(jax.vmap(lambda x, u: jint.linearize_trajectory(
+    want = o0(jax.vmap(lambda x, u: jint.linearize_trajectory(
         jdyn, JParams(), x, u, 0.015, num_steps)), x, u)
     got = tint.linearize_trajectory(tdyn, QuadrotorParams(), _t(x), _t(u),
                                     0.015, num_steps)
@@ -186,7 +181,7 @@ def test_linearization_keeps_float32(states):
 def test_vde_linearization(rng):
     x = np.eye(1, 13, 3)[0] + 0.05 * rng.standard_normal((N + 1, 13))
     u = 14.0 + rng.standard_normal((N, 4))
-    want = _o0(lambda x, u: jint.linearize_trajectory_vde(JParams(), x, u,
+    want = o0(lambda x, u: jint.linearize_trajectory_vde(JParams(), x, u,
                                                           0.015), x, u)
     got = tint.linearize_trajectory_vde(QuadrotorParams(), _t(x), _t(u),
                                         0.015)
@@ -251,7 +246,7 @@ def test_qp_builders(problem):
     c = js.cost
     args = (c.W, c.Vx, c.Vu, c.W_e, c.Vx_e, st.x_traj, st.u_traj,
             problem["yref"], problem["yref_e"])
-    want = _o0(jqp.gauss_newton_cost_blocks, *args)
+    want = o0(jqp.gauss_newton_cost_blocks, *args)
     got = tqp.gauss_newton_cost_blocks(*(_t(a) for a in args))
     for k in want:
         _close(got[k], want[k], EXACT, k)
@@ -270,23 +265,23 @@ def test_qp_builders(problem):
 def test_riccati_pieces(problem):
     q, t = problem["qp"], problem["tqp"]
     Ruu = q.Ruu + 0.5 * jnp.eye(4)
-    jf = _o0(jric.factorize, q.A, q.B, q.Qxx, Ruu, q.S, q.P)
+    jf = o0(jric.factorize, q.A, q.B, q.Qxx, Ruu, q.S, q.P)
     tf = tric.factorize(t.A, t.B, t.Qxx, _t(Ruu), t.S, t.P)
     for g, w, name in zip(tf, jf, tf._fields):
         _close(g, w, QP_TOL, name)
-    jk, jp = _o0(lambda f: jric.backward_vector(f, q.A, q.B, q.qx, q.ru,
+    jk, jp = o0(lambda f: jric.backward_vector(f, q.A, q.B, q.qx, q.ru,
                                                 q.c, q.p), jf)
     tk, tp = tric.backward_vector(tf, t.A, t.B, t.qx, t.ru, t.c, t.p)
     _close(tk, jk, QP_TOL, "k_ff")
     _close(tp, jp, QP_TOL, "p")
-    jr = _o0(lambda f, k: jric.forward_rollout(f, k, q.A, q.B, q.c, q.dx0),
+    jr = o0(lambda f, k: jric.forward_rollout(f, k, q.A, q.B, q.c, q.dx0),
              jf, jk)
     tr = tric.forward_rollout(tf, tk, t.A, t.B, t.c, t.dx0)
     for g, w, name in zip(tr, jr, ("dx", "du")):
         _close(g, w, QP_TOL, name)
     args = (q.A, q.B, q.c, q.Qxx, q.qx, Ruu, q.ru, q.S, q.P, q.p, q.dx0)
     for g, w in zip(tric.solve_lq(*(_t(a) for a in args)),
-                    _o0(jric.solve_lq, *args)):
+                    o0(jric.solve_lq, *args)):
         _close(g, w, QP_TOL, "solve_lq")
 
 
@@ -303,7 +298,7 @@ def test_ipm_solve(problem, case):
     """solve (escalation included: the 3-iteration solve misses the mu
     tolerance and re-solves with 12) against the JAX package's."""
     cfg = IPM_CASES[case]
-    want = _o0(lambda q: jipm.solve(q, jipm.IPMConfig(**cfg)), problem["qp"])
+    want = o0(lambda q: jipm.solve(q, jipm.IPMConfig(**cfg)), problem["qp"])
     got = tipm.solve(problem["tqp"], tipm.IPMConfig(**cfg))
     for f in ("dx", "du", "lam_l", "lam_u"):
         _close(getattr(got, f), getattr(want, f), QP_TOL, f)
@@ -318,7 +313,7 @@ def test_ipm_warm_duals_and_iterate(problem):
     q, t = problem["qp"], problem["tqp"]
     lam = np.full((N, 4), 0.3)
     cfg = dict(iters=4)
-    want = _o0(lambda q, l: jipm.solve(q, jipm.IPMConfig(**cfg), l, l), q,
+    want = o0(lambda q, l: jipm.solve(q, jipm.IPMConfig(**cfg), l, l), q,
                lam)
     got = tipm.solve(t, tipm.IPMConfig(**cfg), _t(lam), _t(lam))
     _close(got.du, want.du, QP_TOL, "du")
@@ -326,7 +321,7 @@ def test_ipm_warm_duals_and_iterate(problem):
     carry_t = tipm.init_state(t)
     for g, w in zip(carry_t, carry_j):
         _close(g, w, EXACT, "init_state")
-    (cj, (aj, mj)) = _o0(lambda q, c: jipm.iterate(q, jipm.IPMConfig(), c),
+    (cj, (aj, mj)) = o0(lambda q, c: jipm.iterate(q, jipm.IPMConfig(), c),
                          q, carry_j)
     (ct, (at, mt)) = tipm.iterate(t, tipm.IPMConfig(), carry_t)
     for g, w in zip(ct, cj):
@@ -338,7 +333,7 @@ def test_ipm_warm_duals_and_iterate(problem):
 @pytest.mark.parametrize("block", [2, 5])
 def test_condensing(problem, block):
     q, t = problem["qp"], problem["tqp"]
-    jr, jm = _o0(lambda q: jcond.condense(q, block), q)
+    jr, jm = o0(lambda q: jcond.condense(q, block), q)
     tr, tm = tcond.condense(t, block)
     for f in convert.QP_KEYS:
         _close(getattr(tr, f), getattr(jr, f), EXACT, f)
@@ -348,10 +343,10 @@ def test_condensing(problem, block):
     dx = np.linspace(-1, 1, (M + 1) * 13).reshape(M + 1, 13)
     v = np.linspace(0, 2, M * block * 4).reshape(M, block * 4)
     for g, w in zip(tcond.expand(tm, _t(dx), _t(v)),
-                    _o0(jcond.expand, jm, dx, v)):
+                    o0(jcond.expand, jm, dx, v)):
         _close(g, w, EXACT, "expand")
     cfg = dict(iters=8)
-    want = _o0(lambda q: jcond.solve_partial(q, block,
+    want = o0(lambda q: jcond.solve_partial(q, block,
                                              jipm.IPMConfig(**cfg)), q)
     got = tcond.solve_partial(t, block, tipm.IPMConfig(**cfg))
     for f in ("dx", "du", "lam_l", "lam_u"):
@@ -366,13 +361,13 @@ def test_outputs(rng):
     u1 = 12.0 + 3.0 * rng.standard_normal((4, 4))
     x4 = rng.standard_normal((4, 13))
     for clamp in (True, False):
-        want = _o0(lambda u, x: jout.to_cmd_vel(u, x, clamp), u1, x4)
+        want = o0(lambda u, x: jout.to_cmd_vel(u, x, clamp), u1, x4)
         got = tout.to_cmd_vel(_t(u1), _t(x4), clamp)
         for g, w, name in zip(got, want, got._fields):
             _close(g, w, EXACT, name)
     pwm = rng.uniform(0, 60000, 7)
-    _close(tout.pwm2krpm(_t(pwm)), _o0(jout.pwm2krpm, pwm), EXACT)
-    _close(tout.krpm2pwm(_t(u1)), _o0(jout.krpm2pwm, u1), EXACT)
+    _close(tout.pwm2krpm(_t(pwm)), o0(jout.pwm2krpm, pwm), EXACT)
+    _close(tout.krpm2pwm(_t(u1)), o0(jout.krpm2pwm, u1), EXACT)
 
 
 @pytest.mark.parametrize("mode, playhead", [("regulation", 0),
@@ -403,7 +398,7 @@ def test_make_yref(rng, mode, playhead):
         tst = dataclasses.replace(getattr(tpol, make)(sp, device="cpu"),
                                   playhead=torch.tensor(playhead,
                                                         dtype=torch.int32))
-    jy, jye, jns = _o0(lambda s, t: jpol.make_yref(js, s, t), jst, table)
+    jy, jye, jns = o0(lambda s, t: jpol.make_yref(js, s, t), jst, table)
     ty, tye, tns = tpol.make_yref(ts_, tst, _t(table))
     _close(ty, jy, EXACT, "yref")
     _close(tye, jye, EXACT, "yref_e")

@@ -23,16 +23,11 @@ from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig as TCfg
 from crazyflie_nmpc_tpu_torch.ops.ipm import certified_config as t_certified
+from _torch_shared import o0, one_torch_thread  # noqa: F401
 
 N, TICKS = 10, 3
 TOL = 1e-9
 RTI_FIELDS = ("u0", "u1", "x_plan", "u_plan", "kkt_res", "qp_mu")
-
-
-def _o0(fn, *args):
-    """fn(*args), jitted and compiled at XLA's optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
 def _close(got, want, name=""):
@@ -114,7 +109,7 @@ def test_certified_tick(single):
     """certified_config(): 8 iterations miss the mu tolerance on the
     transient and the tick re-solves with 32, on both sides."""
     s = single
-    jst, jout = _o0(lambda st, x: jrti.rti_step(
+    jst, jout = o0(lambda st, x: jrti.rti_step(
         s["js"], st, x, s["yref"], s["yref_e"], j_certified()), s["jst"],
         jnp.asarray(s["x0"]))
     _, tout = ts.rti_step(*_targs(s), t_certified())
@@ -124,7 +119,7 @@ def test_certified_tick(single):
 def test_sqp_and_as_rti(single):
     s = single
     js = s["js"]
-    jst, jk = _o0(lambda st, x: jrti.sqp_solve(js, st, x, s["yref"],
+    jst, jk = o0(lambda st, x: jrti.sqp_solve(js, st, x, s["yref"],
                                                s["yref_e"], iters=3,
                                                config=JCfg(iters=8)),
                   s["jst"], jnp.asarray(s["x0"]))
@@ -136,7 +131,7 @@ def test_sqp_and_as_rti(single):
     assert float(tk[-1]) < float(tk[0])
 
     x_pred = s["x0"] + 0.01
-    jst2, jout = _o0(lambda st, x, xp: jrti.as_rti_step(
+    jst2, jout = o0(lambda st, x, xp: jrti.as_rti_step(
         js, st, x, xp, s["yref"], s["yref_e"], JCfg(iters=8),
         prep_iters=2), s["jst"], jnp.asarray(s["x0"]), jnp.asarray(x_pred))
     tst2, tout = ts.as_rti_step(tspec, st, x, _t(x_pred), yref, yref_e,

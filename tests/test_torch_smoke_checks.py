@@ -13,18 +13,9 @@ from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.runtime.batch import monte_carlo_hover
 from crazyflie_nmpc_tpu_torch.solver import default_ocp
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N = 10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -818,3 +809,47 @@ def test_kernels_line_has_17_kernels():
     assert table["kkt_sweep"]["replaces"].endswith("riccati_kernels.py:459")
     assert table["backward_sweep"]["replaces"].endswith(
         "riccati_kernels.py:233")
+
+
+def test_k6_is_listed_as_a_group_kernel():
+    """K6 on K1's block (32 lanes of a pair, 8 threads a lane): timed at
+    every B with its occupancy (GROUP_KERNELS; its grid spans the M pairs
+    too), checked on a ragged last tile, at B=1 and at one stage pair
+    (RAGGED_KERNELS, N_PAIR), with condensed_kernels' launch shape and
+    occupancy entry, and found in a trace under its own CUDA function's
+    name, not K1's."""
+    import re
+
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    assert "condense2" in cs.GROUP_KERNELS
+    assert "condense2" in cs.RAGGED_KERNELS and cs.N_PAIR == 2
+    assert "condense2" in cs.PAIR_GRID_KERNELS
+    assert cs.B_RAGGED % ck.CONDENSE_LANES != 0
+    geometry, blocks_per_sm, group = cs.group_kernel("condense2")
+    assert geometry is ck.condense_launch_geometry
+    assert blocks_per_sm is ck.condense_blocks_per_sm
+    assert group == ck.CONDENSE_THREADS // ck.CONDENSE_LANES == 8
+    pattern = cs.kernel_pattern("condense2")
+    assert re.search(pattern, "void (anonymous namespace)::condense2_kernel"
+                              "<float>(float const*, int)")
+    assert not re.search(pattern, "prep_condense2_kernel<float, 4>")
+
+
+def test_fma_chain_is_checked_at_ragged_lanes():
+    """[roofline] holds fma_chain (8 lanes a block) at B_RAGGED, on a
+    ragged last tile and at B=1 besides B_CHECK, stage_replay at B_CHECK;
+    on the CPU the plain chain of the parity inputs is finite at B=1 and
+    one group of products short differs."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+    from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
+
+    batches = cs.PROBE_BATCHES["fma_chain"]
+    assert batches[:2] == (cs.B_CHECK, cs.B_RAGGED) and batches[-1] == 1
+    assert cs.PROBE_BATCHES["stage_replay"] == (cs.B_CHECK,)
+    assert set(cs.PROBE_BATCHES) == set(cs.PROBE_INFO)
+    assert [B for B in batches if B % sk.FMA_LANES] == [batches[2], 1]
+    (a, b), _ = sol.probe_inputs(1, torch.float64, "cpu", parity=True)
+    full = sk.fma_chain(a, b, reps=32)
+    _, rel = cs.compare([full], [sk.fma_chain_plain(a, b, reps=16)])
+    assert bool(full.isfinite().all()) and rel > cs.TOL["float64"]

@@ -61,6 +61,7 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig as TCfg
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prep_tiles,
                                                          prepare_qp,
                                                          rti_step_batched)
+from _torch_shared import o0, one_torch_thread  # noqa: F401
 
 B, STEPS = 8, 2
 KERNEL_TOL, TOL = 1e-12, 1e-9
@@ -156,12 +157,6 @@ def _qp(N, seed, fused_condense):
 
 # --- the JAX side ------------------------------------------------------------
 
-def _jit(fn, *args):
-    """fn(*args), jitted and compiled at XLA's optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
-
-
 def _host(tree):
     """JAX outputs as numpy, bfloat16 as float32 (exact)."""
     def one(a):
@@ -172,34 +167,34 @@ def _host(tree):
 
 
 def _j_prep(k7, k1):
-    return (_jit(lambda *a: jpk.prep_sweep(*a, **KERN, vde_order=2), *k7),
-            _jit(lambda *a: jpk.prep_condense2(
+    return (o0(lambda *a: jpk.prep_sweep(*a, **KERN, vde_order=2), *k7),
+            o0(lambda *a: jpk.prep_condense2(
                 *a, block_b=B, pairs_per_step=1, interpret=True,
                 vde_order=2), *k1))
 
 
 def _j_k9(k9b, dx0, ru_v):
     A, Bm, c, _, qx, _, _, _, p_term = k9b
-    K, kff, L, Pc = _jit(lambda *a: jrk.backward_sweep(*a, **KERN), *k9b)
-    fwd = _jit(lambda *a: jrk.forward_sweep(*a, **KERN), A, Bm, c, K, kff,
+    K, kff, L, Pc = o0(lambda *a: jrk.backward_sweep(*a, **KERN), *k9b)
+    fwd = o0(lambda *a: jrk.forward_sweep(*a, **KERN), A, Bm, c, K, kff,
                dx0)
-    vec = _jit(lambda *a: jrk.backward_vector_sweep(*a, **KERN), A, Bm, qx,
+    vec = o0(lambda *a: jrk.backward_vector_sweep(*a, **KERN), A, Bm, qx,
                ru_v, K, L, Pc, p_term)
     return (K, kff, L, Pc), fwd, (vec,)
 
 
 def _j_bf16(stream, rest, k3):
     stream = [jnp.asarray(a, jnp.bfloat16) for a in stream]
-    k2 = _jit(lambda *a: jck.kkt_sweep_c2(
+    k2 = o0(lambda *a: jck.kkt_sweep_c2(
         *a, **KERN, gains_dtype=jnp.bfloat16, a_dev=True), *stream, *rest)
     qx, ru, p_term, dx0 = k3
-    k3 = _jit(lambda *a: jck.corrector_sweep_c2(*a, **KERN, a_dev=True),
+    k3 = o0(lambda *a: jck.corrector_sweep_c2(*a, **KERN, a_dev=True),
               *stream, qx, ru, k2[0], k2[2], k2[3], p_term, dx0)
     return k2, k3
 
 
 def _j_solve(qp, cfg, kw):
-    sol = _jit(lambda q: jfast.solve_batched(q, JCfg(**cfg), **KERN, **kw),
+    sol = o0(lambda q: jfast.solve_batched(q, JCfg(**cfg), **KERN, **kw),
                qp)
     return dict(sol.stats, dx=sol.dx, du=sol.du, lam_l=sol.lam_l,
                 lam_u=sol.lam_u)

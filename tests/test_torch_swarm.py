@@ -31,19 +31,10 @@ from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.runtime import swarm as tswarm
 from crazyflie_nmpc_tpu_torch.solver import default_ocp
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B = 16, 5
 JAX_BAR = dict(angle_atol=0.02, thrust_rtol=1e-3, u_rtol=1e-3, u_atol=5e-3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -14,14 +14,7 @@ from crazyflie_nmpc_tpu.native import FirmwareSim as JFirmwareSim
 from crazyflie_nmpc_tpu_torch import tools
 from crazyflie_nmpc_tpu_torch.native import FirmwareSim
 from crazyflie_nmpc_tpu_torch.runtime.bag import Bag, BagWriter
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_shared import one_torch_thread  # noqa: F401
 
 
 def test_toc_lists_what_the_jax_tool_lists(capsys):

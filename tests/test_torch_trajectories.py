@@ -13,6 +13,7 @@ from crazyflie_nmpc_tpu.models import QuadrotorParams as JParams
 from crazyflie_nmpc_tpu.utils import trajectories as jtr
 from crazyflie_nmpc_tpu_torch.models import QuadrotorParams
 from crazyflie_nmpc_tpu_torch.utils import trajectories as ttr
+from _torch_shared import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 JP, TP = JParams(), QuadrotorParams()

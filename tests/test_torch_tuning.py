@@ -42,6 +42,7 @@ from crazyflie_nmpc_tpu_torch import convert, device
 from crazyflie_nmpc_tpu_torch.ops import ipm as tipm
 from crazyflie_nmpc_tpu_torch.runtime import closed_loop as tcl
 from crazyflie_nmpc_tpu_torch.runtime import tuning as ttuning
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, TF, TICKS, ITERS = 6, 0.09, 6, 3
 SETPOINT = (0.0, 0.0, 0.5)
@@ -51,16 +52,6 @@ Q_DETUNED = np.array([1.2, 1.0, 1.0, 1e-3, 1e-3, 1e-3, 1e-3,
 W_DETUNED = np.concatenate([Q_DETUNED, np.full(4, 0.06)])
 WE_DETUNED = 50.0 * Q_DETUNED
 ROTOR_PAIRS = ((13, 16), (14, 15))   # mirror-image rotors of the X frame
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _objective(xs, us, settle, u_weight, sp):

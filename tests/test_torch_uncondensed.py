@@ -38,6 +38,7 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import certified_config
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import (prep_tiles,
                                                          prepare_qp,
                                                          rti_step_batched)
+from _torch_shared import jit_o0, one_torch_thread  # noqa: F401
 
 B, STEPS = 8, 2
 PREP_TOL, TOL = 1e-12, 1e-9
@@ -209,7 +210,7 @@ def steps(request):
     tspec = convert.spec_from_numpy(convert.leaves_from_spec(jspec), N,
                                     device="cpu", dtype=torch.float64)
     yref, yref_e = hover_yref(jspec)
-    step = jax.jit(lambda s, x: j_step(
+    step = jit_o0(lambda s, x: j_step(
         jspec, s, x, yref, yref_e, JCfg(iters=8), block_b=B,
         stages_per_step=1, prep_stages_per_step=1, interpret=True, **kw))
     jst = jax.vmap(lambda x: init_rti(jspec, x))(jnp.asarray(x0s))
@@ -262,7 +263,7 @@ def test_solve_batched_defaults_match_jax(uncondensed_qp):
     """The same call, `solve_batched(qp, cfg)` with the default condense
     (1), on one uncondensed QP in both packages (the JAX side in interpret
     mode at one lane block)."""
-    jsol = jax.jit(lambda q: jfast.solve_batched(
+    jsol = jit_o0(lambda q: jfast.solve_batched(
         q, JCfg(iters=8), block_b=B, interpret=True))(
             {k: jnp.asarray(v) for k, v in uncondensed_qp.items()})
     tsol = tfast.solve_batched(
@@ -276,7 +277,7 @@ def test_solve_batched_defaults_match_jax(uncondensed_qp):
 def test_certified_escalation_matches_jax(uncondensed_qp):
     """certified_config at N=9 (condense=1): the escalated lanes, their
     number and every solution field as the JAX package's."""
-    jsol = jax.jit(lambda q: jfast.solve_batched(
+    jsol = jit_o0(lambda q: jfast.solve_batched(
         q, j_certified(capacity=4), block_b=B, interpret=True))(
             {k: jnp.asarray(v) for k, v in uncondensed_qp.items()})
     tsol = tfast.solve_batched(
@@ -293,7 +294,7 @@ def test_solve_batched_warm_start_duals_match_jax(uncondensed_qp):
     rng = np.random.default_rng(6)
     lam0 = [rng.uniform(-0.5, 2.0, uncondensed_qp["lb"].shape)
             for _ in range(2)]
-    jsol = jax.jit(lambda q, a, b: jfast.solve_batched(
+    jsol = jit_o0(lambda q, a, b: jfast.solve_batched(
         q, JCfg(iters=3), block_b=B, interpret=True, lam0_l=a, lam0_u=b))(
             {k: jnp.asarray(v) for k, v in uncondensed_qp.items()},
             *map(jnp.asarray, lam0))

@@ -26,6 +26,7 @@ from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
 from crazyflie_nmpc_tpu_torch.utils import (checkpoint, coherence, config,
                                             debug, profiling, tree)
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B = 10, 4
 

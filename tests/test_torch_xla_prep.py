@@ -25,6 +25,7 @@ from crazyflie_nmpc_tpu_torch import solver as ts
 from crazyflie_nmpc_tpu_torch.ops import cuda as kc
 from crazyflie_nmpc_tpu_torch.ops.ipm import IPMConfig as TCfg
 from crazyflie_nmpc_tpu_torch.solver.rti_batched import rti_step_batched
+from _torch_shared import one_torch_thread  # noqa: F401
 
 N, B = 10, 8
 TOL = 1e-9
