@@ -100,7 +100,7 @@ and seventeen paths of their own:
                  ops.riccati on the card and against its own CPU run
                  (tests/test_riccati.py's bars), with no host sync; then
                  the B=1 float32 crossover against the sequential sweep
-                 at N = 50 / 200 / 800 / 3200 (ms, host issue, launches,
+                 at N = 50 / 200 / 800 (ms, host issue, launches,
                  accuracy: reported, no bar);
   [bringup]      the launch layer (bringup, tools), every UDP port 0:
                  nmpc_predictor (30 ticks, both actuations) and
@@ -114,8 +114,8 @@ and seventeen paths of their own:
                  crazyflie_nmpc_tpu_torch.bringup teleop`;
   [roofline]     the speed-of-light probes fma_chain and stage_replay
                  against their plain versions (on inputs whose output
-                 depends on every product and stage; fma_chain at B =
-                 1024, 1000, 1003 and 1), then the study of
+                 depends on every product and stage; both at B = 1024,
+                 1000, 1003 and 1), then the study of
                  crazyflie_nmpc_tpu_torch/roofline/ipm_iter_sol.py at N=50,
                  B=4096 (its table on the lines it prints).
 
@@ -3187,30 +3187,31 @@ def time_group_batches(device, name, inputs):
                   f"{bound_ms:.4f} ms, {blocks} blocks, {waves} wave(s)")
 
 
-# the lanes each probe is checked at: fma_chain (8 lanes a block) also at
+# the lanes each probe is checked at: both (8 lanes a block) also at
 # B_RAGGED, on a ragged last tile (B_RAGGED + 3) and at B=1
 PROBE_BATCHES = {"fma_chain": (B_CHECK, B_RAGGED, B_RAGGED + 3, 1),
-                 "stage_replay": (B_CHECK,)}
+                 "stage_replay": (B_CHECK, B_RAGGED, B_RAGGED + 3, 1)}
 
 
 def probe_flops(name, B, reps):
     """Operations one probe launch needs (2 per multiply-add, 1 per other
     operation).  fma_chain: per product and lane 13^3 multiply-adds and
     13^2 for the scale and the added b.  stage_replay: per stage and lane
-    bwd_c2's stage (flops_of) without kff's solve (64 multiply-adds),
-    which the replay drops."""
+    bwd_c2's whole stage (flops_of), kff's solve included: the replay runs
+    K2's group stage, whose thread 13 solves for kff beside K's
+    columns."""
     from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
 
     if name == "fma_chain":
         return float(2 * (2197 + 169)) * (reps // sk.UNROLL * sk.UNROLL) * B
-    return (flops_of("bwd_c2", 1, 2) - 2 * 64) * reps * B
+    return flops_of("bwd_c2", 1, 2) * reps * B
 
 
 def phase_roofline(device):
     """The speed-of-light study's probes and path: fma_chain and
     stage_replay against their plain versions at B=B_CHECK in float64
-    and float32 (their default reps), fma_chain (a group of threads a
-    lane, 8 lanes a block) also at the B of PROBE_BATCHES (a ragged last
+    and float32 (their default reps), both (a group of threads a lane, 8
+    lanes a block) also at the other B of PROBE_BATCHES (a ragged last
     tile, B=1), on inputs whose output depends on every product and stage
     (probe_inputs(parity=True)): the kernel's answer must also disagree,
     beyond the same tolerance, with the plain version one group of UNROLL
@@ -3232,7 +3233,8 @@ def phase_roofline(device):
     short = {"fma_chain": sk.UNROLL, "stage_replay": 1}
     errs = {}
     for dtype, B in itertools.product((torch.float64, torch.float32),
-                                      PROBE_BATCHES["fma_chain"]):
+                                      dict.fromkeys(itertools.chain(
+                                          *PROBE_BATCHES.values()))):
         dn = str(dtype).split(".")[1]
         for name, args in zip(PROBE_INFO, sol.probe_inputs(
                 B, dtype, device, parity=True)):
@@ -3833,7 +3835,9 @@ def phase_certified_loops(device):
 # ---------------------------------------------------------------------------
 
 PSCAN_PARITY_N = (50, 200)
-PSCAN_N = (50, 200, 800, 3200)      # tools/pscan_crossover.py's horizons
+# tools/pscan_crossover.py's horizons but its 3200 (the sequential solve
+# takes 4.7 s a call there: cut for the script's time limit)
+PSCAN_N = (50, 200, 800)
 PSCAN_REPS = 5
 # tests/test_riccati.py's bars: the solve to rtol 1e-8 / atol 1e-9, the
 # factors' P to 1e-9 and K to rtol 1e-8 / atol 1e-9
@@ -3966,7 +3970,7 @@ def time_calls(fn, reps=PSCAN_REPS):
 def phase_pscan(device):
     """ops/riccati_pscan.py on the card: the float64 parity at N=50 and
     200 (pscan_parity, tests/test_riccati.py's bars, no host sync), then
-    the crossover at B=1 in float32, N = 50 / 200 / 800 / 3200: pscan's
+    the crossover at B=1 in float32, N = 50 / 200 / 800: pscan's
     solve_lq_pscan against the sequential solve_lq, each call's
     CUDA-event ms and host issue ms (median of 5), its launches (a
     torch.profiler trace of one call) and its max |du| from the float64

@@ -46,22 +46,44 @@
 // these.  Ragged tiles: spare lanes read lane B-1, store nothing, and take
 // part in the barrier.
 //
-// stage_replay runs `reps` backward stages of the one-thread-per-lane K2
-// (the factorization loop as that kernel wrote it out), on the
-// same stage data every stage: PA, PB, Pc, m, B'PB, Quu (R00 in its
+// stage_replay runs `reps` backward stages of K2 on K2's own design, on
+// the same stage data every stage: PA, PB, Pc, m, B'PB, Quu (R00 in its
 // top-left 4x4 block, the shift on its diagonal), Qux ([S1T; 0] + B'PA),
 // Qu, the packed 8x8 rsqrt Cholesky, K, kff, A'PA, Qux'K, P symmetrised,
-// p.  It drops K2's stores of K, kff, L and Pc (so the compiler also drops
-// kff's solve, dead without its store, as in the JAX tool's replay: ~70 of
-// the stage's ~11k multiply-adds).  The stage inputs are read through lane
-// views at fixed addresses every stage, so they stay in L1/L2: the card's
-// counterpart of the TPU's VMEM-resident data.  Per-stage time x stages x
-// waves is the issue floor of a one-thread-per-lane K2's backward phase
-// (kkt_sweep_c2.cu splits a lane's stage over a thread group and is not
-// bound by it).  One thread per lane, 64 threads a block, the launch shape
-// of the port's one-thread-per-lane sweeps.  It is written out here rather
-// than shared as an inlined stage function: ptxas scheduled that form ~6%
-// slower (PERF.md).
+// p.  K2's group and block: kGroup = 16 threads a lane, kLanes = 8 lanes
+// a block (kThreads = 128), the lane's slots at kStride = 1548 values, K2's
+// layout (49,536 bytes a block in float32, 4 blocks and 32 lanes an SM:
+// B=4096 is one wave; 99,072 in float64, 2 blocks), both over 48 KB, so the
+// launch sets the opt-in attribute.  The stage inputs land once, before
+// the loop, through K2's stage_in (stage k = 0) into K2's slots, A and B̄
+// transposed, and the cost-to-go (P0, p0) into P and p: the card's
+// counterpart of the TPU's VMEM-resident data.  Then `reps` times K2's
+// phases A-D with their barriers, exactly as kkt_sweep_c2.cu runs them
+// (its text, copied: tests/test_torch_roofline.py holds the two equal);
+// kff's solve stays (thread 13, beside K's columns), and K2's stores of its
+// gains are dropped, as the JAX tool's replay drops its stores.  P and p go
+// out once, at the end, in the flat (entry, lane) order of K2's stage_out.
+// So its per-stage time is the floor of K2's backward stage under K2's own
+// design with no HBM traffic: K2's measured backward stage less it is
+// K2's loads and stores.  A ragged tile's spare groups read lane B-1,
+// store nothing, and take part in every barrier.  The wrapper
+// (ops/cuda/sol_kernels.replay_launch_geometry) computes grid, block and
+// shared bytes; the launch refuses numbers that disagree with these.
+// The phases are a copy, not shared with kkt_sweep_c2.cu: moved into a
+// header that both include (as one function with the prefetch and the
+// gains' stores as hooks, and as three functions with them in between),
+// they gave K5a's float32 form 127 registers instead of its 128 and
+// changed the SASS of every K2 and K5a form, though their outputs stayed
+// bit for bit (PERF.md).  `ptxas -v`: 96 registers in float32, 148
+// in float64, no spills.  60 stages take 0.352 / 0.637 / 1.272 ms at B =
+// 1024 / 4096 / 8192 in float32, 11.0-11.4 us a stage at 4096, 8.0x the
+// bound by operations; its phases A, B, C and D take 33 / 20 / 10 / 28%
+// of it (H100 80GB HBM3, 700 W; roofline/kkt_variants.py --kernel
+// stage_replay, roofline/ipm_iter_sol.py).  At B=1024 one block an SM
+// leaves four warps to hide each thread's shared-memory chain.  Its form
+// before, one thread a lane (64 a block), held the stage's chain of ~11k
+// multiply-adds in one thread: 255 registers in float32 with spills,
+// 2.547 / 2.686 / 4.132 ms at the same B.
 #include <algorithm>
 
 #include "c2_stage.cuh"
@@ -197,192 +219,313 @@ fma_chain_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// The one-thread K2's stage loop without the stores of K, kff, L and Pc.
-// Stage `rep` reads its inputs at stage rep * stride, and the wrapper
-// passes stride 0: every stage reads the same addresses, but through an
-// index the compiler cannot prove constant, so the loads stay inside the
-// loop as that K2's did.  With a constant index ptxas gave the kernel 32
-// registers and a 5.8 KB stack (the loop-invariant stage data kept in
-// local memory, by the look of it), and the replay ran 1.5x slower than
-// that K2's whole stage (PERF.md).
+// stage_replay's copy of K2's group pieces (kkt_sweep_c2.cu): its launch
+// shape, its lane's slots (the backward pass's; K2's rollout slots, which
+// the replay does not use, are left out) and its copies in and out.
+constexpr int kGroup = 16;                 // threads per lane
+constexpr int kThreads = 128;              // threads per block
+constexpr int kLanes = kThreads / kGroup;  // lanes per block
+
+// One lane's shared-memory slots (offsets in values of the compute type).
+namespace slot {
+// Rows of 13 are padded to 16 values and rows of 8 start every 8, each
+// row 16-byte aligned, so a row is read with 16-byte vector loads
+// (ld_row).  A, B and the products the stage reads by column are kept
+// transposed: AT row j is column j of Abar, PAT row j column j of P A.
+constexpr int RW = 16;                  // the pitch of a 13-row
+constexpr int P = 0;                    // P (13 rows)
+constexpr int PAT = P + NX * RW;        // (P A)^T (13 rows)
+constexpr int PBT = PAT + NX * RW;      // (P B)^T (8 rows)
+constexpr int AT = PBT + NUC * RW;      // Abar^T (13 rows)
+constexpr int BT = AT + NX * RW;        // Bbar^T (8 rows)
+constexpr int QUXT = BT + NUC * RW;     // Qux^T (13 rows of 8)
+constexpr int KT = QUXT + NX * NUC;     // K^T (13 rows of 8)
+constexpr int QUU = KT + NX * NUC;      // Quu (8x8, lower triangle)
+constexpr int L = QUU + NUC * NUC;      // packed Cholesky factor (36 of 40)
+constexpr int PV = L + 40;              // p
+constexpr int MV = PV + RW;             // m = p + Pc
+constexpr int PC = MV + RW;             // Pc = P c
+constexpr int C = PC + RW;              // cbar
+constexpr int QU = C + RW;              // Qu (8)
+constexpr int KFF = QU + NUC;           // kff (8)
+constexpr int Q = KFF + NUC;            // Qbar (13x13, unpadded)
+constexpr int S = Q + 172;              // S1T (4x13)
+constexpr int R = S + NU * NX;          // R00 (4x4)
+constexpr int QX = R + NU * NU;         // qbar
+constexpr int RS = QX + RW;             // the shifted R̄ diagonal (8)
+constexpr int RU = RS + NUC;            // rbar (8)
+constexpr int END = RU + NUC;
+static_assert(PAT % 8 == 0 && PBT % 8 == 0 && AT % 8 == 0 && BT % 8 == 0 &&
+                  QUXT % 8 == 0 && KT % 8 == 0 && PV % 8 == 0 &&
+                  MV % 8 == 0 && PC % 8 == 0 && C % 8 == 0 && QU % 8 == 0,
+              "rows start 16-byte aligned in both dtypes");
+}  // namespace slot
+
+// 1548 a lane: 16-byte aligned, and two lanes' same entry 12 banks apart
+constexpr int kStride = slot::END + 4;
+static_assert(kStride == 1548, "replay_launch_geometry's REPLAY_LANE_VALUES");
+
+// Global -> shared copies that hold no registers: each thread keeps all
+// its copies of a stage in flight (cp.async), and copy_wait() waits for
+// them; __syncthreads() after it makes every thread's copies visible.
 template <typename T>
-__global__ void __launch_bounds__(64)
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  CFL_ASM(asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                           static_cast<unsigned>(
+                               __cvta_generic_to_shared(dst))),
+                       "l"(src), "n"(sizeof(T))
+                       : "memory"),
+          *dst = *src);
+}
+__device__ __forceinline__ void copy_wait() {
+  CFL_ASM(asm volatile("cp.async.wait_all;\n" ::: "memory"), (void)0);
+}
+
+// Entries [0, n) of a batch-last input (one stage) into every lane's slot
+// `dst`, entry r at dst + r, or with NCOL > 0 (an input of rows of NCOL)
+// transposed, entry (i, j) at dst + j PITCH + i: K2's stage_in at k = 0 on
+// the compute type, thread f of the flat (entry, lane) order taking entry
+// f / kLanes of lane f % kLanes.  copy_wait() before use.
+template <int NCOL = 0, int PITCH = 0, typename T>
+__device__ __forceinline__ void stage_in(T* sh, int dst, const T* src,
+                                         int n, int B, int b0) {
+#pragma unroll 4
+  for (int f = threadIdx.x; f < n * kLanes; f += kThreads) {
+    const int r = f / kLanes, l = f % kLanes;
+    const int at = NCOL ? (r % NCOL) * PITCH + r / NCOL : r;
+    copy_async(sh + l * kStride + dst + at,
+               src + (size_t)r * B + min(b0 + l, B - 1));
+  }
+}
+
+// Every lane's slot `src` (rows of `cols` at a pitch of `pitch`) into
+// entries [0, n) of a batch-last output, in K2's stage_out order; a ragged
+// tile's spare lanes store nothing.
+template <typename T>
+__device__ __forceinline__ void stage_out(T* dst, const T* sh, int src,
+                                          int n, int cols, int pitch, int B,
+                                          int b0) {
+  for (int f = threadIdx.x; f < n * kLanes; f += kThreads) {
+    const int r = f / kLanes, l = f % kLanes;
+    if (b0 + l < B)
+      dst[(size_t)r * B + b0 + l] =
+          sh[l * kStride + src + r / cols * pitch + r % cols];
+  }
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+__device__ __forceinline__ void unpack(const float4& v, float* e) {
+  e[0] = v.x;
+  e[1] = v.y;
+  e[2] = v.z;
+  e[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const double2& v, double* e) {
+  e[0] = v.x;
+  e[1] = v.y;
+}
+
+// x = p[0, n) of a 16-byte aligned row, read in 16-byte vectors (up to
+// the row's padding).
+template <int n, typename T>
+__device__ __forceinline__ void ld_row(const T* p, T (&x)[n]) {
+  constexpr int per = 16 / static_cast<int>(sizeof(T));
+  constexpr int nv = (n + per - 1) / per;
+  T e[nv * per];
+#pragma unroll
+  for (int v = 0; v < nv; ++v)
+    unpack(reinterpret_cast<const typename Vec16<T>::type*>(p)[v],
+           e + v * per);
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = e[i];
+}
+
+// x[0] y[0] + x[1] y[1] + ..., in that order
+template <int n, typename T>
+__device__ __forceinline__ T dot(const T (&x)[n], const T (&y)[n]) {
+  T s = x[0] * y[0];
+#pragma unroll
+  for (int i = 1; i < n; ++i) s = s + x[i] * y[i];
+  return s;
+}
+
+// stage_replay's shared bytes a block: K2's lane (kStride values)
+template <typename T>
+constexpr int replay_smem() {
+  return kLanes * kStride * static_cast<int>(sizeof(T));
+}
+
+// What __launch_bounds__ asks for: the blocks an SM holds by shared memory
+// (4 in float32, 128 registers a thread; 2 in float64), as K2's
+template <typename T>
+constexpr int replay_min_blocks() {
+  return (227 * 1024) / replay_smem<T>();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, replay_min_blocks<T>())
 stage_replay_kernel(const T* __restrict__ Abar, const T* __restrict__ Bbar,
                     const T* __restrict__ cbar, const T* __restrict__ Qbar,
                     const T* __restrict__ S1T, const T* __restrict__ R00,
                     const T* __restrict__ qx, const T* __restrict__ ruu,
                     const T* __restrict__ ru, const T* __restrict__ P0,
                     const T* __restrict__ p0, T* __restrict__ Pout,
-                    T* __restrict__ pout, int reps, int stride,
-                    int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  T P[NX][NX], p[NX];
-  {
-    auto Pi = lane(P0, NX * NX, 0, B, b);
-    auto pi = lane(p0, NX, 0, B, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) P[i][j] = Pi[i * NX + j];
-      p[i] = pi[i];
-    }
-  }
+                    T* __restrict__ pout, int reps, int B) {
+  using namespace slot;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
+  const int b0 = blockIdx.x * kLanes;
+  const int bl = min(b0 + l, B - 1);   // the lane this group reads
+  T* const w = sh + l * kStride;
+  const int q = Q, qv = QX;            // the stage's Qbar and qbar, as K2's
+
+  // the stage inputs land once, into K2's slots, and the cost-to-go into P
+  // (rows at pitch RW) and p
+  stage_in<NX, RW>(sh, AT, Abar, NX * NX, B, b0);
+  stage_in<NUC, RW>(sh, BT, Bbar, NX * NUC, B, b0);
+  stage_in(sh, C, cbar, NX, B, b0);
+  stage_in(sh, Q, Qbar, NX * NX, B, b0);
+  stage_in(sh, S, S1T, NU * NX, B, b0);
+  stage_in(sh, R, R00, NU * NU, B, b0);
+  stage_in(sh, QX, qx, NX, B, b0);
+  stage_in(sh, RS, ruu, NUC, B, b0);
+  stage_in(sh, RU, ru, NUC, B, b0);
+  for (int e = t; e < NX * NX; e += kGroup)
+    w[P + e / NX * RW + e % NX] = P0[e * B + bl];
+  for (int i = t; i < NX; i += kGroup) w[PV + i] = p0[i * B + bl];
+  copy_wait();
+
 #pragma unroll 1
   for (int rep = 0; rep < reps; ++rep) {
-    const int k = rep * stride;
-    auto A = lane(Abar, NX * NX, k, B, b);
-    auto Bm = lane(Bbar, NX * NUC, k, B, b);
+    __syncthreads();   // the inputs have landed; the last P and p are done
 
-    // Pc = P_{k+1} c_k (before P is updated), m = p + Pc
-    T m[NX];
-    {
-      auto c = lane(cbar, NX, k, B, b);
-      T cv[NX];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) cv[j] = c[j];
+    // P [A | B | c], one column a thread (22 columns): column j of P A
+    // into PAT row j, of P B into PBT, P c into Pc and m = p + Pc
+#pragma unroll 1
+    for (int col = t; col < NX + NUC + 1; col += kGroup) {
+      const int src = col < NX ? AT + col * RW
+                      : col < NX + NUC ? BT + (col - NX) * RW : C;
+      const int dst = col < NX ? PAT + col * RW
+                      : col < NX + NUC ? PBT + (col - NX) * RW : PC;
+      T x[NX];
+      ld_row(w + src, x);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
-        T s = P[i][0] * cv[0];
-#pragma unroll
-        for (int j = 1; j < NX; ++j) s = s + P[i][j] * cv[j];
-        m[i] = p[i] + s;
+        T pr[NX];
+        ld_row(w + P + i * RW, pr);
+        const T s = dot(pr, x);
+        w[dst + i] = s;
+        if (col == NX + NUC) w[MV + i] = w[PV + i] + s;
       }
     }
+    __syncthreads();
 
-    // Quu = B'PB + [R00 0; 0 0] + diag(ruu_shift) (lower triangle)
-    T Quu[NUC][NUC];
-    {
-      T PB[NX][NUC];
+    // B' times [PA | m | PB], one column job a thread (22 jobs): column j
+    // of PA gives Qux[:, j] = [S1T; 0][:, j] + B'PA[:, j] (into QUXT row
+    // j), m gives Qu = ru + B'm, column a2 of PB gives Quu[a2:, a2] =
+    // B'PB + [R00 0; 0 0] + diag(ruu_shift) (the lower triangle)
 #pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
+    for (int job = t; job < NX + 1 + NUC; job += kGroup) {
+      const bool qux = job < NX, qu = job == NX;
+      const int a2 = job - NX - 1;              // Quu's column
+      const int a0 = (qux || qu) ? 0 : a2;      // its first row
+      T y[NX];
+      ld_row(w + (qux ? PAT + job * RW : qu ? MV : PBT + a2 * RW), y);
 #pragma unroll
-        for (int a = 0; a < NUC; ++a) {
-          T s = P[i][0] * Bm[a];
-#pragma unroll
-          for (int j = 1; j < NX; ++j) s = s + P[i][j] * Bm[j * NUC + a];
-          PB[i][a] = s;
+      for (int a = 0; a < NUC; ++a) {
+        if (a < a0) continue;
+        T bt[NX];
+        ld_row(w + BT + a * RW, bt);
+        T s = dot(bt, y);
+        if (qux) {
+          w[QUXT + job * NUC + a] = (a < NU) ? w[S + a * NX + job] + s : s;
+        } else if (qu) {
+          w[QU + a] = w[RU + a] + s;
+        } else {
+          if (a < NU) s = s + w[R + a * NU + a2];
+          if (a == a2) s = s + w[RS + a];
+          w[QUU + a * NUC + a2] = s;
         }
       }
-      auto R = lane(R00, NU * NU, k, B, b);
-      auto rs = lane(ruu, NUC, k, B, b);
+    }
+    __syncthreads();
+
+    // L = chol(Quu) in every thread; K = -Quu^{-1} Qux one column a
+    // thread (into KT row j), kff = -Quu^{-1} Qu
+    {
+      T Qm[NUC][NUC], Lp[NLC];
 #pragma unroll
       for (int a = 0; a < NUC; ++a) {
 #pragma unroll
-        for (int a2 = 0; a2 <= a; ++a2) {
-          T s = Bm[a] * PB[0][a2];
+        for (int a2 = 0; a2 < NUC; ++a2)
+          Qm[a][a2] = (a2 <= a) ? w[QUU + a * NUC + a2] : T(0);
+      }
+      chol<T, NUC>(Qm, Lp);
+#pragma unroll 1
+      for (int col = t; col <= NX; col += kGroup) {
+        T y[NUC];
+        ld_row(w + (col < NX ? QUXT + col * NUC : QU), y);
+        cho_solve<T, NUC>(Lp, y);
+        const int dst = col < NX ? KT + col * NUC : KFF;
 #pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PB[i][a2];
-          if (a < NU) s = s + R[a * NU + a2];
-          if (a == a2) s = s + rs[a];
-          Quu[a][a2] = s;
-        }
+        for (int a = 0; a < NUC; ++a) w[dst + a] = -y[a];
+      }
+      if (t == kGroup - 1) {
+#pragma unroll
+        for (int q = 0; q < NLC; ++q) w[L + q] = Lp[q];
       }
     }
+    __syncthreads();
 
-    // PA = P A;  Qux = [S1T; 0] + B' PA;  Qu = ru + B' m
-    T PA[NX][NX], Qux[NUC][NX], Qu[NUC];
+    // X = Qbar + A'PA + Qux'K one column a thread (into P, before the
+    // symmetrization); the 14th job p <- qx + A'm + K'Qu
 #pragma unroll 1
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        T s = P[i][0] * A[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + P[i][l] * A[l * NX + j];
-        PA[i][j] = s;
-      }
-    }
-    {
-      auto S = lane(S1T, NU * NX, k, B, b);
-      auto r = lane(ru, NUC, k, B, b);
-#pragma unroll 1
-      for (int a = 0; a < NUC; ++a) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = Bm[a] * PA[0][j];
-#pragma unroll
-          for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * PA[i][j];
-          Qux[a][j] = (a < NU) ? S[a * NX + j] + s : s;
-        }
-        T s = Bm[a] * m[0];
-#pragma unroll
-        for (int i = 1; i < NX; ++i) s = s + Bm[i * NUC + a] * m[i];
-        Qu[a] = r[a] + s;
-      }
-    }
-
-    // L = chol(Quu); K = -Quu^{-1} Qux; kff = -Quu^{-1} Qu
-    T Lp[NLC], Kk[NUC][NX], kf[NUC];
-    chol<T, NUC>(Quu, Lp);
-#pragma unroll 1
-    for (int j = 0; j < NX; ++j) {
-      T y[NUC];
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) y[a] = Qux[a][j];
-      cho_solve<T, NUC>(Lp, y);
-#pragma unroll
-      for (int a = 0; a < NUC; ++a) Kk[a][j] = -y[a];
-    }
-#pragma unroll
-    for (int a = 0; a < NUC; ++a) kf[a] = Qu[a];
-    cho_solve<T, NUC>(Lp, kf);
-
-    // P <- sym(Qbar + A'PA + Qux'K);  p <- qx + A'm + K'Qu
-    {
-      auto Q = lane(Qbar, NX * NX, k, B, b);
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T s = A[i] * PA[0][j];
-#pragma unroll
-          for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * PA[l][j];
-          T t = Qux[0][i] * Kk[0][j];
-#pragma unroll
-          for (int a = 1; a < NUC; ++a) t = t + Qux[a][i] * Kk[a][j];
-          P[i][j] = Q[i * NX + j] + s + t;
-        }
-      }
-#pragma unroll 1
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          if (j > i) {
-            const T v = T(0.5) * (P[i][j] + P[j][i]);
-            P[i][j] = v;
-            P[j][i] = v;
-          }
-        }
-      }
-      auto q = lane(qx, NX, k, B, b);
+    for (int j = t; j <= NX; j += kGroup) {
+      const bool pj = j == NX;
+      T y1[NX], y2[NUC];
+      ld_row(w + (pj ? MV : PAT + j * RW), y1);
+      ld_row(w + (pj ? QU : KT + j * NUC), y2);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
-        T s = A[i] * m[0];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) s = s + A[l * NX + i] * m[l];
-        T t = Kk[0][i] * Qu[0];
-#pragma unroll
-        for (int a = 1; a < NUC; ++a) t = t + Kk[a][i] * Qu[a];
-        p[i] = q[i] + s + t;
+        T x1[NX], x2[NUC];
+        ld_row(w + AT + i * RW, x1);
+        ld_row(w + (pj ? KT : QUXT) + i * NUC, x2);
+        const T s = dot(x1, y1);
+        const T u = dot(x2, y2);
+        if (pj)
+          w[PV + i] = w[qv + i] + s + u;
+        else
+          w[P + i * RW + j] = w[q + i * NX + j] + s + u;
       }
+    }
+    __syncthreads();
+    // P <- sym(X): the 78 (i < j) pairs
+#pragma unroll 1
+    for (int o = t; o < NX * (NX - 1) / 2; o += kGroup) {
+      int i = 0, r = o;
+      while (r >= NX - 1 - i) {
+        r -= NX - 1 - i;
+        ++i;
+      }
+      const int j = i + 1 + r;
+      const T v = T(0.5) * (w[P + i * RW + j] + w[P + j * RW + i]);
+      w[P + i * RW + j] = v;
+      w[P + j * RW + i] = v;
     }
   }
+  __syncthreads();
 
-  auto Po = lane(Pout, NX * NX, 0, B, b);
-  auto po = lane(pout, NX, 0, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) Po[i * NX + j] = P[i][j];
-    po[i] = p[i];
-  }
+  // P and p out, in the flat (entry, lane) order
+  stage_out(Pout, sh, P, NX * NX, NX, RW, B, b0);
+  stage_out(pout, sh, PV, NX, NX, RW, B, b0);
 }
 
 inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
 }
-
-inline int lanes_grid(int B) { return (B + 63) / 64; }
 
 template <typename T>
 int fma_opt_in() {
@@ -407,6 +550,32 @@ int fma_chain_launch(const T* a, const T* b, T* out, int reps, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int replay_opt_in() {
+  if (replay_smem<T>() <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      stage_replay_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      replay_smem<T>()));
+}
+
+// stage_replay's launch: grid, threads and smem are the wrapper's
+// replay_launch_geometry; another is refused
+template <typename T>
+int stage_replay_launch(const T* Abar, const T* Bbar, const T* cbar,
+                        const T* Qbar, const T* S1T, const T* R00,
+                        const T* qx, const T* ruu, const T* ru, const T* P0,
+                        const T* p0, T* P, T* p, int reps, int B, int grid,
+                        int threads, int smem, void* stream) {
+  if (B < 1 || reps < 1 || threads != kThreads ||
+      smem != replay_smem<T>() || grid != (B + kLanes - 1) / kLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = replay_opt_in<T>();
+  if (err != 0) return err;
+  stage_replay_kernel<T><<<grid, threads, smem, as_stream(stream)>>>(
+      Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, P0, p0, P, p, reps, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define SOL_ENTRIES(SUFFIX, T)                                                \
@@ -419,12 +588,11 @@ int fma_chain_launch(const T* a, const T* b, T* out, int reps, int B,
   extern "C" int stage_replay_##SUFFIX(                                       \
       const T* Abar, const T* Bbar, const T* cbar, const T* Qbar,             \
       const T* S1T, const T* R00, const T* qx, const T* ruu, const T* ru,     \
-      const T* P0, const T* p0, T* P, T* p, int reps, int stride, int B,      \
-      void* stream) {                                                         \
-    stage_replay_kernel<T><<<lanes_grid(B), 64, 0, as_stream(stream)>>>(      \
-        Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu, ru, P0, p0, P, p, reps,    \
-        stride, B);                                                           \
-    return static_cast<int>(cudaGetLastError());                              \
+      const T* P0, const T* p0, T* P, T* p, int reps, int B, int grid,        \
+      int threads, int smem, void* stream) {                                  \
+    return stage_replay_launch<T>(Abar, Bbar, cbar, Qbar, S1T, R00, qx, ruu,  \
+                                  ru, P0, p0, P, p, reps, B, grid, threads,   \
+                                  smem, stream);                              \
   }                                                                           \
   extern "C" int fma_chain_occupancy_##SUFFIX(int* blocks_per_sm) {           \
     const int err = fma_opt_in<T>();                                          \
@@ -433,8 +601,10 @@ int fma_chain_launch(const T* a, const T* b, T* out, int reps, int B,
         blocks_per_sm, fma_chain_kernel<T>, kFmaThreads, fma_smem<T>()));     \
   }                                                                           \
   extern "C" int stage_replay_occupancy_##SUFFIX(int* blocks_per_sm) {        \
+    const int err = replay_opt_in<T>();                                       \
+    if (err != 0) return err;                                                 \
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
-        blocks_per_sm, stage_replay_kernel<T>, 64, 0));                       \
+        blocks_per_sm, stage_replay_kernel<T>, kThreads, replay_smem<T>()));  \
   }
 
 SOL_ENTRIES(f32, float)

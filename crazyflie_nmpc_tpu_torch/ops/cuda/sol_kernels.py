@@ -12,9 +12,11 @@ are the yardsticks of `roofline.ipm_iter_sol`.
 
 Layout: batch-last, contiguous, B last, as the sweeps.  `fma_chain` runs
 `reps // UNROLL * UNROLL` products (its kernel runs them in groups of
-UNROLL), `stage_replay` `reps` stages.  `fma_chain`'s kernel gives each
-lane a group of threads, as the sweeps do (`fma_launch_geometry`);
-`stage_replay`'s one thread a lane.
+UNROLL), `stage_replay` `reps` stages.  Both kernels give each lane a
+group of threads, as the sweeps do: `fma_chain` row i of c on thread i
+(`fma_launch_geometry`), `stage_replay` K2's group stage on K2's group
+and block, its stage inputs landed once in shared memory
+(`replay_launch_geometry`).
 """
 
 from __future__ import annotations
@@ -44,9 +46,14 @@ FMA_GROUP = 16
 FMA_THREADS = 128
 FMA_LANES = FMA_THREADS // FMA_GROUP
 FMA_LANE_VALUES = 212
-# stage_replay's: one thread a lane, the launch shape of the port's
-# one-thread-per-lane sweeps before their redesigns
-THREADS_PER_BLOCK = 64
+# stage_replay's launch shape, K2's (csrc/sol_probes.cu's kGroup, kThreads
+# and kStride, which its launch checks): REPLAY_GROUP threads a lane,
+# REPLAY_LANES lanes a block, REPLAY_LANE_VALUES values of the dtype in
+# shared memory a lane (K2's slots)
+REPLAY_GROUP = 16
+REPLAY_THREADS = 128
+REPLAY_LANES = REPLAY_THREADS // REPLAY_GROUP
+REPLAY_LANE_VALUES = 1548
 
 
 def fma_chain_plain(a, b, reps: int = 512):
@@ -89,6 +96,13 @@ def fma_launch_geometry(B: int, dtype) -> dict:
                                 FMA_LANE_VALUES)
 
 
+def replay_launch_geometry(B: int, dtype) -> dict:
+    """stage_replay's launch at B lanes of `dtype`
+    (`_build.lane_geometry`)."""
+    return _build.lane_geometry(B, dtype, REPLAY_LANES, REPLAY_THREADS,
+                                REPLAY_LANE_VALUES)
+
+
 def fma_chain(a, b, reps: int = 512):
     """`reps // UNROLL * UNROLL` chained products c <- (c b) 7.6e-4 + b
     from c = a; a, b (13,13,B).  Returns c (13,13,B).  The kernel gives
@@ -109,24 +123,29 @@ def stage_replay(A, Bm, c, Q, S1T, R00, qx, ruu, ru, P0, p0,
                  reps: int = 60):
     """`reps` backward stages of `kkt_sweep_c2` on the same stage data (A,
     Bm (13,8,B), c, Q, S1T, R00, qx, ruu (8,B) with the barrier shift, ru)
-    from the cost-to-go (P0, p0).  Returns (P (13,13,B), p (13,B))."""
+    from the cost-to-go (P0, p0).  Returns (P (13,13,B), p (13,B)).  The
+    kernel runs K2's group stage on K2's group and block, the stage data
+    landed once in shared memory (`replay_launch_geometry`)."""
     _check_reps("stage_replay", reps)
     if A.device.type == "cpu":
         return stage_replay_plain(A, Bm, c, Q, S1T, R00, qx, ruu, ru, P0,
                                   p0, reps)
     B = A.shape[-1]
     outs = (_empty(A, NX, NX, B), _empty(A, NX, B))
+    geo = replay_launch_geometry(B, A.dtype)
     _build.run(stage_replay, _SOURCE, dict(
         A=A, Bm=Bm, c=c, Q=Q, S1T=S1T, R00=R00, qx=qx, ruu=ruu, ru=ru,
-        P0=P0, p0=p0), outs, _shapes(B), [reps, 0, B])  # stride 0
+        P0=P0, p0=p0), outs, _shapes(B),
+        [reps, B, geo["grid"], geo["threads"], geo["smem"]])
     return outs
 
 
 def blocks_per_sm(name: str, dtype=torch.float32) -> int:
     """Resident blocks per SM of the kernel of `name` ("fma_chain": blocks
     of its launch geometry, FMA_LANES lanes each; "stage_replay": blocks
-    of 64 threads, a thread a lane), from the CUDA occupancy API for its
-    registers and shared memory (builds the kernels first)."""
+    of its launch geometry, K2's REPLAY_LANES lanes each), from the CUDA
+    occupancy API for its registers and shared memory (builds the kernels
+    first)."""
     sfx = "f32" if dtype == torch.float32 else "f64"
     fn = getattr(_build.load(_SOURCE), f"{name}_occupancy_{sfx}")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]

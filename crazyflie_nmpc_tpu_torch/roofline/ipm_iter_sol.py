@@ -19,14 +19,17 @@ section, at N=50 (M=25 condensed stages), float32:
      occupancy API for the kernel's registers and shared memory, FMA_LANES
      lanes a block), beside `torch.bmm`'s time for one link of the chain
      (the same batched 13x13 product, batch-first, TF32 off), and P2
-     `stage_replay`'s time per backward stage; both are checked to grow
-     with `reps` (the compiler kept every product and stage);
+     `stage_replay`'s time per backward stage (K2's group stage, 16
+     threads a lane and 8 lanes a block, on stage data resident in shared
+     memory) beside K5a `bwd_c2`'s (K2's backward pass alone, its inputs
+     streamed from memory) at N=50; both probes are checked to grow with
+     `reps` (the compiler kept every product and stage);
   6. the speed-of-light table of K2 and K3: bytes per launch, the bound at
      the measured bandwidth (their SoL: both run a group of threads per
      lane), the measured time and the gap; beside it a floor from the
-     probes (K2: P2's replay, the floor of a one-thread-per-lane K2; K3:
-     its multiply-adds at the group rate, the issue floor of K3's own
-     design).
+     probes (K2: P2's replay, K2's backward stage on its own design with
+     no memory traffic; K3: its multiply-adds at the group rate, the issue
+     floor of K3's own design).
 
 Runs on the CUDA device only: without one it exits 1.  Times are CUDA
 events around a chained window (median over rounds of its mean).  Not
@@ -35,18 +38,18 @@ the device itself), and the op-deletion ablation (the Pallas kernels'
 `ablate=` option is on the port's not-ported list, ROADMAP.md).
 
 How the TPU formulas carry over:
-  * the one-thread floor of K2: the JAX tool multiplies the replay's
-    per-stage time on one 128-lane block by M and by B/128, the blocks a
-    TensorCore runs one after another.  On the card all lanes of one wave
-    run at once, so the floor is the replay's per-stage time at the
-    one-thread launch shape (64 threads a block, the wave's lanes) times
-    M times the number of waves B needs (1 at B=4096).  It covers the
+  * the floor of K2: the JAX tool multiplies the replay's per-stage time
+    on one 128-lane block by M and by B/128, the blocks a TensorCore runs
+    one after another.  On the card all lanes of one wave run at once, so
+    the floor is the replay's per-stage time at K2's launch shape (8 lanes
+    a block, the lanes of one wave: 4224 in float32 on 132 SMs) times M
+    times the number of waves B needs (1 at B=4096).  It covers the
     backward phase, the replay's arithmetic, as in the JAX tool.  P2 runs
-    one thread per lane, so this is the floor of a K2 that keeps one
-    thread per lane, not of csrc/kkt_sweep_c2.cu, which splits a lane's
-    stage over a group of threads: K2's SoL is its bytes bound, and the
-    study prints its time against the one-thread floor beside it (below
-    1: the group shortened the chain that bounds any one-thread K2).
+    K2's own group stage (its phases A-D, copied) on resident data, so this
+    is the floor of K2's design with its loads and stores taken away:
+    K2's SoL is its bytes bound, and the study prints its time against
+    this floor beside it, and K5a's backward time a stage against the
+    replay's (the difference is K2's loads and stores).
   * issue floor of K3: CORR_MACS_PER_STAGE x M x B multiply-adds at P1's
     rate measured at the same B.  P1 gives each lane a group of 16
     threads, as csrc/corrector_sweep_c2.cu does, so this is the issue
@@ -268,9 +271,19 @@ def stream_bandwidth(device, mb=256, passes=8):
     return 2 * n * 4 / (per_pass * 1e-3) / 1e9, per_pass
 
 
-def waves(B, blocks_per_sm, sms, threads=64):
-    """Waves of 64-thread blocks a launch of B lanes needs."""
-    return math.ceil(math.ceil(B / threads) / (blocks_per_sm * sms))
+def waves(B, blocks_per_sm, sms, lanes=8):
+    """Waves of blocks of `lanes` lanes (P2's, K2's block: REPLAY_LANES) a
+    launch of B lanes needs."""
+    return math.ceil(math.ceil(B / lanes) / (blocks_per_sm * sms))
+
+
+def replay_lanes(blocks_per_sm, sms):
+    """P2's lanes in one wave: `blocks_per_sm` resident blocks of its
+    launch geometry (K2's, REPLAY_LANES lanes each) on each of `sms`
+    SMs."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+
+    return blocks_per_sm * sms * sk.REPLAY_LANES
 
 
 def fill_lanes(blocks_per_sm, sms):
@@ -308,6 +321,18 @@ def bmm_time(device, B):
         return _time(lambda: torch.bmm(a, b, out=out), 20)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def backward_time(d):
+    """K5a `bwd_c2` (K2's backward pass alone, its stage inputs streamed
+    from memory) on the study's condensed data: ms per launch of M
+    stages."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+
+    c = d["cnd"]
+    args = (c["Abar"], c["Bbar"], c["cbar"], c["Qbar"], c["S1T"], c["R00"],
+            c["qbar"], d["ruu"], c["rbar"], d["pT"], d["p_term"])
+    return _time(lambda: ck.bwd_c2(*args))
 
 
 def replay_rate(device, B, reps=REPLAY_REPS):
@@ -386,13 +411,22 @@ def study(batch=4096, device=None, log=print):
         f"there / at B={B}: "
         f"{fma[b_fill]['mac_per_s'] / fma[B]['mac_per_s']:.2f}x (the "
         f"headroom of more lanes)")
-    lanes_wave = bps_rep * sms * sk.THREADS_PER_BLOCK
+    lanes_wave = replay_lanes(bps_rep, sms)
     rep = replay_rate(device, min(B, lanes_wave))
-    nw = waves(B, bps_rep, sms)
+    nw = waves(B, bps_rep, sms, sk.REPLAY_LANES)
     log(f"P2 stage_replay B={rep['B']}: {rep['ms']:.4f} ms per launch of "
         f"{REPLAY_REPS} stages -> {rep['us_per_stage']:.2f} us/stage; x2 "
-        f"reps: x{rep['scale']:.3f}; occupancy {bps_rep} blocks of 64 per "
-        f"SM, B={B} is {nw} wave(s)")
+        f"reps: x{rep['scale']:.3f}; occupancy {bps_rep} blocks of "
+        f"{sk.REPLAY_LANES} lanes x {sk.REPLAY_GROUP} threads per SM "
+        f"({lanes_wave} lanes a wave), B={B} is {nw} wave(s)")
+    bwd = backward_time(d)
+    bwd_us = bwd * 1e3 / M
+    log(f"K5a bwd_c2 (K2's backward pass, inputs streamed) B={B}: "
+        f"{bwd:.4f} ms per launch of M={M} stages -> {bwd_us:.2f} us/stage; "
+        f"against P2's replay of the same stage on resident data "
+        f"{rep['us_per_stage']:.2f} us/stage: loads and stores "
+        f"{bwd_us - rep['us_per_stage']:.2f} us/stage "
+        f"(x{bwd_us / rep['us_per_stage']:.3f})")
     for name, scale in (("fma_chain", fma[B]["scale"]),
                         ("stage_replay", rep["scale"])):
         if scale < 1.8:
@@ -400,7 +434,7 @@ def study(batch=4096, device=None, log=print):
                                f"{scale:.2f}x the time")
 
     kb, cb = kkt_bytes(M, B), corr_bytes(M, B)
-    t_one_thread = rep["us_per_stage"] * M * nw / 1e3
+    t_replay = rep["us_per_stage"] * M * nw / 1e3
     t_corr_group = CORR_MACS_PER_STAGE * M * B / fma[B]["mac_per_s"] * 1e3
     rows = {}
     log(f"=== speed-of-light table (M={M}, B={B}, float32; bandwidth "
@@ -409,9 +443,9 @@ def study(batch=4096, device=None, log=print):
         f"{'@3.35TB/s':>11}{'probe floor':>16}{'SoL=BW':>10}"
         f"{'measured':>10}{'gap':>7}")
     # both run a group of threads per lane: SoL is the bytes bound, and a
-    # floor from the probes stands beside it (K2: P2's one-thread replay;
-    # K3: its multiply-adds at P1's group rate)
-    for name, nbytes, floor, tm in (("kkt_sweep_c2", kb, t_one_thread,
+    # floor from the probes stands beside it (K2: P2's replay of its group
+    # stage on resident data; K3: its multiply-adds at P1's group rate)
+    for name, nbytes, floor, tm in (("kkt_sweep_c2", kb, t_replay,
                                      t["kkt"]),
                                     ("corrector_sweep_c2", cb, t_corr_group,
                                      t["corr"])):
@@ -423,11 +457,11 @@ def study(batch=4096, device=None, log=print):
         log(f"{name:<20}{nbytes / 1e6:>11.1f} MB{tbw:>9.4f}ms"
             f"{sheet:>9.4f}ms{floor:>14.4f}ms{tbw:>8.4f}ms{tm:>8.4f}ms"
             f"{tm / tbw:>7.2f}")
-    log(f"kkt_sweep_c2 against the one-thread floor (P2 "
-        f"{rep['us_per_stage']:.2f} us/stage x M={M} x {nw} wave(s)): "
-        f"{t_one_thread:.4f} ms; measured / floor "
-        f"{t['kkt'] / t_one_thread:.3f} (below 1: shorter than any "
-        f"one-thread-per-lane K2)")
+    log(f"kkt_sweep_c2 against its backward stage on resident data (P2's "
+        f"group replay {rep['us_per_stage']:.2f} us/stage x M={M} x {nw} "
+        f"wave(s)): {t_replay:.4f} ms; measured / floor "
+        f"{t['kkt'] / t_replay:.3f} (above 1: K2's loads, stores and "
+        f"rollout)")
     log(f"corrector_sweep_c2 against K3's multiply-adds at the group rate "
         f"({CORR_MACS_PER_STAGE} multiply-adds a stage x M={M} x B={B} at "
         f"P1's {fma[B]['mac_per_s'] / 1e12:.3f} T MAC/s, 16 threads a "
@@ -435,7 +469,7 @@ def study(batch=4096, device=None, log=print):
         f"{t['corr'] / t_corr_group:.3f}")
     return dict(B=B, sms=sms, sweeps=t, steps=steps, bandwidth_gbs=bw,
                 fma=fma, bmm=bmm, b_fill=b_fill, replay=rep, waves=nw,
-                table=rows)
+                bwd_ms=bwd, bwd_us_per_stage=bwd_us, table=rows)
 
 
 def main(argv=None) -> int:

@@ -2,14 +2,14 @@
 `bwd_c2`, K5b `fwd_c2`, K5c `bwd_vec_c2`, K10 `iter_sweep_c2`, K8a
 `kkt_sweep`, K9a `backward_sweep`, K9b `forward_sweep`, K8b
 `corrector_sweep`, K9c `backward_vector_sweep`, K6 `condense2` or the
-probe P1 `fma_chain` in variants on the card: their launch shapes, and
-the parts of their work cut out one at a time.
+probes P1 `fma_chain` and P2 `stage_replay` in variants on the card: their
+launch shapes, and the parts of their work cut out one at a time.
 
     python -m crazyflie_nmpc_tpu_torch.roofline.kkt_variants \
         [--kernel kkt_sweep_c2|corrector_sweep_c2|prep_condense2|bwd_c2|
                   fwd_c2|bwd_vec_c2|iter_sweep_c2|kkt_sweep|backward_sweep|
                   forward_sweep|corrector_sweep|backward_vector_sweep|
-                  condense2|fma_chain]
+                  condense2|fma_chain|stage_replay]
         [--baseline DIR] [--variants NAME,...]
 
 Each variant is the kernel's source (`csrc/kkt_sweep_c2.cu`, which holds
@@ -20,7 +20,7 @@ holds K8a, K9a, K9b, K8b and K9c, `csrc/condensed_c2.cu`,
 `CORR_VARIANTS`, `PREP_VARIANTS`, `BWD_VARIANTS`, `FWD_VARIANTS`,
 `VEC_VARIANTS`, `ITER_VARIANTS`, `RICCATI_VARIANTS`, `BACKWARD_VARIANTS`,
 `FORWARD_VARIANTS`, `CORRECTOR_VARIANTS`, `VECTOR_VARIANTS`,
-`CONDENSE_VARIANTS`, `FMA_VARIANTS`).
+`CONDENSE_VARIANTS`, `FMA_VARIANTS`, `REPLAY_VARIANTS`).
 K2: G = 8 or 32 threads per lane (128 threads a block, so 16 or 4 lanes),
 the dot products on two accumulators, or one part of the stage removed
 (the backward pass's loads, its phases A-D, its stores, the rollout). K3:
@@ -51,7 +51,10 @@ test, and K8b's rollout).  K6 (on K1's block): 4 or 16 workers a lane,
 columns, the stores).  P1: the 13 rows packed flat (no idle thread) at
 16 or 32 lanes a block, 16 or 32 lanes a block of 16 threads a lane,
 half the blocks an SM, 2 or 4 rows of c a thread, on the study's inputs
-(`ipm_iter_sol.probe_inputs`, 512 products).  K10: one of its five
+(`ipm_iter_sol.probe_inputs`, 512 products).  P2 (K2's group stage
+replayed on resident data): G = 8 (16 lanes a block), 16 lanes a block
+of 16 threads, or one of K2's phases A-D removed, on the study's inputs
+(60 stages).  K10: one of its five
 phases removed, or the
 barrier algebra of all five (`kAlgebra`); each launch on a copy of its
 own of the carried inputs it updates in place (`calls`), all made before
@@ -87,7 +90,8 @@ among the others: the file of that checkout that defines the kernel
 (`condensed_c2.cu` for a one-thread K5a, K5b or K5c, whose entries take
 no launch shape, as the one-thread K10's in `iter_c2.cu` and K8a's, K9a's
 and K9b's, K8b's and K9c's in `riccati.cu`, where K9a is
-`kkt_sweep_kernel<T, false>`, and the one-thread K6's and P1's); the
+`kkt_sweep_kernel<T, false>`, and the one-thread K6's, P1's and P2's,
+whose P2 entry takes a stride of 0 after its reps); the
 whole variants' outputs are compared with the baseline's bit for bit;
 for K10 also that
 source with each of its phases cut (`BASELINE_VARIANTS`, the one-thread
@@ -116,8 +120,9 @@ from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
 from crazyflie_nmpc_tpu_torch.roofline import device_ms
 
 BATCHES = (1024, 4096, 8192)
-# P1's products a launch (the speed-of-light study's)
+# P1's products and P2's stages a launch (the speed-of-light study's)
 FMA_REPS = 512
+REPLAY_REPS = 60
 _SOURCE = "kkt_sweep_c2.cu"
 _ROLL_SWITCH = "  if constexpr (ROLL) {"
 # K3's rollout, switched on with ROLL
@@ -491,6 +496,22 @@ FMA_VARIANTS = {
     "4 rows a thread": _fma_shape(4, 32, rows=4),
 }
 
+# P2's, on csrc/sol_probes.cu (its copy of K2's group stage on K2's group
+# and block): G = 8 (16 lanes a block of 128), 16 lanes a block of 16
+# threads (256), or one of K2's phases removed from its stage loop
+REPLAY_VARIANTS = {
+    "kernel": None,
+    "G=8": _G8,
+    "16 lanes": _replace("constexpr int kThreads = 128;",
+                         "constexpr int kThreads = 256;"),
+    "no phase A": VARIANTS["no phase A"],
+    "no phase B": _cut("    // B' times", "    // L = chol(Quu)", _BARRIER),
+    "no phase C": _cut("    // L = chol(Quu)", "    // X = Qbar + A'PA",
+                       _BARRIER),
+    "no phase D": _cut("    // X = Qbar + A'PA",
+                       "  }\n  __syncthreads();\n\n  // P and p out"),
+}
+
 # kernel: (source, variants, mangled name of its float32 exact form, or
 # the names of its forms in this source and in the `--baseline` one)
 KERNELS = {
@@ -517,6 +538,8 @@ KERNELS = {
     "condense2": ("condensed_c2.cu", CONDENSE_VARIANTS,
                   "condense2_kernelIfE"),
     "fma_chain": ("sol_probes.cu", FMA_VARIANTS, "fma_chain_kernelIfE"),
+    "stage_replay": ("sol_probes.cu", REPLAY_VARIANTS,
+                     "stage_replay_kernelIfE"),
 }
 # the constants of a kernel's launch shape (threads a lane, a block) where
 # its source names them otherwise (K9b, K8b and K9c beside K8a's kGroup
@@ -563,6 +586,8 @@ SWEEPS = {
         "kLaneValues"),
     # P1's: c (13,13,B) after FMA_REPS products
     "fma_chain": (2, lambda M, B: ((_NX, _NX, B),), "kFmaLaneValues"),
+    # P2's: (P, p) after REPLAY_REPS stages
+    "stage_replay": (11, lambda M, B: ((_NX, _NX, B), (_NX, B)), "kStride"),
 }
 # K10's carried inputs (condensed_kernels._ITER_CARRIED) by position, its
 # fraction to the boundary and its float arguments in float32 (tau, the
@@ -756,23 +781,27 @@ def launcher(lib, text, kernel="kkt_sweep_c2"):
     floats = _ITER_FLOATS if iteration else ()
     fn = getattr(lib, f"{kernel}_f32")
     n_out = len(shapes(1, 1))
+    n_int = 5 if values else 3 if kernel == "stage_replay" else 2
     fn.argtypes = ([ctypes.c_void_p] * (n_in + n_out)
                    + [ctypes.c_double] * len(floats)
-                   + [ctypes.c_int] * (5 if values else 2) + [ctypes.c_void_p])
+                   + [ctypes.c_int] * n_int + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lanes = threads // group
 
     def run(args):
         M, B = args[0].shape[0], args[0].shape[-1]
-        # K6's M stage pairs of its N stages; P1's entry takes its reps
+        # K6's M stage pairs of its N stages; P1's and P2's entries take
+        # their reps (the one-thread P2's a stride of 0 after them)
         M = M // 2 if kernel == "condense2" else M
-        lead = FMA_REPS if kernel == "fma_chain" else M
+        lead = {"fma_chain": FMA_REPS, "stage_replay": REPLAY_REPS}.get(
+            kernel, M)
         outs = tuple(torch.empty(s, dtype=torch.float32, device=args[0].device)
                      for s in shapes(M, B))
         geo = [math.ceil(B / lanes), threads,
                lanes * values * 4] if values else []
-        err = fn(*[t.data_ptr() for t in (*args, *outs)], *floats, lead, B,
-                 *geo, torch.cuda.current_stream().cuda_stream)
+        stride = [0] if kernel == "stage_replay" and not values else []
+        err = fn(*[t.data_ptr() for t in (*args, *outs)], *floats, lead,
+                 *stride, B, *geo, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"kkt_variants: CUDA error {err}")
         if iteration:   # the carried inputs, updated in place, come first
@@ -825,6 +854,9 @@ def _plain(kernel, order=4):
         return lambda *args: list(ck.condense2_ref(*args).values())
     if kernel == "fma_chain":
         return lambda *args: [sk.fma_chain_plain(*args, reps=FMA_REPS)]
+    if kernel == "stage_replay":
+        return lambda *args: list(sk.stage_replay_plain(*args,
+                                                        reps=REPLAY_REPS))
     return {"kkt_sweep_c2": ck.kkt_sweep_c2_ref,
             "corrector_sweep_c2": ck.corrector_sweep_c2_ref,
             "bwd_c2": ck.bwd_c2_ref, "fwd_c2": ck.fwd_c2_ref,
@@ -877,8 +909,8 @@ def inputs(kernel, B, device, n=50):
         condensed_data, probe_inputs)
     from crazyflie_nmpc_tpu_torch.solver.rti_batched import prep_tiles
 
-    if kernel == "fma_chain":
-        return probe_inputs(B, torch.float32, device)[0]
+    if kernel in ("fma_chain", "stage_replay"):
+        return probe_inputs(B, torch.float32, device)[kernel == "stage_replay"]
     d = condensed_data(B, device)
     if kernel == "condense2":
         return d["stage"]

@@ -14,10 +14,21 @@ import torch
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """These problems are too small for intra-op threads: one thread per
-    worker keeps the suite's other workers from waiting on idle spins."""
+    worker keeps the suite's other workers from waiting on idle spins.
+    numpy's BLAS (the oracle of tests/_reference_rti.py) gets one thread
+    too, where threadpoolctl is installed: its default pool of one thread
+    a core took 2-6 cores for the certified loops and was no faster."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        blas = None
+    else:
+        blas = threadpool_limits(limits=1, user_api="blas")
     yield
+    if blas is not None:
+        blas.restore_original_limits()
     torch.set_num_threads(n)
 
 

@@ -150,6 +150,7 @@ def test_probes_match_plain_on_card(cuda_device, dtype, tol):
         assert rel_short > tol, (name, rel_short)
         assert kc.launch_counts(kc.PROBES)[name] == before + 1, name
     assert sk.blocks_per_sm("fma_chain", dtype) >= 1
+    assert sk.blocks_per_sm("stage_replay", dtype) >= 1
 
 
 def _step(device, x0s, config, N=10, fused=True, sim_steps=1, **opts):

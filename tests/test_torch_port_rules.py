@@ -624,6 +624,30 @@ def test_k8b_and_k9c_launch_geometry(B, dtype):
     assert geo["opt_in"]
 
 
+@pytest.mark.parametrize("B", [1, 7, 1000, 1003, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_p2_launch_geometry(B, dtype):
+    """P2's launch: K2's group and block (16 threads a lane, 8 lanes a
+    block, K2's 1548 values a lane), the wrapper's REPLAY_* constants
+    those of csrc/sol_probes.cu (`_check_group_geometry`), and the same
+    numbers as K2's launch.  By shared memory an SM holds 4 blocks in
+    float32 and 2 in float64 (with the 1 KB each block reserves of the
+    SM's 228 KB), both over 48 KB, so the launch opts in."""
+    from crazyflie_nmpc_tpu_torch.ops.cuda import condensed_kernels as ck
+    from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
+
+    geo = sk.replay_launch_geometry(B, dtype)
+    _check_group_geometry(geo, B, sk.REPLAY_GROUP, "sol_probes.cu", {
+        "kGroup": sk.REPLAY_GROUP, "kThreads": sk.REPLAY_THREADS,
+        "kStride": sk.REPLAY_LANE_VALUES})
+    assert (sk.REPLAY_GROUP, sk.REPLAY_LANES) == (16, 8)
+    assert geo == ck.kkt_launch_geometry(B, dtype)
+    blocks = {torch.float32: 4, torch.float64: 2}[dtype]
+    assert 228 * 1024 // (geo["smem"] + 1024) == blocks
+    assert geo["opt_in"]
+
+
 @pytest.mark.parametrize("B", [1, 7, 1000, 4096, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["float32", "float64"])

@@ -180,10 +180,25 @@ def test_byte_counts_follow_the_port_kernels():
     assert sol.kkt_bytes(25, 4096) == (25 * 1132 + 52) * 4096 * 4
 
 
-@pytest.mark.parametrize("B_, bps, waves", [(4096, 4, 1), (33792, 4, 1),
-                                            (33793, 4, 2), (4096, 1, 1)])
+@pytest.mark.parametrize("B_, bps, waves", [(4096, 4, 1), (4224, 4, 1),
+                                            (4225, 4, 2), (8192, 4, 2),
+                                            (4096, 2, 2), (4096, 1, 4)])
 def test_waves(B_, bps, waves):
+    """Waves of P2's blocks (8 lanes each, K2's block) on 132 SMs: one
+    wave of 4 blocks an SM holds 4224 lanes."""
     assert sol.waves(B_, bps, 132) == waves
+    assert sol.waves(B_, bps, 132, sk.REPLAY_LANES) == waves
+
+
+def test_replay_lanes_follow_p2s_launch_geometry():
+    """The lanes of one wave of P2: its resident blocks an SM times the
+    SMs times its launch geometry's lanes a block (K2's 8 lanes of a group
+    of 16 threads each), not the one-thread probe's 64 threads."""
+    geo = sk.replay_launch_geometry(1, torch.float32)
+    assert geo["lanes"] == sk.REPLAY_LANES == 8
+    assert sol.replay_lanes(4, 132) == 4 * 132 * sk.REPLAY_LANES == 4224
+    assert sol.replay_lanes(1, 1) == sk.REPLAY_THREADS // sk.REPLAY_GROUP
+    assert sol.waves(sol.replay_lanes(4, 132), 4, 132) == 1
 
 
 def test_study_needs_the_card(monkeypatch):
@@ -472,6 +487,68 @@ def test_k6_and_p1_variants_find_their_anchors(kernel, source, shapes,
     out = kkt_variants._plain(kernel)(*args)
     lead = args[0].shape[0] // 2 if kernel == "condense2" else 1
     assert [tuple(o.shape) for o in out] == list(out_shapes(lead, 4))
+
+
+# K2's phases A-D in csrc/kkt_sweep_c2.cu's stage loop: (start, end)
+_K2_PHASES = {"A": ("    // P [A | B | c]", "    // B' times"),
+              "B": ("    // B' times", "    // K5a: stage k-1's"),
+              "C": ("    // L = chol(Quu)", "    // the stage's gains out"),
+              "D": ("    // X = Qbar + A'PA", "  }\n\n  if constexpr (ROLL)")}
+
+
+def _block(src, start, end):
+    a = src.index(start)
+    return src[a:src.index(end, a)]
+
+
+def test_p2_replays_k2s_phases_verbatim():
+    """P2's stage loop (csrc/sol_probes.cu) is K2's phases A-D as
+    csrc/kkt_sweep_c2.cu writes them, character for character (a copy:
+    a shared header moved K5a's registers), with K5a's prefetch and K2's
+    stores of the gains left out; its slots and launch shape are K2's."""
+    k2 = (kkt_variants._build.CSRC / "kkt_sweep_c2.cu").read_text()
+    p2 = (kkt_variants._build.CSRC / "sol_probes.cu").read_text()
+    loop = _block(p2, "    // P [A | B | c]", "  // P and p out")
+    assert loop == "".join(_block(k2, *ends) for ends in _K2_PHASES.values()
+                           ) + "  }\n  __syncthreads();\n\n"
+    assert "stage_out<" not in loop and "cost_in" not in loop
+    slots = _block(k2, "namespace slot {", "constexpr int END = RU + NUC;")
+    assert slots in p2
+    for const in ("kGroup = 16;", "kThreads = 128;", "kStride = slot::END"):
+        assert f"constexpr int {const}" in k2 and f"constexpr int {const}" in p2
+
+
+def test_p2_variants_find_their_anchors(tmp_path):
+    """P2's study variants: each phase cut's marker stands once in
+    csrc/sol_probes.cu and the cut removes it and nothing of P1's; the shape
+    edits give G = 8 (16 lanes a block of 128) and 16 lanes a block of 256;
+    only the whole kernels are held against the plain version.  The
+    `--baseline` source is the one-thread sol_probes.cu, whose entry takes
+    no launch shape; the study's inputs fit the entry and the plain
+    version's outputs its shapes."""
+    kernel, source = "stage_replay", "sol_probes.cu"
+    texts = kkt_variants.sources(kernel)
+    src = texts["kernel"]
+    for name, (mark, _) in _K2_PHASES.items():
+        assert src.count(mark) == 1 and mark not in texts[f"no phase {name}"]
+        assert "fma_chain_kernel(" in texts[f"no phase {name}"]
+    shapes = {"kernel": (16, 128), "G=8": (8, 128), "16 lanes": (16, 256)}
+    assert {n: kkt_variants.shape(texts[n], kernel) for n in shapes} == shapes
+    assert kkt_variants.shape(texts["G=8"], "fma_chain") == (16, 128)
+    assert kkt_variants.lane_values(kernel, src) == sk.REPLAY_LANE_VALUES
+    assert [n for n in texts if kkt_variants._whole(n)] == list(shapes)
+    (tmp_path / source).write_text(
+        "template <typename T>\n__global__ void\nstage_replay_kernel("
+        "const T* A) {}\n")
+    assert kkt_variants.baseline_source(kernel, tmp_path) == source
+    one_thread = (tmp_path / source).read_text()
+    assert kkt_variants.lane_values(kernel, one_thread) is None
+    assert kkt_variants.shape(one_thread, kernel) == (1, 128)
+    args = kkt_variants.inputs(kernel, 4, "cpu")
+    n_in, out_shapes, _ = kkt_variants.SWEEPS[kernel]
+    assert len(args) == n_in and all(a.is_contiguous() for a in args)
+    out = kkt_variants._plain(kernel)(*args)
+    assert [tuple(o.shape) for o in out] == list(out_shapes(1, 4))
 
 
 def test_bitwise_report_names_the_outputs_that_differ():

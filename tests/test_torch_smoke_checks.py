@@ -837,18 +837,19 @@ def test_k6_is_listed_as_a_group_kernel():
 
 
 def test_fma_chain_is_checked_at_ragged_lanes():
-    """[roofline] holds fma_chain (8 lanes a block) at B_RAGGED, on a
-    ragged last tile and at B=1 besides B_CHECK, stage_replay at B_CHECK;
-    on the CPU the plain chain of the parity inputs is finite at B=1 and
-    one group of products short differs."""
+    """[roofline] holds fma_chain and stage_replay (8 lanes a block each)
+    at B_RAGGED, on a ragged last tile and at B=1 besides B_CHECK; on the
+    CPU the plain chain of the parity inputs is finite at B=1 and one
+    group of products short differs."""
     from crazyflie_nmpc_tpu_torch.ops.cuda import sol_kernels as sk
     from crazyflie_nmpc_tpu_torch.roofline import ipm_iter_sol as sol
 
     batches = cs.PROBE_BATCHES["fma_chain"]
     assert batches[:2] == (cs.B_CHECK, cs.B_RAGGED) and batches[-1] == 1
-    assert cs.PROBE_BATCHES["stage_replay"] == (cs.B_CHECK,)
+    assert cs.PROBE_BATCHES["stage_replay"] == batches
     assert set(cs.PROBE_BATCHES) == set(cs.PROBE_INFO)
     assert [B for B in batches if B % sk.FMA_LANES] == [batches[2], 1]
+    assert [B for B in batches if B % sk.REPLAY_LANES] == [batches[2], 1]
     (a, b), _ = sol.probe_inputs(1, torch.float64, "cpu", parity=True)
     full = sk.fma_chain(a, b, reps=32)
     _, rel = cs.compare([full], [sk.fma_chain_plain(a, b, reps=16)])
